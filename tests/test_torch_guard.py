@@ -1,0 +1,173 @@
+"""Guards of the port's boundaries: ``repro_torch`` and ``chip_smoke.py``
+import nothing of JAX or of the JAX package, ``chip_smoke.py`` refuses
+to report on a host without a CUDA card, and every entry point of the
+port raises without a CUDA device unless it is asked for the CPU."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "src" / "repro_torch"
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro)(\s|\.|,|$)|from\s+(jax|repro)(\s|\.))",
+    re.MULTILINE)
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO / "src")
+    return env
+
+
+def test_importing_the_port_loads_neither_jax_nor_repro():
+    code = ("import sys, repro_torch, repro_torch.serve, "
+            "repro_torch.models, repro_torch.kernels, repro_torch.configs, "
+            "repro_torch.obs.export, repro_torch.launch.serve\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.')]\n"
+            "print(bad)\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=_env(), timeout=120)
+    assert out.returncode == 0, out.stderr + out.stdout
+
+
+def test_source_scan_finds_no_jax_or_repro_import():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    for f in files:
+        hits = FORBIDDEN.findall(f.read_text())
+        assert not hits, f"{f.relative_to(REPO)} imports {hits}"
+    # the pattern does catch what it is meant to catch
+    for bad in ("import jax\n", "from jax import numpy\n",
+                "import repro.serve\n", "from repro.models import x\n",
+                "  from repro import obs\n"):
+        assert FORBIDDEN.search(bad), bad
+    for ok in ("import repro_torch\n", "from repro_torch.x import y\n",
+               "import jaxlike\n"):
+        assert not FORBIDDEN.search(ok), ok
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                         capture_output=True, text=True, cwd=REPO,
+                         timeout=300)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_fails_outside_a_checkout(tmp_path):
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((REPO / "chip_smoke.py").read_text())
+    out = subprocess.run([sys.executable, str(lone)], capture_output=True,
+                         text=True, cwd=tmp_path, timeout=300,
+                         env={k: v for k, v in os.environ.items()
+                              if k != "PYTHONPATH"})
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def _entry_points():
+    from repro_torch import configs, resolve_device
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import build, from_jax_numpy
+    from repro_torch.serve import (KVPool, PagedServingEngine,
+                                   ServingEngine)
+    cfg = configs.get_reduced("qwen3-1.7b")
+    model = build(cfg)
+    tree = {"w": np.zeros((2, 2), np.float32)}
+    return {
+        "resolve_device": lambda **kw: resolve_device(**kw),
+        "init": lambda **kw: model.init(0, **kw),
+        "from_jax_numpy": lambda **kw: from_jax_numpy(tree, **kw),
+        "init_cache": lambda **kw: model.init_cache(2, 16, **kw),
+        "KVPool": lambda **kw: KVPool(model, 4, 8, **kw),
+        "ServingEngine": lambda **kw: ServingEngine(
+            model, {}, n_slots=1, max_len=16, **kw),
+        "PagedServingEngine": lambda **kw: PagedServingEngine(
+            model, {}, pool_pages=4, page_size=8, max_len=16, **kw),
+        "launch.serve": lambda **kw: launch.main(
+            ["--arch", "qwen3-1.7b", "--reduced", "--requests", "1",
+             "--max-new-tokens", "1", "--max-len", "32", "--page-size",
+             "8"] + (["--device", kw["device"]] if kw else [])),
+    }
+
+
+@pytest.mark.parametrize("name", ["resolve_device", "init",
+                                  "from_jax_numpy", "init_cache", "KVPool",
+                                  "ServingEngine", "PagedServingEngine",
+                                  "launch.serve"])
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    fn = _entry_points()[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+    fn(device="cpu")
+
+
+def test_launcher_refuses_what_is_not_ported():
+    from repro_torch.launch import serve as launch
+    for flag in ("--ckpt-dir", "--dispatch-table"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            launch.main(["--arch", "qwen3-1.7b", "--reduced", "--device",
+                         "cpu", flag, "x"])
+
+
+def test_resolve_device_pins_tf32_off():
+    from repro_torch import resolve_device
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    assert resolve_device("cpu").type == "cpu"
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def test_a_failed_launch_raises_and_is_not_counted():
+    """The C entry point returns cudaGetLastError(); anything but 0
+    raises, and only a launch that succeeded moves the counter."""
+    from repro_torch.kernels._build import CudaKernel
+    k = CudaKernel("fake", REPO / "missing.cu", "fake_launch", [])
+    k._fn = lambda *args: 0
+    k.launch()
+    assert k.launches == 1
+    k._fn = lambda *args: 98          # cudaErrorInvalidDeviceFunction
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        k.launch()
+    assert k.launches == 1
+
+
+def test_a_failed_build_stops_the_other_builds(tmp_path):
+    """``build_all`` starts one compiler per source; when one fails it
+    raises, and no other compiler process is left running."""
+    from repro_torch.kernels._build import CudaKernel, build_all
+
+    class Fake(CudaKernel):
+        def __init__(self, name, code):
+            super().__init__(name, tmp_path / f"{name}.cu", "f", [])
+            self.code = code
+
+        def start_build(self):
+            self.proc = subprocess.Popen([sys.executable, "-c", self.code])
+            return self.proc
+
+        def finish_build(self, proc):
+            if proc.wait(timeout=60) != 0:
+                raise RuntimeError(f"build of {self.name} failed")
+
+    bad = Fake("bad", "import sys; sys.exit(1)")
+    slow = Fake("slow", "import time; time.sleep(120)")
+    with pytest.raises(RuntimeError, match="build of bad failed"):
+        build_all([bad, slow])
+    assert slow.proc.poll() is not None
