@@ -9,7 +9,7 @@ and ``nvcc``, and exits non-zero, without printing a result, when either
 is missing or any phase fails.  Phases:
 
 1. card — name and power limit as ``nvidia-smi`` reports them;
-2. build — both CUDA kernels from the repository's sources, one
+2. build — the three CUDA kernels from the repository's sources, one
    ``nvcc`` per source, started together;
 3. kernels against their plain PyTorch versions at the serving path's
    shapes (qwen3-1.7b: 16 query heads, 8 KV heads, head_dim 128, page
@@ -28,7 +28,19 @@ is missing or any phase fails.  Phases:
    a tick's time goes;
 5. the kernel paths against the gather paths, in float32 at depth 2:
    identical tokens;
-6. the kernels line (JSON), then the final line
+6. gemm — the ARGUS gate and agent loop on the GEMM family:
+   (b) the GEMM kernel against its plain version in bfloat16 and
+   float32 over the default config, split_k 2 and 4, stagger_k, a tile
+   above 128, bm = 8, ragged shapes and the production problem
+   8192^3 bf16; (c) the paper's loop, ``optimize_kernel`` at 8192^3
+   bf16 with ``Validator(run_kernels=True)``, its launch counter zeroed
+   just before and read just after: every unit test of the loop must
+   have launched the kernel once; (d) the baseline and the loop's best
+   config timed at the production problem and the two sweep problems,
+   beside the bound, the plain version, one bf16 ``torch.matmul``
+   (cuBLAS) and the port's cost-model estimate; (e) an invalid config
+   (split_k = 5 on 3 K blocks) must raise before any launch;
+7. the kernels line (JSON), then the final line
    ``{"ok": true, "device": {...}}``.
 
 A summary of every number also goes to ``chiprun_out/chip_smoke.json``.
@@ -63,7 +75,6 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 POISON = 1e6
 
 TPU_KERNELS_NOT_PORTED = [
-    ("gemm", "src/repro/kernels/gemm/gemm.py:60"),
     ("flash_attention",
      "src/repro/kernels/flash_attention/flash_attention.py:96"),
     ("flash_decode", "src/repro/kernels/flash_attention/decode.py:56"),
@@ -143,10 +154,25 @@ def phase_build():
     secs = time.perf_counter() - t0
     log(f"[build] {len(ALL_KERNELS)} kernels in {secs:.1f} s")
     for name, text in logs.items():
+        entry = ""
         for ln in text.splitlines():
-            if "registers" in ln or "spill" in ln or "bytes smem" in ln:
-                log(f"[build] {name}: {ln.strip()}")
+            if "Compiling entry function" in ln:
+                entry = _instance(ln)
+            elif "registers" in ln or "spill" in ln or "bytes smem" in ln:
+                log(f"[build] {name}{entry}: {ln.strip()}")
     return secs
+
+
+def _instance(ptxas_line):
+    """' <type> <TM>x<TN>' for a template instance of the GEMM kernel
+    (from its mangled name), else ''."""
+    import re
+    m = re.search(r"gemm_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E",
+                  ptxas_line)
+    if not m:
+        return ""
+    dtype = "bf16" if m.group(1) != "f" else "f32"
+    return f" {dtype} {m.group(2)}x{m.group(3)}"
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -544,6 +570,203 @@ def phase_paths(torch):
     return dict(requests=len(outs["kernel"]), tokens=n_tok)
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+# Tolerance of the GEMM kernel against its plain version (the same
+# products summed in another order, in float32): a float32 output within
+# 1e-5 of the largest |output| (the rounding is of partial sums of the
+# output's scale); a bfloat16 output within one bfloat16 step of each
+# value plus that bound (both round a float32 sum to bfloat16 once).
+GEMM_REL = 1e-5
+SHORT = {"bfloat16": "bf16", "float32": "f32"}
+GEMM_CASES = [
+    # (label, m, n, k, cfg fields)
+    ("default", 2048, 2048, 2048, {}),
+    ("split_k=2", 2048, 2048, 2048, dict(split_k=2)),
+    ("split_k=4", 1024, 1024, 4096, dict(split_k=4)),
+    ("stagger_k", 2048, 2048, 2048, dict(stagger_k=True)),
+    ("tile 512x256", 2048, 2048, 2048, dict(bm=512, bn=256, bk=256)),
+    ("bm=8", 512, 2048, 2048, dict(bm=8)),
+    ("ragged default", 1000, 777, 1500, {}),
+    ("ragged bk=64 stagger", 1000, 777, 1500, dict(bm=64, bn=64, bk=64,
+                                                   stagger_k=True)),
+    ("production", 8192, 8192, 8192, {}),
+]
+
+
+def gemm_error(torch, got, want):
+    """(max abs error, within the stated tolerance)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    bound = GEMM_REL * float(w.abs().max())
+    if got.dtype == torch.bfloat16:
+        step = torch.exp2(torch.floor(torch.log2(
+            w.abs().clamp_min(2.0 ** -126))) - 7)
+        ok = bool((err <= step + bound).all())
+    else:
+        ok = float(err.max()) <= bound
+    return float(err.max()), ok
+
+
+def phase_gemm_kernel(torch):
+    from repro_torch.core.families.gemm import GemmConfig
+    from repro_torch.kernels.gemm import matmul, matmul_ref
+    out = []
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for label, m, n, k, fields in GEMM_CASES:
+            if label == "production" and dtype == "float32":
+                continue                  # the production problem is bf16
+            g = torch.Generator(device="cuda").manual_seed(m + n + k)
+            a = torch.randn(m, k, generator=g, device="cuda").to(dt)
+            b = torch.randn(k, n, generator=g, device="cuda").to(dt)
+            cfg = GemmConfig(**fields) if fields else None
+            got = matmul(a, b, cfg=cfg)
+            torch.cuda.synchronize()
+            want = matmul_ref(a, b)
+            torch.cuda.synchronize()
+            err, ok = gemm_error(torch, got, want)
+            check(ok, f"gemm {dtype} {label} {m}x{n}x{k}: max |kernel - "
+                      f"plain| {err} beyond the stated tolerance")
+            check(bool(torch.isfinite(got).all()), f"gemm {label}: "
+                  "non-finite output")
+            out.append(dict(label=label, dtype=dtype, m=m, n=n, k=k,
+                            cfg=fields, max_abs_err=err,
+                            max_abs_out=float(want.float().abs().max())))
+            del a, b, got, want
+    torch.cuda.empty_cache()
+    log(f"[gemm] kernel against its plain version: {len(out)} cases "
+        f"(bf16 and f32; default, split_k 2/4, stagger_k, tile 512x256, "
+        f"bm=8, ragged 1000x777x1500, 8192^3 bf16), all within the stated "
+        f"tolerance; max abs err " + ", ".join(
+            f"{SHORT[c['dtype']]}/{c['label']} {c['max_abs_err']:.3g}"
+            for c in out))
+    return out
+
+
+def _loop(prob, validator):
+    from repro_torch.core.families.gemm import GemmConfig
+    from repro_torch.core.harness import (KernelState, Planner, Selector,
+                                          optimize_kernel)
+    state = KernelState("gemm", GemmConfig(), prob).refresh()
+    return optimize_kernel(state, planner=Planner(),
+                           selector=Selector(temperature=0.15, seed=0),
+                           validator=validator, iterations=24)
+
+
+def phase_gemm_loop(torch):
+    """The paper's workflow at the family's production size: the agent
+    loop, whose validator runs the CUDA kernel for every candidate that
+    passes the gate.  Only this loop runs between the counters' reset
+    and their reading."""
+    from repro_torch.core.families.gemm import GemmProblem
+    from repro_torch.core.harness import Validator
+    from repro_torch.kernels import ALL_KERNELS
+    prob = GemmProblem(8192, 8192, 8192, "bf16")
+    validator = Validator(run_kernels=True)
+    for k in ALL_KERNELS:                      # count the main path only
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = _loop(prob, validator)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in ALL_KERNELS}
+    runs = validator.reference_runs
+    check(runs > 0, "the loop ran no unit test on the card")
+    check(launches["gemm"] == runs, f"gemm launched {launches['gemm']} "
+          f"times for {runs} unit tests")
+    check(launches["paged_decode"] == launches["ragged_prefill"] == 0,
+          "the loop launched a serving kernel")
+    check(res.speedup > 1.0, f"the loop found no faster config "
+          f"(speedup {res.speedup})")
+    history = [dict(skill=r.skill, context=r.context, accepted=r.accepted,
+                    ok=r.verdict.ok, caught_stage=r.verdict.caught_stage,
+                    est_ms=r.time_s * 1e3) for r in res.history]
+    best = dataclasses.asdict(res.best_state.cfg)
+    log(f"[gemm] optimize_kernel 8192^3 bf16, 24 steps in {wall:.2f} s: "
+        f"{runs} unit tests on the card ({validator.reference_refusals} "
+        f"refused by a precondition), gemm launches {launches['gemm']}; "
+        f"best {res.best_state.cfg.name()}, modelled speedup "
+        f"{res.speedup:.3f}; verify stats {res.verify_stats}")
+    mark = lambda h: "+" if h["accepted"] else (
+        "" if h["ok"] else " x" + h["caught_stage"])
+    log("[gemm] steps (+ accepted, x rejected at a stage): " + "; ".join(
+        f"{h['skill']}[{h['context']}]{mark(h)}" for h in history))
+    return dict(launches=launches, unit_tests=runs,
+                refusals=validator.reference_refusals, wall_s=wall,
+                speedup_model=res.speedup, best_cfg=best,
+                best_name=res.best_state.cfg.name(), history=history,
+                verify_stats=res.verify_stats), res.best_state.cfg
+
+
+def phase_gemm_time(torch, best_cfg):
+    """Baseline and best config at the production problem and the two
+    sweep problems, beside the bound, the plain version, one bf16
+    ``torch.matmul`` and the cost model's estimate (a model, not a
+    measurement)."""
+    from repro_torch.core.families import get_family
+    from repro_torch.core.families.gemm import GemmConfig, gemm_cost
+    from repro_torch.core.verify_engine import default_engine
+    from repro_torch.kernels.gemm import matmul, matmul_ref
+    fam = get_family("gemm")
+    rows = []
+    for prob in fam.sweep_problems():
+        m, n, k = prob.m, prob.n, prob.k
+        g = torch.Generator(device="cuda").manual_seed(m ^ n ^ k)
+        a = torch.randn(m, k, generator=g, device="cuda").bfloat16()
+        b = torch.randn(k, n, generator=g, device="cuda").bfloat16()
+        plain = time_ms(torch, lambda: matmul_ref(a, b), iters=10)
+        lib = time_ms(torch, lambda: torch.matmul(a, b))
+        bms, by = bound_ms((m * k + k * n + m * n) * 2, 2.0 * m * n * k,
+                           "bfloat16")
+        for which, cfg in (("baseline", GemmConfig()), ("best", best_cfg)):
+            if not default_engine().verify("gemm", cfg, prob).hard_ok:
+                rows.append(dict(problem=[m, n, k], config=which,
+                                 cfg=cfg.name(), rejected=True))
+                continue
+            ms = time_ms(torch, lambda: matmul(a, b, cfg=cfg))
+            est = gemm_cost(cfg, prob).time_s * 1e3
+            rows.append(dict(problem=[m, n, k], config=which,
+                             cfg=cfg.name(), ms=ms, bound_ms=bms,
+                             bound_by=by, plain_ms=plain, library_ms=lib,
+                             model_ms=est, model_over_measured=est / ms,
+                             tflops=2.0 * m * n * k / ms / 1e9))
+            log(f"[gemm] {m}x{n}x{k} bf16 {which} {cfg.name()}: "
+                f"{ms:.3f} ms ({rows[-1]['tflops']:.1f} TFLOP/s), bound "
+                f"{bms:.3f} ms ({by}), plain {plain:.3f} ms, torch.matmul "
+                f"{lib:.3f} ms; cost model (H100 model, not measured) "
+                f"{est:.3f} ms = {est / ms:.3f} x measured")
+        del a, b
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_gemm_refuse(torch):
+    from repro_torch.core.families.gemm import GemmConfig
+    from repro_torch.kernels.gemm import KERNEL, InvariantViolation, matmul
+    a = torch.randn(128, 384, device="cuda")
+    b = torch.randn(384, 128, device="cuda")
+    before = KERNEL.launches
+    try:
+        matmul(a, b, cfg=GemmConfig(split_k=5))
+    except InvariantViolation as e:
+        torch.cuda.synchronize()
+        check(KERNEL.launches == before, "an invalid config launched")
+        first = str(e).splitlines()
+        log(f"[gemm] split_k=5 on 3 K blocks: InvariantViolation before any "
+            f"launch ({first[0]} / {first[1].strip()})")
+        return str(e)
+    raise SmokeFailure("an invalid gemm config was not refused")
+
+
+def phase_gemm(torch):
+    out = {"kernel": phase_gemm_kernel(torch)}
+    out["loop"], best = phase_gemm_loop(torch)
+    out["time"] = phase_gemm_time(torch, best)
+    out["refused"] = phase_gemm_refuse(torch)
+    return out
+
+
 # -- main --------------------------------------------------------------------
 
 def main():
@@ -569,6 +792,7 @@ def main():
         serve = phase_serve(torch)
         summary["serve"] = serve
         summary["paths"] = phase_paths(torch)
+        summary["gemm"] = gemm = phase_gemm(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -590,6 +814,19 @@ def main():
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"],
             ported=True, dtype="bfloat16"))
+    # gemm: the loop's best config at the production problem, 8192^3 bf16
+    prod = next(c for c in gemm["kernel"] if c["label"] == "production")
+    best = next(r for r in gemm["time"] if r["config"] == "best"
+                and r["problem"] == [8192, 8192, 8192])
+    line.append(dict(
+        name="gemm", route="cuda",
+        source="src/repro_torch/kernels/gemm/csrc/gemm.cu",
+        replaces="src/repro/kernels/gemm/gemm.py:60",
+        launches=gemm["loop"]["launches"]["gemm"],
+        max_abs_err=prod["max_abs_err"], ms=best["ms"],
+        plain_ms=best["plain_ms"], bound_ms=best["bound_ms"],
+        bound_by=best["bound_by"], library_ms=best["library_ms"],
+        ported=True, dtype="bfloat16", cfg=best["cfg"]))
     summary["kernels_line"] = line
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

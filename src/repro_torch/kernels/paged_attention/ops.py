@@ -7,10 +7,11 @@ a kernel reads through a block table: the page range, the mapped length
 of each row and the absence of null holes (:func:`validate_block_tables`).
 What it leaves out for now is the symbolic ARGUS gate
 (``VerificationEngine.verify`` of the ``paged_attention`` family): it
-runs before any kernel and changes no number the kernel produces, and
-it comes to the port with a Hopper structural model (ROADMAP, slice 2,
-first item).  Kernel configs come from :func:`default_config`; the
-fleet dispatch table is not ported either.
+runs before any kernel and changes no number the kernel produces; the
+port's gate (``repro_torch.core``) has no ``paged_attention`` family
+yet, and wiring it in here is the next slice (ROADMAP).  Kernel
+configs come from :func:`default_config`; the fleet dispatch table is
+not ported either.
 """
 from __future__ import annotations
 

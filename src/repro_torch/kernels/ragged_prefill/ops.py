@@ -7,10 +7,10 @@ the packed geometry (:func:`verified_config`) and, in
 :mod:`.packing`, ``validate_packing`` of cu_seqlens.  It leaves out for
 now the symbolic ARGUS gate (``VerificationEngine.verify`` of the
 ``ragged_prefill`` family's leakage invariants): it runs before any
-kernel and changes no number the kernel produces, and it comes to the
-port with a Hopper structural model (ROADMAP, slice 2, first item).
-Kernel configs come from :func:`default_config`; the fleet dispatch
-table is not ported either.
+kernel and changes no number the kernel produces; the port's gate
+(``repro_torch.core``) has no ``ragged_prefill`` family yet, and wiring
+it in here is the next slice (ROADMAP).  Kernel configs come from
+:func:`default_config`; the fleet dispatch table is not ported either.
 """
 from __future__ import annotations
 

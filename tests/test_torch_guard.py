@@ -28,7 +28,9 @@ def _env():
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.serve, "
             "repro_torch.models, repro_torch.kernels, repro_torch.configs, "
-            "repro_torch.obs.export, repro_torch.launch.serve\n"
+            "repro_torch.obs.export, repro_torch.launch.serve, "
+            "repro_torch.core, repro_torch.core.harness, "
+            "repro_torch.kernels.gemm\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -55,6 +57,21 @@ def test_source_scan_finds_no_jax_or_repro_import():
         assert not FORBIDDEN.search(ok), ok
 
 
+# rates and sizes of the TPU model the JAX package's cost model uses
+TPU_CONSTANTS = re.compile(r"197e12|819e9|v5e|VMEM_BYTES|16 MiB")
+
+
+def test_source_scan_finds_no_tpu_constant():
+    files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
+    assert any(f.name == "costs.py" for f in files)
+    for f in files:
+        hits = TPU_CONSTANTS.findall(f.read_text())
+        assert not hits, f"{f.relative_to(REPO)} names {hits}"
+    for bad in ("PEAK_FLOPS = 197e12\n", "HBM_BW = 819e9\n",
+                "# v5e model\n", "VMEM_BYTES = 1\n", "a 16 MiB budget\n"):
+        assert TPU_CONSTANTS.search(bad), bad
+
+
 def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -78,6 +95,9 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
 
 def _entry_points():
     from repro_torch import configs, resolve_device
+    from repro_torch.core.families import get_family
+    from repro_torch.core.families.gemm import GemmConfig, GemmProblem
+    from repro_torch.core.harness import Validator
     from repro_torch.launch import serve as launch
     from repro_torch.models import build, from_jax_numpy
     from repro_torch.serve import (KVPool, PagedServingEngine,
@@ -95,6 +115,10 @@ def _entry_points():
             model, {}, n_slots=1, max_len=16, **kw),
         "PagedServingEngine": lambda **kw: PagedServingEngine(
             model, {}, pool_pages=4, page_size=8, max_len=16, **kw),
+        "Validator": lambda **kw: Validator(run_kernels=True, **kw),
+        "reference_check": lambda **kw: get_family("gemm").reference_check(
+            GemmConfig(bm=8, bn=8, bk=8), GemmProblem(8, 8, 8, "f32"),
+            **kw),
         "launch.serve": lambda **kw: launch.main(
             ["--arch", "qwen3-1.7b", "--reduced", "--requests", "1",
              "--max-new-tokens", "1", "--max-len", "32", "--page-size",
@@ -105,6 +129,7 @@ def _entry_points():
 @pytest.mark.parametrize("name", ["resolve_device", "init",
                                   "from_jax_numpy", "init_cache", "KVPool",
                                   "ServingEngine", "PagedServingEngine",
+                                  "Validator", "reference_check",
                                   "launch.serve"])
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(name):
     if torch.cuda.is_available():
