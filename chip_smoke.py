@@ -9,7 +9,7 @@ and ``nvcc``, and exits non-zero, without printing a result, when either
 is missing or any phase fails.  Phases:
 
 1. card — name and power limit as ``nvidia-smi`` reports them;
-2. build — the three CUDA kernels from the repository's sources, one
+2. build — the five CUDA kernels from the repository's sources, one
    ``nvcc`` per source, started together;
 3. kernels against their plain PyTorch versions at the serving path's
    shapes (qwen3-1.7b: 16 query heads, 8 KV heads, head_dim 128, page
@@ -40,8 +40,30 @@ is missing or any phase fails.  Phases:
    beside the bound, the plain version, one bf16 ``torch.matmul``
    (cuBLAS) and the port's cost-model estimate; (e) an invalid config
    (split_k = 5 on 3 K blocks) must raise before any launch;
-7. the kernels line (JSON), then the final line
+7. flash — the paper's second family on the card: (a) the
+   flash-attention prefill kernel and the split-KV decode kernel
+   against their plain versions in bfloat16 and float32, over the
+   default and family-example configs, block_q and block_kv 16 to 256,
+   causal and not, causal_block_skip and v_transposed_staging on and
+   off, GQA groups 1, 2 and 8, head_dim 64 and 128, Sq != Skv (1000 x
+   1500), kv_splits 1 to 16 with kv_len < S, within the tolerance
+   stated beside ``flash_error`` (``kernels/flash_attention/ref.py``:
+   each element, and each query row's error norm against the row's
+   norm); (b) the agent loop on each family at its production
+   problem with ``Validator(run_kernels=True)`` (the selector and steps
+   of phase 6c), each kernel's launch counter zeroed just before and
+   read just after: every unit test must have launched its kernel;
+   (c) the example config and the loop's best, each first held to the
+   plain version at that tolerance, timed at the production
+   problem and both sweep problems, beside the bound, the plain version
+   (one batch row at a time — one head at a time at 16384 — since its
+   materialised scores would not fit the card), one
+   ``scaled_dot_product_attention`` call and the cost model's estimate;
+8. the kernels line (JSON), then the final line
    ``{"ok": true, "device": {...}}``.
+
+Phase 4 also reports the ARGUS gate's verify calls on the serving path
+(one per batch geometry and per packed prefill geometry).
 
 A summary of every number also goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -75,9 +97,6 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 POISON = 1e6
 
 TPU_KERNELS_NOT_PORTED = [
-    ("flash_attention",
-     "src/repro/kernels/flash_attention/flash_attention.py:96"),
-    ("flash_decode", "src/repro/kernels/flash_attention/decode.py:56"),
     ("grouped_ffn", "src/repro/kernels/moe/moe.py:63"),
     ("quant_gemm", "src/repro/kernels/quant_gemm/quant_gemm.py:58"),
     ("ssd_chunk_scan", "src/repro/kernels/ssd/ssd.py:65"),
@@ -164,24 +183,32 @@ def phase_build():
 
 
 def _instance(ptxas_line):
-    """' <type> <TM>x<TN>' for a template instance of the GEMM kernel
-    (from its mangled name), else ''."""
+    """' <type> <template arguments>' for a template instance of the
+    GEMM or flash kernels (from its mangled name), else ''."""
     import re
     m = re.search(r"gemm_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E",
                   ptxas_line)
-    if not m:
-        return ""
-    dtype = "bf16" if m.group(1) != "f" else "f32"
-    return f" {dtype} {m.group(2)}x{m.group(3)}"
+    if m:
+        dtype = "bf16" if m.group(1) != "f" else "f32"
+        return f" {dtype} {m.group(2)}x{m.group(3)}"
+    m = re.search(r"fa_(bf16|f32)_kernelILi(\d+)ELi(\d+)E", ptxas_line)
+    if m:
+        rows = int(m.group(3)) * (16 if m.group(1) == "bf16" else 1)
+        return f" {m.group(1)} D={m.group(2)} tile={rows}"
+    m = re.search(r"(flash|paged)_decode_kernelI(13__nv_bfloat16|f)Li(\d+)E",
+                  ptxas_line)
+    if m:
+        return f" {'bf16' if m.group(2) != 'f' else 'f32'} D={m.group(3)}"
+    return ""
 
 
 # -- phase 3 -----------------------------------------------------------------
 
-def _decode_case(torch, dtype, seed=0):
+def _decode_case(torch, dtype, seed=0, NP=128,
+                 lengths=(0, 1, 17, 256, 300, 777, 1040, 2048)):
     """Main-path decode shapes: batch 8, 16/8 heads, head_dim 128, 16-token
     pages, 128 pages per sequence (max_len 2048), a 768-page pool."""
-    B, Hq, Hkv, D, PS, NP, P = 8, 16, 8, 128, 16, 128, 768
-    lengths = [0, 1, 17, 256, 300, 777, 1040, 2048]
+    B, Hq, Hkv, D, PS, P = 8, 16, 8, 128, 16, 768
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
     q = torch.randn(B, Hq, 1, D, generator=g, device="cuda").to(dt)
@@ -243,7 +270,48 @@ def phase_decode_kernel(torch, dtype):
         f"{TOL[dtype]}), poisoned run bit-identical; {ms:.4f} ms, plain "
         f"{plain:.4f} ms, bound {bms:.4f} ms ({by}), library: none")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=None, bytes=n_bytes, flops=flops)
+                bound_by=by, library_ms=None, bytes=n_bytes, flops=flops,
+                width_125=_decode_width_125(torch, dtype))
+
+
+def _decode_width_125(torch, dtype):
+    """A table width the tile's page count does not divide: 125 pages
+    (max_len 2000) walk as 31 steps of four pages and one of one (bf16;
+    f32 tiles hold two).  Beside it, the same kernel at one page a step,
+    the largest step dividing 125 that fits a tile."""
+    from repro_torch.core.families.paged_attention import pages_per_step
+    from repro_torch.kernels._build import ptr, stream_handle
+    from repro_torch.kernels.paged_attention import KERNEL, paged_decode_ref
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        PagedAttentionConfig, paged_decode
+    (q, kp, vp, table, lens), _, _, (Hq, Hkv, D) = _decode_case(
+        torch, dtype, NP=125, lengths=(0, 1, 17, 256, 300, 777, 1040, 2000))
+    want = paged_decode_ref(q, kp, vp, table, lens)
+    B, PS, NP = q.shape[0], kp.shape[2], table.shape[1]
+    out = torch.empty_like(q)
+
+    def at_step(step):
+        KERNEL.launch(ptr(q), ptr(kp), ptr(vp), ptr(table), ptr(lens),
+                      ptr(out), B, Hq, Hkv, D, PS, NP, step, D ** -0.5,
+                      int(q.dtype == torch.bfloat16), stream_handle(q.device))
+        return out
+
+    step = pages_per_step(PS, D, q.element_size())
+    res = {}
+    cfg = PagedAttentionConfig(block_pages=1)     # divides 125
+    for name, fn in (("tile", lambda: paged_decode(q, kp, vp, table, lens,
+                                                   cfg=cfg)),
+                     ("one_page", lambda: at_step(1))):
+        err = float((fn().float() - want.float()).abs().max())
+        check(err <= TOL[dtype], f"paged_decode {dtype} at 125 pages, "
+              f"{name} steps: max |kernel - plain| {err} > {TOL[dtype]}")
+        res[name] = dict(max_abs_err=err, ms=time_ms(torch, fn))
+    log(f"[kernels] paged_decode {dtype} at 125 pages: {step}-page steps "
+        f"(the last shorter) {res['tile']['ms']:.4f} ms, one-page steps "
+        f"{res['one_page']['ms']:.4f} ms; max_abs_err "
+        f"{res['tile']['max_abs_err']:.3g} / "
+        f"{res['one_page']['max_abs_err']:.3g}")
+    return res
 
 
 def _prefill_case(torch, dtype, seed=1):
@@ -395,12 +463,22 @@ def phase_serve(torch):
         f"f32), KV pool {pool_pages} pages = {eng.kv.nbytes / 1e9:.2f} GB; "
         f"init {init_s:.1f} s")
     torch.cuda.reset_peak_memory_stats()
+    gate, verified = _record_gate()
     for k in ALL_KERNELS:                      # count the main path only
         k.launches = 0
     t0 = time.perf_counter()
-    ticks = drive(eng, trace, torch)
+    try:
+        ticks = drive(eng, trace, torch)
+    finally:
+        del gate.verify                        # the engine's own method
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in ALL_KERNELS}
+    check(len(verified) == len(set(verified)),
+          "the serving path verified a geometry twice")
+    fams = sorted({f for f, _ in verified})
+    check(fams == ["paged_attention", "ragged_prefill"],
+          f"gate calls on the serving path: {len(verified)}, families "
+          f"{fams}")
 
     c = eng.metrics.counters
     done = eng.finished
@@ -448,7 +526,10 @@ def phase_serve(torch):
         p50_prefill_step_ms=statistics.median(
             t["seconds"] * 1e3 for t in ticks if t["prefilled"]),
         launches=launches, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-        pool_pages=pool_pages, preempted=c["preempted"])
+        pool_pages=pool_pages, preempted=c["preempted"],
+        gate_verify_calls=len(verified),
+        gate_geometries={f: sum(g == f for g, _ in verified)
+                         for f in ("paged_attention", "ragged_prefill")})
     log(f"[serve] {len(done)} requests, {len(ticks)} ticks ({n_pre} "
         f"prefill, {n_dec} decode), all through the kernels; "
         f"{c['prefill_tokens']} prompt + {dec_tok} generated tokens in "
@@ -456,12 +537,30 @@ def phase_serve(torch):
         f"p50 step {out['p50_step_ms']:.1f} ms (decode-only ticks "
         f"{out['p50_decode_only_step_ms']:.1f} ms, prefill ticks "
         f"{out['p50_prefill_step_ms']:.1f} ms), launches {launches}, peak "
-        f"memory {out['peak_gb']:.2f} GB, preempted {c['preempted']}")
+        f"memory {out['peak_gb']:.2f} GB, preempted {c['preempted']}; "
+        f"ARGUS gate: {len(verified)} verify calls, one per geometry "
+        f"({out['gate_geometries']})")
     del eng
     out["profile"] = phase_profile(torch, model, params, pool_pages)
     del params
     torch.cuda.empty_cache()
     return out
+
+
+def _record_gate():
+    """Wrap the shared verification engine's ``verify`` so the serve
+    phase can count its calls by (family, problem); ``del
+    engine.verify`` restores it."""
+    from repro_torch.core.verify_engine import default_engine
+    gate = default_engine()
+    calls = []
+    real = gate.verify
+
+    def verify(family, cfg, prob, **kw):
+        calls.append((family, prob))
+        return real(family, cfg, prob, **kw)
+    gate.verify = verify
+    return gate, calls
 
 
 def _profile_window(torch, engine, n_steps):
@@ -767,6 +866,268 @@ def phase_gemm(torch):
     return out
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+FA_CASES = [
+    # (label, B, Hq, Hkv, Sq, Skv, D, causal, cfg fields or None)
+    ("default", 2, 8, 1, 1024, 1024, 128, True, None),
+    ("example bq=8 no skip", 1, 8, 1, 512, 512, 128, True,
+     dict(block_q=8, causal_block_skip=False)),
+    ("1000x1500 G=2", 1, 4, 2, 1000, 1500, 64, True,
+     dict(block_q=64, block_kv=128)),
+    ("1000x1500 non-causal", 1, 4, 2, 1000, 1500, 128, False,
+     dict(block_q=128, block_kv=64)),
+    ("G=1 transv", 2, 4, 4, 333, 333, 64, True,
+     dict(block_q=16, block_kv=256, v_transposed_staging=True)),
+    ("G=8 skip off", 1, 8, 1, 700, 500, 128, True,
+     dict(block_q=256, block_kv=16, causal_block_skip=False)),
+    ("non-causal transv", 1, 8, 1, 300, 900, 64, False,
+     dict(block_q=64, block_kv=64, v_transposed_staging=True)),
+] + [(f"bq={bq} bkv={bkv}", 1, 4, 2, 300, 400, 64, True,
+      dict(block_q=bq, block_kv=bkv))
+     for bq in (16, 64, 128, 256) for bkv in (16, 64, 128, 256)]
+DEC_CASES = [
+    # (label, B, Hq, Hkv, S, kv_len, D, kv_splits)
+    ("splits=1", 4, 8, 1, 2048, 2048, 128, 1),
+    ("splits=2 G=1", 4, 4, 4, 2048, 1500, 64, 2),
+    ("splits=8 kv_len<S", 8, 8, 1, 4096, 3001, 128, 8),
+    ("splits=16 short", 2, 8, 1, 4096, 100, 128, 16),
+    ("splits=8 G=1", 2, 2, 2, 1024, 1000, 128, 8),
+    ("default splits", 2, 8, 1, 8192, 5000, 64, None),
+]
+
+
+def _fa_inputs(torch, B, Hq, Hkv, Sq, Skv, D, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    return (torch.randn(B, Hq, Sq, D, generator=g, device="cuda").to(dt),
+            torch.randn(B, Hkv, Skv, D, generator=g, device="cuda").to(dt),
+            torch.randn(B, Hkv, Skv, D, generator=g, device="cuda").to(dt))
+
+
+def _rowwise(fn, q, k, v, heads=False):
+    """The plain version one batch row (and one head) at a time: its
+    materialised (Hq, Sq, Skv) float32 scores for a whole batch would
+    not fit the card at the production problems."""
+    import torch
+    out = torch.empty_like(q)
+    G = q.shape[1] // k.shape[1]
+    for b in range(q.shape[0]):
+        if not heads:
+            out[b:b + 1] = fn(q[b:b + 1], k[b:b + 1], v[b:b + 1])
+            continue
+        for h in range(q.shape[1]):
+            hk = h // G
+            out[b:b + 1, h:h + 1] = fn(q[b:b + 1, h:h + 1],
+                                       k[b:b + 1, hk:hk + 1],
+                                       v[b:b + 1, hk:hk + 1])
+    return out
+
+
+def _causal_pairs(Sq, Skv, causal):
+    if not causal:
+        return Sq * Skv
+    n = min(Sq, Skv)
+    return n * (n + 1) // 2 + max(Sq - Skv, 0) * Skv
+
+
+def phase_flash_kernels(torch):
+    from repro_torch.core.families.flash_attention import \
+        FlashAttentionConfig
+    from repro_torch.core.families.flash_decode import FlashDecodeConfig
+    from repro_torch.kernels.flash_attention import (DECODE_KERNEL, KERNEL,
+                                                     flash_error, mha,
+                                                     mha_decode, mha_ref)
+    out = []
+    for dtype in ("bfloat16", "float32"):
+        for i, (label, B, Hq, Hkv, Sq, Skv, D, causal, f) in \
+                enumerate(FA_CASES):
+            q, k, v = _fa_inputs(torch, B, Hq, Hkv, Sq, Skv, D, dtype, i)
+            cfg = FlashAttentionConfig(**f) if f else None
+            n0 = KERNEL.launches
+            got = mha(q, k, v, cfg=cfg, causal=causal)
+            torch.cuda.synchronize()
+            check(KERNEL.launches == n0 + 1, f"flash {label}: no launch")
+            want = mha_ref(q, k, v, causal=causal)
+            err, row, ok = flash_error(got, want)
+            check(ok, f"flash_attention {dtype} {label}: max |kernel - "
+                  f"plain| {err}, worst row {row}: beyond the tolerance")
+            out.append(dict(kernel="flash_attention", label=label,
+                            dtype=dtype, max_abs_err=err, row_err=row))
+        for i, (label, B, Hq, Hkv, S, kv_len, D, ns) in enumerate(DEC_CASES):
+            q, k, v = _fa_inputs(torch, B, Hq, Hkv, 1, S, D, dtype, 50 + i)
+            kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+            cfg = FlashDecodeConfig(ns) if ns else None
+            n0 = DECODE_KERNEL.launches
+            got = mha_decode(q, k, v, kl, cfg=cfg)
+            torch.cuda.synchronize()
+            check(DECODE_KERNEL.launches == n0 + 1, f"decode {label}: no "
+                  "launch")
+            want = mha_ref(q, k, v, causal=False, kv_len=kv_len)
+            err, row, ok = flash_error(got, want)
+            check(ok, f"flash_decode {dtype} {label}: max |kernel - "
+                  f"plain| {err}, worst row {row}: beyond the tolerance")
+            out.append(dict(kernel="flash_decode", label=label, dtype=dtype,
+                            max_abs_err=err, row_err=row))
+    # each production problem is checked in phase 7c, at the configs
+    # timed there
+    worst = {}
+    for c in out:
+        key = (c["kernel"], c["dtype"])
+        e, r = worst.get(key, (0.0, 0.0))
+        worst[key] = (max(e, c["max_abs_err"]), max(r, c["row_err"]))
+    log(f"[flash] kernels against their plain versions: {len(out)} cases "
+        f"(bf16 and f32; default, example bq=8, bq x bkv 16..256, causal "
+        f"and not, skip and transv on/off, G 1/2/8, D 64/128, 1000x1500; "
+        f"decode kv_splits 1..16, kv_len < S, G 1/8), all within "
+        f"f32 1e-4, rows 1e-3; bf16 1e-2 + 2^-7 |o|, rows 2^-6; worst "
+        f"(max abs, row) " + ", ".join(
+            f"{n}/{SHORT[d]} {e:.3g} {r:.3g}" for (n, d), (e, r)
+            in worst.items()))
+    return dict(cases=out)
+
+
+def phase_flash_loop(torch, family):
+    """The paper's loop on one flash family at its production problem:
+    ``Validator(run_kernels=True)``, the selector and steps of phase
+    6c.  Only this loop runs between the counters' reset and their
+    reading."""
+    from repro_torch.core.families import get_family
+    from repro_torch.core.harness import (KernelState, Planner, Selector,
+                                          Validator, optimize_kernel)
+    from repro_torch.kernels import ALL_KERNELS
+    cfg, prob = get_family(family).example()
+    validator = Validator(run_kernels=True)
+    state = KernelState(family, cfg, prob).refresh()
+    for k in ALL_KERNELS:                      # count the main path only
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = optimize_kernel(state, planner=Planner(),
+                          selector=Selector(temperature=0.15, seed=0),
+                          validator=validator, iterations=24)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in ALL_KERNELS}
+    runs = validator.reference_runs
+    check(runs > 0, f"the {family} loop ran no unit test on the card")
+    check(launches[family] == runs, f"{family} launched "
+          f"{launches[family]} times for {runs} unit tests")
+    check(all(n == 0 for name, n in launches.items() if name != family),
+          f"the {family} loop launched another kernel: {launches}")
+    history = [dict(skill=r.skill, context=r.context, accepted=r.accepted,
+                    ok=r.verdict.ok, caught_stage=r.verdict.caught_stage,
+                    est_ms=r.time_s * 1e3) for r in res.history]
+    log(f"[flash] optimize_kernel {family} {prob}, 24 steps in {wall:.2f} "
+        f"s: {runs} unit tests on the card ({validator.reference_refusals} "
+        f"refused by a precondition), {family} launches "
+        f"{launches[family]}; best {res.best_state.cfg.name()}, modelled "
+        f"speedup {res.speedup:.3f}; verify stats {res.verify_stats}")
+    return dict(launches=launches, unit_tests=runs,
+                refusals=validator.reference_refusals, wall_s=wall,
+                speedup_model=res.speedup,
+                best_cfg=dataclasses.asdict(res.best_state.cfg),
+                best_name=res.best_state.cfg.name(), history=history,
+                verify_stats=res.verify_stats), res.best_state.cfg
+
+
+def phase_flash_time(torch, family, best_cfg):
+    """The family example's config and the loop's best at the production
+    problem and both sweep problems, each held to the plain version and
+    then timed beside the bound, the plain version (row by row), one
+    ``scaled_dot_product_attention`` call and the cost model's estimate
+    (a model, not a measurement)."""
+    from repro_torch.core.families import get_family
+    from repro_torch.core.verify_engine import default_engine
+    from repro_torch.kernels.flash_attention import (flash_error, mha,
+                                                     mha_decode, mha_ref)
+    fam = get_family(family)
+    cfg0 = fam.example()[0]
+    rows = []
+    for prob in fam.sweep_problems():
+        p = prob
+        sq = getattr(p, "seq_q", 1)
+        q, k, v = _fa_inputs(torch, p.batch, p.q_heads, p.kv_heads, sq,
+                             p.seq_kv, p.head_dim, "bfloat16", 7)
+        elt = 2
+        if family == "flash_attention":
+            causal = p.causal
+            pairs = _causal_pairs(sq, p.seq_kv, causal)
+            flops = 4.0 * p.batch * p.q_heads * pairs * p.head_dim
+            heads = p.seq_kv > 8192
+            plain_fn = lambda: _rowwise(
+                lambda a, b, c: mha_ref(a, b, c, causal=causal), q, k, v,
+                heads=heads)
+            plain = time_ms(torch, plain_fn, iters=3, warmup=1)
+            run = lambda c: (lambda: mha(q, k, v, cfg=c, causal=causal))
+        else:
+            heads, causal = False, False
+            flops = 4.0 * p.batch * p.q_heads * p.seq_kv * p.head_dim
+            plain_fn = lambda: mha_ref(q, k, v, causal=False)
+            plain = time_ms(torch, plain_fn, iters=5, warmup=1)
+            kl = torch.tensor(p.seq_kv, dtype=torch.int32, device="cuda")
+            run = lambda c: (lambda: mha_decode(q, k, v, kl, cfg=c))
+        lib = _sdpa_ms(torch, q, k, v, causal)
+        want = plain_fn()
+        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * elt
+        bms, by = bound_ms(n_bytes, flops, "bfloat16")
+        for which, cfg in (("example", cfg0), ("best", best_cfg)):
+            if not default_engine().verify(family, cfg, prob).hard_ok:
+                rows.append(dict(problem=dataclasses.astuple(prob),
+                                 config=which, cfg=cfg.name(),
+                                 rejected=True))
+                continue
+            err, row, ok = flash_error(run(cfg)(), want)
+            check(ok, f"{family} {dataclasses.astuple(prob)[:6]} "
+                  f"{cfg.name()}: max |kernel - plain| {err}, worst row "
+                  f"{row}: beyond the tolerance")
+            slow = family == "flash_attention" and cfg.block_q < 16
+            ms = time_ms(torch, run(cfg), iters=3 if slow else 10,
+                         warmup=1 if slow else 3)
+            est = fam.cost(cfg, prob).time_s * 1e3
+            rows.append(dict(problem=dataclasses.astuple(prob),
+                             config=which, cfg=cfg.name(), ms=ms,
+                             bound_ms=bms, bound_by=by, plain_ms=plain,
+                             plain_by="row" if not heads else "head",
+                             library_ms=lib, max_abs_err=err,
+                             row_err=row, model_ms=est,
+                             model_over_measured=est / ms,
+                             tflops=flops / ms / 1e9,
+                             gbps=n_bytes / ms / 1e6))
+            log(f"[flash] {family} {dataclasses.astuple(prob)[:6]} {which} "
+                f"{cfg.name()}: {ms:.4f} ms ({rows[-1]['tflops']:.1f} "
+                f"TFLOP/s, {rows[-1]['gbps']:.0f} GB/s), bound {bms:.4f} ms "
+                f"({by}), plain {plain:.4f} ms ("
+                f"{'one head' if heads else 'one batch row'} at a time), "
+                f"sdpa {lib:.4f} ms; cost model (H100 model, not measured) "
+                f"{est:.4f} ms = {est / ms:.3f} x measured; against the "
+                f"plain version max abs {err:.3g}, worst row {row:.3g}")
+        del q, k, v, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _sdpa_ms(torch, q, k, v, causal):
+    """One ``scaled_dot_product_attention(..., is_causal, enable_gqa)``
+    call, the library yardstick, with PyTorch's fused backends only (its
+    math backend would materialise the scores)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+    with sdpa_kernel(fused):
+        return time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), iters=10)
+
+
+def phase_flash(torch):
+    out = {"kernels": phase_flash_kernels(torch)}
+    for family in ("flash_attention", "flash_decode"):
+        loop, best = phase_flash_loop(torch, family)
+        out[family] = dict(loop=loop,
+                           time=phase_flash_time(torch, family, best))
+    return out
+
+
 # -- main --------------------------------------------------------------------
 
 def main():
@@ -793,6 +1154,7 @@ def main():
         summary["serve"] = serve
         summary["paths"] = phase_paths(torch)
         summary["gemm"] = gemm = phase_gemm(torch)
+        summary["flash"] = flash = phase_flash(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -827,6 +1189,24 @@ def main():
         plain_ms=best["plain_ms"], bound_ms=best["bound_ms"],
         bound_by=best["bound_by"], library_ms=best["library_ms"],
         ported=True, dtype="bfloat16", cfg=best["cfg"]))
+    # flash: the loop's best config at each family's production problem
+    for name, src, replaces in (
+            ("flash_attention", "flash_attention.cu",
+             "src/repro/kernels/flash_attention/flash_attention.py:96"),
+            ("flash_decode", "flash_decode.cu",
+             "src/repro/kernels/flash_attention/decode.py:56")):
+        fl = flash[name]
+        best = next(r for r in fl["time"] if r["config"] == "best")
+        check(not best.get("rejected"), f"{name}: best config rejected")
+        line.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/flash_attention/csrc/{src}",
+            replaces=replaces, launches=fl["loop"]["launches"][name],
+            max_abs_err=best["max_abs_err"],
+            ms=best["ms"], plain_ms=best["plain_ms"],
+            bound_ms=best["bound_ms"], bound_by=best["bound_by"],
+            library_ms=best["library_ms"], ported=True, dtype="bfloat16",
+            cfg=best["cfg"]))
     summary["kernels_line"] = line
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

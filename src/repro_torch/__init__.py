@@ -23,11 +23,20 @@ Slice 2 is the paper's own workflow on the GEMM family:
       -> core.families.gemm.reference_check -> kernels.gemm.matmul
       -> kernels.gemm (CUDA, csrc/gemm.cu)
 
+Slice 3 is the paper's second family, flash attention, on the same
+workflow, and the gate on the serving path:
+
+    core.harness.optimize_kernel -> Validator(run_kernels=True)
+      -> core.families.flash_attention / flash_decode .reference_check
+      -> kernels.flash_attention.mha / mha_decode (the gate, then)
+      -> kernels.flash_attention (CUDA, csrc/flash_attention.cu and
+         csrc/flash_decode.cu)
+    serve.PagedServingEngine -> the paged_attention and ragged_prefill
+      families, verified once per batch / packed geometry
+
 Entry points take ``device=`` (default ``"cuda"``) and raise when no
 CUDA device is present, unless ``device="cpu"`` is passed; on CPU
-tensors each kernel wrapper runs its plain PyTorch version.  The
-serving path runs its concrete runtime checks; wiring the gate into it
-is the next slice (ROADMAP).
+tensors each kernel wrapper runs its plain PyTorch version.
 """
 from .device import resolve_device
 

@@ -25,6 +25,8 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 HBM_BW = 3.35e12       # HBM3 bytes/s (model parameter)
 STAGGER_DERATE = 0.75  # unstaggered streaming keeps ~75% of HBM bw (model)
 SCALAR_PATH_DERATE = 0.5  # masked scalar loads instead of 16-byte copies
+L2_BW = 5.5e12         # L2 bytes/s: operand re-reads that hit L2 (model)
+MEM_LATENCY_S = 1e-6   # one HBM round trip under load (model parameter)
 
 # Narrow-dtype tensor-core rate multiplier: int8/fp8 operands run at twice
 # the bf16 rate (model parameter); the quantized families' compute term
@@ -56,6 +58,15 @@ def wave_eff(n_ctas: int, per_sm: int) -> float:
     slots = N_SMS * per_sm
     waves = cdiv(max(n_ctas, 1), slots)
     return max(n_ctas, 1) / (waves * slots)
+
+
+def stream_eff(n_ctas: int, bytes_in_flight: int) -> float:
+    """Share of HBM bandwidth a streaming kernel reaches when each of its
+    ``n_ctas`` resident CTAs keeps ``bytes_in_flight`` bytes of loads
+    outstanding per memory round trip (Little's law: the card needs
+    HBM_BW x MEM_LATENCY_S bytes in flight)."""
+    need = HBM_BW * MEM_LATENCY_S
+    return max(min(1.0, max(n_ctas, 1) * bytes_in_flight / need), 0.01)
 
 
 @dataclass

@@ -3,8 +3,10 @@ self-registering.
 
 ``from repro_torch.core.families import get_family`` is the single
 dispatch point of the validator, planner, lowering agent and cost model.
-The port registers the families whose kernels it has ported (``gemm``);
-``get_family`` of any other raises, naming the ROADMAP item.
+The port registers the families whose kernels it has ported (``gemm``,
+``flash_attention``, ``flash_decode``, ``paged_attention``,
+``ragged_prefill``), in the JAX package's order; ``get_family`` of any
+other raises, naming the ROADMAP item.
 """
 from .base import (GENERIC_SKILLS, MATCH_EXACT, MATCH_NONE, MATCH_STAGE,
                    NOT_PORTED, BugSignature, KernelFamily, Skill,
@@ -14,6 +16,10 @@ from .base import (GENERIC_SKILLS, MATCH_EXACT, MATCH_NONE, MATCH_STAGE,
 # importing a family module registers it (order fixes registry iteration
 # order)
 from . import gemm              # noqa: E402,F401
+from . import flash_attention   # noqa: E402,F401
+from . import flash_decode      # noqa: E402,F401
+from . import paged_attention   # noqa: E402,F401
+from . import ragged_prefill    # noqa: E402,F401
 
 __all__ = [
     "KernelFamily", "Skill", "GENERIC_SKILLS", "generic_skill",

@@ -24,8 +24,9 @@ everything the rest of the system needs to drive it:
   ``example()``.
 
 This registry is the port's own: it holds the families whose kernels are
-ported (``gemm``), and :func:`get_family` of any other family raises,
-naming the ROADMAP item that ports it.
+ported (``gemm``, ``flash_attention``, ``flash_decode``,
+``paged_attention``, ``ragged_prefill``), and :func:`get_family` of any
+other family raises, naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -235,14 +236,38 @@ def register(family: KernelFamily) -> KernelFamily:
 # families of the JAX package whose kernels are not ported yet, and the
 # ROADMAP.md item that ports each
 NOT_PORTED = {
-    "paged_attention": "A5 (the gate on the serving path)",
-    "ragged_prefill": "A5 (the gate on the serving path)",
-    "flash_attention": "B4",
-    "flash_decode": "B5",
     "moe": "B6",
     "quant_gemm": "B7",
     "ssd": "B8",
 }
+
+
+# Tolerance of a kernel against its plain version in a family's
+# reference_check, as both rtol and atol: f32 — the same products summed
+# in another order; bf16 — more than one bf16 step (2^-7 relative) of
+# any value, each side rounding its f32 result (and the attention
+# kernels their bf16 p) once.
+REF_TOL = {"f32": 1e-4, "bf16": 1e-2}
+
+
+def reference_setup(family: str, dtype: str, device):
+    """For a family's ``reference_check``: a maker of seeded standard-
+    normal tensors of ``dtype`` on ``device`` (resolved: the card, or
+    the CPU when asked), and the tolerance.  Raises ``ValueError`` for a
+    dtype the kernels do not take."""
+    import numpy as np
+    import torch
+    from repro_torch.device import resolve_device
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}.get(dtype)
+    if dt is None:
+        raise ValueError(f"{family} takes bf16 or f32, not {dtype}")
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+
+    def make(shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(dev, dt)
+    return make, dev, REF_TOL[dtype]
 
 
 def get_family(name: str) -> KernelFamily:

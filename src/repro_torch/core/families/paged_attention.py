@@ -1,0 +1,534 @@
+"""Paged-attention decode family — serving decode over a block-table-
+indexed KV cache, verified at the step the CUDA kernel runs.
+
+The port of the JAX package's ``core/families/paged_attention.py``: the
+tile program (:func:`tile_program`), its invariants, skills, injectable
+bugs and bug signatures are copied unchanged — page-bound (the table
+stays inside the pool, an analysis-stage catch), one table for both
+operands, GQA head mapping, logical coverage of the sequence's pages,
+position honesty, length-gate conformity and carried-output stability.
+
+**Which decomposition is verified.**  The CUDA kernel
+(``repro_torch/kernels/paged_attention/csrc/paged_decode.cu``) walks the
+pages of a sequence in steps of as many pages as fit one shared-memory
+tile of at most 16 KB (64 tokens in bf16 at head_dim 128, 32 in f32),
+the last step shorter where that count does not divide the table width,
+whatever the config's ``block_pages`` is (:func:`pages_per_step`).
+:func:`build_paged_attention_program` builds the JAX program at
+``block_pages = gcd(step, width)`` (:func:`kernel_config`): every kernel
+step, the short last one included, is a whole run of consecutive program
+steps (six 16-token pages at four pages a bf16 step: the kernel walks
+4 + 2 pages, the program 2 + 2 + 2).  ``block_pages`` stays the
+precondition it is in the JAX family: it must divide the table width.  A
+geometry the kernel cannot run (a page larger than one tile, a head_dim
+that is not compiled) is a build error.  Verdicts, findings and
+counterexamples are the JAX gate's at that step.
+
+The structural and cost hooks are a Hopper model of that kernel
+(:mod:`repro_torch.core.kernelspec`, :mod:`repro_torch.core.costs`); the
+oracle (``reference_check``) runs the port's ``paged_decode`` on the
+validator's device against its plain version.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, replace
+from typing import Optional
+
+from .. import dsl
+from ..costs import (CostEstimate, HBM_BW, PEAK_FLOPS, sol_estimate,
+                     stream_eff, wave_eff)
+from ..kernelspec import (DTYPE_BYTES, StructuralIssue, cdiv,
+                          check_vector_alignment, ctas_per_sm)
+from ..tags import Expr, app, make_tag
+from .base import (BugSignature, KernelFamily, generic_skill,
+                   reference_setup, register)
+
+@dataclass(frozen=True)
+class PagedAttentionProblem:
+    batch: int
+    q_heads: int
+    kv_heads: int
+    seq_kv: int               # logical tokens per sequence
+    page_size: int            # tokens per physical page
+    pool_pages: int           # physical pages in the KV pool
+    head_dim: int
+    dtype: str = "bf16"
+
+    @property
+    def group(self) -> int:
+        return self.q_heads // self.kv_heads
+
+    @property
+    def pages_per_seq(self) -> int:
+        return cdiv(self.seq_kv, self.page_size)
+
+
+@dataclass(frozen=True)
+class PagedAttentionConfig:
+    """Tunable knobs (the harness' action space for this family)."""
+
+    block_pages: int = 2      # logical pages gathered per sequential step
+
+    def name(self) -> str:
+        return f"paged[bp={self.block_pages}]"
+
+
+# -- the CUDA kernel's decomposition -----------------------------------------
+
+MAX_GROUP = 8                  # query heads per KV head the kernel serves
+HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernel is compiled for
+KERNEL_THREADS = 128
+
+
+def tile_tokens(head_dim: int, itemsize: int) -> int:
+    """Tokens of K (and of V) the kernel stages per step at most: a 16 KB
+    tile, at most 64 tokens.  A page must fit in one tile."""
+    return min(64, 16384 // (head_dim * itemsize))
+
+
+def pages_per_step(page_size: int, head_dim: int, itemsize: int) -> int:
+    """Pages the kernel walks per step: as many as fit one tile; 0 when a
+    page does not fit (or head_dim is not compiled)."""
+    if head_dim not in HEAD_DIMS:
+        return 0
+    return tile_tokens(head_dim, itemsize) // page_size
+
+
+def kernel_config(cfg: PagedAttentionConfig,
+                  prob: PagedAttentionProblem) -> PagedAttentionConfig:
+    """The config whose program the kernel's steps are made of for
+    ``cfg`` on ``prob``: ``block_pages`` = gcd(the kernel's step, the
+    table width).  Raises ``ValueError`` where the JAX program would (the
+    preconditions on ``page_size`` and ``block_pages``) and where the
+    kernel cannot run."""
+    if prob.seq_kv % prob.page_size != 0:
+        raise ValueError("page_size must tile seq_kv")
+    NP = prob.pages_per_seq
+    if NP % cfg.block_pages != 0:
+        raise ValueError(
+            f"block_pages {cfg.block_pages} must divide the "
+            f"{NP} pages per sequence")
+    sz = DTYPE_BYTES.get(prob.dtype, 2)
+    step = pages_per_step(prob.page_size, prob.head_dim, sz)
+    if not step:
+        raise ValueError(
+            f"the CUDA kernel takes head_dim in {HEAD_DIMS} and a page "
+            f"within one {tile_tokens(prob.head_dim, sz)}-token tile; got "
+            f"head_dim {prob.head_dim}, page_size {prob.page_size}")
+    return PagedAttentionConfig(block_pages=math.gcd(step, NP))
+
+
+def _kernel_config_or_cfg(cfg, prob):
+    try:
+        return kernel_config(cfg, prob)
+    except ValueError:
+        return cfg
+
+
+def tile_program(cfg: PagedAttentionConfig,
+                                  prob: PagedAttentionProblem,
+                                  *, inject_bug: Optional[str] = None
+                                  ) -> dsl.TileProgram:
+    """Decode attention gathered through the block table.
+
+    ``inject_bug`` deliberately mis-lowers one aspect (the fault model's
+    menu; every entry must be caught).  Supported:
+    "page_oob"         — table declared with a result range larger than
+                         the pool (caught at the analysis stage by the
+                         interval check, pre-solver);
+    "v_stale_table"    — V gathered through a different (stale) table;
+    "wrong_kv_head"    — KV gathered for head h instead of h // group;
+    "page_skip"        — the sequential page grid is one block short;
+    "page_replay"      — the intra-block page offset is dropped, so each
+                         step re-gathers its first page;
+    "pos_from_physical"— score positions computed from the physical page
+                         index instead of the logical one;
+    "mask_off_by_one"  — the length gate admits one position past the
+                         sequence's logical length (<= len instead of
+                         < len);
+    "null_page_leak"   — the length gate is computed once per page block
+                         (hoisted to the block's first page), so the
+                         block's trailing pages — exactly where the null
+                         pages sit — are gated with the wrong bound and
+                         leak into the accumulator;
+    "acc_depends_page" — the carried output tagged with the page axis.
+    """
+    if prob.seq_kv % prob.page_size != 0:
+        raise ValueError("page_size must tile seq_kv")
+    NP = prob.pages_per_seq
+    if NP % cfg.block_pages != 0:
+        raise ValueError(
+            f"block_pages {cfg.block_pages} must divide the "
+            f"{NP} pages per sequence")
+    p = dsl.TileProgram(cfg.name())
+    B, H, HK = prob.batch, prob.q_heads, prob.kv_heads
+    S, D, PS = prob.seq_kv, prob.head_dim, prob.page_size
+    P, G = prob.pool_pages, prob.group
+    nblk = NP // cfg.block_pages
+    if inject_bug == "page_skip":
+        nblk = max(1, nblk - 1)
+
+    bh = p.add_grid("bh", B * H, "parallel")
+    pg = p.add_grid("pg", nblk, "arbitrary")
+
+    p.tensor("Q", (B, H, 1, D), prob.dtype,
+             tag_fn=lambda b, h, r, c: make_tag(b, h // G, r, c))
+    # physical page pools: identity tags (page, kv head, row, col)
+    p.tensor("KP", (P, HK, PS, D), prob.dtype)
+    p.tensor("VP", (P, HK, PS, D), prob.dtype)
+    # read-marker: the logical cache rows this (bh, pg) step consumed
+    p.tensor("KV_READ", (B * H, S, D), prob.dtype, kind="output")
+    p.tensor("O", (B * H, 1, D), "f32", kind="output")
+
+    b = bh // H
+    h = bh % H
+    hk = h if inject_bug == "wrong_kv_head" else h // G
+    if inject_bug == "wrong_kv_head" and H == HK:
+        raise ValueError("wrong_kv_head requires GQA")
+
+    # the block table: logical page -> physical page, per sequence.  An
+    # out-of-range table models a mapping that can point past the pool.
+    bt_extent = P + 3 if inject_bug == "page_oob" else P
+    bt = lambda lp: app("bt", b * NP + lp, bt_extent)
+    vbt = (lambda lp: app("bt_stale", b * NP + lp, P)) \
+        if inject_bug == "v_stale_table" else bt
+    # the per-sequence logical length: runtime routing data like the
+    # table itself, modeled as an uninterpreted application in [0, S]
+    ln = app("seq_len", b, S + 1)
+
+    q = p.squeeze(p.load("Q", (b, h, 0, 0), (1, 1, 1, D)), keep=(2,))
+
+    acc = p.alloc((1, D), "f32")
+    for u in range(cfg.block_pages):
+        if inject_bug == "page_replay":
+            lp = pg * cfg.block_pages + 0   # offset dropped: page 0 again
+        else:
+            lp = pg * cfg.block_pages + u
+        phys = bt(lp)
+        # invariant 1 — page-bound: the indirection stays inside the pool
+        # (interval verdict: analysis stage, no solver)
+        p.assert_in_range(phys, P, f"physical page (u={u})")
+
+        k = p.squeeze(p.load("KP", (phys, hk, 0, 0), (1, 1, PS, D)))
+        v = p.squeeze(p.load("VP", (vbt(lp), hk, 0, 0), (1, 1, PS, D)))
+
+        # invariant 2 — GQA head mapping (q's kv-group == gathered head)
+        p.assert_conform(q, k, bind=((1, 1),), components=((1,), (1,)))
+        # invariant 3 — K and V come through the SAME table entry
+        p.assert_conform(k, v, bind=((0, 0), (1, 1)),
+                         components=((0, 1), (0, 1)))
+
+        # relabel the gathered tile with its logical position (the tag
+        # the mask/RoPE consume); identity components stay asserted
+        pos0 = lp * PS
+        k_log = p.elementwise(
+            "page_relabel", k,
+            retag=lambda r, c, _p=phys, _o=pos0: make_tag(_p, hk, _o + r, c))
+        p.assert_conform(k, k_log, bind=((0, 0), (1, 1)),
+                         components=((0, 1, 3), (0, 1, 3)))
+        v_log = p.elementwise(
+            "page_relabel", v,
+            retag=lambda r, c, _p=phys, _o=pos0: make_tag(_p, hk, _o + r, c))
+
+        # invariant 4 — logical coverage: the gathered pages must tile
+        # [0, S) exactly once across (bh, pg)
+        p.store("KV_READ", k_log, (bh, pos0, 0))
+
+        if inject_bug == "pos_from_physical":
+            st_pos = lambda i, j, _p=phys: make_tag(b, hk, _p * PS + j)
+        else:
+            st_pos = lambda i, j, _o=pos0: make_tag(b, hk, _o + j)
+        st = p.matmul(q, p.transpose(k_log), retag=st_pos)
+        # invariant 5 — position honesty: the score's declared position
+        # is the logical position of the key it was computed from
+        p.assert_conform(st, k_log, bind=((1, 0),),
+                         components=((2,), (2,)))
+
+        pt = p.elementwise("exp_sub_m", st, retag=st_pos)
+        # the weighted value consumes the same logical positions
+        p.assert_conform(pt, v_log, bind=((1, 0),),
+                         components=((1, 2), (1, 2)))
+
+        # invariant 6 — length-gate conformity: the softmax weight that
+        # reaches the accumulator carries (position, length) provenance
+        # and must conform with the gate that zeroed it.  Positions at or
+        # beyond seq_len(b) — every null-page position included — are
+        # provably gated before the accumulator sees them.
+        if inject_bug == "mask_off_by_one":
+            # gate admits position len(b) itself (<= instead of <)
+            gate_pos = lambda i, j, _o=pos0: make_tag(b, _o + j + 1, ln)
+        else:
+            gate_pos = lambda i, j, _o=pos0: make_tag(b, _o + j, ln)
+        if inject_bug == "null_page_leak" and u > 0:
+            gate = hoisted_gate      # block's first-page gate reused
+        else:
+            gate = p.elementwise("len_gate", st, retag=gate_pos)
+            hoisted_gate = gate
+        ptg = p.elementwise(
+            "apply_len_gate", pt, gate,
+            retag=lambda i, j, _o=pos0: make_tag(b, hk, _o + j, ln))
+        p.assert_conform(ptg, gate, bind=((0, 0), (1, 1)),
+                         components=((0, 2, 3), (0, 1, 2)))
+        o_part = p.matmul(ptg, v_log,
+                          retag=lambda i, c: make_tag(bh, c))
+        if inject_bug == "acc_depends_page":
+            acc_tag = lambda i, c: make_tag(bh, Expr.of(pg), c)
+        else:
+            acc_tag = lambda i, c: make_tag(bh, c)
+        p.update(acc, o_part, fn="flash_acc", retag=acc_tag)
+
+    # invariant 6 — online-softmax carry is stable across the page axis
+    p.assert_stable(acc, "pg")
+    p.assert_disjoint_writes("KV_READ", axes=("bh", "pg"))
+    p.assert_coverage("KV_READ")
+
+    p.store("O", acc, (bh, 0, 0))
+    p.assert_disjoint_writes("O", axes=("bh",))
+    p.assert_coverage("O")
+    return p
+
+
+def build_paged_attention_program(cfg: PagedAttentionConfig,
+                                  prob: PagedAttentionProblem,
+                                  *, inject_bug: Optional[str] = None
+                                  ) -> dsl.TileProgram:
+    """The JAX family's program at the kernel's step
+    (:func:`kernel_config`); ``cfg.block_pages`` is a precondition."""
+    return tile_program(kernel_config(cfg, prob), prob,
+                        inject_bug=inject_bug)
+
+
+def structural_paged_attention(cfg: PagedAttentionConfig,
+                               prob: PagedAttentionProblem):
+    """Hopper model of ``paged_decode.cu``: a tail page, a pool too small
+    for the batch, a geometry the kernel is not compiled for, rows that
+    are not 16-byte aligned (the kernel reads pages in 16-byte vectors)."""
+    issues = []
+    sz = DTYPE_BYTES.get(prob.dtype, 2)
+    if prob.seq_kv % prob.page_size != 0:
+        issues.append(StructuralIssue(
+            "masking", f"page_size {prob.page_size} does not tile seq_kv "
+                       f"({prob.seq_kv}) — tail page must be masked"))
+    if prob.pool_pages < prob.batch * prob.pages_per_seq:
+        issues.append(StructuralIssue(
+            "capacity", f"pool of {prob.pool_pages} pages cannot back "
+                        f"{prob.batch} sequences × {prob.pages_per_seq} "
+                        f"pages"))
+    if prob.group > MAX_GROUP or not pages_per_step(
+            prob.page_size, prob.head_dim, sz):
+        issues.append(StructuralIssue(
+            "unsupported", f"the kernel takes at most {MAX_GROUP} query "
+                           f"heads per KV head, head_dim in {HEAD_DIMS} "
+                           f"and a page within one tile; got group "
+                           f"{prob.group}, head_dim {prob.head_dim}, "
+                           f"page_size {prob.page_size}"))
+    issues += check_vector_alignment("KP rows",
+                                     (("head_dim", prob.head_dim),),
+                                     prob.dtype)
+    return issues
+
+
+def _smem_bytes(head_dim: int, itemsize: int) -> int:
+    tt = tile_tokens(head_dim, itemsize)
+    return 2 * tt * head_dim * itemsize + MAX_GROUP * (head_dim + tt) * 4
+
+
+def paged_attention_cost(cfg: PagedAttentionConfig,
+                         prob: PagedAttentionProblem) -> CostEstimate:
+    """H100 model of ``paged_decode.cu``: one CTA per (sequence, KV head)
+    streams the live pages once, a step's K and V tiles in flight per
+    round trip (so few CTAs leave HBM bandwidth unused); the products are
+    FMAs on the CUDA cores.  ``block_pages`` changes nothing the kernel
+    does, so the model does not read it."""
+    sz = DTYPE_BYTES.get(prob.dtype, 2)
+    B, H, HK = prob.batch, prob.q_heads, prob.kv_heads
+    S, D = prob.seq_kv, prob.head_dim
+    step = min(pages_per_step(prob.page_size, D, sz),
+               prob.pages_per_seq) or 1
+    flops = 4.0 * B * H * S * D
+    kv_bytes = 2 * B * HK * S * D * sz
+    table_bytes = B * prob.pages_per_seq * 4
+    n_ctas = B * HK
+    per_sm = ctas_per_sm(KERNEL_THREADS, 64, _smem_bytes(D, sz))
+    eff = stream_eff(min(n_ctas, 132 * per_sm),
+                     2 * step * prob.page_size * D * sz)
+    return CostEstimate(
+        compute_s=flops / (PEAK_FLOPS["f32"] * wave_eff(n_ctas, per_sm)),
+        memory_s=(kv_bytes + table_bytes) / (HBM_BW * eff),
+        flops=flops, hbm_bytes=kv_bytes + table_bytes)
+
+
+def paged_attention_sol(prob: PagedAttentionProblem) -> CostEstimate:
+    """Speed of light: one dense-rate pass over the live KV pages plus
+    the block table, against the products at the dtype's peak."""
+    sz = DTYPE_BYTES.get(prob.dtype, 2)
+    B, H, HK = prob.batch, prob.q_heads, prob.kv_heads
+    S, D = prob.seq_kv, prob.head_dim
+    flops = 4.0 * B * H * S * D
+    traffic = 2 * B * HK * S * D * sz + B * prob.pages_per_seq * 4
+    return sol_estimate(flops, traffic, prob.dtype)
+
+
+def _page_block_steps(cfg: PagedAttentionConfig,
+                      prob: PagedAttentionProblem):
+    out = []
+    for nxt in (cfg.block_pages * 2, cfg.block_pages // 2):
+        if 1 <= nxt <= 16 and prob.pages_per_seq % nxt == 0:
+            out.append((f"block_pages={nxt}", replace(cfg, block_pages=nxt)))
+    return out
+
+
+SKILLS = (
+    generic_skill("retile", "paged_attention", _page_block_steps),
+    generic_skill("software_pipelining", "paged_attention"),
+    generic_skill("vectorized_io", "paged_attention"),
+    generic_skill("f32_vmem_accumulate", "paged_attention"),
+)
+
+
+INJECTABLE_BUGS = ("page_oob", "v_stale_table", "wrong_kv_head",
+                   "page_skip", "page_replay", "pos_from_physical",
+                   "mask_off_by_one", "null_page_leak",
+                   "acc_depends_page")
+
+
+def compatible_bugs(cfg: PagedAttentionConfig,
+                    prob: PagedAttentionProblem):
+    """The JAX family's menu for the program that is verified: the one
+    at the kernel's step."""
+    return _jax_compatible_bugs(_kernel_config_or_cfg(cfg, prob), prob)
+
+
+def _jax_compatible_bugs(cfg: PagedAttentionConfig,
+                    prob: PagedAttentionProblem):
+    menu = list(INJECTABLE_BUGS)
+    if prob.q_heads == prob.kv_heads:
+        menu.remove("wrong_kv_head")
+    if cfg.block_pages < 2:
+        menu.remove("page_replay")   # a single page per step cannot replay
+        menu.remove("null_page_leak")  # no trailing page to mis-gate
+    if prob.pages_per_seq // cfg.block_pages < 2:
+        menu.remove("page_skip")     # one block IS the whole range
+    return menu
+
+
+# Ground truth (tests/test_families.py checks it against live feedback).
+# page_replay additionally under-covers the logical KV range, but only
+# the disjointness pattern is *its* fingerprint — a bare coverage
+# counterexample then implicates page_skip exactly and page_replay at
+# stage level only.
+BUG_SIGNATURES = (
+    BugSignature("page_oob", ("analysis",),
+                 ("assert_in_range(physical page",)),
+    BugSignature("v_stale_table", ("solver",),
+                 ("assert_conform(sq_4,sq_6)",
+                  "assert_conform(sq_16,sq_18)")),
+    BugSignature("wrong_kv_head", ("solver",),
+                 ("assert_conform(sq_1,sq_4)",
+                  "assert_conform(sq_1,sq_16)")),
+    BugSignature("page_skip", ("solver",),
+                 ("assert_coverage(KV_READ)",)),
+    BugSignature("page_replay", ("solver",),
+                 ("assert_disjoint(KV_READ)",)),
+    BugSignature("pos_from_physical", ("solver",),
+                 ("assert_conform(mm_10,e_7)", "assert_conform(e_11,e_8)",
+                  "assert_conform(mm_22,e_19)",
+                  "assert_conform(e_23,e_20)")),
+    # the off-by-one gate fails the gate conformity at *every* page of
+    # the block; the hoisted (null-page-leak) gate only at pages u>0 —
+    # and the hoisting removes iteration-u gate ops, so the trailing
+    # conform pairs the u>0 weight with the *first* page's gate tile
+    BugSignature("mask_off_by_one", ("solver",),
+                 ("assert_conform(e_13,e_12)",
+                  "assert_conform(e_25,e_24)")),
+    BugSignature("null_page_leak", ("solver",),
+                 ("assert_conform(e_24,e_12)",)),
+    BugSignature("acc_depends_page", ("analysis",), ("assert_stable(",)),
+)
+
+
+# -- reference execution (the kernel against its plain version) ------------
+
+def reference_check(cfg: PagedAttentionConfig,
+                    prob: PagedAttentionProblem, device="cuda") -> bool:
+    """Run the port's validated ``paged_decode`` with ``cfg`` on
+    ``device`` (the CUDA kernel on the card, the plain version on the
+    CPU) against the plain version, in the problem's dtype, at the JAX
+    check's small shapes: a full-span pass and a ragged one (an empty,
+    a mid-page and a full sequence), within ``REF_TOL``.  Precondition
+    errors propagate to the validator."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.paged_attention import (paged_decode,
+                                                     paged_decode_ref)
+    make, dev, tol = reference_setup("paged_decode", prob.dtype, device)
+    B, HK, D = 2, max(prob.kv_heads, 1), min(prob.head_dim, 64)
+    H = HK * min(prob.group, 4)
+    PS = min(prob.page_size, 64)
+    NP = max(2 * cfg.block_pages, 4)
+    P = B * NP + 2
+    q, kp, vp = make((B, H, 1, D)), make((P, HK, PS, D)), make((P, HK, PS, D))
+    table = torch.from_numpy(np.random.default_rng(0).permutation(P)[
+        :B * NP].reshape(B, NP).astype(np.int32)).to(dev)
+    full = torch.full((B,), NP * PS, dtype=torch.int32, device=dev)
+    ragged = torch.tensor(([0, NP * PS // 2 + 1] + [NP * PS] * B)[:B],
+                          dtype=torch.int32, device=dev)
+    for lens in (full, ragged):
+        o = paged_decode(q, kp, vp, table, lens, cfg=cfg)
+        w = paged_decode_ref(q, kp, vp, table, lens)
+        if not torch.allclose(o.float(), w.float(), rtol=tol, atol=tol):
+            return False
+    return True
+
+
+def _lower():
+    from repro_torch.kernels import paged_attention
+    return paged_attention
+
+
+def _example():
+    # 32-way serving batch, GQA 8:1, 8k context in 128-token pages
+    return (PagedAttentionConfig(block_pages=2),
+            PagedAttentionProblem(32, 8, 1, 8192, 128, 2304, 128, "bf16"))
+
+
+def _sweep():
+    # pow2 bucket grid: the 8k serving point plus a large-batch /
+    # short-context and a small-batch / long-context point (pool sized
+    # to batch × pages-per-sequence plus free-list slack, as in prod)
+    return [PagedAttentionProblem(32, 8, 1, 8192, 128, 2304, 128,
+                                  "bf16"),
+            PagedAttentionProblem(128, 8, 1, 2048, 128, 2304, 128,
+                                  "bf16"),
+            PagedAttentionProblem(8, 8, 1, 32768, 128, 2304, 128,
+                                  "bf16")]
+
+
+FAMILY = register(KernelFamily(
+    name="paged_attention",
+    config_cls=PagedAttentionConfig,
+    problem_cls=PagedAttentionProblem,
+    build_program=build_paged_attention_program,
+    structural=structural_paged_attention,
+    cost=paged_attention_cost,
+    skills=SKILLS,
+    injectable_bugs=INJECTABLE_BUGS,
+    bug_signatures=BUG_SIGNATURES,
+    compatible_bugs=compatible_bugs,
+    reference_check=reference_check,
+    lower=_lower,
+    example=_example,
+    sweep_problems=_sweep,
+    # identity projection: every config knob shapes the traced program,
+    # declared so the engine's trace memo still keys on the projection
+    trace_fields=("block_pages",),
+    sol_bound=paged_attention_sol,
+))
+
+
+def verify_paged_attention(cfg: PagedAttentionConfig,
+                           prob: PagedAttentionProblem,
+                           *, inject_bug: Optional[str] = None):
+    return FAMILY.verify(cfg, prob, inject_bug=inject_bug)
+

@@ -856,6 +856,9 @@ _STRUCT_HINTS = {
                  "the L2 reuse of its operand panels",
     "masking": "declare the non-divisible dim masked or pick a divisible "
                "block size",
+    "unsupported": "the CUDA kernel is not compiled for this geometry "
+                   "(head_dim, group or page size): its wrapper raises "
+                   "before any launch",
 }
 
 

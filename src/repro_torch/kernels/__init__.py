@@ -7,16 +7,20 @@ PyTorch version:
                      masked (csrc/ragged_prefill.cu)
   gemm             — C = A·B with an f32 accumulator, split-K and
                      stagger-K, behind the ARGUS gate (csrc/gemm.cu)
+  flash_attention  — GQA flash-attention prefill (csrc/flash_attention.cu)
+                     and split-KV decode (csrc/flash_decode.cu), behind
+                     the ARGUS gate
 
 Sources are CUDA C++ for sm_90a with a plain C entry point, built by
 ``nvcc`` at first use and loaded through ctypes (:mod:`._build`).  The
-other five Pallas kernels of the JAX package are still to be ported
+other three Pallas kernels of the JAX package are still to be ported
 (ROADMAP, section B).
 """
-from . import gemm, paged_attention, ragged_prefill
+from . import flash_attention, gemm, paged_attention, ragged_prefill
 from ._build import build_all
 
-ALL_KERNELS = (paged_attention.KERNEL, ragged_prefill.KERNEL, gemm.KERNEL)
+ALL_KERNELS = (paged_attention.KERNEL, ragged_prefill.KERNEL, gemm.KERNEL,
+               flash_attention.KERNEL, flash_attention.DECODE_KERNEL)
 
-__all__ = ["paged_attention", "ragged_prefill", "gemm", "build_all",
-           "ALL_KERNELS"]
+__all__ = ["paged_attention", "ragged_prefill", "gemm", "flash_attention",
+           "build_all", "ALL_KERNELS"]

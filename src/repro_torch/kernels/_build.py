@@ -140,6 +140,12 @@ def build_all(kernels: Sequence[CudaKernel]) -> Dict[str, str]:
     return {k.name: k.build_log for k in kernels}
 
 
+def dtype_name(dt) -> str:
+    """The gate's name of a torch dtype: "bf16", "f32", else its own."""
+    name = str(dt).replace("torch.", "")
+    return {"bfloat16": "bf16", "float32": "f32"}.get(name, name)
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

@@ -18,11 +18,10 @@ import torch
 
 from ...core.families.gemm import GemmConfig, GemmProblem
 from ...core.verify_engine import InvariantViolation, default_engine
+from .._build import dtype_name
 from .gemm import gemm
 
 __all__ = ["matmul", "default_config", "InvariantViolation"]
-
-_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
 def _validate(cfg: GemmConfig, prob: GemmProblem) -> None:
@@ -41,7 +40,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
         raise ValueError("matmul takes 2-D A and B")
     prob = GemmProblem(m=int(a.shape[0]), n=int(b.shape[1]),
                        k=int(a.shape[1]),
-                       dtype=_DTYPE_NAMES.get(a.dtype, str(a.dtype)))
+                       dtype=dtype_name(a.dtype))
     cfg = cfg or default_config(prob.m, prob.n, prob.k)
     _validate(cfg, prob)
     return gemm(a, b, cfg=cfg, out_dtype=out_dtype)

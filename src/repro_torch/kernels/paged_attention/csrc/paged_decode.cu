@@ -13,11 +13,15 @@
 //   * one CTA per (sequence b, KV head hk) serves the G = Hq / Hkv query
 //     heads that share that KV head;
 //   * the CTA loads its own row of the block table and its length (the TPU
-//     kernel had them scalar-prefetched) and walks the pages in order, a
-//     16 KB tile of K and one of V per step (64 tokens in bfloat16, 32 in
-//     float32), never touching a page beyond the length (such a page
-//     contributes alpha = 1, p = 0 in the reference: skipping is exact), so
-//     the null page and foreign pages are never read;
+//     kernel had them scalar-prefetched) and walks the pages in order,
+//     pages_per_step pages of K and of V per step in tiles of at most
+//     16 KB (64 tokens in bfloat16, 32 in float32), never touching a page
+//     beyond the length (such a page contributes alpha = 1, p = 0 in the
+//     reference: skipping is exact), so the null page and foreign pages
+//     are never read.  The wrapper passes as many pages as fit one tile;
+//     the last step is shorter where that count does not divide the
+//     table width (the ARGUS gate verifies the program whose steps these
+//     are made of: core/families/paged_attention.py);
 //   * each step stages the K and V tiles in shared memory with 16-byte
 //     loads, all of a thread's loads issued before any is stored, so one
 //     memory latency is paid per step, not one per token;
@@ -87,13 +91,13 @@ paged_decode_kernel(const T* __restrict__ q,        // (B, Hq, D)
                     const int* __restrict__ table,  // (B, NP)
                     const int* __restrict__ lengths,  // (B,)
                     T* __restrict__ out,            // (B, Hq, D)
-                    int Hq, int Hkv, int PS, int NP, float scale) {
+                    int Hq, int Hkv, int PS, int NP, int pages_per_step,
+                    float scale) {
   using TL = Tile<T, D>;
   constexpr int TT = TL::kTokens;
   const int b = blockIdx.x, hk = blockIdx.y;
   const int G = Hq / Hkv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int pages_per_step = TT / PS;
 
   __shared__ __align__(16) T k_s[TT * D];
   __shared__ __align__(16) T v_s[TT * D];
@@ -227,24 +231,25 @@ paged_decode_kernel(const T* __restrict__ q,        // (B, Hq, D)
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* table,
            const void* lengths, void* out, int B, int Hq, int Hkv, int PS,
-           int NP, float scale, cudaStream_t s) {
-  if (PS > Tile<T, D>::kTokens) return (int)cudaErrorInvalidValue;
+           int NP, int step, float scale, cudaStream_t s) {
+  if (step * PS > Tile<T, D>::kTokens) return (int)cudaErrorInvalidValue;
   const dim3 grid(B, Hkv);
   paged_decode_kernel<T, D><<<grid, kThreads, 0, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (const int*)table,
-      (const int*)lengths, (T*)out, Hq, Hkv, PS, NP, scale);
+      (const int*)lengths, (T*)out, Hq, Hkv, PS, NP, step, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_d(int D, const void* q, const void* k, const void* v,
              const void* table, const void* lengths, void* out, int B,
-             int Hq, int Hkv, int PS, int NP, float scale, cudaStream_t s) {
+             int Hq, int Hkv, int PS, int NP, int step, float scale,
+             cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, table, lengths, out, B, Hq, Hkv, PS, NP, scale, s);
-    case 32: return launch<T, 32>(q, k, v, table, lengths, out, B, Hq, Hkv, PS, NP, scale, s);
-    case 64: return launch<T, 64>(q, k, v, table, lengths, out, B, Hq, Hkv, PS, NP, scale, s);
-    case 128: return launch<T, 128>(q, k, v, table, lengths, out, B, Hq, Hkv, PS, NP, scale, s);
+    case 16: return launch<T, 16>(q, k, v, table, lengths, out, B, Hq, Hkv, PS, NP, step, scale, s);
+    case 32: return launch<T, 32>(q, k, v, table, lengths, out, B, Hq, Hkv, PS, NP, step, scale, s);
+    case 64: return launch<T, 64>(q, k, v, table, lengths, out, B, Hq, Hkv, PS, NP, step, scale, s);
+    case 128: return launch<T, 128>(q, k, v, table, lengths, out, B, Hq, Hkv, PS, NP, step, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -254,20 +259,23 @@ int launch_d(int D, const void* q, const void* k, const void* v,
 // q (B, Hq, 1, D), k/v pools (P, Hkv, PS, D), table (B, NP) int32, lengths
 // (B,) int32, out (B, Hq, 1, D); all contiguous on one device and 16-byte
 // aligned, q, pools and out of one type (is_bf16: bfloat16, else float32);
-// D in {16, 32, 64, 128}; PS at most one tile (64 tokens in bfloat16 at
-// D = 128, 32 in float32).  Returns the CUDA error code of the launch.
+// D in {16, 32, 64, 128}; pages_per_step pages of PS tokens at most one
+// tile (64 tokens in bfloat16 at D = 128, 32 in float32).
+// Returns the CUDA error code of the launch.
 extern "C" int paged_decode_launch(const void* q, const void* k_pages,
                                    const void* v_pages, const void* table,
                                    const void* lengths, void* out, int B,
                                    int Hq, int Hkv, int D, int PS, int NP,
-                                   float scale, int is_bf16, void* stream) {
+                                   int pages_per_step, float scale,
+                                   int is_bf16, void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxG || PS <= 0 ||
-      NP <= 0)
+      NP <= 0 || pages_per_step <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
     return launch_d<__nv_bfloat16>(D, q, k_pages, v_pages, table, lengths,
-                                   out, B, Hq, Hkv, PS, NP, scale, s);
+                                   out, B, Hq, Hkv, PS, NP, pages_per_step,
+                                   scale, s);
   return launch_d<float>(D, q, k_pages, v_pages, table, lengths, out, B, Hq,
-                         Hkv, PS, NP, scale, s);
+                         Hkv, PS, NP, pages_per_step, scale, s);
 }

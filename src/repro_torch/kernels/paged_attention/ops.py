@@ -1,17 +1,17 @@
-"""Public entry points for paged-attention decode, with the serving
-path's concrete block-table checks.
+"""Public entry points for paged-attention decode, with the ARGUS gate.
 
-The port of the JAX package's ``kernels/paged_attention/ops.py``.  What
-it keeps is every concrete runtime check the serving path makes before
-a kernel reads through a block table: the page range, the mapped length
-of each row and the absence of null holes (:func:`validate_block_tables`).
-What it leaves out for now is the symbolic ARGUS gate
-(``VerificationEngine.verify`` of the ``paged_attention`` family): it
-runs before any kernel and changes no number the kernel produces; the
-port's gate (``repro_torch.core``) has no ``paged_attention`` family
-yet, and wiring it in here is the next slice (ROADMAP).  Kernel
-configs come from :func:`default_config`; the fleet dispatch table is
-not ported either.
+The port of the JAX package's ``kernels/paged_attention/ops.py``.  A
+kernel config must pass compile-time validation of the block-table
+indirection invariants (the shared :func:`repro_torch.core.verify_engine
+.default_engine`, family ``paged_attention``, verified at the step the
+CUDA kernel runs) before the kernel may launch: an out-of-range page
+mapping, a stale V-path table, a wrong GQA head or an under-covering
+page grid is rejected with :class:`InvariantViolation` before any
+launch.  :func:`validate_block_tables` adds the concrete runtime checks
+the serving path makes before a kernel reads through a block table: the
+page range, the mapped length of each row and the absence of null
+holes.  Kernel configs come from :func:`default_config`; the fleet
+dispatch table is not ported (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -20,12 +20,19 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .paged_attention import PagedAttentionConfig
+from ...core.families.paged_attention import (PagedAttentionConfig,
+                                              PagedAttentionProblem)
+from ...core.verify_engine import InvariantViolation, default_engine
+from .._build import dtype_name
 from .paged_attention import paged_decode as _paged_decode_kernel
 
 
-class InvariantViolation(RuntimeError):
-    pass
+def _validate(cfg: PagedAttentionConfig,
+              prob: PagedAttentionProblem) -> None:
+    res = default_engine().verify("paged_attention", cfg, prob)
+    if not res.hard_ok:
+        raise InvariantViolation(
+            f"ARGUS rejected {cfg.name()} for {prob}:\n{res.render()}")
 
 
 def default_config(pages_per_seq: int) -> PagedAttentionConfig:
@@ -41,9 +48,17 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
                  lengths: Optional[torch.Tensor] = None, *,
                  cfg: Optional[PagedAttentionConfig] = None,
                  scale=None) -> torch.Tensor:
-    """Paged decode.  ``lengths`` (B,) masks each sequence's scores
-    beyond its logical length (None ⇒ full NP·PS span)."""
-    cfg = cfg or default_config(int(table.shape[1]))
+    """Validated paged decode.  ``lengths`` (B,) masks each sequence's
+    scores beyond its logical length (None ⇒ full NP·PS span)."""
+    B, Hq, _, D = q.shape
+    P, Hkv, PS, _ = k_pages.shape
+    NP = int(table.shape[1])
+    prob = PagedAttentionProblem(
+        batch=int(B), q_heads=int(Hq), kv_heads=int(Hkv),
+        seq_kv=NP * int(PS), page_size=int(PS), pool_pages=int(P),
+        head_dim=int(D), dtype=dtype_name(q.dtype))
+    cfg = cfg or default_config(NP)
+    _validate(cfg, prob)
     return _paged_decode_kernel(q, k_pages, v_pages, table, lengths,
                                 cfg=cfg, scale=scale)
 
@@ -66,12 +81,17 @@ def validate_block_tables(tables, *, model=None, page_size: int,
                           dtype: str = "f32", lengths=None,
                           cfg: Optional[PagedAttentionConfig] = None
                           ) -> Optional[PagedAttentionConfig]:
-    """Concrete gate for a serving engine's block tables.
+    """ARGUS gate for a serving engine's block tables.
 
     ``tables`` is the engine's (batch, pages_per_seq) int array mapping
     logical to physical pages; its contents are range-checked against
-    the pool.  ``lengths`` (per-sequence logical token counts) adds the
-    mapped-length consistency check: each row must map exactly
+    the pool.  Given the head geometry, it builds the family problem for
+    this batch geometry and statically verifies the indirection
+    invariants of the config (:func:`default_config` unless ``cfg``) at
+    the step the kernel runs for ``dtype`` (the pool's type), raising
+    :class:`InvariantViolation` on a rejection.  ``lengths``
+    (per-sequence logical token counts) adds the mapped-length
+    consistency check: each row must map exactly
     ``ceil(length / page_size)`` physical pages as a null-padded prefix
     (physical page 0 is the reserved null page).  A row holding fewer
     pages than its length needs, or more, or a mapped page after a null
@@ -79,9 +99,8 @@ def validate_block_tables(tables, *, model=None, page_size: int,
 
     Head geometry comes from ``model.cfg`` when a model is given; MLA
     caches have no GQA head mapping, so they get the concrete checks
-    only.  Returns the kernel config (None when only the concrete checks
-    apply).  ``dtype`` is accepted for the JAX signature's sake; the
-    symbolic gate that reads it is not ported yet.
+    only.  Returns the verified config (None when only the concrete
+    checks apply).
     """
     B, NP = int(tables.shape[0]), int(tables.shape[1])
     t = np.asarray(tables.cpu() if isinstance(tables, torch.Tensor)
@@ -118,4 +137,10 @@ def validate_block_tables(tables, *, model=None, page_size: int,
         head_dim = head_dim or mcfg.resolved_head_dim
     if not (q_heads and kv_heads and head_dim):
         return None
-    return cfg or default_config(NP)
+    prob = PagedAttentionProblem(
+        batch=B, q_heads=int(q_heads), kv_heads=int(kv_heads),
+        seq_kv=NP * page_size, page_size=page_size,
+        pool_pages=pool_pages, head_dim=int(head_dim), dtype=dtype)
+    cfg = cfg or default_config(NP)
+    _validate(cfg, prob)
+    return cfg

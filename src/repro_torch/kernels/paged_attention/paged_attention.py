@@ -11,11 +11,13 @@ from one to the other.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
 from pathlib import Path
 
 import torch
 
+from ...core.families.paged_attention import (HEAD_DIMS, MAX_GROUP,
+                                              PagedAttentionConfig,
+                                              pages_per_step, tile_tokens)
 from .._build import CudaKernel, ptr, stream_handle
 from .ref import paged_decode_ref
 
@@ -25,30 +27,11 @@ _I = ctypes.c_int
 KERNEL = CudaKernel(
     "paged_decode", Path(__file__).parent / "csrc" / "paged_decode.cu",
     "paged_decode_launch",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
-     _P])
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+     _I, _P])
 
-MAX_GROUP = 8        # query heads per KV head the kernel serves
-HEAD_DIMS = (16, 32, 64, 128)
-
-
-def tile_tokens(head_dim: int, itemsize: int) -> int:
-    """Tokens of K (and of V) the kernel stages per step: a 16 KB tile,
-    at most 64 tokens.  A page must fit in one tile."""
-    return min(64, 16384 // (head_dim * itemsize))
-
-
-@dataclass(frozen=True)
-class PagedAttentionConfig:
-    """The JAX family's tunable knob, kept so configs carry across.
-    The TPU kernel gathers ``block_pages`` pages per grid step; the CUDA
-    kernel walks up to 64 tokens of pages per step whatever the value,
-    so here it only has to divide the table width, as it must there."""
-
-    block_pages: int = 2
-
-    def name(self) -> str:
-        return f"paged[bp={self.block_pages}]"
+__all__ = ["KERNEL", "PagedAttentionConfig", "paged_decode", "tile_tokens",
+           "pages_per_step", "HEAD_DIMS", "MAX_GROUP"]
 
 
 def _check(q, k_pages, v_pages, table, lengths, cfg):
@@ -91,7 +74,8 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
                         f"of one type, got {q.dtype}, {k_pages.dtype}, "
                         f"{v_pages.dtype}")
     tile = tile_tokens(D, q.element_size()) if D in HEAD_DIMS else 0
-    if Hq // Hkv > MAX_GROUP or D not in HEAD_DIMS or PS > tile:
+    step = pages_per_step(PS, D, q.element_size())
+    if Hq // Hkv > MAX_GROUP or not step:
         raise ValueError(f"paged_decode kernel takes G <= {MAX_GROUP}, "
                          f"D in {HEAD_DIMS}, a page within one {tile}-token "
                          f"tile; got G={Hq // Hkv}, D={D}, PS={PS}")
@@ -112,6 +96,6 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     if B == 0:
         return out
     KERNEL.launch(ptr(q), ptr(k_pages), ptr(v_pages), ptr(table),
-                  ptr(lengths), ptr(out), B, Hq, Hkv, D, PS, NP, scale,
+                  ptr(lengths), ptr(out), B, Hq, Hkv, D, PS, NP, step, scale,
                   int(q.dtype == torch.bfloat16), stream_handle(q.device))
     return out

@@ -11,11 +11,11 @@ from one to the other.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
 from pathlib import Path
 
 import torch
 
+from ...core.families.ragged_prefill import HEAD_DIMS, RaggedPrefillConfig
 from .._build import CudaKernel, ptr, stream_handle
 from .ref import ragged_prefill_ref
 
@@ -28,20 +28,7 @@ KERNEL = CudaKernel(
     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float,
      _I, _P])
 
-HEAD_DIMS = (16, 32, 64, 128)
-
-
-@dataclass(frozen=True)
-class RaggedPrefillConfig:
-    """The JAX family's tunable knobs, kept so configs carry across.
-    They must tile the packed buffers, as in the TPU kernel; the CUDA
-    kernel uses its own 64 x 32 tiles and masks the ragged edge."""
-
-    block_q: int = 128        # packed query rows per grid step
-    block_kv: int = 128       # packed kv columns per sequential step
-
-    def name(self) -> str:
-        return f"ragged[bq={self.block_q},bkv={self.block_kv}]"
+__all__ = ["KERNEL", "RaggedPrefillConfig", "ragged_prefill", "HEAD_DIMS"]
 
 
 def ragged_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

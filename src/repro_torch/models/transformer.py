@@ -96,13 +96,16 @@ def _paged_self_attention(p: Dict, x: torch.Tensor, positions, cfg,
     then run the length-masked paged-attention kernel over the pool.  No
     dense gather ever materializes.  ``writes`` = (rows, phys, offs) of
     the active rows only: inactive rows write nothing."""
-    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        paged_decode
     q, k, v = qkv_project(p, x, cfg, positions)        # k/v: (B, HK, 1, hd)
     rows, phys, off = writes
     leaf["k"][phys, :, off] = k[rows, :, 0, :].to(leaf["k"].dtype)
     leaf["v"][phys, :, off] = v[rows, :, 0, :].to(leaf["v"].dtype)
-    o = pa_ops.paged_decode(q, leaf["k"], leaf["v"], tables, lengths,
-                            cfg=kernel_cfg)
+    # kernel_cfg was verified by the engine once for this batch geometry
+    # (serve/engine.py); no per-layer gate call
+    o = paged_decode(q, leaf["k"], leaf["v"], tables, lengths,
+                     cfg=kernel_cfg)
     return attn_out(p, o)
 
 

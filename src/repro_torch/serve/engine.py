@@ -25,9 +25,12 @@ row's mapped page count every kernel tick.  ``prefill_path="kernel"``
 packs the tick's prompt chunks ragged and attends them through the
 CUDA ragged-prefill kernel straight off the pool
 (:meth:`~repro_torch.models.transformer.TransformerLM
-.prefill_chunk_packed`).  When the model cannot be paged-attended or
-the packed geometry has no config, a tick falls back to the gather
-path (``decode_chunk`` over a dense view), as in the JAX package; the
+.prefill_chunk_packed`).  Each batch geometry (decode) and packed
+geometry (prefill) is verified once by the ARGUS gate, memoized as in
+the JAX engine; between geometry changes only the concrete checks run.
+When the model cannot be paged-attended or the gate rejects the
+geometry, a tick falls back to the gather path (``decode_chunk`` over a
+dense view), as in the JAX package; the
 ``kernel_decode_ticks`` / ``kernel_prefill_ticks`` counters say which
 ticks did not.  A kernel that fails to build or launch raises: nothing
 catches it.
@@ -274,6 +277,14 @@ class PagedServingEngine:
         self.decode_path = decode_path
         self._kernel_sig = None
         self._kernel_cfg = None
+        # the gather path's gate: verified once per batch geometry
+        self._table_sig = None
+        # the pool's type: the paged kernel's step (what the gate
+        # verifies) depends on it
+        leaf = next((t for g in self.kv.storage.values()
+                     for t in g.values()), None)
+        self._pool_dtype = ("bf16" if leaf is not None
+                            and leaf.dtype == torch.bfloat16 else "f32")
         self._view_bytes = KVPool.dense_reserved_bytes(
             model, max_batch, max_len)
         # kernel prefill path: config memoized per packed geometry; per-
@@ -386,13 +397,22 @@ class PagedServingEngine:
         return t
 
     def _gather(self) -> Dict:
-        from repro_torch.kernels.paged_attention.ops import \
-            validate_block_tables
         tables = self._tables()
-        # the concrete range check of the mapping before any gather
-        validate_block_tables(tables, model=self.model,
-                              page_size=self.page_size,
-                              pool_pages=self.alloc.n_pages)
+        sig = (tables.shape, self.alloc.n_pages)
+        if sig != self._table_sig:
+            # ARGUS gate: verify the paged_attention family's indirection
+            # invariants for this batch geometry before the gather
+            # consumes it
+            from repro_torch.kernels.paged_attention.ops import \
+                validate_block_tables
+            validate_block_tables(
+                tables, model=self.model, page_size=self.page_size,
+                pool_pages=self.alloc.n_pages, dtype=self._pool_dtype)
+            self._table_sig = sig
+        elif tables.min() < 0 or tables.max() >= self.alloc.n_pages:
+            # geometry already verified: still range-check the concrete
+            # mapping (the runtime mirror of assert_in_range)
+            raise ValueError("block table maps outside the pool")
         return self.kv.gather(self._t(tables))
 
     # -- prefill -------------------------------------------------------------
@@ -425,7 +445,7 @@ class PagedServingEngine:
             kernel_ticks = 1
         else:
             # dense decode_chunk path (default, and the fallback when
-            # the packed geometry has no config)
+            # the packed geometry has no verified config)
             tokens = np.zeros((self.max_batch, C), np.int32)
             pos_vec = np.zeros((self.max_batch,), np.int32)
             for i, s in pend:
@@ -486,7 +506,7 @@ class PagedServingEngine:
         straight off the pool (token-granular packed-KV gather, no
         dense view).  Returns ``({row: last-real-token logits}, packed
         kv tokens)``, or None when the model cannot packed-prefill or
-        the packed geometry has no config — the tick then falls back to
+        the gate rejects the packed geometry — the tick then falls back to
         the dense ``decode_chunk`` path."""
         model = self.model
         if self._chunk is None \
@@ -505,6 +525,8 @@ class PagedServingEngine:
         mcfg = model.cfg
         key = (TQp, TKp, len(spans))
         if key not in self._prefill_cfgs:
+            # ARGUS gate: verify the leakage invariants once per packed
+            # geometry
             self._prefill_cfgs[key] = verified_config(
                 TQp, TKp, len(spans), q_heads=mcfg.n_heads,
                 kv_heads=mcfg.n_kv_heads,
@@ -551,9 +573,10 @@ class PagedServingEngine:
 
     # -- decode --------------------------------------------------------------
     def _kernel_config(self, tables: np.ndarray):
-        """Resolve the kernel config for this batch geometry (memoized on
-        it, like ``_gather``'s check).  None when the cache cannot be
-        paged-attended — the tick then falls back to the gather path."""
+        """Resolve and statically verify the kernel config for this batch
+        geometry (memoized on it, like ``_gather``'s gate).  None when
+        the gate rejects it or the cache cannot be paged-attended — the
+        tick then falls back to the gather path."""
         sig = (tables.shape, self.alloc.n_pages)
         if sig != self._kernel_sig:
             from repro_torch.kernels.paged_attention.ops import (
@@ -565,7 +588,7 @@ class PagedServingEngine:
             try:
                 self._kernel_cfg = validate_block_tables(
                     tables, model=self.model, page_size=self.page_size,
-                    pool_pages=self.alloc.n_pages)
+                    pool_pages=self.alloc.n_pages, dtype=self._pool_dtype)
             except InvariantViolation:
                 self._kernel_cfg = None
         return self._kernel_cfg

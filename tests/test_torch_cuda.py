@@ -13,7 +13,9 @@ the largest |output| (the same products summed in another order, the
 rounding being of partial sums of the output's scale); a bfloat16
 output within one bfloat16 step of each value (both round a float32
 sum to bfloat16 once) plus that float32 bound (near zero, the two
-float32 sums may differ by more than a step of the value)."""
+float32 sums may differ by more than a step of the value).  The flash
+kernels: the tolerance stated beside ``flash_error`` in
+``repro_torch/kernels/flash_attention/ref.py``."""
 import dataclasses
 
 import pytest
@@ -116,7 +118,7 @@ def test_reduced_engine_on_the_card_matches_the_cpu(card):
     """float32 reduced model, kernel paths: the card (CUDA kernels) and
     the CPU (plain versions) give the same tokens."""
     from repro_torch import configs
-    from repro_torch.kernels import ALL_KERNELS
+    from repro_torch.kernels import paged_attention, ragged_prefill
     from repro_torch.models import build
     from repro_torch.serve import PagedServingEngine
     from repro_torch.serve.trace import poisson_trace, replay
@@ -128,7 +130,7 @@ def test_reduced_engine_on_the_card_matches_the_cpu(card):
                           prompt_lens=(4, 28), max_new=(4, 12),
                           vocab=cfg.vocab)
     outs = {}
-    serving = [k for k in ALL_KERNELS if k.name != "gemm"]
+    serving = [paged_attention.KERNEL, ragged_prefill.KERNEL]
     for dev in ("cpu", "cuda"):
         p = _to(params, dev)
         before = [k.launches for k in serving]
@@ -251,3 +253,133 @@ def test_validator_runs_the_kernel_on_the_card(card):
                          GemmProblem(8192, 8192, 8192, "bf16")).refresh()
         assert v.evaluate(LoweredState(st), incumbent_s=1.0).ok
     assert KERNEL.launches - before == v.reference_runs == 3
+
+
+def test_paged_decode_kernel_steps_tile_the_table(card):
+    """A table width the tile's page count does not divide: six 16-token
+    pages walk as 4 + 2 in bf16 (64-token tiles) and 2 + 2 + 2 in f32;
+    125 pages (max_len 2000) as 31 x 4 + 1 in bf16."""
+    from repro_torch.core.families.paged_attention import pages_per_step
+    from repro_torch.kernels.paged_attention import KERNEL, paged_decode_ref
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        PagedAttentionConfig, paged_decode
+    assert pages_per_step(16, 128, 2) == 4
+    assert pages_per_step(16, 128, 4) == 2
+    cases = [(torch.bfloat16, 6, 40, [0, 1, 47, 48, 49, 96]),
+             (torch.float32, 6, 40, [0, 1, 47, 48, 49, 96]),
+             (torch.bfloat16, 125, 520, [2000, 1999, 1985, 17])]
+    for dtype, NP, P, lengths in cases:
+        dev = [t.to(card) for t in _decode_inputs(
+            len(lengths), 16, 8, 128, 16, NP, P, lengths, dtype)]
+        before = KERNEL.launches
+        got = paged_decode(*dev, cfg=PagedAttentionConfig(1))
+        torch.cuda.synchronize()
+        assert KERNEL.launches == before + 1
+        err = float((got.float() - paged_decode_ref(*dev).float()).abs()
+                    .max())
+        assert err <= TOL[dtype], (dtype, NP, err)
+
+
+# -- flash attention -----------------------------------------------------------
+
+FA_CASES = [
+    # (B, Hq, Hkv, Sq, Skv, D, causal, cfg fields)
+    (1, 2, 1, 256, 256, 64, True, {}),
+    (2, 8, 1, 1000, 1500, 128, True, dict(block_q=64, block_kv=64)),
+    (2, 8, 1, 1000, 1500, 128, False, dict(block_q=256)),
+    (1, 4, 2, 300, 200, 64, True, dict(block_q=8,
+                                       causal_block_skip=False)),
+    (1, 8, 8, 129, 77, 64, True, dict(block_q=16, block_kv=16,
+                                      v_transposed_staging=True)),
+    (2, 16, 2, 512, 512, 128, True, dict(block_q=128, block_kv=256)),
+    (1, 2, 1, 64, 64, 128, False, dict(block_q=32, causal_block_skip=False)),
+]
+
+
+def _flash_check(got, want):
+    """Within the flash kernels' stated tolerance
+    (``repro_torch.kernels.flash_attention.ref``)."""
+    from repro_torch.kernels.flash_attention import flash_error
+    err, row, ok = flash_error(got, want)
+    assert ok, (err, row)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FA_CASES)
+def test_flash_attention_kernel_matches_plain(card, case, dtype):
+    from repro_torch.core.families.flash_attention import \
+        FlashAttentionConfig
+    from repro_torch.kernels.flash_attention import KERNEL, mha, mha_ref
+    B, Hq, Hkv, Sq, Skv, D, causal, fields = case
+    g = torch.Generator().manual_seed(Sq + Skv)
+    q = torch.randn(B, Hq, Sq, D, generator=g).to(dtype).to(card)
+    k = torch.randn(B, Hkv, Skv, D, generator=g).to(dtype).to(card)
+    v = torch.randn(B, Hkv, Skv, D, generator=g).to(dtype).to(card)
+    cfg = FlashAttentionConfig(**fields) if fields else None
+    before = KERNEL.launches
+    got = mha(q, k, v, cfg=cfg, causal=causal)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _flash_check(got, mha_ref(q, k, v, causal=causal))
+
+
+DEC_CASES = [
+    # (B, Hq, Hkv, S, D, kv_len, kv_splits)
+    (2, 8, 1, 1024, 128, 1000, 8),
+    (3, 2, 2, 512, 64, 512, 1),
+    (1, 16, 2, 4096, 128, 3001, 16),
+    (4, 8, 8, 256, 64, 17, 2),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DEC_CASES)
+def test_flash_decode_kernel_matches_plain(card, case, dtype):
+    from repro_torch.core.families.flash_decode import FlashDecodeConfig
+    from repro_torch.kernels.flash_attention import (DECODE_KERNEL,
+                                                     mha_decode, mha_ref)
+    B, Hq, Hkv, S, D, kv_len, ns = case
+    g = torch.Generator().manual_seed(S + kv_len)
+    q = torch.randn(B, Hq, 1, D, generator=g).to(dtype).to(card)
+    k = torch.randn(B, Hkv, S, D, generator=g).to(dtype).to(card)
+    v = torch.randn(B, Hkv, S, D, generator=g).to(dtype).to(card)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=card)
+    before = DECODE_KERNEL.launches
+    got = mha_decode(q, k, v, kl, cfg=FlashDecodeConfig(kv_splits=ns))
+    torch.cuda.synchronize()
+    assert DECODE_KERNEL.launches == before + 1
+    _flash_check(got, mha_ref(q, k, v, causal=False, kv_len=kv_len))
+
+
+def test_flash_attention_backward_on_the_card(card):
+    """The recompute backward on the card gives the CPU's gradients."""
+    from repro_torch.kernels.flash_attention import mha
+    g = torch.Generator().manual_seed(5)
+    base = [torch.randn(1, 4, 96, 64, generator=g),
+            torch.randn(1, 2, 80, 64, generator=g),
+            torch.randn(1, 2, 80, 64, generator=g)]
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        xs = [t.detach().to(dev).requires_grad_() for t in base]
+        mha(*xs, causal=True).square().sum().backward()
+        grads[dev] = [x.grad.cpu() for x in xs]
+    for a, b in zip(grads["cpu"], grads["cuda"]):
+        assert float((a - b).abs().max()) <= 1e-3
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from repro_torch.kernels.flash_attention import (DECODE_KERNEL, KERNEL,
+                                                     mha, mha_decode)
+    before = (KERNEL.launches, DECODE_KERNEL.launches)
+    x = torch.zeros(1, 2, 64, 32, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        mha(x, x[:, :1].contiguous(), x[:, :1].contiguous())
+    h = torch.zeros(1, 2, 64, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        mha(h, h, h)
+    q = torch.zeros(1, 2, 1, 32, device="cuda")
+    kv = torch.zeros(1, 1, 64, 32, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        mha_decode(q, kv, kv, 64)
+    assert (KERNEL.launches, DECODE_KERNEL.launches) == before

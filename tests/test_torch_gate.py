@@ -178,10 +178,12 @@ def test_injected_bugs_match_the_same_signatures(idx):
 # -- the port's own registry -------------------------------------------------
 
 def test_registry_holds_gemm_only_and_names_the_roadmap():
-    assert family_names() == ("gemm",)
-    for name, item in (("flash_attention", "B4"), ("flash_decode", "B5"),
-                       ("moe", "B6"), ("quant_gemm", "B7"), ("ssd", "B8"),
-                       ("paged_attention", "A5")):
+    """The ported families, in the JAX registry's order; the rest name
+    their ROADMAP item."""
+    assert family_names() == ("gemm", "flash_attention", "flash_decode",
+                              "paged_attention", "ragged_prefill")
+    for name, item in (("moe", "B6"), ("quant_gemm", "B7"),
+                       ("ssd", "B8")):
         with pytest.raises(KeyError, match=f"ROADMAP.md, item {item}"):
             get_family(name)
     with pytest.raises(KeyError, match="unknown kernel family"):

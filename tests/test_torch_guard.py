@@ -30,7 +30,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.models, repro_torch.kernels, repro_torch.configs, "
             "repro_torch.obs.export, repro_torch.launch.serve, "
             "repro_torch.core, repro_torch.core.harness, "
-            "repro_torch.kernels.gemm\n"
+            "repro_torch.kernels.gemm, repro_torch.kernels.flash_attention\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -119,6 +119,12 @@ def _entry_points():
         "reference_check": lambda **kw: get_family("gemm").reference_check(
             GemmConfig(bm=8, bn=8, bk=8), GemmProblem(8, 8, 8, "f32"),
             **kw),
+        "flash_reference_check": lambda **kw: get_family(
+            "flash_attention").reference_check(
+            *get_family("flash_attention").example(), **kw),
+        "flash_decode_reference_check": lambda **kw: get_family(
+            "flash_decode").reference_check(
+            *get_family("flash_decode").example(), **kw),
         "launch.serve": lambda **kw: launch.main(
             ["--arch", "qwen3-1.7b", "--reduced", "--requests", "1",
              "--max-new-tokens", "1", "--max-len", "32", "--page-size",
@@ -130,6 +136,8 @@ def _entry_points():
                                   "from_jax_numpy", "init_cache", "KVPool",
                                   "ServingEngine", "PagedServingEngine",
                                   "Validator", "reference_check",
+                                  "flash_reference_check",
+                                  "flash_decode_reference_check",
                                   "launch.serve"])
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(name):
     if torch.cuda.is_available():

@@ -177,7 +177,99 @@ def test_reference_check_on_the_cpu_holds_the_plain_version():
 
 
 def test_knowledge_base_holds_the_gemm_skills():
+    """The knowledge base reads every registered family: the GEMM skills
+    and the attention families' skills, each as in the JAX package."""
+    from repro_torch.core.families import all_families
     names = [s.name for s in ph.KNOWLEDGE_BASE]
-    assert set(names) == {s.name for s in get_family("gemm").skills}
-    assert [s.name for s in ph.skills_for("gemm")] == \
-        [s.name for s in jh.skills_for("gemm")]
+    assert {s.name for s in get_family("gemm").skills} <= set(names)
+    assert set(names) == {s.name for f in all_families() for s in f.skills}
+    for fam in ("gemm",) + ATTENTION:
+        assert [s.name for s in ph.skills_for(fam)] == \
+            [s.name for s in jh.skills_for(fam)]
+
+
+# -- the attention families ---------------------------------------------------
+
+ATTENTION = ("flash_attention", "flash_decode")
+
+
+def _swap_jax_model(monkeypatch, family):
+    """The port's registry with the JAX family's cost and structural
+    hooks for ``family``."""
+    from repro.core.families import get_family as jax_family
+    fam, jf = pbase._REGISTRY[family], jax_family(family)
+    monkeypatch.setitem(pbase._REGISTRY, family, dataclasses.replace(
+        fam, cost=jf.cost, structural=jf.structural))
+    return fam, jf
+
+
+def _start(family):
+    """The family's example config on its cheapest sweep problem (the
+    gate's proofs at 8192 x 8192 take seconds a config)."""
+    fam = get_family(family)
+    return fam.example()[0], fam.sweep_problems()[1]
+
+
+@pytest.mark.parametrize("seed,fault", [(0, False), (1, True)],
+                         ids=["0-clean", "1-faults"])
+@pytest.mark.parametrize("family", ATTENTION)
+def test_optimize_kernel_matches_the_jax_loop_on_attention(
+        monkeypatch, family, seed, fault):
+    """The loop of chip_smoke.py's phase 7 (the family's example config,
+    24 steps, the selector's temperature 0.15) takes the JAX loop's
+    steps."""
+    fam, jf = _swap_jax_model(monkeypatch, family)
+
+    def run(h, cfg_cls, prob_cls):
+        cfg, prob = _start(family)
+        st = h.KernelState(family, cfg_cls(**dataclasses.asdict(cfg)),
+                           prob_cls(**dataclasses.asdict(prob))).refresh()
+        return h.optimize_kernel(
+            st, planner=h.Planner(),
+            selector=h.Selector(temperature=0.15, seed=seed),
+            lowering=h.LoweringAgent(fault_model=fault, seed=seed),
+            validator=h.Validator(), iterations=24)
+    j = run(jh, jf.config_cls, jf.problem_cls)
+    p = run(ph, fam.config_cls, fam.problem_cls)
+    assert _history(p) == _history(j)
+    assert dataclasses.astuple(p.best_state.cfg) == \
+        dataclasses.astuple(j.best_state.cfg)
+    assert p.best_time_s == j.best_time_s and p.cost_units == j.cost_units
+    skip = ("wall_",)
+    assert {k: v for k, v in p.verify_stats.items()
+            if not k.startswith(skip)} == \
+        {k: v for k, v in j.verify_stats.items() if not k.startswith(skip)}
+    if fault:
+        assert p.repair_summary() == j.repair_summary()
+
+
+@pytest.mark.parametrize("family", ATTENTION + ("paged_attention",
+                                                "ragged_prefill"))
+def test_validator_runs_the_attention_plain_versions_on_the_cpu(family):
+    """The loop's unit test on each attention family: the family's
+    reference check through the validated entry point, the plain version
+    on the CPU; the H100 model's loop accepts only configs that pass."""
+    fam = get_family(family)
+    cfg, prob = fam.example()
+    if family == "paged_attention":      # 128-token pages exceed a tile
+        prob = dataclasses.replace(prob, page_size=16, pool_pages=16896)
+    if family == "flash_attention":      # the gate's proofs at 8192 are slow
+        prob = fam.sweep_problems()[1]
+    v = ph.Validator(run_kernels=True, device="cpu")
+    st = ph.KernelState(family, cfg, prob).refresh()
+    assert v.evaluate(ph.LoweredState(st), incumbent_s=1.0).ok
+    assert v.reference_runs == 1 and v.reference_refusals == 0
+
+
+@pytest.mark.parametrize("family", ATTENTION)
+def test_the_h100_model_loop_on_attention(family):
+    cfg, prob = _start(family)
+    st = ph.KernelState(family, cfg, prob).refresh()
+    res = ph.optimize_kernel(
+        st, planner=ph.Planner(), selector=ph.Selector(temperature=0.15,
+                                                       seed=0),
+        validator=ph.Validator(), iterations=24)
+    assert res.speedup >= 1.0
+    eng = VerificationEngine()
+    assert eng.verify(family, res.best_state.cfg, prob).hard_ok
+    assert all(r.verdict.ok for r in res.history if r.accepted)

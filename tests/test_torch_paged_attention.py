@@ -113,9 +113,16 @@ def test_pool_entry_and_default_config_match_jax():
                                rtol=2e-5, atol=2e-5)
     for n in range(1, 33):
         assert default_config(n).block_pages == jax_default(n).block_pages
-    with pytest.raises(ValueError, match="block_pages"):
+    # the gate rejects a config that does not tile the table, as the JAX
+    # gate does; the kernel's wrapper alone raises on it too
+    with pytest.raises(InvariantViolation, match="block_pages"):
         paged_decode(tq, tk, tv, tt, tl,
                      cfg=PagedAttentionConfig(block_pages=4))
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        paged_decode as kernel_wrapper
+    with pytest.raises(ValueError, match="block_pages"):
+        kernel_wrapper(tq, tk, tv, tt, tl,
+                       cfg=PagedAttentionConfig(block_pages=4))
 
 
 def test_gather_cache_matches_jax():

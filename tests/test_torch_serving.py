@@ -270,3 +270,114 @@ def test_models_without_kernel_hooks_fall_back_to_gather(models):
     c = fallback.metrics.counters
     assert c["kernel_decode_ticks"] == c["kernel_prefill_ticks"] == 0
     assert c["gather_bytes"] > 0
+
+
+# -- the ARGUS gate on the serving path ---------------------------------------
+
+def _record_verifies(monkeypatch, engine_mod):
+    """Count the shared engine's verify calls by (family, cfg, prob)."""
+    calls = []
+    monkeypatch.setattr(engine_mod, "_DEFAULT", None)
+    eng = engine_mod.default_engine()
+    real = eng.verify
+
+    def verify(family, cfg, prob, **kw):
+        calls.append((family, dataclasses.astuple(cfg),
+                      dataclasses.astuple(prob)))
+        return real(family, cfg, prob, **kw)
+    monkeypatch.setattr(eng, "verify", verify)
+    return calls
+
+
+def test_each_serving_geometry_is_verified_once(models, monkeypatch):
+    """The kernel paths verify each decode batch geometry and each packed
+    prefill geometry once, the same (family, config, problem) set as the
+    JAX engine's gate; between geometry changes only concrete checks
+    run."""
+    import repro.core.verify_engine as jve
+    import repro_torch.core.verify_engine as pve
+    from repro.serve import Request as JaxRequest
+    jm, jp, tm, tp = models
+    reqs = _mixed_requests(seed=5, n=3)
+    kw = dict(pool_pages=POOL, eos_id=-1, decode_path="kernel",
+              prefill_path="kernel", **GEOM)
+    got_calls = _record_verifies(monkeypatch, pve)
+    want_calls = _record_verifies(monkeypatch, jve)
+    got = _submit_all(PagedServingEngine(tm, tp, device="cpu", **kw), reqs,
+                      Request)
+    want = _submit_all(JaxPaged(jm, jp, **kw), reqs, JaxRequest)
+    assert got == want
+    fams = {c[0] for c in got_calls}
+    assert fams == {"paged_attention", "ragged_prefill"}
+    assert len(got_calls) == len(set(got_calls))       # each once
+    assert set(got_calls) == set(want_calls)
+    n_prefill_geoms = sum(c[0] == "ragged_prefill" for c in got_calls)
+    assert n_prefill_geoms >= 2
+    assert sum(c[0] == "paged_attention" for c in got_calls) == 1
+
+
+def _inject(monkeypatch, family, bug):
+    """Both packages' registries build ``family``'s program with ``bug``
+    injected, so both gates reject every geometry of it; both shared
+    engines start empty."""
+    import repro.core.families.base as jbase
+    import repro.core.verify_engine as jve
+    import repro_torch.core.families.base as pbase
+    import repro_torch.core.verify_engine as pve
+    for base, ve in ((jbase, jve), (pbase, pve)):
+        fam = base._REGISTRY[family]
+        build = fam.build_program
+        monkeypatch.setitem(base._REGISTRY, family, dataclasses.replace(
+            fam, build_program=lambda c, p, inject_bug=None, _b=build:
+            _b(c, p, inject_bug=bug)))
+        monkeypatch.setattr(ve, "_DEFAULT", None)
+
+
+def test_a_rejected_prefill_geometry_falls_back_as_in_jax(models,
+                                                          monkeypatch):
+    """A packed geometry the gate rejects: both engines prefill on the
+    dense path, with the same tokens and the same metrics."""
+    from repro.serve import Request as JaxRequest
+    jm, jp, tm, tp = models
+    _inject(monkeypatch, "ragged_prefill", "cu_oob")
+    reqs = _mixed_requests(seed=6, n=1)
+    kw = dict(pool_pages=POOL, eos_id=-1, decode_path="kernel",
+              prefill_path="kernel", **GEOM)
+    teng = PagedServingEngine(tm, tp, device="cpu", **kw)
+    jeng = JaxPaged(jm, jp, **kw)
+    assert _submit_all(teng, reqs, Request) == \
+        _submit_all(jeng, reqs, JaxRequest)
+    c, jc = teng.metrics.counters, jeng.metrics.counters
+    assert c["kernel_prefill_ticks"] == jc["kernel_prefill_ticks"] == 0
+    assert c["kernel_decode_ticks"] == jc["kernel_decode_ticks"] > 0
+    assert dict(c) == dict(jc)
+
+
+def test_a_rejected_decode_geometry_falls_back_as_in_jax(models,
+                                                         monkeypatch):
+    """A batch geometry the gate rejects: the kernel decode falls back to
+    the gather path, whose gate rejects it too, so both engines raise
+    InvariantViolation on the same tick, before any gather."""
+    from repro.kernels.paged_attention.ops import InvariantViolation as JIV
+    from repro.serve import Request as JaxRequest
+    from repro_torch.core.verify_engine import InvariantViolation
+    jm, jp, tm, tp = models
+    _inject(monkeypatch, "paged_attention", "page_oob")
+    reqs = _mixed_requests(seed=7, n=2)
+    kw = dict(pool_pages=POOL, eos_id=-1, decode_path="kernel",
+              prefill_path="kernel", **GEOM)
+    ticks = {}
+    for name, eng, req, exc in (
+            ("port", PagedServingEngine(tm, tp, device="cpu", **kw),
+             Request, InvariantViolation),
+            ("jax", JaxPaged(jm, jp, **kw), JaxRequest, JIV)):
+        for rid, (p, m) in enumerate(reqs):
+            eng.submit(req(rid, list(p), max_new_tokens=m))
+        with pytest.raises(exc, match="ARGUS rejected paged"):
+            for _ in range(100):
+                eng.step()
+        c = eng.metrics.counters
+        ticks[name] = (c["ticks"], c["prefill_tokens"], c["decode_tokens"],
+                       c["gather_bytes"])
+    assert ticks["port"] == ticks["jax"]
+    assert ticks["port"][1] > 0 and ticks["port"][3] == 0
