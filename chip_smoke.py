@@ -9,7 +9,7 @@ and ``nvcc``, and exits non-zero, without printing a result, when either
 is missing or any phase fails.  Phases:
 
 1. card — name and power limit as ``nvidia-smi`` reports them;
-2. build — the five CUDA kernels from the repository's sources, one
+2. build — the six CUDA kernels from the repository's sources, one
    ``nvcc`` per source, started together;
 3. kernels against their plain PyTorch versions at the serving path's
    shapes (qwen3-1.7b: 16 query heads, 8 KV heads, head_dim 128, page
@@ -59,11 +59,36 @@ is missing or any phase fails.  Phases:
    (one batch row at a time — one head at a time at 16384 — since its
    materialised scores would not fit the card), one
    ``scaled_dot_product_attention`` call and the cost model's estimate;
-8. the kernels line (JSON), then the final line
+8. moe — the paper's third family on the card: (a) the grouped-FFN
+   kernel against its plain version in bfloat16 and float32 over the
+   default config and the family example (block_t 8), block_t 16 to 256
+   and block_f 8 to 2048, fuse_gate off and gates None, one expert,
+   d_model 1536 and 96 and empty capacity rows, and the production
+   problem (16,384 tokens, top-8 of 32 experts, 7168 x 2048, bf16),
+   within the tolerance stated beside ``moe_error``
+   (``kernels/moe/ref.py``); (b) ``moe_ffn`` end to end at
+   granite-moe-3b-a800m's layer against the dense oracle through the
+   keep mask, with dropped pairs; (c) the agent loop at the production
+   problem with ``Validator(run_kernels=True)`` (the selector and steps
+   of phase 6c), the launch counters zeroed just before and read just
+   after: every unit test must have launched the kernel; (d) the
+   example config and the loop's best, each first held to the plain
+   version, timed at the production problem and both sweep problems,
+   beside the bound (the capacity rows the kernel computes), the
+   family's ``moe_sol`` (routed rows only), the plain version (expert by
+   expert), a yardstick of three ``torch.bmm`` calls plus the
+   elementwise SwiGLU and gate, and the cost model's estimate;
+9. serve-moe — granite-moe-3b-a800m: the two serving kernels against
+   their plain versions at its shapes (24/8 heads, head_dim 64); phase
+   4 at full width and depth (32 layers, random weights from a seeded
+   ``torch.Generator``, the same trace and engine), every prefill and
+   decode tick through the two kernels; phase 5 at depth 2 with a
+   drop-free capacity factor (E / top_k);
+10. the kernels line (JSON), then the final line
    ``{"ok": true, "device": {...}}``.
 
-Phase 4 also reports the ARGUS gate's verify calls on the serving path
-(one per batch geometry and per packed prefill geometry).
+Phases 4 and 9 also report the ARGUS gate's verify calls on the serving
+path (one per batch geometry and per packed prefill geometry).
 
 A summary of every number also goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -86,7 +111,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 SERVE = dict(arch="qwen3-1.7b", max_batch=8, max_len=2048, page_size=16,
              prefill_chunk=256, requests=16, prompt_lens=(64, 1024),
-             max_new=(16, 32), mean_gap=2.0, seed=0)
+             max_new=(16, 32), mean_gap=2.0, seed=0, tag="serve")
+# phase 9: the serve phase's trace and engine on granite-moe-3b-a800m
+SERVE_MOE = dict(SERVE, arch="granite-moe-3b-a800m", tag="serve-moe")
 
 # Tolerances of a kernel against its plain version on the same inputs:
 # float32 — the two sum the same products in another order (up to 2048
@@ -97,7 +124,6 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 POISON = 1e6
 
 TPU_KERNELS_NOT_PORTED = [
-    ("grouped_ffn", "src/repro/kernels/moe/moe.py:63"),
     ("quant_gemm", "src/repro/kernels/quant_gemm/quant_gemm.py:58"),
     ("ssd_chunk_scan", "src/repro/kernels/ssd/ssd.py:65"),
 ]
@@ -195,6 +221,12 @@ def _instance(ptxas_line):
     if m:
         rows = int(m.group(3)) * (16 if m.group(1) == "bf16" else 1)
         return f" {m.group(1)} D={m.group(2)} tile={rows}"
+    m = re.search(r"ffn_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELb([01])E",
+                  ptxas_line)
+    if m:
+        dtype = "bf16" if m.group(1) != "f" else "f32"
+        launch = "gate/up" if m.group(4) == "1" else "down"
+        return f" {dtype} {launch} {m.group(2)}x{m.group(3)}"
     m = re.search(r"(flash|paged)_decode_kernelI(13__nv_bfloat16|f)Li(\d+)E",
                   ptxas_line)
     if m:
@@ -204,11 +236,17 @@ def _instance(ptxas_line):
 
 # -- phase 3 -----------------------------------------------------------------
 
+QWEN_HEADS = (16, 8, 128)       # (query heads, KV heads, head_dim)
+GRANITE_HEADS = (24, 8, 64)
+
+
 def _decode_case(torch, dtype, seed=0, NP=128,
-                 lengths=(0, 1, 17, 256, 300, 777, 1040, 2048)):
-    """Main-path decode shapes: batch 8, 16/8 heads, head_dim 128, 16-token
-    pages, 128 pages per sequence (max_len 2048), a 768-page pool."""
-    B, Hq, Hkv, D, PS, P = 8, 16, 8, 128, 16, 768
+                 lengths=(0, 1, 17, 256, 300, 777, 1040, 2048),
+                 heads=QWEN_HEADS):
+    """Main-path decode shapes: batch 8, 16/8 heads, head_dim 128 (or
+    ``heads``), 16-token pages, 128 pages per sequence (max_len 2048), a
+    768-page pool."""
+    (Hq, Hkv, D), B, PS, P = heads, 8, 16, 768
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
     q = torch.randn(B, Hq, 1, D, generator=g, device="cuda").to(dt)
@@ -239,12 +277,12 @@ def _decode_case(torch, dtype, seed=0, NP=128,
     return (q, kp, vp, table, lens), (kp2, vp2), lengths, (Hq, Hkv, D)
 
 
-def phase_decode_kernel(torch, dtype):
+def phase_decode_kernel(torch, dtype, heads=QWEN_HEADS):
     from repro_torch.kernels.paged_attention import paged_decode_ref
     from repro_torch.kernels.paged_attention.paged_attention import \
         paged_decode
     (q, kp, vp, table, lens), (kp2, vp2), lengths, (Hq, Hkv, D) = \
-        _decode_case(torch, dtype)
+        _decode_case(torch, dtype, heads=heads)
     got = paged_decode(q, kp, vp, table, lens)
     torch.cuda.synchronize()
     want = paged_decode_ref(q, kp, vp, table, lens)
@@ -266,12 +304,16 @@ def phase_decode_kernel(torch, dtype):
                + table.numel() * 4 + lens.numel() * 4)
     flops = 4 * Hq * D * tokens
     bms, by = bound_ms(n_bytes, flops, dtype)
-    log(f"[kernels] paged_decode {dtype}: max_abs_err {err:.3g} (tol "
+    log(f"[kernels] paged_decode {dtype} {Hq}/{Hkv}x{D}: max_abs_err "
+        f"{err:.3g} (tol "
         f"{TOL[dtype]}), poisoned run bit-identical; {ms:.4f} ms, plain "
         f"{plain:.4f} ms, bound {bms:.4f} ms ({by}), library: none")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=None, bytes=n_bytes, flops=flops,
-                width_125=_decode_width_125(torch, dtype))
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+               bound_by=by, library_ms=None, bytes=n_bytes, flops=flops,
+               heads=list(heads))
+    if heads == QWEN_HEADS:
+        out["width_125"] = _decode_width_125(torch, dtype)
+    return out
 
 
 def _decode_width_125(torch, dtype):
@@ -314,11 +356,11 @@ def _decode_width_125(torch, dtype):
     return res
 
 
-def _prefill_case(torch, dtype, seed=1):
+def _prefill_case(torch, dtype, seed=1, heads=QWEN_HEADS):
     """Main-path prefill shapes: one tick packing 8 prompt chunks of up
     to 256 tokens against their prefixes (up to 768 earlier tokens),
     both buffers padded to 64 (as the engine packs them)."""
-    Hq, Hkv, D = 16, 8, 128
+    Hq, Hkv, D = heads
     chunks = [256, 256, 256, 256, 256, 256, 256, 200]
     prefixes = [0, 256, 512, 768, 0, 256, 512, 768]
     pad = lambda t: -(-t // 64) * 64
@@ -347,14 +389,15 @@ def _prefill_case(torch, dtype, seed=1):
     return (q, k, v, *meta), pairs
 
 
-def phase_prefill_kernel(torch, dtype):
+def phase_prefill_kernel(torch, dtype, heads=QWEN_HEADS):
     import torch.nn.functional as F
     from repro_torch.kernels.ragged_prefill import (default_config,
                                                     ragged_prefill_ref)
     from repro_torch.kernels.ragged_prefill.ragged_prefill import \
         ragged_prefill
     from repro_torch.kernels.ragged_prefill.ref import admit_mask
-    (q, k, v, sq, pq, sk, pk), pairs = _prefill_case(torch, dtype)
+    (q, k, v, sq, pq, sk, pk), pairs = _prefill_case(torch, dtype,
+                                                     heads=heads)
     Hq, TQ, D = q.shape
     Hkv, TK, _ = k.shape
     cfg = default_config(TQ, TK)
@@ -389,14 +432,15 @@ def phase_prefill_kernel(torch, dtype):
                + 4 * 2 * (TQ + TK))
     flops = 4 * Hq * D * pairs
     bms, by = bound_ms(n_bytes, flops, dtype)
-    log(f"[kernels] ragged_prefill {dtype}: TQ {TQ}, TK {TK}, {pairs} "
+    log(f"[kernels] ragged_prefill {dtype} {Hq}/{Hkv}x{D}: TQ {TQ}, TK "
+        f"{TK}, {pairs} "
         f"admitted pairs per head; max_abs_err {err:.3g} (tol "
         f"{TOL[dtype]}), poisoned segment bit-identical; {ms:.4f} ms, "
         f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), library "
         f"(sdpa, masked, enable_gqa) {lib:.4f} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=lib, bytes=n_bytes, flops=flops,
-                TQ=TQ, TK=TK, pairs=pairs)
+                TQ=TQ, TK=TK, pairs=pairs, heads=list(heads))
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -432,13 +476,13 @@ def drive(engine, trace, torch):
     return ticks
 
 
-def phase_serve(torch):
+def phase_serve(torch, s=SERVE):
     from repro_torch import configs
     from repro_torch.kernels import ALL_KERNELS
     from repro_torch.models import build
     from repro_torch.serve import PagedServingEngine
     from repro_torch.serve.trace import poisson_trace
-    s = SERVE
+    tag = s["tag"]
     cfg = configs.get_config(s["arch"])
     model = build(cfg)
     t0 = time.perf_counter()
@@ -458,7 +502,7 @@ def phase_serve(torch):
     weights_gb = sum(p.numel() * p.element_size()
                      for p in _leaves(params["blocks"])) / 1e9
     embed_gb = params["embed"]["tok"].numel() * 4 / 1e9
-    log(f"[serve] {cfg.name}: {model.n_params / 1e9:.3f} B params "
+    log(f"[{tag}] {cfg.name}: {model.n_params / 1e9:.3f} B params "
         f"(blocks {weights_gb:.2f} GB bf16, embedding {embed_gb:.2f} GB "
         f"f32), KV pool {pool_pages} pages = {eng.kv.nbytes / 1e9:.2f} GB; "
         f"init {init_s:.1f} s")
@@ -530,7 +574,7 @@ def phase_serve(torch):
         gate_verify_calls=len(verified),
         gate_geometries={f: sum(g == f for g, _ in verified)
                          for f in ("paged_attention", "ragged_prefill")})
-    log(f"[serve] {len(done)} requests, {len(ticks)} ticks ({n_pre} "
+    log(f"[{tag}] {len(done)} requests, {len(ticks)} ticks ({n_pre} "
         f"prefill, {n_dec} decode), all through the kernels; "
         f"{c['prefill_tokens']} prompt + {dec_tok} generated tokens in "
         f"{wall:.2f} s: decode {out['decode_tokens_per_s']:.1f} tok/s, "
@@ -541,7 +585,7 @@ def phase_serve(torch):
         f"ARGUS gate: {len(verified)} verify calls, one per geometry "
         f"({out['gate_geometries']})")
     del eng
-    out["profile"] = phase_profile(torch, model, params, pool_pages)
+    out["profile"] = phase_profile(torch, model, params, pool_pages, s)
     del params
     torch.cuda.empty_cache()
     return out
@@ -593,13 +637,12 @@ def _profile_window(torch, engine, n_steps):
                 top_kernels_ms=[[k[:90], v] for k, v in top])
 
 
-def phase_profile(torch, model, params, pool_pages):
+def phase_profile(torch, model, params, pool_pages, s=SERVE):
     """Where a tick's time goes at full width: one tick that prefills 8
     prompts of 256 tokens (and decodes their first tokens), then 6
     decode-only ticks of the 8 rows, each window under the profiler."""
     import numpy as np
     from repro_torch.serve import PagedServingEngine, Request
-    s = SERVE
     eng = PagedServingEngine(
         model, params, pool_pages=pool_pages, page_size=s["page_size"],
         max_batch=s["max_batch"], max_len=s["max_len"],
@@ -615,7 +658,7 @@ def phase_profile(torch, model, params, pool_pages):
     for name, w in out.items():
         share = ("not measured" if w["busy_share"] is None
                  else f"{w['busy_share']:.3f}")
-        log(f"[profile] {name}: wall {w['wall_ms']:.1f} ms, device "
+        log(f"[{s['tag']}/profile] {name}: wall {w['wall_ms']:.1f} ms, device "
             f"{w['device_ms']:.1f} ms, busy share {share}, "
             f"{w['device_launches']} device kernels; top: " + "; ".join(
                 f"{k[:48]} {v:.2f}" for k, v in w["top_kernels_ms"][:6]))
@@ -632,14 +675,18 @@ def _leaves(tree):
 
 # -- phase 5 -----------------------------------------------------------------
 
-def phase_paths(torch):
+def phase_paths(torch, s=SERVE, moe=None):
+    """Kernel and gather paths in float32 at depth 2, full width:
+    identical tokens.  ``moe``: fields of the MoE spec to replace."""
     from repro_torch import configs
     from repro_torch.models import build
     from repro_torch.serve import PagedServingEngine
     from repro_torch.serve.trace import poisson_trace, replay
-    s = SERVE
     cfg = dataclasses.replace(configs.get_config(s["arch"]), n_layers=2,
                               dtype="float32")
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe))
     model = build(cfg)
     params = model.init(1, device="cuda")
     trace = poisson_trace(seed=3, n_requests=6, mean_gap=1.0,
@@ -663,8 +710,9 @@ def phase_paths(torch):
     check(cg["kernel_decode_ticks"] == cg["kernel_prefill_ticks"] == 0,
           "gather engine counters")
     n_tok = sum(len(o) for o in outs["kernel"].values())
-    log(f"[paths] float32, 2 layers, full width: kernel and gather paths "
-        f"give identical tokens ({len(outs['kernel'])} requests, {n_tok} "
+    log(f"[{s['tag']}/paths] {cfg.name} float32, 2 layers, full width"
+        f"{', capacity factor %g' % cfg.moe.capacity_factor if moe else ''}"
+        f": kernel and gather paths give identical tokens ({len(outs['kernel'])} requests, {n_tok} "
         f"tokens)")
     return dict(requests=len(outs["kernel"]), tokens=n_tok)
 
@@ -987,16 +1035,18 @@ def phase_flash_kernels(torch):
     return dict(cases=out)
 
 
-def phase_flash_loop(torch, family):
-    """The paper's loop on one flash family at its production problem:
+def phase_loop(torch, family):
+    """The paper's loop on one family at its production problem:
     ``Validator(run_kernels=True)``, the selector and steps of phase
     6c.  Only this loop runs between the counters' reset and their
-    reading."""
+    reading; every unit test must have launched the family's kernel."""
     from repro_torch.core.families import get_family
     from repro_torch.core.harness import (KernelState, Planner, Selector,
                                           Validator, optimize_kernel)
     from repro_torch.kernels import ALL_KERNELS
-    cfg, prob = get_family(family).example()
+    fam = get_family(family)
+    kernel = fam.kernel
+    cfg, prob = fam.example()
     validator = Validator(run_kernels=True)
     state = KernelState(family, cfg, prob).refresh()
     for k in ALL_KERNELS:                      # count the main path only
@@ -1010,17 +1060,17 @@ def phase_flash_loop(torch, family):
     launches = {k.name: k.launches for k in ALL_KERNELS}
     runs = validator.reference_runs
     check(runs > 0, f"the {family} loop ran no unit test on the card")
-    check(launches[family] == runs, f"{family} launched "
-          f"{launches[family]} times for {runs} unit tests")
-    check(all(n == 0 for name, n in launches.items() if name != family),
+    check(launches[kernel] == runs, f"{kernel} launched "
+          f"{launches[kernel]} times for {runs} unit tests")
+    check(all(n == 0 for name, n in launches.items() if name != kernel),
           f"the {family} loop launched another kernel: {launches}")
     history = [dict(skill=r.skill, context=r.context, accepted=r.accepted,
                     ok=r.verdict.ok, caught_stage=r.verdict.caught_stage,
                     est_ms=r.time_s * 1e3) for r in res.history]
-    log(f"[flash] optimize_kernel {family} {prob}, 24 steps in {wall:.2f} "
-        f"s: {runs} unit tests on the card ({validator.reference_refusals} "
-        f"refused by a precondition), {family} launches "
-        f"{launches[family]}; best {res.best_state.cfg.name()}, modelled "
+    log(f"[{family}] optimize_kernel {prob}, 24 steps in {wall:.2f} s: "
+        f"{runs} unit tests on the card ({validator.reference_refusals} "
+        f"refused by a precondition), {kernel} launches "
+        f"{launches[kernel]}; best {res.best_state.cfg.name()}, modelled "
         f"speedup {res.speedup:.3f}; verify stats {res.verify_stats}")
     return dict(launches=launches, unit_tests=runs,
                 refusals=validator.reference_refusals, wall_s=wall,
@@ -1122,10 +1172,277 @@ def _sdpa_ms(torch, q, k, v, causal):
 def phase_flash(torch):
     out = {"kernels": phase_flash_kernels(torch)}
     for family in ("flash_attention", "flash_decode"):
-        loop, best = phase_flash_loop(torch, family)
+        loop, best = phase_loop(torch, family)
         out[family] = dict(loop=loop,
                            time=phase_flash_time(torch, family, best))
     return out
+
+
+# -- phase 8 -----------------------------------------------------------------
+
+MOE_CASES = [
+    # (label, E, C, DM, DF, cfg fields (None: the default config), gates)
+    ("default", 8, 512, 1024, 1024, None, True),
+    ("example bt=8", 4, 256, 1024, 2048, dict(block_t=8), True),
+    ("bt=16 bf=64", 4, 256, 512, 512, dict(block_t=16, block_f=64), True),
+    ("bt=32 bf=128 unfused", 4, 256, 512, 512,
+     dict(block_t=32, block_f=128, fuse_gate=False), True),
+    ("bt=128 bf=256 gates None", 4, 512, 1024, 1024,
+     dict(block_t=128, block_f=256), False),
+    ("bt=256 bf=2048", 2, 512, 512, 2048, dict(block_t=256, block_f=2048),
+     True),
+    ("E=1", 1, 256, 512, 512, dict(block_t=64, block_f=128), True),
+    ("d_model 1536 (granite)", 40, 128, 1536, 512, None, True),
+    ("d_model 96 bf=8", 2, 64, 96, 64, dict(block_t=8, block_f=8), True),
+]
+
+
+def _moe_inputs(torch, E, C, DM, DF, dtype, seed):
+    """x ~ N(0, 1) with two empty capacity rows an expert (1 and C-1),
+    weights scaled by 1/sqrt(fan-in) (outputs of order one), gates in
+    [0.2, 1), all made on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    x = torch.randn(E, C, DM, generator=g, device="cuda").to(dt)
+    x[:, 1] = 0
+    x[:, -1] = 0
+    ws = [(torch.randn(*sh, generator=g, device="cuda") * sh[1] ** -0.5
+           ).to(dt) for sh in ((E, DM, DF), (E, DM, DF), (E, DF, DM))]
+    gates = torch.rand(E, C, 1, generator=g, device="cuda") * 0.8 + 0.2
+    return x, ws, gates
+
+
+def _by_expert(fn, x, ws, gates):
+    """The plain version one expert at a time: its float32 copies of a
+    whole problem's activations and weights would take tens of GB."""
+    out = x.new_empty(x.shape)
+    for e in range(x.shape[0]):
+        out[e:e + 1] = fn(x[e:e + 1], *(w[e:e + 1] for w in ws),
+                          None if gates is None else gates[e:e + 1])
+    return out
+
+
+def _moe_bound(E, C, DM, DF, elt, gated):
+    """x, the three weight sets, y and the gates cross memory once; the
+    products of every capacity row (what the kernel computes)."""
+    n_bytes = (2 * E * C * DM + 3 * E * DM * DF) * elt + \
+        (4 * E * C if gated else 0)
+    return n_bytes, 6.0 * E * C * DM * DF
+
+
+def _bmm_yardstick(torch, x, ws, gates):
+    """Three cuBLAS ``torch.bmm`` calls plus the elementwise SwiGLU and
+    gate, in x's dtype: a yardstick of speed, not one call, and never
+    called by the port."""
+    import torch.nn.functional as F
+    wg, wu, wd = ws
+
+    def run():
+        act = F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu)
+        y = torch.bmm(act, wd)
+        return y * gates.to(y.dtype)
+    return run
+
+
+def phase_moe_kernels(torch):
+    from repro_torch.core.families.moe import MoEConfig
+    from repro_torch.kernels.moe import (KERNEL, default_config,
+                                         grouped_ffn, grouped_ffn_ref,
+                                         moe_error)
+    out = []
+    for dtype in ("bfloat16", "float32"):
+        for i, (label, E, C, DM, DF, f, gated) in enumerate(MOE_CASES):
+            x, ws, gates = _moe_inputs(torch, E, C, DM, DF, dtype, i)
+            gates = gates if gated else None
+            cfg = MoEConfig(**f) if f else default_config(DM, DF)
+            n0 = KERNEL.launches
+            got = grouped_ffn(x, *ws, gates, cfg=cfg)
+            torch.cuda.synchronize()
+            check(KERNEL.launches == n0 + 1, f"grouped_ffn {label}: no "
+                  "launch")
+            want = grouped_ffn_ref(x, *ws, gates if cfg.fuse_gate else None)
+            err, ok = moe_error(got, want)
+            check(ok, f"grouped_ffn {dtype} {label}: max |kernel - plain| "
+                  f"{err} beyond the tolerance")
+            check(not got[:, 1].any() and not got[:, -1].any(),
+                  f"grouped_ffn {dtype} {label}: an empty row gave "
+                  "non-zeros")
+            out.append(dict(label=label, dtype=dtype, cfg=cfg.name(),
+                            max_abs_err=err,
+                            max_abs_out=float(want.float().abs().max())))
+    out.append(_moe_production_check(torch))
+    log(f"[moe] grouped_ffn against its plain version: {len(out)} cases "
+        f"(bf16 and f32; default, example bt=8, bt 16..256, bf 8..2048, "
+        f"fuse_gate off, gates None, E=1, d_model 1536 and 96, empty rows; "
+        f"the production problem in bf16), all within the tolerance "
+        f"beside moe_error; max abs err " + ", ".join(
+            f"{SHORT[c['dtype']]}/{c['label']} {c['max_abs_err']:.3g}"
+            for c in out))
+    return out
+
+
+def _moe_production_check(torch):
+    """The default config at the family's production problem (16,384
+    tokens, top-8 of 32 experts, 7168 x 2048, bf16), held to the plain
+    version expert by expert."""
+    from repro_torch.core.families import get_family
+    from repro_torch.kernels.moe import (capacity_for, default_config,
+                                         grouped_ffn, grouped_ffn_ref,
+                                         moe_error)
+    prob = get_family("moe").example()[1]
+    E, DM, DF = prob.n_experts, prob.d_model, prob.d_ff
+    cfg = default_config(DM, DF)
+    C = capacity_for(prob.tokens, prob.top_k, E, cfg.block_t)
+    x, ws, gates = _moe_inputs(torch, E, C, DM, DF, "bfloat16", 99)
+    got = grouped_ffn(x, *ws, gates, cfg=cfg)
+    want = _by_expert(grouped_ffn_ref, x, ws, gates)
+    err, ok = moe_error(got, want)
+    check(ok, f"grouped_ffn at the production problem: max |kernel - "
+          f"plain| {err} beyond the tolerance")
+    del x, ws, gates, got, want
+    torch.cuda.empty_cache()
+    return dict(label="production", dtype="bfloat16", cfg=cfg.name(),
+                max_abs_err=err, E=E, C=C)
+
+
+def phase_moe_ffn(torch):
+    """``moe_ffn`` end to end (gate, dispatch, the kernel, combine) at
+    granite-moe-3b-a800m's layer (4,096 tokens, top-8 of 40 experts,
+    1536 x 512), a router skewed so that capacity 1.25 drops pairs,
+    against the dense oracle ``moe_ffn_ref`` through the keep mask."""
+    from repro_torch.kernels.moe import (KERNEL, capacity_for,
+                                         compute_dispatch, default_config,
+                                         moe_error, moe_ffn, moe_ffn_ref)
+    T, E, K, DM, DF = 4096, 40, 8, 1536, 512
+    out = []
+    for dtype in ("bfloat16", "float32"):
+        x = _moe_inputs(torch, 1, T, DM, DF, dtype, 7)[0][0]
+        ws = _moe_inputs(torch, E, 8, DM, DF, dtype, 9)[1]
+        g = torch.Generator(device="cuda").manual_seed(8)
+        logits = torch.randn(T, E, generator=g, device="cuda") \
+            - 2 * torch.arange(E, device="cuda") / E
+        gates, idx = torch.topk(torch.softmax(logits, -1), K)
+        gates = gates / gates.sum(-1, keepdim=True)
+        idx = idx.int()
+        n0 = KERNEL.launches
+        got = moe_ffn(x, gates, idx, *ws)
+        torch.cuda.synchronize()
+        check(KERNEL.launches == n0 + 1, "moe_ffn did not launch the kernel")
+        C = capacity_for(T, K, E, default_config(DM, DF).block_t)
+        _, keep = compute_dispatch(idx, E, C)
+        dropped = int((~keep).sum())
+        check(dropped > 0, "the skewed router dropped no pair")
+        want = moe_ffn_ref(x, gates * keep, idx, *ws)
+        err, ok = moe_error(got, want)
+        check(ok, f"moe_ffn {dtype}: max |op - dense oracle| {err} beyond "
+              "the tolerance")
+        out.append(dict(dtype=dtype, max_abs_err=err, dropped=dropped,
+                        pairs=T * K))
+    log("[moe] moe_ffn at granite's layer (4096 tokens, top-8 of 40, "
+        "1536 x 512) against moe_ffn_ref through the keep mask: " +
+        ", ".join(f"{SHORT[c['dtype']]} max abs {c['max_abs_err']:.3g} "
+                  f"({c['dropped']} of {c['pairs']} pairs dropped)"
+                  for c in out))
+    return out
+
+
+def phase_moe_time(torch, best_cfg):
+    """The family example's config and the loop's best at the production
+    problem and both sweep problems, each held to the plain version and
+    then timed beside the bound (the capacity rows the kernel computes),
+    the family's ``moe_sol`` (routed rows only), the plain version
+    (expert by expert), the bmm yardstick and the cost model's estimate
+    (a model, not a measurement)."""
+    from repro_torch.core.families import get_family
+    from repro_torch.core.verify_engine import default_engine
+    from repro_torch.kernels.moe import (capacity_for, grouped_ffn,
+                                         grouped_ffn_ref, moe_error)
+    fam = get_family("moe")
+    cfg0 = fam.example()[0]
+    rows = []
+    for prob in fam.sweep_problems():
+        E, DM, DF = prob.n_experts, prob.d_model, prob.d_ff
+        sol = fam.sol_bound(prob).time_s * 1e3
+        inputs = {}
+        for which, cfg in (("example", cfg0), ("best", best_cfg)):
+            if not default_engine().verify("moe", cfg, prob).hard_ok:
+                rows.append(dict(problem=dataclasses.astuple(prob),
+                                 config=which, cfg=cfg.name(),
+                                 rejected=True))
+                continue
+            C = capacity_for(prob.tokens, prob.top_k, E, cfg.block_t)
+            if C not in inputs:
+                inputs.clear()
+                torch.cuda.empty_cache()
+                x, ws, gates = _moe_inputs(torch, E, C, DM, DF, "bfloat16",
+                                           prob.tokens)
+                want = _by_expert(grouped_ffn_ref, x, ws, gates)
+                plain = time_ms(torch, lambda: _by_expert(
+                    grouped_ffn_ref, x, ws, gates), iters=3, warmup=1)
+                bmm = time_ms(torch, _bmm_yardstick(torch, x, ws, gates),
+                              iters=10)
+                inputs[C] = (x, ws, gates, want, plain, bmm)
+            x, ws, gates, want, plain, bmm = inputs[C]
+            err, ok = moe_error(grouped_ffn(x, *ws, gates, cfg=cfg), want)
+            check(ok, f"grouped_ffn {dataclasses.astuple(prob)[:5]} "
+                  f"{cfg.name()}: max |kernel - plain| {err} beyond the "
+                  "tolerance")
+            est = fam.cost(cfg, prob).time_s * 1e3
+            slow = est > 100.0
+            ms = time_ms(torch, lambda: grouped_ffn(x, *ws, gates, cfg=cfg),
+                         iters=3 if slow else 10, warmup=1 if slow else 3)
+            n_bytes, flops = _moe_bound(E, C, DM, DF, 2, cfg.fuse_gate)
+            bms, by = bound_ms(n_bytes, flops, "bfloat16")
+            rows.append(dict(problem=dataclasses.astuple(prob),
+                             config=which, cfg=cfg.name(), rows=E * C,
+                             ms=ms, bound_ms=bms, bound_by=by,
+                             sol_routed_ms=sol, plain_ms=plain,
+                             plain_by="expert", library_ms=None,
+                             yardstick_ms=bmm, max_abs_err=err,
+                             model_ms=est, model_over_measured=est / ms,
+                             tflops=flops / ms / 1e9))
+            log(f"[moe] {dataclasses.astuple(prob)[:5]} {which} "
+                f"{cfg.name()}: {ms:.3f} ms ({rows[-1]['tflops']:.1f} "
+                f"TFLOP/s over {E * C} capacity rows), bound {bms:.3f} ms "
+                f"({by}; moe_sol over the routed rows {sol:.3f} ms), plain "
+                f"{plain:.3f} ms (expert by expert), yardstick (3 bmm + "
+                f"SwiGLU + gate) {bmm:.3f} ms; cost model (H100 model, not "
+                f"measured) {est:.3f} ms = {est / ms:.3f} x measured; "
+                f"against the plain version max abs {err:.3g}")
+        inputs.clear()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_moe(torch):
+    out = {"kernel": phase_moe_kernels(torch),
+           "moe_ffn": phase_moe_ffn(torch)}
+    out["loop"], best = phase_loop(torch, "moe")
+    out["time"] = phase_moe_time(torch, best)
+    return out
+
+
+# -- phase 9 -----------------------------------------------------------------
+
+def phase_serve_moe(torch):
+    """granite-moe-3b-a800m: the two serving kernels against their plain
+    versions at its shapes (24 query heads, 8 KV heads, head_dim 64), the
+    serve phase at full width and depth (32 layers), and the kernel
+    paths against the gather paths in float32 at depth 2 with a
+    drop-free capacity factor: E / top_k = 5, at which each expert has a
+    slot for every token of a chunk (a token picks an expert once), so
+    a token's experts do not depend on which tokens share its chunk (at
+    1.25 a packed prefill chunk and a per-sequence one may drop
+    different pairs, and the two paths may rightly differ)."""
+    from repro_torch import configs
+    kern = {"paged_decode": phase_decode_kernel(torch, "bfloat16",
+                                                heads=GRANITE_HEADS),
+            "ragged_prefill": phase_prefill_kernel(torch, "bfloat16",
+                                                   heads=GRANITE_HEADS)}
+    m = configs.get_config(SERVE_MOE["arch"]).moe
+    return dict(kernels=kern, serve=phase_serve(torch, SERVE_MOE),
+                paths=phase_paths(torch, SERVE_MOE, moe=dict(
+                    capacity_factor=m.n_experts / m.top_k)))
 
 
 # -- main --------------------------------------------------------------------
@@ -1155,6 +1472,8 @@ def main():
         summary["paths"] = phase_paths(torch)
         summary["gemm"] = gemm = phase_gemm(torch)
         summary["flash"] = flash = phase_flash(torch)
+        summary["moe"] = moe = phase_moe(torch)
+        summary["serve_moe"] = phase_serve_moe(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1207,6 +1526,23 @@ def main():
             bound_ms=best["bound_ms"], bound_by=best["bound_by"],
             library_ms=best["library_ms"], ported=True, dtype="bfloat16",
             cfg=best["cfg"]))
+    # grouped_ffn: the loop's best config at the production problem; no
+    # single PyTorch call computes it (library_ms null), the bmm
+    # yardstick is three calls and the elementwise passes
+    best = next(r for r in moe["time"] if r["config"] == "best"
+                and r["problem"][0] == 16384)
+    check(not best.get("rejected"), "moe: best config rejected")
+    line.append(dict(
+        name="grouped_ffn", route="cuda",
+        source="src/repro_torch/kernels/moe/csrc/grouped_ffn.cu",
+        replaces="src/repro/kernels/moe/moe.py:63",
+        launches=moe["loop"]["launches"]["grouped_ffn"],
+        max_abs_err=best["max_abs_err"], ms=best["ms"],
+        plain_ms=best["plain_ms"], bound_ms=best["bound_ms"],
+        bound_by=best["bound_by"], library_ms=None,
+        yardstick_ms=best["yardstick_ms"],
+        yardstick="3 torch.bmm (cuBLAS) + elementwise SwiGLU and gate",
+        ported=True, dtype="bfloat16", cfg=best["cfg"]))
     summary["kernels_line"] = line
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,9 +1,10 @@
 """Architecture config registry of the port.
 
 ``get_config(name)`` / ``get_reduced(name)`` return ModelConfigs, as in
-the JAX package's ``repro.configs``.  Slice 1 carries only the dense
-``qwen3-1.7b`` entry; the other nine architectures wait for the port of
-their model families (ROADMAP, port item A8).
+the JAX package's ``repro.configs``.  The port carries the dense
+``qwen3-1.7b`` and the MoE ``granite-moe-3b-a800m``; the other eight
+architectures wait for the port of their model families (ROADMAP, port
+items A6 and A8).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
 }
 
 ARCH_NAMES = tuple(_MODULES)

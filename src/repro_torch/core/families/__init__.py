@@ -4,7 +4,7 @@ self-registering.
 ``from repro_torch.core.families import get_family`` is the single
 dispatch point of the validator, planner, lowering agent and cost model.
 The port registers the families whose kernels it has ported (``gemm``,
-``flash_attention``, ``flash_decode``, ``paged_attention``,
+``flash_attention``, ``flash_decode``, ``moe``, ``paged_attention``,
 ``ragged_prefill``), in the JAX package's order; ``get_family`` of any
 other raises, naming the ROADMAP item.
 """
@@ -18,6 +18,7 @@ from .base import (GENERIC_SKILLS, MATCH_EXACT, MATCH_NONE, MATCH_STAGE,
 from . import gemm              # noqa: E402,F401
 from . import flash_attention   # noqa: E402,F401
 from . import flash_decode      # noqa: E402,F401
+from . import moe               # noqa: E402,F401
 from . import paged_attention   # noqa: E402,F401
 from . import ragged_prefill    # noqa: E402,F401
 

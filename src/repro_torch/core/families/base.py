@@ -17,6 +17,8 @@ everything the rest of the system needs to drive it:
   menu (every entry must be caught by the family's invariants);
 * ``reference_check`` — the family's CUDA kernel run on the validator's
   device against its plain PyTorch version;
+* ``kernel`` — the name of that CUDA kernel, whose launch counter the
+  validator's unit tests move;
 * ``lower`` — the validated public entry points (resolved lazily so family
   modules never import :mod:`repro_torch.kernels` at module scope);
 * ``example`` — the family's production tuning problem;
@@ -24,7 +26,7 @@ everything the rest of the system needs to drive it:
   ``example()``.
 
 This registry is the port's own: it holds the families whose kernels are
-ported (``gemm``, ``flash_attention``, ``flash_decode``,
+ported (``gemm``, ``flash_attention``, ``flash_decode``, ``moe``,
 ``paged_attention``, ``ragged_prefill``), and :func:`get_family` of any
 other family raises, naming the ROADMAP item that ports it.
 """
@@ -179,6 +181,9 @@ class KernelFamily:
     # (cfg, prob, device) -> bool — the kernel on ``device`` against the
     # plain PyTorch version
     reference_check: Optional[Callable] = None
+    # the name (``CudaKernel.name``) of the CUDA kernel that
+    # reference_check launches on the card
+    kernel: Optional[str] = None
     # () -> module with the family's validated public entry points
     lower: Optional[Callable] = None
     # () -> (cfg, prob): the family's production tuning problem
@@ -236,7 +241,6 @@ def register(family: KernelFamily) -> KernelFamily:
 # families of the JAX package whose kernels are not ported yet, and the
 # ROADMAP.md item that ports each
 NOT_PORTED = {
-    "moe": "B6",
     "quant_gemm": "B7",
     "ssd": "B8",
 }

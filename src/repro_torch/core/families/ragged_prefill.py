@@ -502,6 +502,7 @@ FAMILY = register(KernelFamily(
     bug_signatures=BUG_SIGNATURES,
     compatible_bugs=compatible_bugs,
     reference_check=reference_check,
+    kernel="ragged_prefill",
     lower=_lower,
     example=_example,
     sweep_problems=_sweep,

@@ -13,7 +13,7 @@ Tensor layouts match the JAX package: activations (B, S, D), q
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -96,12 +96,13 @@ def unembed(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 # -- dense FFN ---------------------------------------------------------------
 
-def ffn_specs(cfg: ModelConfig) -> Dict:
+def ffn_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict:
+    d_ff = d_ff or cfg.d_ff
     dt = dtype_of(cfg.dtype)
     return {
-        "wg": ParamSpec((cfg.d_model, cfg.d_ff), dt, ("embed", "mlp")),
-        "wu": ParamSpec((cfg.d_model, cfg.d_ff), dt, ("embed", "mlp")),
-        "wd": ParamSpec((cfg.d_ff, cfg.d_model), dt, ("mlp", "embed")),
+        "wg": ParamSpec((cfg.d_model, d_ff), dt, ("embed", "mlp")),
+        "wu": ParamSpec((cfg.d_model, d_ff), dt, ("embed", "mlp")),
+        "wd": ParamSpec((d_ff, cfg.d_model), dt, ("mlp", "embed")),
     }
 
 

@@ -1,13 +1,12 @@
 """Model facade: ``build(cfg)`` returns the family's LM object — the port
-of the JAX package's ``models/model.py``.  Slice 1 builds the dense
-family only."""
+of the JAX package's ``models/model.py``.  The dense and MoE families
+are built (both as :class:`TransformerLM`, GQA attention only)."""
 from __future__ import annotations
 
 from .config import ModelConfig
 from .transformer import TransformerLM
 
 _PENDING = {
-    "moe": "A6 (MoE router and grouped FFN)",
     "vlm": "A6",
     "hybrid": "A8 (hybrid, recurrent, encoder-decoder and SSM families)",
     "ssm": "A8",
@@ -17,7 +16,7 @@ _PENDING = {
 
 
 def build(cfg: ModelConfig) -> TransformerLM:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return TransformerLM(cfg)
     if cfg.family in _PENDING:
         raise NotImplementedError(

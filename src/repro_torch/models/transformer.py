@@ -1,9 +1,15 @@
-"""Decoder-only transformer stack — the dense GQA family.
+"""Decoder-only transformer stack — the dense and MoE GQA families.
 
 The port of the JAX package's ``models/transformer.py`` for
-``family="dense"``.  Parameters are the same nested dict, with each
-block leaf stacked along a leading "layers" axis; a Python loop over
-the layers takes the place of ``lax.scan``.
+``family="dense"`` and ``family="moe"`` with GQA attention (MLA waits
+for ROADMAP item A6).  Parameters are the same nested dict: the leading
+dense layers of an MoE config (``first_dense_layers``) as
+``front_{i}``, then the blocks, each leaf stacked along a leading
+"layers" axis; a Python loop over the layers takes the place of
+``lax.scan``.  An MoE block's FFN is :func:`repro_torch.models.moe
+.moe_forward` (capacity-dispatched experts when a call carries several
+tokens a row, every expert densely at one token a row), as in the JAX
+package.
 
 KV caches and page pools are updated **in place** (JAX returns new
 arrays; the port writes into the tensors it was given and returns
@@ -26,6 +32,7 @@ from .components import (F32, apply_ffn, apply_norm, attention_specs,
                          attn_out, dtype_of, embed, embed_specs, ffn_specs,
                          norm_specs, qkv_project, sdpa, unembed)
 from .config import ModelConfig
+from .moe import load_balance_loss, moe_forward, moe_specs
 from .params import ParamSpec, init_params, param_count
 
 
@@ -46,13 +53,20 @@ def stack_specs(specs: Dict, n: int) -> Dict:
     return {k: stack_specs(v, n) for k, v in specs.items()}
 
 
-def block_specs(cfg: ModelConfig) -> Dict:
-    return {
+def block_specs(cfg: ModelConfig, *, moe_layer: bool = False) -> Dict:
+    s = {
         "ln_attn": norm_specs(cfg),
         "attn": attention_specs(cfg),
         "ln_ffn": norm_specs(cfg),
-        "ffn": ffn_specs(cfg),
     }
+    if moe_layer:
+        s["moe"] = moe_specs(cfg)
+    else:
+        d_ff = cfg.d_ff
+        if cfg.moe is not None and cfg.moe.first_dense_layers:
+            d_ff = cfg.moe.dense_d_ff or cfg.d_ff
+        s["ffn"] = ffn_specs(cfg, d_ff=d_ff)
+    return s
 
 
 def layer_slice(tree, i: int):
@@ -76,16 +90,26 @@ def _self_attention(p: Dict, x: torch.Tensor, positions, cfg: ModelConfig,
     return attn_out(p, o)
 
 
-def _ffn_residual(p: Dict, x: torch.Tensor, cfg: ModelConfig):
+def _ffn_residual(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                  moe_layer: bool) -> Tuple[torch.Tensor, Optional[Tuple]]:
+    """x + FFN(norm(x)), and an MoE layer's routing (router probs, expert
+    indices), from which :meth:`TransformerLM.apply` sums the aux loss
+    (None for a dense FFN).  The serving paths drop the routing: they
+    compute no aux loss."""
     h = apply_norm(p["ln_ffn"], x, cfg)
-    return x + apply_ffn(p["ffn"], h, cfg)
+    if moe_layer:
+        f, probs, idx = moe_forward(p["moe"], h, cfg)
+        return x + f, (probs, idx)
+    return x + apply_ffn(p["ffn"], h, cfg), None
 
 
 def apply_block(p: Dict, x: torch.Tensor, positions, cfg: ModelConfig, *,
-                cache: Optional[Dict] = None, pos0=0) -> torch.Tensor:
+                moe_layer: bool = False, cache: Optional[Dict] = None,
+                pos0=0) -> Tuple[torch.Tensor, Optional[Tuple]]:
+    """-> (block output, an MoE layer's routing or None)."""
     h = apply_norm(p["ln_attn"], x, cfg)
     x = x + _self_attention(p["attn"], h, positions, cfg, cache, pos0)
-    return _ffn_residual(p, x, cfg)
+    return _ffn_residual(p, x, cfg, moe_layer)
 
 
 def _paged_self_attention(p: Dict, x: torch.Tensor, positions, cfg,
@@ -137,13 +161,13 @@ def _packed_prefill_attention(p: Dict, x: torch.Tensor, positions, cfg,
 
 
 class TransformerLM:
-    """Decoder-only LM (dense GQA family)."""
+    """Decoder-only LM (dense and MoE GQA families)."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.attn_type != "gqa" or cfg.moe is not None:
+        if cfg.attn_type != "gqa":
             raise NotImplementedError(
-                f"{cfg.name}: only dense GQA decoders are ported so far "
-                "(MoE and MLA: ROADMAP, port item A6)")
+                f"{cfg.name}: only GQA attention is ported so far (MLA: "
+                "ROADMAP, port item A6)")
         unported = [f for f, ok in (
             ("norm_type", cfg.norm_type == "rmsnorm"),
             ("ffn_type", cfg.ffn_type == "swiglu"),
@@ -156,17 +180,50 @@ class TransformerLM:
                 f"{cfg.name}: {', '.join(unported)} not ported yet (the "
                 "other architectures: ROADMAP, port item A8)")
         self.cfg = cfg
-        self.n_layers = cfg.n_layers
-        self.specs: Dict = {
-            "embed": embed_specs(cfg),
-            "blocks": stack_specs(block_specs(cfg), cfg.n_layers),
-            "ln_f": norm_specs(cfg),
-        }
+        m = cfg.moe
+        self.n_dense_front = m.first_dense_layers if m else 0
+        self.n_scanned = cfg.n_layers - self.n_dense_front
+        self.is_moe = m is not None
+        self.specs: Dict = {"embed": embed_specs(cfg)}
+        for i in range(self.n_dense_front):
+            self.specs[f"front_{i}"] = block_specs(cfg)
+        self.specs["blocks"] = stack_specs(
+            block_specs(cfg, moe_layer=self.is_moe), self.n_scanned)
+        self.specs["ln_f"] = norm_specs(cfg)
         self.n_params = param_count(self.specs)
+        self.n_active_params = self._active_params()
 
-    def _blocks(self, params: Dict, x: torch.Tensor, fn) -> torch.Tensor:
-        for i in range(self.n_layers):
-            x = fn(layer_slice(params["blocks"], i), x, i)
+    def _active_params(self) -> int:
+        cfg = self.cfg
+        m = cfg.moe
+        if m is None:
+            return self.n_params
+        per_expert = param_count(moe_specs(cfg)) - param_count(
+            {"r": ParamSpec((cfg.d_model, m.n_experts), F32)})
+        shared = (param_count(ffn_specs(cfg, m.n_shared * m.d_ff_expert))
+                  if m.n_shared else 0)
+        routed_all = per_expert - shared
+        routed_active = routed_all * m.top_k // m.n_experts
+        inactive = (routed_all - routed_active) * self.n_scanned
+        return self.n_params - inactive
+
+    def _layers(self, tree: Dict):
+        """(layer i's slice of ``tree``, whether layer i is an MoE layer)
+        for every layer in order: the dense front layers, then the
+        stacked blocks.  ``tree`` is the parameters, a cache or a pool."""
+        for i in range(self.n_dense_front):
+            yield tree[f"front_{i}"], False
+        for i in range(self.n_scanned):
+            yield layer_slice(tree["blocks"], i), self.is_moe
+
+    def _blocks(self, params: Dict, x: torch.Tensor, fn,
+                state: Optional[Dict] = None) -> torch.Tensor:
+        """Run ``fn(layer params, x, moe_layer, layer state)`` over the
+        layers; ``state`` is a cache or pool tree (None: no state)."""
+        layers = self._layers(state) if state is not None else None
+        for p, moe_layer in self._layers(params):
+            x = fn(p, x, moe_layer,
+                   next(layers)[0] if layers is not None else None)
         return x
 
     def _head(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -176,32 +233,44 @@ class TransformerLM:
     # -- forward -------------------------------------------------------------
     def apply(self, params: Dict, tokens: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """-> (logits (B,S,V) f32, aux_loss (0 for the dense family))."""
+        """-> (logits (B,S,V) f32, the MoE layers' summed aux loss (0 for
+        the dense family))."""
         cfg = self.cfg
         x = embed(params["embed"], tokens, cfg)
         positions = torch.arange(x.shape[1], device=x.device)
-        x = self._blocks(params, x, lambda p, x, i: apply_block(
-            p, x, positions, cfg))
-        return self._head(params, x), torch.zeros((), dtype=F32,
-                                                  device=x.device)
+        aux_total = torch.zeros((), dtype=F32, device=x.device)
+        for p, moe_layer in self._layers(params):
+            x, routing = apply_block(p, x, positions, cfg,
+                                     moe_layer=moe_layer)
+            if routing is not None:
+                aux_total = aux_total + load_balance_loss(
+                    *routing, cfg.moe.n_experts)
+        return self._head(params, x), aux_total
 
     # -- serving -------------------------------------------------------------
     def cache_shape(self, batch: int, max_len: int) -> Dict:
         shp = attn_mod.gqa_cache_shape(self.cfg, batch, max_len)
         dt = dtype_of(self.cfg.dtype)
-        return {"blocks": {k: ShapeDtype((self.n_layers,) + v, dt)
-                           for k, v in shp.items()}}
+        out: Dict = {f"front_{i}": {k: ShapeDtype(v, dt)
+                                    for k, v in shp.items()}
+                     for i in range(self.n_dense_front)}
+        out["blocks"] = {k: ShapeDtype((self.n_scanned,) + v, dt)
+                         for k, v in shp.items()}
+        return out
 
     def cache_axes(self) -> Dict:
-        ax = ("layers", "batch", "kv_heads", "kv_seq", "head_dim")
-        return {"blocks": {"k": ax, "v": ax}}
+        ax = ("batch", "kv_heads", "kv_seq", "head_dim")
+        out: Dict = {f"front_{i}": {"k": ax, "v": ax}
+                     for i in range(self.n_dense_front)}
+        out["blocks"] = {"k": ("layers",) + ax, "v": ("layers",) + ax}
+        return out
 
     def init_cache(self, batch: int, max_len: int,
                    device: DeviceLike = "cuda") -> Dict:
         dev = resolve_device(device)
-        return {"blocks": {
-            k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
-            for k, s in self.cache_shape(batch, max_len)["blocks"].items()}}
+        return {g: {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+                    for k, s in leaves.items()}
+                for g, leaves in self.cache_shape(batch, max_len).items()}
 
     def decode_step(self, params: Dict, cache: Dict, tokens: torch.Tensor,
                     pos: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
@@ -223,9 +292,9 @@ class TransformerLM:
         pos = torch.as_tensor(pos, device=x.device)
         positions = (pos[:, None] + offs if pos.ndim == 1
                      else (pos + offs).expand(B, S))
-        x = self._blocks(params, x, lambda p, x, i: apply_block(
-            p, x, positions, cfg, cache=layer_slice(cache["blocks"], i),
-            pos0=pos))
+        x = self._blocks(params, x, lambda p, x, moe_layer, c: apply_block(
+            p, x, positions, cfg, moe_layer=moe_layer, cache=c,
+            pos0=pos)[0], cache)
         return self._head(params, x), cache
 
     def decode_step_paged(self, params: Dict, pool: Dict,
@@ -241,7 +310,7 @@ class TransformerLM:
         (B, 1, V), pool updated in place)."""
         cfg = self.cfg
         x = embed(params["embed"], tokens, cfg)
-        PS = pool["blocks"]["k"].shape[3]
+        PS = self._page_size(pool)
         pos = pos.to(torch.int64)
         positions = pos[:, None]
         # writes of active rows only: the JAX package redirects inactive
@@ -249,18 +318,23 @@ class TransformerLM:
         rows = torch.nonzero(lengths > 0).squeeze(1)
         phys = tables[rows, pos[rows] // PS].long()
         writes = (rows, phys, pos[rows] % PS)
-        x = self._blocks(params, x, lambda p, x, i: self._paged_block(
-            p, x, positions, layer_slice(pool["blocks"], i), tables,
-            lengths, writes, kernel_cfg))
+        x = self._blocks(params, x, lambda p, x, moe_layer, leaf:
+                         self._paged_block(p, x, positions, leaf, tables,
+                                           lengths, writes, kernel_cfg,
+                                           moe_layer), pool)
         return self._head(params, x), pool
 
+    def _page_size(self, pool: Dict) -> int:
+        leaf = next(self._layers(pool))[0]["k"]    # (P, Hkv, PS, hd)
+        return leaf.shape[2]
+
     def _paged_block(self, p, x, positions, leaf, tables, lengths, writes,
-                     kernel_cfg):
+                     kernel_cfg, moe_layer):
         h = apply_norm(p["ln_attn"], x, self.cfg)
         x = x + _paged_self_attention(p["attn"], h, positions, self.cfg,
                                       leaf, tables, lengths, writes,
                                       kernel_cfg=kernel_cfg)
-        return _ffn_residual(p, x, self.cfg)
+        return _ffn_residual(p, x, self.cfg, moe_layer)[0]
 
     def prefill_chunk_packed(self, params: Dict, pool: Dict,
                              tokens: torch.Tensor, seg_q: torch.Tensor,
@@ -287,25 +361,26 @@ class TransformerLM:
         cfg = self.cfg
         x = embed(params["embed"], tokens, cfg)
         positions = torch.clamp(pos_q, min=0)[None, :]
-        P, PS = pool["blocks"]["k"].shape[1], pool["blocks"]["k"].shape[3]
+        P, _, PS, _ = next(self._layers(pool))[0]["k"].shape
         keep = ((write_phys >= 0) & (write_phys < P)
                 & (write_offs >= 0) & (write_offs < PS))
         idx = torch.nonzero(keep).squeeze(1)
         writes = (idx, write_phys[idx].long(), write_offs[idx].long())
         meta = (seg_q, pos_q, seg_k, pos_k, gather_phys.long(),
                 gather_offs.long())
-        x = self._blocks(params, x, lambda p, x, i: self._packed_block(
-            p, x, positions, layer_slice(pool["blocks"], i), meta, writes,
-            kernel_cfg))
+        x = self._blocks(params, x, lambda p, x, moe_layer, leaf:
+                         self._packed_block(p, x, positions, leaf, meta,
+                                            writes, kernel_cfg, moe_layer),
+                         pool)
         return self._head(params, x), pool
 
     def _packed_block(self, p, x, positions, leaf, meta, writes,
-                      kernel_cfg):
+                      kernel_cfg, moe_layer):
         h = apply_norm(p["ln_attn"], x, self.cfg)
         x = x + _packed_prefill_attention(p["attn"], h, positions, self.cfg,
                                           leaf, meta, writes,
                                           kernel_cfg=kernel_cfg)
-        return _ffn_residual(p, x, self.cfg)
+        return _ffn_residual(p, x, self.cfg, moe_layer)[0]
 
     def prefill(self, params: Dict, tokens: torch.Tensor, max_len: int
                 ) -> Tuple[torch.Tensor, Dict]:
@@ -316,9 +391,9 @@ class TransformerLM:
         cache = self.init_cache(B, max_len, device=tokens.device)
         x = embed(params["embed"], tokens, cfg)
         positions = torch.arange(S, device=x.device)
-        x = self._blocks(params, x, lambda p, x, i: apply_block(
-            p, x, positions, cfg, cache=layer_slice(cache["blocks"], i),
-            pos0=0))
+        x = self._blocks(params, x, lambda p, x, moe_layer, c: apply_block(
+            p, x, positions, cfg, moe_layer=moe_layer, cache=c,
+            pos0=0)[0], cache)
         # last-position logits only: full-sequence logits are (B, S, V)
         return self._head(params, x[:, -1:]), cache
 

@@ -383,3 +383,113 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="head_dim"):
         mha_decode(q, kv, kv, 64)
     assert (KERNEL.launches, DECODE_KERNEL.launches) == before
+
+
+# -- MoE -----------------------------------------------------------------------
+
+MOE_CASES = [
+    # (E, C, DM, DF, block_t, block_f, fuse_gate, gates given): the
+    # default config, the family example's block_t 8 (16-row CTAs, half
+    # masked), block_t 16..256 and block_f 8..2048, fuse_gate off and
+    # gates None, one expert, d_model 1536 (granite) and 96 (a down tile
+    # past the edge)
+    (4, 128, 256, 512, 64, 512, True, True),
+    (2, 64, 128, 512, 8, 512, True, True),
+    (2, 64, 192, 256, 16, 64, True, True),
+    (3, 96, 256, 384, 32, 128, False, True),
+    (2, 256, 128, 512, 128, 256, True, False),
+    (1, 512, 64, 2048, 256, 2048, True, True),
+    (2, 64, 1536, 512, 64, 512, True, True),
+    (2, 32, 96, 64, 8, 8, True, True),
+]
+
+
+def _moe_inputs(E, C, DM, DF, dtype, seed, device="cuda"):
+    """x ~ N(0, 1) with two empty rows an expert, weights scaled by
+    1/sqrt(fan-in) (outputs of order one), gates in [0.2, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(E, C, DM, generator=g)
+    x[:, 1] = 0
+    x[:, -1] = 0
+    ws = [torch.randn(*s, generator=g) * s[1] ** -0.5
+          for s in ((E, DM, DF), (E, DM, DF), (E, DF, DM))]
+    gates = torch.rand(E, C, 1, generator=g) * 0.8 + 0.2
+    return ([t.to(device, dtype) for t in [x] + ws],
+            gates.to(device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MOE_CASES)
+def test_grouped_ffn_kernel_matches_plain(card, case, dtype):
+    from repro_torch.core.families.moe import MoEConfig
+    from repro_torch.kernels.moe import (KERNEL, grouped_ffn,
+                                         grouped_ffn_ref, moe_error)
+    E, C, DM, DF, bt, bf, fuse, with_gates = case
+    (x, wg, wu, wd), gates = _moe_inputs(E, C, DM, DF, dtype, E + C + DF)
+    gates = gates if with_gates else None
+    before = KERNEL.launches
+    got = grouped_ffn(x, wg, wu, wd, gates, cfg=MoEConfig(bt, bf, fuse))
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    want = grouped_ffn_ref(x, wg, wu, wd, gates if fuse else None)
+    err, ok = moe_error(got, want)
+    assert ok, err
+    assert not got[:, 1].any() and not got[:, -1].any()
+
+
+@pytest.mark.parametrize("cf", [8.0, 0.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_on_the_card_matches_the_dense_oracle(card, dtype, cf):
+    from repro_torch.kernels.moe import (KERNEL, capacity_for,
+                                         compute_dispatch, default_config,
+                                         moe_error, moe_ffn, moe_ffn_ref)
+    T, E, K, DM, DF = 512, 8, 2, 256, 512
+    (x, wg, wu, wd), _ = _moe_inputs(E, T, DM, DF, dtype, 3)
+    x = x[0]
+    g = torch.Generator().manual_seed(4)
+    logits = torch.randn(T, E, generator=g) - torch.arange(E) / E
+    gates, idx = torch.topk(torch.softmax(logits, -1), K)
+    gates, idx = gates.cuda(), idx.int().cuda()
+    before = KERNEL.launches
+    got = moe_ffn(x, gates, idx, wg, wu, wd, capacity_factor=cf)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    C = capacity_for(T, K, E, default_config(DM, DF).block_t, cf)
+    _, keep = compute_dispatch(idx, E, C)
+    assert bool((~keep).any()) == (cf < 1)
+    err, ok = moe_error(got, moe_ffn_ref(x, gates * keep, idx, wg, wu, wd))
+    assert ok, err
+
+
+def test_validator_runs_the_moe_kernel_on_the_card(card):
+    from repro_torch.core.families.moe import MoEConfig, MoEProblem
+    from repro_torch.core.harness import (KernelState, LoweredState,
+                                          Validator)
+    from repro_torch.kernels.moe import KERNEL
+    v = Validator(run_kernels=True)
+    before = KERNEL.launches
+    for cfg in (MoEConfig(block_t=8), MoEConfig(256, 1024, False),
+                MoEConfig(64, 512)):
+        st = KernelState("moe", cfg, MoEProblem(16384, 7168, 2048, 32, 8,
+                                                "bf16")).refresh()
+        assert v.evaluate(LoweredState(st), incumbent_s=1.0).ok
+    assert KERNEL.launches - before == v.reference_runs == 3
+
+
+def test_grouped_ffn_wrapper_refuses_what_the_kernel_does_not_take(card):
+    from repro_torch.core.families.moe import MoEConfig
+    from repro_torch.kernels.moe import KERNEL, grouped_ffn
+    before = KERNEL.launches
+    (x, wg, wu, wd), _ = _moe_inputs(2, 16, 100, 64, torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="16-byte vectors"):
+        grouped_ffn(x, wg, wu, wd, cfg=MoEConfig(8, 32))
+    (x, wg, wu, wd), _ = _moe_inputs(2, 16, 64, 64, torch.float32, 0)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        grouped_ffn(x.half(), wg.half(), wu.half(), wd.half(),
+                    cfg=MoEConfig(8, 32))
+    with pytest.raises(TypeError, match="one type"):
+        grouped_ffn(x, wg.bfloat16(), wu, wd, cfg=MoEConfig(8, 32))
+    with pytest.raises(ValueError, match="contiguous"):
+        grouped_ffn(x.transpose(1, 2).contiguous().transpose(1, 2), wg, wu,
+                    wd, cfg=MoEConfig(8, 32))
+    assert KERNEL.launches == before

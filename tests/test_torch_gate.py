@@ -181,13 +181,23 @@ def test_registry_holds_gemm_only_and_names_the_roadmap():
     """The ported families, in the JAX registry's order; the rest name
     their ROADMAP item."""
     assert family_names() == ("gemm", "flash_attention", "flash_decode",
-                              "paged_attention", "ragged_prefill")
-    for name, item in (("moe", "B6"), ("quant_gemm", "B7"),
-                       ("ssd", "B8")):
+                              "moe", "paged_attention", "ragged_prefill")
+    for name, item in (("quant_gemm", "B7"), ("ssd", "B8")):
         with pytest.raises(KeyError, match=f"ROADMAP.md, item {item}"):
             get_family(name)
     with pytest.raises(KeyError, match="unknown kernel family"):
         get_family("nope")
+
+
+def test_every_family_names_the_cuda_kernel_it_checks():
+    """The kernel whose launch counter a family's unit tests move, as
+    the card's end-to-end check reads it."""
+    from repro_torch.kernels import ALL_KERNELS
+    names = {k.name for k in ALL_KERNELS}
+    kernels = [get_family(f).kernel for f in family_names()]
+    assert kernels == ["gemm", "flash_attention", "flash_decode",
+                       "grouped_ffn", "paged_decode", "ragged_prefill"]
+    assert set(kernels) == names
 
 
 def test_skill_names_match_the_jax_family():

@@ -125,6 +125,8 @@ def _entry_points():
         "flash_decode_reference_check": lambda **kw: get_family(
             "flash_decode").reference_check(
             *get_family("flash_decode").example(), **kw),
+        "moe_reference_check": lambda **kw: get_family(
+            "moe").reference_check(*get_family("moe").example(), **kw),
         "launch.serve": lambda **kw: launch.main(
             ["--arch", "qwen3-1.7b", "--reduced", "--requests", "1",
              "--max-new-tokens", "1", "--max-len", "32", "--page-size",
@@ -138,7 +140,7 @@ def _entry_points():
                                   "Validator", "reference_check",
                                   "flash_reference_check",
                                   "flash_decode_reference_check",
-                                  "launch.serve"])
+                                  "moe_reference_check", "launch.serve"])
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
