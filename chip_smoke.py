@@ -9,7 +9,7 @@ and ``nvcc``, and exits non-zero, without printing a result, when either
 is missing or any phase fails.  Phases:
 
 1. card — name and power limit as ``nvidia-smi`` reports them;
-2. build — the six CUDA kernels from the repository's sources, one
+2. build — the eight CUDA kernels from the repository's sources, one
    ``nvcc`` per source, started together;
 3. kernels against their plain PyTorch versions at the serving path's
    shapes (qwen3-1.7b: 16 query heads, 8 KV heads, head_dim 128, page
@@ -84,7 +84,39 @@ is missing or any phase fails.  Phases:
    ``torch.Generator``, the same trace and engine), every prefill and
    decode tick through the two kernels; phase 5 at depth 2 with a
    drop-free capacity factor (E / top_k);
-10. the kernels line (JSON), then the final line
+10. quant_gemm — the quantized GEMM family on the card: (a) the int8
+   kernel against its plain version (``quant_gemm_ref``) on inputs
+   quantised by ``quantize_per_group`` from seeded normals, output f32
+   and bf16, over the default config and the family example, bm and bn
+   32 to 256, bk 32/64/128 with group 128 and group 64, ragged m, n and
+   k on the byte and the 16-byte paths, and the production problem
+   8192^3 int8 group 128, within the tolerance stated beside
+   ``quant_error`` (``kernels/quant_gemm/ref.py``); (b) the agent loop at
+   the production problem with ``Validator(run_kernels=True)`` (phase
+   6c's selector and steps), the launch counters zeroed just before and
+   read just after: every unit test must have launched the kernel; (c)
+   the example config and the loop's best, each first held to the plain
+   version, timed at the production problem and both sweep problems
+   beside the bound, the plain version, the cost model's estimate and a
+   yardstick of one ``torch._int_mm`` (int32, no group scales: another
+   function); (d) a bk that does not divide the group must raise before
+   any launch;
+11. ssd — the SSD family and mamba2-780m: (a) the chunk-scan kernel
+   against its plain version (``ssd_ref``) in float32 and bfloat16 over
+   chunks 32 to 512 (and 96), P 16 to 128, N 12 to 128, BH 1 and 64,
+   one chunk and many, and the production problem (64 x 8192 x 64 x
+   128), within the tolerance stated beside ``ssd_error``
+   (``kernels/ssd/ref.py``); (b) the agent loop at the production
+   problem, launches counted as in 10b; (c) the example config (chunk
+   64) and the best timed at the three sweep problems beside the bound,
+   the plain version and the cost model (no library call computes the
+   scan); (d) mamba2-780m at full width and depth (48 layers, random
+   weights): ``SSMLM.apply`` over 4 x 2,048 tokens, timed and profiled;
+   the SSD core of its first layer on that layer's own inputs through
+   ``ssd_via_kernel`` (the CUDA kernel, counted) against
+   ``ssd_chunked``; at depth 2 in float32, 16 ``decode_step`` tokens
+   against ``apply``'s logits;
+12. the kernels line (JSON, all eight kernels), then the final line
    ``{"ok": true, "device": {...}}``.
 
 Phases 4 and 9 also report the ARGUS gate's verify calls on the serving
@@ -107,7 +139,7 @@ SRC = ROOT / "src"
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense peak rates.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 SERVE = dict(arch="qwen3-1.7b", max_batch=8, max_len=2048, page_size=16,
              prefill_chunk=256, requests=16, prompt_lens=(64, 1024),
@@ -122,12 +154,6 @@ SERVE_MOE = dict(SERVE, arch="granite-moe-3b-a800m", tag="serve-moe")
 # neighbour: one bfloat16 step at |x| < 2 is 2^-7, so 1e-2.
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 POISON = 1e6
-
-TPU_KERNELS_NOT_PORTED = [
-    ("quant_gemm", "src/repro/kernels/quant_gemm/quant_gemm.py:58"),
-    ("ssd_chunk_scan", "src/repro/kernels/ssd/ssd.py:65"),
-]
-
 
 class SmokeFailure(RuntimeError):
     pass
@@ -227,6 +253,12 @@ def _instance(ptxas_line):
         dtype = "bf16" if m.group(1) != "f" else "f32"
         launch = "gate/up" if m.group(4) == "1" else "down"
         return f" {dtype} {launch} {m.group(2)}x{m.group(3)}"
+    m = re.search(r"quant_gemm_kernelILi(\d+)ELi(\d+)E", ptxas_line)
+    if m:
+        return f" {m.group(1)}x{m.group(2)}"
+    m = re.search(r"ssd_kernelI(13__nv_bfloat16|f)E", ptxas_line)
+    if m:
+        return f" {'bf16' if m.group(1) != 'f' else 'f32'}"
     m = re.search(r"(flash|paged)_decode_kernelI(13__nv_bfloat16|f)Li(\d+)E",
                   ptxas_line)
     if m:
@@ -608,17 +640,27 @@ def _record_gate():
 
 
 def _profile_window(torch, engine, n_steps):
-    """Run ``n_steps`` engine ticks under ``torch.profiler``; returns the
-    window's wall time, device time by kernel (largest first) and the
-    device's busy share (kernel time over wall time; kernels overlap
-    little on one stream, so the share is an upper bound)."""
+    """Run ``n_steps`` engine ticks under ``torch.profiler`` (see
+    :func:`_profile`)."""
+    def run():
+        for _ in range(n_steps):
+            engine.step()
+    out = _profile(torch, run)
+    out["ticks"] = n_steps
+    return out
+
+
+def _profile(torch, fn):
+    """Run ``fn`` under ``torch.profiler``; returns the window's wall
+    time, device time by kernel (largest first) and the device's busy
+    share (kernel time over wall time; kernels overlap little on one
+    stream, so the share is an upper bound)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n_steps):
-            engine.step()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern, launches = {}, 0
@@ -631,7 +673,7 @@ def _profile_window(torch, engine, n_steps):
             launches += e.count
     busy = sum(kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:12]
-    return dict(wall_ms=wall * 1e3, device_ms=busy, ticks=n_steps,
+    return dict(wall_ms=wall * 1e3, device_ms=busy,
                 device_launches=launches,
                 busy_share=(busy / (wall * 1e3)) if kern else None,
                 top_kernels_ms=[[k[:90], v] for k, v in top])
@@ -1445,6 +1487,433 @@ def phase_serve_moe(torch):
                     capacity_factor=m.n_experts / m.top_k)))
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+QUANT_CASES = [
+    # (label, m, n, k, group, cfg fields (None: the default config))
+    ("default", 2048, 2048, 2048, 128, None),
+    ("default m=40", 40, 1024, 1024, 128, None),
+    ("example 128x128x128", 1024, 1024, 1024, 128, {}),
+    ("32x32x32", 512, 512, 1024, 128, dict(bm=32, bn=32, bk=32)),
+    ("64x64x64", 512, 512, 1024, 128, dict(bm=64, bn=64, bk=64)),
+    ("256x256x128", 1024, 1024, 1024, 128, dict(bm=256, bn=256, bk=128)),
+    ("256x32x64", 1024, 512, 1024, 128, dict(bm=256, bn=32, bk=64)),
+    ("32x256x128", 512, 1024, 1024, 128, dict(bm=32, bn=256, bk=128)),
+    ("group 64 bk=64", 1024, 1024, 1024, 64, dict(bk=64)),
+    ("group 64 bk=32", 1024, 1024, 1024, 64, dict(bm=64, bn=64, bk=32)),
+    ("ragged byte path", 1000, 777, 1500, 128, dict(bm=64, bn=64, bk=64)),
+    ("ragged 16-byte path", 1000, 784, 1552, 128, None),
+]
+
+
+def _quant_inputs(torch, m, n, k, group, seed):
+    """int8 A and B quantised per group (the port's
+    ``quantize_per_group``) from seeded normals made on the card."""
+    from repro_torch.kernels.quant_gemm import quantize_per_group
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn(m, k, generator=g, device="cuda")
+    b = torch.randn(k, n, generator=g, device="cuda")
+    aq, sa = quantize_per_group(a, group, axis=1)
+    bq, sb = quantize_per_group(b, group, axis=0)
+    return aq, bq, sa, sb
+
+
+def phase_quant_kernel(torch):
+    from repro_torch.core.families.quant_gemm import QuantGemmConfig
+    from repro_torch.kernels.quant_gemm import (KERNEL, default_config,
+                                                quant_error, quant_gemm_ref,
+                                                quant_matmul)
+    out = []
+    cases = QUANT_CASES + [("production", 8192, 8192, 8192, 128, None)]
+    for label, m, n, k, group, f in cases:
+        aq, bq, sa, sb = _quant_inputs(torch, m, n, k, group, m + n + k)
+        cfg = (QuantGemmConfig(**f) if f is not None
+               else default_config(m, n, k, group))
+        outs = ("float32",) if label == "production" else ("float32",
+                                                          "bfloat16")
+        for od in outs:
+            dt = getattr(torch, od)
+            n0 = KERNEL.launches
+            got = quant_matmul(aq, bq, sa, sb, group=group, cfg=cfg,
+                               out_dtype=dt)
+            torch.cuda.synchronize()
+            check(KERNEL.launches == n0 + 1, f"quant_gemm {label}: no launch")
+            want = quant_gemm_ref(aq, bq, sa, sb, group=group, out_dtype=dt)
+            err, ok = quant_error(got, want)
+            check(ok, f"quant_gemm {label} out {od}: max |kernel - plain| "
+                      f"{err} beyond the tolerance beside quant_error")
+            check(bool(torch.isfinite(got).all()), f"quant_gemm {label}: "
+                  "non-finite output")
+            out.append(dict(label=label, out=od, m=m, n=n, k=k, group=group,
+                            cfg=cfg.name(), max_abs_err=err,
+                            max_abs_out=float(want.float().abs().max())))
+        del aq, bq, sa, sb, got, want
+    torch.cuda.empty_cache()
+    log(f"[quant_gemm] kernel against its plain version: {len(out)} cases "
+        f"(out f32 and bf16; default and example configs, bm and bn 32 to "
+        f"256, bk 32/64/128 with group 128 and group 64, ragged m, n, k on "
+        f"the byte and 16-byte paths, 8192^3 int8 group 128), all within "
+        f"the tolerance beside quant_error; max abs err " + ", ".join(
+            f"{SHORT[c['out']]}/{c['label']} {c['max_abs_err']:.3g}"
+            for c in out))
+    return out
+
+
+def phase_quant_time(torch, best_cfg):
+    """The family example's config and the loop's best at the production
+    problem and both sweep problems, each held to the plain version and
+    then timed beside the bound, the plain version, the cost model's
+    estimate (a model, not a measurement) and a yardstick: one
+    ``torch._int_mm`` over the whole K (cuBLASLt int8 -> int32), which
+    applies no group scale and so computes another function; the port
+    never calls it."""
+    from repro_torch.core.families import get_family
+    from repro_torch.core.verify_engine import default_engine
+    from repro_torch.kernels.quant_gemm import (quant_error, quant_gemm_ref,
+                                                quant_matmul)
+    fam = get_family("quant_gemm")
+    cfg0 = fam.example()[0]
+    rows = []
+    for prob in fam.sweep_problems():
+        m, n, k, group = prob.m, prob.n, prob.k, prob.group
+        aq, bq, sa, sb = _quant_inputs(torch, m, n, k, group, m ^ n ^ k)
+        want = quant_gemm_ref(aq, bq, sa, sb, group=group)
+        plain = time_ms(torch, lambda: quant_gemm_ref(aq, bq, sa, sb,
+                                                      group=group), iters=10)
+        yard = _int_mm_ms(torch, aq, bq)
+        # the same product with B stored column-major (copied beforehand,
+        # outside the timing): cuBLASLt's preferred int8 layout
+        bq_cm = bq.t().contiguous().t()
+        yard_cm = _int_mm_ms(torch, aq, bq_cm)
+        del bq_cm
+        # the operations and bytes the function needs: the family's sol
+        sol = fam.sol_bound(prob)
+        ops = sol.flops
+        bms, by = bound_ms(sol.hbm_bytes, ops, "int8")
+        for which, cfg in (("example", cfg0), ("best", best_cfg)):
+            if not default_engine().verify("quant_gemm", cfg, prob).hard_ok:
+                rows.append(dict(problem=[m, n, k, group], config=which,
+                                 cfg=cfg.name(), rejected=True))
+                continue
+            err, ok = quant_error(quant_matmul(aq, bq, sa, sb, group=group,
+                                               cfg=cfg), want)
+            check(ok, f"quant_gemm {m}x{n}x{k} {cfg.name()}: max |kernel - "
+                      f"plain| {err} beyond the tolerance")
+            ms = time_ms(torch, lambda: quant_matmul(aq, bq, sa, sb,
+                                                     group=group, cfg=cfg))
+            est = fam.cost(cfg, prob).time_s * 1e3
+            rows.append(dict(problem=[m, n, k, group], config=which,
+                             cfg=cfg.name(), ms=ms, bound_ms=bms,
+                             bound_by=by, plain_ms=plain, library_ms=None,
+                             yardstick_ms=yard,
+                             yardstick_colmajor_b_ms=yard_cm,
+                             max_abs_err=err,
+                             model_ms=est, model_over_measured=est / ms,
+                             tops=ops / ms / 1e9))
+            log(f"[quant_gemm] {m}x{n}x{k} int8 group {group} {which} "
+                f"{cfg.name()}: {ms:.4f} ms ({rows[-1]['tops']:.1f} TOP/s), "
+                f"bound {bms:.4f} ms ({by}), plain {plain:.4f} ms, "
+                f"yardstick torch._int_mm (int32, no scales) "
+                f"{_ms_or(yard)} (B column-major {_ms_or(yard_cm)}); "
+                f"cost model (H100 model, not measured) {est:.4f} ms = "
+                f"{est / ms:.3f} x measured; against the plain version max "
+                f"abs {err:.3g}")
+        del aq, bq, sa, sb, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _ms_or(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def _int_mm_ms(torch, aq, bq):
+    """One ``torch._int_mm`` (cuBLASLt int8 x int8 -> int32) over the
+    whole K, or None (logged) if this PyTorch refuses the operands."""
+    try:
+        return time_ms(torch, lambda: torch._int_mm(aq, bq))
+    except RuntimeError as e:
+        log(f"[quant_gemm] torch._int_mm refused: {str(e)[:200]}")
+        return None
+
+
+def phase_quant_refuse(torch):
+    from repro_torch.core.families.quant_gemm import QuantGemmConfig
+    from repro_torch.kernels.quant_gemm import (KERNEL, InvariantViolation,
+                                                quant_matmul)
+    aq, bq, sa, sb = _quant_inputs(torch, 256, 256, 512, 128, 5)
+    before = KERNEL.launches
+    try:
+        quant_matmul(aq, bq, sa, sb, group=128, cfg=QuantGemmConfig(bk=96))
+    except InvariantViolation as e:
+        torch.cuda.synchronize()
+        check(KERNEL.launches == before, "an invalid config launched")
+        first = str(e).splitlines()
+        log(f"[quant_gemm] bk=96 with group 128: InvariantViolation before "
+            f"any launch ({first[0]} / {first[1].strip()})")
+        return str(e)
+    raise SmokeFailure("a bk that does not divide the group was not refused")
+
+
+def phase_quant(torch):
+    out = {"kernel": phase_quant_kernel(torch)}
+    out["loop"], best = phase_loop(torch, "quant_gemm")
+    out["time"] = phase_quant_time(torch, best)
+    out["refused"] = phase_quant_refuse(torch)
+    return out
+
+
+# -- phase 11 ----------------------------------------------------------------
+
+SSD_CASES = [
+    # (label, BH, S, P, N, chunk (None: the default, min(128, S)))
+    ("chunk 32", 4, 1024, 64, 128, 32),
+    ("chunk 64", 4, 1024, 64, 128, 64),
+    ("chunk 128 P16 N16", 2, 1024, 16, 16, 128),
+    ("chunk 256", 4, 2048, 64, 128, 256),
+    ("chunk 512 P128", 2, 2048, 128, 128, 512),
+    ("one chunk BH1", 1, 512, 64, 128, 512),
+    ("one chunk BH64", 64, 256, 64, 16, 256),
+    ("BH64 many chunks", 64, 2048, 64, 128, 128),
+    ("chunk 96 P24 N12", 3, 480, 24, 12, 96),
+]
+
+
+def _ssd_inputs(torch, BH, S, P, N, dtype, seed):
+    """x ~ N(0, 1), da = -|N(0, 1)|·0.1 (float32), B and C ~
+    0.3·N(0, 1), as the JAX tests make them, made on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    x = torch.randn(BH, S, P, generator=g, device="cuda").to(dt)
+    da = -torch.randn(BH, S, generator=g, device="cuda").abs() * .1
+    B = (torch.randn(BH, S, N, generator=g, device="cuda") * .3).to(dt)
+    C = (torch.randn(BH, S, N, generator=g, device="cuda") * .3).to(dt)
+    return x, da, B, C
+
+
+def phase_ssd_kernel(torch):
+    from repro_torch.core.families.ssd import SSDConfig
+    from repro_torch.kernels.ssd import KERNEL, ssd, ssd_error, ssd_ref
+    out = []
+    cases = SSD_CASES + [("production", 64, 8192, 64, 128, None)]
+    for i, (label, BH, S, P, N, q) in enumerate(cases):
+        dtypes = ("float32",) if label == "production" else ("float32",
+                                                            "bfloat16")
+        for dtype in dtypes:
+            x, da, B, C = _ssd_inputs(torch, BH, S, P, N, dtype, i)
+            cfg = SSDConfig(q) if q else None
+            n0 = KERNEL.launches
+            got = ssd(x, da, B, C, cfg=cfg)
+            torch.cuda.synchronize()
+            check(KERNEL.launches == n0 + 1, f"ssd {label}: no launch")
+            want, _ = ssd_ref(x, da, B, C, q or min(128, S))
+            err, row, ok = ssd_error(got, want)
+            check(ok, f"ssd {dtype} {label}: max |kernel - plain| {err}, "
+                      f"worst row {row}: beyond the tolerance")
+            out.append(dict(label=label, dtype=dtype, max_abs_err=err,
+                            row_err=row,
+                            max_abs_out=float(want.float().abs().max())))
+            del x, da, B, C, got, want
+    torch.cuda.empty_cache()
+    worst = {}
+    for c in out:
+        e, r = worst.get(c["dtype"], (0.0, 0.0))
+        worst[c["dtype"]] = (max(e, c["max_abs_err"]), max(r, c["row_err"]))
+    log(f"[ssd] kernel against its plain version: {len(out)} cases (f32 and "
+        f"bf16; chunks 32 to 512 and 96, P 16/24/64/128, N 12/16/128, BH 1 "
+        f"and 64, one chunk and many, the production problem 64 x 8192 x "
+        f"64 x 128 f32), all within the tolerance beside ssd_error; worst "
+        f"(max abs, row) " + ", ".join(
+            f"{SHORT[d]} {e:.3g} {r:.3g}" for d, (e, r) in worst.items())
+        + "; each case " + ", ".join(
+            f"{SHORT[c['dtype']]}/{c['label']} {c['max_abs_err']:.3g}"
+            for c in out))
+    return out
+
+
+def phase_ssd_time(torch, best_cfg):
+    """The family example's config (chunk 64) and the loop's best at the
+    production problem and both sweep problems, each held to the plain
+    version and then timed beside the bound, the plain version (at the
+    config's chunk) and the cost model's estimate (a model, not a
+    measurement).  No single PyTorch call computes the scan."""
+    from repro_torch.core.families import get_family
+    from repro_torch.core.verify_engine import default_engine
+    from repro_torch.kernels.ssd import ssd, ssd_error, ssd_ref
+    fam = get_family("ssd")
+    cfg0 = fam.example()[0]
+    rows = []
+    for prob in fam.sweep_problems():
+        BH, S, P, N = prob.batch_heads, prob.seq, prob.head_dim, prob.d_state
+        x, da, B, C = _ssd_inputs(torch, BH, S, P, N, "float32", S)
+        # the family's sol: the causal triangle of each chunk, at the
+        # chunk that needs the fewest operations
+        sol = fam.sol_bound(prob)
+        ops = sol.flops
+        bms, by = bound_ms(sol.hbm_bytes, ops, "float32")
+        for which, cfg in (("example", cfg0), ("best", best_cfg)):
+            if not default_engine().verify("ssd", cfg, prob).hard_ok:
+                rows.append(dict(problem=dataclasses.astuple(prob),
+                                 config=which, cfg=cfg.name(),
+                                 rejected=True))
+                continue
+            want, _ = ssd_ref(x, da, B, C, cfg.chunk)
+            err, row, ok = ssd_error(ssd(x, da, B, C, cfg=cfg), want)
+            check(ok, f"ssd {dataclasses.astuple(prob)[:4]} {cfg.name()}: "
+                      f"max |kernel - plain| {err}, worst row {row}")
+            del want
+            plain = time_ms(torch, lambda: ssd_ref(x, da, B, C, cfg.chunk),
+                            iters=3, warmup=1)
+            ms = time_ms(torch, lambda: ssd(x, da, B, C, cfg=cfg), iters=5,
+                         warmup=1)
+            est = fam.cost(cfg, prob).time_s * 1e3
+            rows.append(dict(problem=dataclasses.astuple(prob),
+                             config=which, cfg=cfg.name(), ms=ms,
+                             bound_ms=bms, bound_by=by, plain_ms=plain,
+                             library_ms=None, max_abs_err=err, row_err=row,
+                             model_ms=est, model_over_measured=est / ms,
+                             tflops=ops / ms / 1e9))
+            log(f"[ssd] {dataclasses.astuple(prob)[:4]} f32 {which} "
+                f"{cfg.name()}: {ms:.4f} ms ({rows[-1]['tflops']:.2f} TFLOP/s "
+                f"of the algorithmic work), bound {bms:.4f} ms ({by}), plain "
+                f"{plain:.4f} ms, library: none; cost model (H100 model, not "
+                f"measured) {est:.4f} ms = {est / ms:.3f} x measured; "
+                f"against the plain version max abs {err:.3g}, worst row "
+                f"{row:.3g}")
+            torch.cuda.empty_cache()
+        del x, da, B, C
+        torch.cuda.empty_cache()
+    return rows
+
+
+# float32 decode replay against the full forward: |step - full| within
+# 1e-4 of each logit plus 1e-4 of the largest |logit| (the two compute
+# the same recurrence in float32 in another order: the chunked scan
+# against one state update a token)
+REPLAY_REL = 1e-4
+
+
+def phase_mamba2(torch):
+    """mamba2-780m at full width and depth (48 layers, bf16 blocks,
+    random weights from a seeded ``torch.Generator``): ``SSMLM.apply``
+    over 4 x 2,048 tokens, timed and profiled; then the SSD core of its
+    first layer at that width, on the layer's own inputs, through
+    ``ssd_via_kernel`` (the CUDA kernel; the counters zeroed just before
+    and read just after) against the plain ``ssd_chunked``; then, at
+    depth 2 in float32, a stepwise ``decode_step`` replay of 16 tokens
+    against ``apply``'s logits."""
+    from repro_torch import configs
+    from repro_torch.core.families import get_family
+    from repro_torch.core.families.ssd import SSDProblem
+    from repro_torch.kernels import ALL_KERNELS
+    from repro_torch.kernels.ssd import ssd_error
+    from repro_torch.models import build
+    from repro_torch.models.components import apply_norm, embed
+    from repro_torch.models.ssm import (ssd_chunked, ssd_operands,
+                                        ssd_via_kernel)
+    from repro_torch.models.transformer import layer_slice
+    cfg = configs.get_config("mamba2-780m")
+    model = build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B_, S = 4, 2048
+    g = torch.Generator(device="cuda").manual_seed(0)
+    toks = torch.randint(2, cfg.vocab, (B_, S), generator=g, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    logits, _ = model.apply(params, toks)
+    torch.cuda.synchronize()
+    check(tuple(logits.shape) == (B_, S, cfg.padded_vocab),
+          f"mamba2 logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+          "mamba2: non-finite logits")
+    del logits
+    fwd = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        model.apply(params, toks)
+        torch.cuda.synchronize()
+        fwd.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = _profile(torch, lambda: model.apply(params, toks))
+    log(f"[mamba2] {cfg.name}: {model.n_params / 1e9:.3f} B params, init "
+        f"{init_s:.1f} s; apply over {B_} x {S} tokens (48 layers, bf16 "
+        f"blocks, the SSD core by ssd_chunked as in the JAX package): "
+        f"{min(fwd):.1f} ms (host clock, synchronised; runs "
+        f"{', '.join(f'{t:.1f}' for t in fwd)}), peak memory {peak:.2f} "
+        f"GB; profiled {prof['wall_ms']:.1f} ms wall, device "
+        f"{prof['device_ms']:.1f} ms, {prof['device_launches']} device "
+        f"kernels; top: " + "; ".join(
+            f"{k[:48]} {v:.2f}" for k, v in prof["top_kernels_ms"][:6]))
+
+    # the SSD core of layer 0 on its own inputs
+    p0 = layer_slice(params["blocks"], 0)
+    h = apply_norm(p0["ln"], embed(params["embed"], toks, cfg), cfg)
+    _, xh, da, Bh, Ch, _ = ssd_operands(p0["ssm"], h, cfg)
+    q = cfg.ssm.chunk
+    H, P, N = xh.shape[2], xh.shape[3], Bh.shape[3]
+    for k in ALL_KERNELS:                      # count the main path only
+        k.launches = 0
+    got = ssd_via_kernel(xh, da, Bh, Ch, q)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in ALL_KERNELS}
+    check(launches["ssd_chunk_scan"] == 1 and sum(launches.values()) == 1,
+          f"ssd_via_kernel launches {launches}")
+    want, _ = ssd_chunked(xh, da, Bh, Ch, q)
+    err, row, ok = ssd_error(got, want)
+    check(ok, f"ssd_via_kernel at mamba2's layer: max |kernel - "
+              f"ssd_chunked| {err}, worst row {row}: beyond the tolerance")
+    ms = time_ms(torch, lambda: ssd_via_kernel(xh, da, Bh, Ch, q), iters=5)
+    plain = time_ms(torch, lambda: ssd_chunked(xh, da, Bh, Ch, q), iters=5)
+    sol = get_family("ssd").sol_bound(SSDProblem(B_ * H, S, P, N, "f32"))
+    bms, by = bound_ms(sol.hbm_bytes, sol.flops, "float32")
+    layer = dict(bh=B_ * H, seq=S, head_dim=P, d_state=N, chunk=q,
+                 launches=launches["ssd_chunk_scan"], max_abs_err=err,
+                 row_err=row, max_abs_out=float(want.abs().max()),
+                 ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+    log(f"[mamba2] SSD core of layer 0 (BH {B_ * H}, S {S}, P {P}, N {N}, "
+        f"chunk {q}) through ssd_via_kernel: 1 ssd_chunk_scan launch, "
+        f"against ssd_chunked max abs {err:.3g} (|y| up to "
+        f"{layer['max_abs_out']:.3g}), worst row {row:.3g}; "
+        f"{ms:.4f} ms (with the fold to (BH, S, P)), ssd_chunked "
+        f"{plain:.4f} ms, bound {bms:.4f} ms ({by})")
+    del params, toks, h, xh, da, Bh, Ch, got, want
+    torch.cuda.empty_cache()
+
+    # depth 2, float32: stepwise decode against the full forward
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    m2 = build(cfg2)
+    p2 = m2.init(1, device="cuda")
+    t2 = torch.randint(2, cfg.vocab, (2, 17), generator=g, device="cuda")
+    full, _ = m2.apply(p2, t2)
+    cache = m2.init_cache(2, 32, device="cuda")
+    V, worst = cfg.vocab, 0.0
+    for t in range(16):
+        step, cache = m2.decode_step(p2, cache, t2[:, t:t + 1], t)
+        a, b = step[:, 0, :V], full[:, t, :V]
+        d = (a - b).abs()
+        check(bool((d <= REPLAY_REL * b.abs()
+                    + REPLAY_REL * float(b.abs().max())).all()),
+              f"mamba2 decode step {t}: max |step - full| "
+              f"{float(d.max())} beyond the stated tolerance")
+        worst = max(worst, float(d.max()))
+    log(f"[mamba2] depth 2 float32: 16 decode_step tokens against apply's "
+        f"logits, max |step - full| {worst:.3g} (within 1e-4 of each logit "
+        f"plus 1e-4 of the largest)")
+    return dict(forward_ms=min(fwd), forward_runs_ms=fwd, peak_gb=peak,
+                profile=prof, layer=layer, replay_max_abs=worst,
+                tokens=[B_, S])
+
+
+def phase_ssd(torch):
+    out = {"kernel": phase_ssd_kernel(torch)}
+    out["loop"], best = phase_loop(torch, "ssd")
+    out["time"] = phase_ssd_time(torch, best)
+    out["mamba2"] = phase_mamba2(torch)
+    return out
+
+
 # -- main --------------------------------------------------------------------
 
 def main():
@@ -1474,6 +1943,8 @@ def main():
         summary["flash"] = flash = phase_flash(torch)
         summary["moe"] = moe = phase_moe(torch)
         summary["serve_moe"] = phase_serve_moe(torch)
+        summary["quant_gemm"] = quant = phase_quant(torch)
+        summary["ssd"] = ssd = phase_ssd(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1543,14 +2014,44 @@ def main():
         yardstick_ms=best["yardstick_ms"],
         yardstick="3 torch.bmm (cuBLAS) + elementwise SwiGLU and gate",
         ported=True, dtype="bfloat16", cfg=best["cfg"]))
+    # quant_gemm: the loop's best config at the production problem; no
+    # single PyTorch call computes it (library_ms null); the torch._int_mm
+    # yardstick applies no group scale
+    best = next(r for r in quant["time"] if r["config"] == "best"
+                and r["problem"][:3] == [8192, 8192, 8192])
+    check(not best.get("rejected"), "quant_gemm: best config rejected")
+    line.append(dict(
+        name="quant_gemm", route="cuda",
+        source="src/repro_torch/kernels/quant_gemm/csrc/quant_gemm.cu",
+        replaces="src/repro/kernels/quant_gemm/quant_gemm.py:58",
+        launches=quant["loop"]["launches"]["quant_gemm"],
+        max_abs_err=best["max_abs_err"], ms=best["ms"],
+        plain_ms=best["plain_ms"], bound_ms=best["bound_ms"],
+        bound_by=best["bound_by"], library_ms=None,
+        yardstick_ms=best["yardstick_ms"],
+        yardstick="torch._int_mm (cuBLASLt int8 -> int32, no group scales)",
+        ported=True, dtype="int8", cfg=best["cfg"]))
+    # ssd_chunk_scan: the loop's best config at the production problem
+    # (its launches: the loop's unit tests; the mamba2 layer's one launch
+    # through ssd_via_kernel is in phase 11's summary)
+    best = next(r for r in ssd["time"] if r["config"] == "best"
+                and r["problem"][1] == 8192)
+    check(not best.get("rejected"), "ssd: best config rejected")
+    line.append(dict(
+        name="ssd_chunk_scan", route="cuda",
+        source="src/repro_torch/kernels/ssd/csrc/ssd_chunk_scan.cu",
+        replaces="src/repro/kernels/ssd/ssd.py:65",
+        launches=ssd["loop"]["launches"]["ssd_chunk_scan"],
+        max_abs_err=best["max_abs_err"], ms=best["ms"],
+        plain_ms=best["plain_ms"], bound_ms=best["bound_ms"],
+        bound_by=best["bound_by"], library_ms=None, ported=True,
+        dtype="float32", cfg=best["cfg"]))
+    check(len(line) == 8, f"the kernels line lists {len(line)} kernels")
     summary["kernels_line"] = line
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(
         json.dumps(summary, indent=1, sort_keys=True) + "\n")
-    log(json.dumps({"tpu_kernels_not_ported": [
-        {"name": n, "replaces": r, "ported": False}
-        for n, r in TPU_KERNELS_NOT_PORTED]}))
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

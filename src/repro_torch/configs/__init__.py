@@ -2,9 +2,9 @@
 
 ``get_config(name)`` / ``get_reduced(name)`` return ModelConfigs, as in
 the JAX package's ``repro.configs``.  The port carries the dense
-``qwen3-1.7b`` and the MoE ``granite-moe-3b-a800m``; the other eight
-architectures wait for the port of their model families (ROADMAP, port
-items A6 and A8).
+``qwen3-1.7b``, the MoE ``granite-moe-3b-a800m`` and the SSM
+``mamba2-780m``; the other seven architectures wait for the port of
+their model families (ROADMAP, port items A6 and A8).
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from repro_torch.models.config import ModelConfig
 _MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "mamba2-780m": "mamba2_780m",
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -26,9 +26,9 @@ everything the rest of the system needs to drive it:
   ``example()``.
 
 This registry is the port's own: it holds the families whose kernels are
-ported (``gemm``, ``flash_attention``, ``flash_decode``, ``moe``,
-``paged_attention``, ``ragged_prefill``), and :func:`get_family` of any
-other family raises, naming the ROADMAP item that ports it.
+ported — all eight of the JAX package's (``gemm``, ``flash_attention``,
+``flash_decode``, ``moe``, ``ssd``, ``quant_gemm``, ``paged_attention``,
+``ragged_prefill``) — and :func:`get_family` of any other family raises.
 """
 from __future__ import annotations
 
@@ -238,14 +238,6 @@ def register(family: KernelFamily) -> KernelFamily:
     return family
 
 
-# families of the JAX package whose kernels are not ported yet, and the
-# ROADMAP.md item that ports each
-NOT_PORTED = {
-    "quant_gemm": "B7",
-    "ssd": "B8",
-}
-
-
 # Tolerance of a kernel against its plain version in a family's
 # reference_check, as both rtol and atol: f32 — the same products summed
 # in another order; bf16 — more than one bf16 step (2^-7 relative) of
@@ -278,11 +270,6 @@ def get_family(name: str) -> KernelFamily:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in NOT_PORTED:
-            raise KeyError(
-                f"kernel family {name!r} is not ported yet (ROADMAP.md, "
-                f"item {NOT_PORTED[name]}); registered: "
-                f"{sorted(_REGISTRY)}") from None
         raise KeyError(
             f"unknown kernel family {name!r}; registered: "
             f"{sorted(_REGISTRY)}") from None

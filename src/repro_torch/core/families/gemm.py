@@ -27,7 +27,8 @@ from ..costs import (CostEstimate, HBM_BW, SCALAR_PATH_DERATE,
 from ..kernelspec import (CTA_THREADS, DTYPE_BYTES, K_CHUNK, REG_OVERHEAD,
                           STAGES, VECTOR_BYTES, cdiv, check_cta_split,
                           check_grain, check_masking, check_registers,
-                          check_smem, check_vector_alignment, ctas_per_sm)
+                          check_smem, check_vector_alignment, ctas_per_sm,
+                          work_ctas)
 from ..tags import Expr, make_tag
 from .base import (BugSignature, KernelFamily, Skill, generic_skill,
                    register)
@@ -169,13 +170,6 @@ def vector_path(cfg: GemmConfig, prob: GemmProblem) -> bool:
     return all(x % q == 0 for x in (prob.k, prob.n, cfg.bk, cfg.bn))
 
 
-def _work_ctas(size: int, block: int, cta: int) -> int:
-    """CTAs along one dim that hold data (the kernel launches
-    cdiv(size, block) * cdiv(block, cta); those past the edge exit)."""
-    nb = cdiv(size, block)
-    return (nb - 1) * cdiv(block, cta) + cdiv(size - (nb - 1) * block, cta)
-
-
 def structural_gemm(cfg: GemmConfig, prob: GemmProblem):
     tm, tn = cta_tile(cfg)
     issues = []
@@ -210,7 +204,7 @@ def gemm_cost(cfg: GemmConfig, prob: GemmProblem) -> CostEstimate:
     bw = HBM_BW if (cfg.stagger_k or nj * mi < 8) else HBM_BW * \
         STAGGER_DERATE
     tm, tn = cta_tile(cfg)
-    n_ctas = _work_ctas(m, cfg.bm, tm) * _work_ctas(n, cfg.bn, tn) \
+    n_ctas = work_ctas(m, cfg.bm, tm) * work_ctas(n, cfg.bn, tn) \
         * max(cfg.split_k, 1)
     per_sm = ctas_per_sm(CTA_THREADS, tm * tn // CTA_THREADS + REG_OVERHEAD,
                          smem_bytes(tm, tn, prob.dtype))

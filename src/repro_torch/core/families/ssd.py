@@ -1,0 +1,348 @@
+"""SSD kernel family (Mamba-2 state-space dual) — beyond-paper extension.
+
+The port of the JAX package's ``core/families/ssd.py``.  The tile
+program (:func:`build_ssd_program`: one ``(bh, c)`` grid step of the SSD
+chunk scan), the skills, the injectable bugs and their signatures are
+copied unchanged, so the port's gate gives the JAX gate's verdicts,
+findings and counterexamples.  Invariants: the dual-attention
+contraction pairs C and B rows of the SAME chunk (intra-chunk
+conformity over (bh, position, state-dim)); the carried (N, P) state
+must be stable across the sequential chunk axis; y coverage.
+
+The structural, cost and speed-of-light hooks are a Hopper model of the
+CUDA kernel that runs the family
+(``repro_torch/kernels/ssd/csrc/ssd_chunk_scan.cu``): one CTA of 256
+threads per (bh, 64 columns of P), which walks the chunks in order — the
+TPU grid's sequential chunk axis becomes a loop inside the CTA — with
+the (N, 64) float32 state in shared memory, reset of ``cs`` at the
+config's chunk boundaries.  Inside a chunk it tiles as flash attention
+does, without the softmax: 64-row query blocks, and for each the key
+blocks at or below it, ``s = (C_i·B_jᵀ) ⊙ exp(cs_i − cs_j)`` then
+``y_i += s·x_j``; a chunk that is no multiple of 64 leaves rows of its
+last block masked.  A P wider than 64 runs on several CTAs, each
+recomputing the scores.  Every product is a float32 FMA on the CUDA
+cores (no TF32), so the compute term is priced at
+``peak_flops("f32")``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+from .. import dsl
+from ..costs import (CostEstimate, HBM_BW, L2_BW, peak_flops, sol_estimate,
+                     wave_eff)
+from ..kernelspec import (DTYPE_BYTES, REG_OVERHEAD, StructuralIssue, cdiv,
+                          check_masking, check_smem, ctas_per_sm)
+from ..tags import Expr, make_tag
+from .base import (BugSignature, KernelFamily, generic_skill,
+                   reference_setup, register)
+
+
+@dataclass(frozen=True)
+class SSDProblem:
+    batch_heads: int          # B · H
+    seq: int
+    head_dim: int             # P
+    d_state: int              # N
+    dtype: str = "f32"
+
+
+@dataclass(frozen=True)
+class SSDConfig:
+    chunk: int = 128
+
+    def name(self) -> str:
+        return f"ssd[q={self.chunk}]"
+
+
+def build_ssd_program(cfg: SSDConfig, prob: SSDProblem,
+                      *, inject_bug: Optional[str] = None
+                      ) -> dsl.TileProgram:
+    """One (bh, c) grid step of the SSD chunk scan.
+
+    Invariants: the dual-attention contraction pairs C and B rows of the
+    SAME chunk (intra-chunk conformity over (bh, position, state-dim));
+    the carried (N, P) state must be stable across the sequential chunk
+    axis; y coverage.  Injectable bugs: "b_chunk_offset" (B read from the
+    neighboring chunk), "state_depends_c" (carried state tagged with the
+    chunk index), "xb_mismatch" (x rows from a different chunk than B).
+    """
+    p = dsl.TileProgram(cfg.name())
+    BH, S, P, N = prob.batch_heads, prob.seq, prob.head_dim, prob.d_state
+    q = cfg.chunk
+    nc = cdiv(S, q)
+
+    bh = p.add_grid("bh", BH, "parallel")
+    c = p.add_grid("c", nc, "arbitrary")
+
+    p.tensor("X", (BH, S, P), prob.dtype)
+    p.tensor("DA", (BH, S), prob.dtype)
+    p.tensor("B", (BH, S, N), prob.dtype)
+    p.tensor("C", (BH, S, N), prob.dtype)
+    p.tensor("Y", (BH, S, P), prob.dtype, kind="output")
+
+    c_b = (c + 1) % nc if inject_bug == "b_chunk_offset" else c
+    c_x = (c + 1) % nc if inject_bug == "xb_mismatch" else c
+
+    xt = p.squeeze(p.load("X", (bh, c_x * q, 0), (1, q, P)))
+    bt = p.squeeze(p.load("B", (bh, c_b * q, 0), (1, q, N)))
+    ct = p.squeeze(p.load("C", (bh, c * q, 0), (1, q, N)))
+
+    # dual-attention pairing: scores = C·Bᵀ contracts the state dim; the
+    # operands must agree on (bh, state coordinate) — identity tags are
+    # (bh, pos, n), bind n, compare components (0, 2)
+    p.assert_conform(ct, bt, bind=((1, 1),), components=((0, 2), (0, 2)))
+    s_tag = lambda i, j: make_tag(bh, c * q + i, c_b * q + j)
+    s = p.matmul(ct, p.transpose(bt), retag=s_tag)
+    # retag honesty: declared score columns must be B's actual positions
+    p.assert_conform(bt, s, bind=((0, 1),), components=((1,), (2,)))
+    # chunk locality: score columns must be the SAME chunk as the x rows
+    # they multiply (the SSD intra-chunk contraction)
+    p.assert_conform(s, xt, bind=((1, 0),), components=((2,), (1,)))
+    y_tag = lambda i, pp: make_tag(bh, c * q + i, pp)
+    y = p.matmul(s, xt, retag=y_tag)
+
+    # carried state: (N, P) scratch, stable across the chunk axis
+    state = p.alloc((N, P), "f32")
+    if inject_bug == "state_depends_c":
+        st_tag = lambda n, pp: make_tag(bh, Expr.of(c), n, pp)
+    else:
+        st_tag = lambda n, pp: make_tag(bh, n, pp)
+    p.update(state, fn="decay_accumulate", retag=st_tag)
+    p.assert_stable(state, "c")
+
+    p.store("Y", y, (bh, c * q, 0))
+    # streaming output: the sequential chunk axis legitimately partitions Y
+    # (unlike an accumulated GEMM output) — include it as distinguishing
+    p.assert_disjoint_writes("Y", axes=("bh", "c"))
+    p.assert_coverage("Y")
+    return p
+
+
+# -- the CUDA kernel's decomposition -----------------------------------------
+
+BLOCK_ROWS = 64        # query and key rows per block inside a chunk
+P_TILE = 64            # columns of P per CTA
+N_GRAIN = 16           # the state dim is zero-padded to a multiple of this
+MAX_D_STATE = 128      # the largest d_state the kernel takes
+THREADS = 256
+
+
+def padded_state(n: int) -> int:
+    return cdiv(n, N_GRAIN) * N_GRAIN
+
+
+def smem_bytes(chunk: int, d_state: int) -> int:
+    """Shared memory of one CTA (the kernel's layout): a query block of
+    C and a key block of B (64 x (N+1) float32 each, padded N), a key
+    block of x (64 x 64), the score block (64 x 80), the (N, 64) state,
+    and the chunk's cumulative decays and decays to its end (each padded
+    to whole 64-row blocks)."""
+    n = padded_state(d_state)
+    rows = cdiv(chunk, BLOCK_ROWS) * BLOCK_ROWS
+    floats = (2 * BLOCK_ROWS * (n + 1) + BLOCK_ROWS * P_TILE
+              + BLOCK_ROWS * (BLOCK_ROWS + 16) + n * P_TILE + 2 * rows)
+    return 4 * floats
+
+
+def kernel_flops(cfg: SSDConfig, prob: SSDProblem) -> float:
+    """Float32 operations the kernel issues, masked rows and padding
+    included: per chunk and P tile, the score and y products of every
+    (query block, key block at or below it) pair, C·state, and the
+    state update."""
+    BH, S = prob.batch_heads, prob.seq
+    n = padded_state(prob.d_state)
+    nb = cdiv(cfg.chunk, BLOCK_ROWS)
+    rows = nb * BLOCK_ROWS
+    pairs = nb * (nb + 1) // 2
+    per_chunk = (pairs * BLOCK_ROWS * BLOCK_ROWS * 2 * (n + P_TILE)
+                 + 2 * rows * n * P_TILE * 2)
+    return float(BH * cdiv(prob.head_dim, P_TILE) * cdiv(S, cfg.chunk)
+                 * per_chunk)
+
+
+def structural_ssd(cfg: SSDConfig, prob: SSDProblem):
+    """Hopper model of ``ssd_chunk_scan.cu``: a d_state it does not take
+    (above 128), shared memory of its CTA, the grain of its 64-row blocks
+    and 64-column P tile and of the 16-padded state dim (masked rows,
+    columns and padding computed all the same), a P on several CTAs
+    (each recomputing the scores), and the JAX family's masking check."""
+    q, P, N = cfg.chunk, prob.head_dim, prob.d_state
+    issues = []
+    if N > MAX_D_STATE:
+        issues.append(StructuralIssue(
+            "unsupported", f"d_state {N} > {MAX_D_STATE}: the kernel "
+                           f"refuses it"))
+    issues += check_smem("CTA", smem_bytes(q, N))
+    if q % BLOCK_ROWS:
+        issues.append(StructuralIssue(
+            "grain", f"chunk {q} is not a multiple of the {BLOCK_ROWS}-row "
+                     f"block: masked rows in every chunk"))
+    if P % P_TILE:
+        issues.append(StructuralIssue(
+            "grain", f"head_dim {P} is not a multiple of the {P_TILE}-column "
+                     f"P tile: masked columns"))
+    if N % N_GRAIN:
+        issues.append(StructuralIssue(
+            "grain", f"d_state {N} is zero-padded to {padded_state(N)}"))
+    if P > P_TILE:
+        issues.append(StructuralIssue(
+            "cta_split", f"head_dim {P} runs on {cdiv(P, P_TILE)} CTAs per "
+                         f"(batch, head), each recomputing the scores"))
+    issues += check_masking("S", (prob.seq,), (cfg.chunk,),
+                            masked_dims=(0,))
+    return issues
+
+
+def ssd_cost(cfg: SSDConfig, prob: SSDProblem) -> CostEstimate:
+    """H100 model of ``ssd_chunk_scan.cu``: the float32 FMAs it issues
+    (:func:`kernel_flops`: a longer chunk costs more score work, a
+    shorter one more state passes) at ``peak_flops("f32")``, quantised
+    in waves of CTAs over the 132 SMs — one CTA per (bh, P tile), each
+    walking its chunks in order; x, da, B, C and y cross HBM once and
+    each chunk's key blocks are re-read through L2 for every query block
+    at or above them and for the state update."""
+    sz = DTYPE_BYTES.get(prob.dtype, 4)
+    BH, S, P, N = prob.batch_heads, prob.seq, prob.head_dim, prob.d_state
+    q = cfg.chunk
+    nb = cdiv(q, BLOCK_ROWS)
+    n_ctas = BH * cdiv(P, P_TILE)
+    # registers: the 8 x 4 state block of the update, and the rest
+    per_sm = ctas_per_sm(THREADS, 32 + REG_OVERHEAD, smem_bytes(q, N))
+    issued = kernel_flops(cfg, prob)
+    io = BH * S * (P + 2 * N + 1 + P) * sz        # x, B, C, da, y
+    rereads = nb * (nb + 1) // 2 + nb              # key-block loads a chunk
+    l2 = (n_ctas * cdiv(S, q) * rereads * BLOCK_ROWS
+          * (padded_state(N) + P_TILE) * sz)
+    return CostEstimate(
+        compute_s=issued / (peak_flops("f32") * wave_eff(n_ctas, per_sm)),
+        memory_s=io / HBM_BW + l2 / L2_BW,
+        flops=issued, hbm_bytes=io)
+
+
+def ssd_sol(prob: SSDProblem) -> CostEstimate:
+    """Speed of light: the algorithmic flop count at the *best* reachable
+    chunk size (the intra/inter trade-off minimized over the tunable
+    chunk grid) at the float32 FMA rate, vs the operand streams crossing
+    HBM once — the carried-state spill is a config artifact and is
+    excluded.  Within a chunk the score and y products need only the
+    causal triangle, q(q+1)/2 (query, key) pairs of N + P multiply-adds
+    each."""
+    sz = DTYPE_BYTES.get(prob.dtype, 4)
+    BH, S, P, N = prob.batch_heads, prob.seq, prob.head_dim, prob.d_state
+
+    def chunk_flops(q: int) -> float:
+        nc = cdiv(S, q)
+        intra = BH * S * (q + 1) * (N + P)
+        inter = BH * S * (4 * N * P) + BH * nc * 2 * N * P
+        return float(intra + inter)
+
+    grid = [q for q in (32, 64, 128, 256, 512) if S % q == 0]
+    flops = min(chunk_flops(q) for q in grid) if grid \
+        else chunk_flops(min(S, 128))
+    io = BH * S * (P + 2 * N + 1 + P) * sz
+    return sol_estimate(flops, io, dtype="f32")
+
+
+# -- skills -----------------------------------------------------------------
+
+def _chunk_steps(cfg: SSDConfig, prob: SSDProblem):
+    out = []
+    for nxt in (cfg.chunk * 2, cfg.chunk // 2):
+        if 32 <= nxt <= 512 and prob.seq % nxt == 0:
+            out.append((f"chunk={nxt}", SSDConfig(chunk=nxt)))
+    return out
+
+
+SKILLS = (
+    generic_skill("retile", "ssd", _chunk_steps),
+    generic_skill("software_pipelining", "ssd"),
+    generic_skill("vectorized_io", "ssd"),
+    generic_skill("f32_vmem_accumulate", "ssd"),
+    generic_skill("oob_guarded_loads", "ssd"),
+)
+
+
+# -- fault model ------------------------------------------------------------
+
+INJECTABLE_BUGS = ("b_chunk_offset", "state_depends_c", "xb_mismatch")
+
+
+# Ground truth (tests/test_families.py checks it against live feedback).
+# Both index-map bugs land on the same state-update pairing assertion —
+# the counterexample narrows repair to that candidate pair.
+BUG_SIGNATURES = (
+    BugSignature("b_chunk_offset", ("solver",),
+                 ("assert_conform(mm_7,sq_1)",)),
+    BugSignature("xb_mismatch", ("solver",),
+                 ("assert_conform(mm_7,sq_1)",)),
+    BugSignature("state_depends_c", ("analysis",), ("assert_stable(",)),
+)
+
+
+# -- reference execution (the kernel against its plain version) ------------
+
+def reference_check(cfg: SSDConfig, prob: SSDProblem,
+                    device="cuda") -> bool:
+    """Run the port's validated ``ssd`` with ``cfg`` on ``device`` (the
+    CUDA kernel on the card, the plain version on the CPU) against the
+    plain version ``ssd_ref``, at the JAX check's small shapes (2 heads,
+    ``q = min(chunk, 64)``, four chunks, P 32, N 16, da = −|N(0,1)|·0.1,
+    B and C scaled by 0.3) in the problem's dtype (x, B and C; da in
+    float32), within ``ssd_error``'s tolerance.  Precondition errors of
+    the config (``ValueError``, ``InvariantViolation``) propagate to the
+    validator, which counts them as a failed test; so do build and
+    launch errors, which it does not catch."""
+    from repro_torch.kernels.ssd import ssd, ssd_error, ssd_ref
+    make, _, _ = reference_setup("ssd", prob.dtype, device)
+    q = min(cfg.chunk, 64)
+    S = 4 * q
+    x = make((2, S, 32))
+    da = -make((2, S)).float().abs() * .1
+    Bm = make((2, S, 16)) * .3
+    Cm = make((2, S, 16)) * .3
+    o = ssd(x, da, Bm, Cm, cfg=SSDConfig(chunk=q))
+    w, _ = ssd_ref(x, da, Bm, Cm, q)
+    return ssd_error(o, w)[2]
+
+
+def _lower():
+    from repro_torch.kernels import ssd
+    return ssd
+
+
+def _example():
+    return SSDConfig(chunk=64), SSDProblem(64, 8192, 64, 128, "f32")
+
+
+def _sweep():
+    # pow2 bucket grid: the training-shape scan plus a short-sequence
+    # and a long-sequence point, same head/state widths
+    return [SSDProblem(64, 8192, 64, 128, "f32"),
+            SSDProblem(64, 2048, 64, 128, "f32"),
+            SSDProblem(64, 32768, 64, 128, "f32")]
+
+
+FAMILY = register(KernelFamily(
+    name="ssd",
+    config_cls=SSDConfig,
+    problem_cls=SSDProblem,
+    build_program=build_ssd_program,
+    structural=structural_ssd,
+    cost=ssd_cost,
+    skills=SKILLS,
+    injectable_bugs=INJECTABLE_BUGS,
+    bug_signatures=BUG_SIGNATURES,
+    reference_check=reference_check,
+    kernel="ssd_chunk_scan",
+    lower=_lower,
+    example=_example,
+    sweep_problems=_sweep,
+    sol_bound=ssd_sol,
+))
+
+
+def verify_ssd(cfg: SSDConfig, prob: SSDProblem,
+               *, inject_bug: Optional[str] = None):
+    return FAMILY.verify(cfg, prob, inject_bug=inject_bug)

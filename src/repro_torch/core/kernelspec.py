@@ -151,6 +151,14 @@ def check_masking(name: str, dim_sizes: Sequence[int],
     return issues
 
 
+def work_ctas(size: int, block: int, cta: int) -> int:
+    """CTAs along one dim that hold data when config blocks of ``block``
+    run on CTAs of ``cta`` (a kernel launches cdiv(size, block) *
+    cdiv(block, cta); those past the edge exit)."""
+    nb = cdiv(size, block)
+    return (nb - 1) * cdiv(block, cta) + cdiv(size - (nb - 1) * block, cta)
+
+
 def ctas_per_sm(threads: int, regs_per_thread: int, smem_bytes: int) -> int:
     """Resident CTAs per SM, limited by registers, shared memory and
     threads (model: no allocation granularity)."""

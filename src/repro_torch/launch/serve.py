@@ -4,6 +4,8 @@ a CUDA card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         [--reduced] [--engine paged] [--requests 16] [--slots 4] \\
         [--pool-pages N] [--device cuda]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+        --engine dense [--reduced] [--device cuda]
 
 The port of the JAX package's ``launch/serve.py``.  It builds the model,
 initialises its weights from ``--seed`` with ``torch.Generator``s,
@@ -12,7 +14,9 @@ block-table KV-pool engine with chunked prefill and headroom admission
 on its kernel paths (the CUDA ragged-prefill and paged-decode kernels);
 ``--engine dense`` the per-slot slab baseline — and reports completion,
 throughput and the engine's metrics snapshot.  ``--device cpu`` runs
-the kernels' plain versions on the CPU.
+the kernels' plain versions on the CPU.  The SSM family (mamba2-780m)
+has no KV cache to page: it serves through ``--engine dense`` only, as
+in the JAX package, whose paged engine refuses it too.
 
 Not ported yet (they raise when given): ``--ckpt-dir`` (checkpoint
 restore, ROADMAP port item A9) and ``--dispatch-table`` (the fleet
@@ -79,6 +83,11 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))
+    if args.engine == "paged" and cfg.family == "ssm":
+        raise NotImplementedError(
+            f"--engine paged: {cfg.name} keeps an SSM state, not a KV cache "
+            "to page, and the JAX package's paged engine refuses it as "
+            "well; use --engine dense (ROADMAP, port item A8)")
     model = build(cfg)
     params = model.init(args.seed, device=device)
 

@@ -69,6 +69,15 @@ def block_specs(cfg: ModelConfig, *, moe_layer: bool = False) -> Dict:
     return s
 
 
+def zero_cache(shapes: Dict, device: DeviceLike = "cuda") -> Dict:
+    """A cache tree of zeros from a ``cache_shape`` tree of
+    :class:`ShapeDtype` leaves, on ``device``."""
+    dev = resolve_device(device)
+    return {g: {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+                for k, s in leaves.items()}
+            for g, leaves in shapes.items()}
+
+
 def layer_slice(tree, i: int):
     """Layer ``i`` of a layer-stacked tree (views, not copies)."""
     if isinstance(tree, dict):
@@ -267,10 +276,7 @@ class TransformerLM:
 
     def init_cache(self, batch: int, max_len: int,
                    device: DeviceLike = "cuda") -> Dict:
-        dev = resolve_device(device)
-        return {g: {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
-                    for k, s in leaves.items()}
-                for g, leaves in self.cache_shape(batch, max_len).items()}
+        return zero_cache(self.cache_shape(batch, max_len), device)
 
     def decode_step(self, params: Dict, cache: Dict, tokens: torch.Tensor,
                     pos: torch.Tensor) -> Tuple[torch.Tensor, Dict]:

@@ -15,7 +15,9 @@ output within one bfloat16 step of each value (both round a float32
 sum to bfloat16 once) plus that float32 bound (near zero, the two
 float32 sums may differ by more than a step of the value).  The flash
 kernels: the tolerance stated beside ``flash_error`` in
-``repro_torch/kernels/flash_attention/ref.py``."""
+``repro_torch/kernels/flash_attention/ref.py``; the MoE, quant-GEMM and
+SSD kernels: those beside ``moe_error``, ``quant_error`` and
+``ssd_error`` in their packages' ``ref.py``."""
 import dataclasses
 
 import pytest
@@ -493,3 +495,171 @@ def test_grouped_ffn_wrapper_refuses_what_the_kernel_does_not_take(card):
         grouped_ffn(x.transpose(1, 2).contiguous().transpose(1, 2), wg, wu,
                     wd, cfg=MoEConfig(8, 32))
     assert KERNEL.launches == before
+
+
+# -- quant_gemm and ssd (the tolerances beside quant_error and ssd_error) -----
+
+QUANT_CASES = [
+    # (m, n, k, group, bm, bn, bk)
+    (256, 256, 512, 128, 128, 128, 128),      # the default config
+    (200, 130, 700, 128, 64, 64, 64),         # ragged m, n, k
+    (128, 96, 256, 64, 32, 32, 32),
+    (64, 256, 384, 128, 16, 256, 128),        # 16-row CTAs, 4 column CTAs
+    (100, 100, 300, 100, 32, 32, 100),        # the masked byte path
+    (512, 512, 1024, 256, 256, 128, 256),
+]
+
+
+def _quant_inputs(m, n, k, group, seed, device="cuda"):
+    from repro_torch.kernels.quant_gemm import quantize_per_group
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(m, k, generator=g)
+    b = torch.randn(k, n, generator=g)
+    aq, sa = quantize_per_group(a, group, axis=1)
+    bq, sb = quantize_per_group(b, group, axis=0)
+    return [t.to(device) for t in (aq, bq, sa, sb)]
+
+
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", QUANT_CASES, ids=str)
+def test_quant_gemm_kernel_matches_plain(card, case, out):
+    from repro_torch.core.families.quant_gemm import QuantGemmConfig
+    from repro_torch.kernels.quant_gemm import (KERNEL, quant_error,
+                                                quant_gemm_ref, quant_matmul)
+    m, n, k, group, bm, bn, bk = case
+    aq, bq, sa, sb = _quant_inputs(m, n, k, group, m + n + k)
+    before = KERNEL.launches
+    got = quant_matmul(aq, bq, sa, sb, group=group,
+                       cfg=QuantGemmConfig(bm, bn, bk), out_dtype=out)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    want = quant_gemm_ref(aq, bq, sa, sb, group=group, out_dtype=out)
+    err, ok = quant_error(got, want)
+    assert ok, err
+
+
+def test_quant_gemm_kernel_at_the_production_problem(card):
+    from repro_torch.kernels.quant_gemm import (quant_error, quant_gemm_ref,
+                                                quant_matmul)
+    aq, bq, sa, sb = _quant_inputs(8192, 8192, 8192, 128, 0)
+    got = quant_matmul(aq, bq, sa, sb, group=128)
+    err, ok = quant_error(got, quant_gemm_ref(aq, bq, sa, sb, group=128))
+    assert ok, err
+
+
+def test_quant_gemm_wrapper_refuses_what_the_kernel_does_not_take(card):
+    from repro_torch.core.families.quant_gemm import QuantGemmConfig
+    from repro_torch.kernels.quant_gemm import (KERNEL, InvariantViolation,
+                                                quant_gemm, quant_matmul)
+    aq, bq, sa, sb = _quant_inputs(128, 128, 256, 128, 1)
+    before = KERNEL.launches
+    with pytest.raises(InvariantViolation):
+        quant_matmul(aq, bq, sa, sb, group=128, cfg=QuantGemmConfig(bk=96))
+    with pytest.raises(ValueError, match="must divide"):
+        quant_gemm(aq, bq, sa, sb, group=128, cfg=QuantGemmConfig(bk=96))
+    with pytest.raises(TypeError, match="int8"):
+        quant_matmul(aq.to(torch.float8_e4m3fn), bq.to(torch.float8_e4m3fn),
+                     sa, sb, group=128)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_gemm(aq.t().contiguous().t(), bq, sa, sb, group=128)
+    assert KERNEL.launches == before
+
+
+def test_validator_runs_the_quant_kernel_on_the_card(card):
+    from repro_torch.core.families.quant_gemm import (QuantGemmConfig,
+                                                      QuantGemmProblem)
+    from repro_torch.core.harness import (KernelState, LoweredState,
+                                          Validator)
+    from repro_torch.kernels.quant_gemm import KERNEL
+    v = Validator(run_kernels=True)
+    before = KERNEL.launches
+    for cfg in (QuantGemmConfig(), QuantGemmConfig(32, 64, 32),
+                QuantGemmConfig(256, 512, 64)):
+        st = KernelState("quant_gemm", cfg, QuantGemmProblem(
+            8192, 8192, 8192, 128)).refresh()
+        assert v.evaluate(LoweredState(st), incumbent_s=1.0).ok
+    assert KERNEL.launches - before == v.reference_runs == 3
+
+
+SSD_CASES = [
+    # (BH, S, P, N, chunk)
+    (2, 256, 32, 16, 64),
+    (1, 512, 64, 128, 512),           # one 512-long chunk
+    (3, 96, 24, 12, 32),              # P, N off the grain
+    (2, 1024, 128, 64, 256),          # two P tiles
+    (64, 2048, 64, 128, 128),
+    (4, 160, 16, 8, 160),             # a chunk of no whole 64-row blocks
+]
+
+
+def _ssd_inputs(BH, S, P, N, dtype, seed, device="cuda"):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(BH, S, P, generator=g)
+    da = -torch.randn(BH, S, generator=g).abs() * .1
+    B = torch.randn(BH, S, N, generator=g) * .3
+    C = torch.randn(BH, S, N, generator=g) * .3
+    return (x.to(device, dtype), da.to(device), B.to(device, dtype),
+            C.to(device, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+def test_ssd_kernel_matches_plain(card, case, dtype):
+    from repro_torch.core.families.ssd import SSDConfig
+    from repro_torch.kernels.ssd import KERNEL, ssd, ssd_error, ssd_ref
+    BH, S, P, N, q = case
+    x, da, B, C = _ssd_inputs(BH, S, P, N, dtype, BH + S + P)
+    before = KERNEL.launches
+    got = ssd(x, da, B, C, cfg=SSDConfig(chunk=q))
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    want, _ = ssd_ref(x, da, B, C, q)
+    err, row, ok = ssd_error(got, want)
+    assert ok, (err, row)
+
+
+def test_ssd_via_kernel_on_the_card_matches_ssd_chunked(card):
+    from repro_torch.kernels.ssd import KERNEL, ssd_error
+    from repro_torch.models.ssm import ssd_chunked, ssd_via_kernel
+    g = torch.Generator().manual_seed(3)
+    B_, S, H, P, N = 2, 512, 4, 64, 128
+    xh = torch.randn(B_, S, H, P, generator=g).cuda()
+    da = (-torch.randn(B_, S, H, generator=g).abs() * .1).cuda()
+    Bh = (torch.randn(B_, S, H, N, generator=g) * .3).cuda()
+    Ch = (torch.randn(B_, S, H, N, generator=g) * .3).cuda()
+    before = KERNEL.launches
+    got = ssd_via_kernel(xh, da, Bh, Ch, 256)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    want, _ = ssd_chunked(xh, da, Bh, Ch, 256)
+    err, row, ok = ssd_error(got, want)
+    assert ok, (err, row)
+
+
+def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(card):
+    from repro_torch.core.families.ssd import SSDConfig
+    from repro_torch.kernels.ssd import KERNEL, ssd_chunk_scan
+    before = KERNEL.launches
+    x, da, B, C = _ssd_inputs(1, 128, 16, 256, torch.float32, 0)
+    with pytest.raises(ValueError, match="d_state up to 128"):
+        ssd_chunk_scan(x, da, B, C, cfg=SSDConfig(64))
+    x, da, B, C = _ssd_inputs(1, 128, 16, 16, torch.float32, 0)
+    with pytest.raises(TypeError, match="one type"):
+        ssd_chunk_scan(x, da, B.bfloat16(), C, cfg=SSDConfig(64))
+    with pytest.raises(ValueError, match="must divide chunk"):
+        ssd_chunk_scan(x, da, B, C, cfg=SSDConfig(96))
+    assert KERNEL.launches == before
+
+
+def test_validator_runs_the_ssd_kernel_on_the_card(card):
+    from repro_torch.core.families.ssd import SSDConfig, SSDProblem
+    from repro_torch.core.harness import (KernelState, LoweredState,
+                                          Validator)
+    from repro_torch.kernels.ssd import KERNEL
+    v = Validator(run_kernels=True)
+    before = KERNEL.launches
+    for chunk in (32, 64, 512):
+        st = KernelState("ssd", SSDConfig(chunk), SSDProblem(
+            64, 8192, 64, 128)).refresh()
+        assert v.evaluate(LoweredState(st), incumbent_s=1.0).ok
+    assert KERNEL.launches - before == v.reference_runs == 3

@@ -178,15 +178,20 @@ def test_injected_bugs_match_the_same_signatures(idx):
 # -- the port's own registry -------------------------------------------------
 
 def test_registry_holds_gemm_only_and_names_the_roadmap():
-    """The ported families, in the JAX registry's order; the rest name
-    their ROADMAP item."""
+    """All eight families, in the JAX registry's order, so none is left
+    to port; any other name is unknown and the error lists the eight."""
+    from repro.core.families import family_names as jax_family_names
+    from repro_torch.core.families import quant_gemm, ssd
     assert family_names() == ("gemm", "flash_attention", "flash_decode",
-                              "moe", "paged_attention", "ragged_prefill")
-    for name, item in (("quant_gemm", "B7"), ("ssd", "B8")):
-        with pytest.raises(KeyError, match=f"ROADMAP.md, item {item}"):
+                              "moe", "ssd", "quant_gemm",
+                              "paged_attention", "ragged_prefill")
+    assert family_names() == jax_family_names()
+    assert get_family("quant_gemm") is quant_gemm.FAMILY
+    assert get_family("ssd") is ssd.FAMILY
+    for name in ("conv2d", "nope"):
+        with pytest.raises(KeyError, match="unknown kernel family") as err:
             get_family(name)
-    with pytest.raises(KeyError, match="unknown kernel family"):
-        get_family("nope")
+        assert "'ragged_prefill'" in str(err.value)
 
 
 def test_every_family_names_the_cuda_kernel_it_checks():
@@ -196,7 +201,8 @@ def test_every_family_names_the_cuda_kernel_it_checks():
     names = {k.name for k in ALL_KERNELS}
     kernels = [get_family(f).kernel for f in family_names()]
     assert kernels == ["gemm", "flash_attention", "flash_decode",
-                       "grouped_ffn", "paged_decode", "ragged_prefill"]
+                       "grouped_ffn", "ssd_chunk_scan", "quant_gemm",
+                       "paged_decode", "ragged_prefill"]
     assert set(kernels) == names
 
 

@@ -30,7 +30,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.models, repro_torch.kernels, repro_torch.configs, "
             "repro_torch.obs.export, repro_torch.launch.serve, "
             "repro_torch.core, repro_torch.core.harness, "
-            "repro_torch.kernels.gemm, repro_torch.kernels.flash_attention\n"
+            "repro_torch.kernels.gemm, repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.quant_gemm, repro_torch.kernels.ssd, "
+            "repro_torch.models.ssm, repro_torch.configs.mamba2_780m\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -104,6 +106,7 @@ def _entry_points():
                                    ServingEngine)
     cfg = configs.get_reduced("qwen3-1.7b")
     model = build(cfg)
+    ssm = build(configs.get_reduced("mamba2-780m"))
     tree = {"w": np.zeros((2, 2), np.float32)}
     return {
         "resolve_device": lambda **kw: resolve_device(**kw),
@@ -127,6 +130,19 @@ def _entry_points():
             *get_family("flash_decode").example(), **kw),
         "moe_reference_check": lambda **kw: get_family(
             "moe").reference_check(*get_family("moe").example(), **kw),
+        "quant_gemm_reference_check": lambda **kw: get_family(
+            "quant_gemm").reference_check(
+            *get_family("quant_gemm").example(), **kw),
+        "ssd_reference_check": lambda **kw: get_family(
+            "ssd").reference_check(*get_family("ssd").example(), **kw),
+        "SSMLM.init": lambda **kw: ssm.init(0, **kw),
+        "SSMLM.init_cache": lambda **kw: ssm.init_cache(2, 16, **kw),
+        "SSM ServingEngine": lambda **kw: ServingEngine(
+            ssm, {}, n_slots=1, max_len=16, **kw),
+        "launch.serve mamba2": lambda **kw: launch.main(
+            ["--arch", "mamba2-780m", "--reduced", "--engine", "dense",
+             "--requests", "1", "--max-new-tokens", "1", "--max-len",
+             "32"] + (["--device", kw["device"]] if kw else [])),
         "launch.serve": lambda **kw: launch.main(
             ["--arch", "qwen3-1.7b", "--reduced", "--requests", "1",
              "--max-new-tokens", "1", "--max-len", "32", "--page-size",
@@ -140,7 +156,11 @@ def _entry_points():
                                   "Validator", "reference_check",
                                   "flash_reference_check",
                                   "flash_decode_reference_check",
-                                  "moe_reference_check", "launch.serve"])
+                                  "moe_reference_check",
+                                  "quant_gemm_reference_check",
+                                  "ssd_reference_check", "SSMLM.init",
+                                  "SSMLM.init_cache", "SSM ServingEngine",
+                                  "launch.serve", "launch.serve mamba2"])
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -245,7 +245,7 @@ def test_cache_layout_matches_jax(pair):
 
 
 @pytest.mark.parametrize("change", [
-    dict(family="ssm"), dict(family="vlm"), dict(attn_type="mla"),
+    dict(family="hybrid"), dict(family="vlm"), dict(attn_type="mla"),
     dict(norm_type="layernorm"), dict(ffn_type="geglu"),
     dict(qkv_bias=True), dict(rope_frac=0.25), dict(tie_embeddings=False),
     dict(scale_embed=True)])
