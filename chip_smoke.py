@@ -10,7 +10,12 @@ is missing or any phase fails.  Phases:
 
 1. card — name and power limit as ``nvidia-smi`` reports them;
 2. build — the eight CUDA kernels from the repository's sources, one
-   ``nvcc`` per source, started together;
+   ``nvcc`` per source, started together; ptxas's registers, shared
+   memory and spills for each instance, and for the two flash libraries
+   the HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA) and UBLKCP (bulk
+   copy) instructions of each instance in ``cuobjdump -sass``: the
+   wgmma instances must show HGMMA and UTMALDG, the bf16 decode kernel
+   HMMA and UTMALDG;
 3. kernels against their plain PyTorch versions at the serving path's
    shapes (qwen3-1.7b: 16 query heads, 8 KV heads, head_dim 128, page
    size 16), in bfloat16 and float32, including poisoned pages and
@@ -43,10 +48,13 @@ is missing or any phase fails.  Phases:
 7. flash — the paper's second family on the card: (a) the
    flash-attention prefill kernel and the split-KV decode kernel
    against their plain versions in bfloat16 and float32, over the
-   default and family-example configs, block_q and block_kv 16 to 256,
+   default and family-example configs, block_q and block_kv 16 to 256
+   (block_q 128 and 64 on the wgmma CTAs at head_dim 64 and 128),
    causal and not, causal_block_skip and v_transposed_staging on and
-   off, GQA groups 1, 2 and 8, head_dim 64 and 128, Sq != Skv (1000 x
-   1500), kv_splits 1 to 16 with kv_len < S, within the tolerance
+   off, GQA groups 1, 2, 4 and 8, head_dim 64 and 128, Sq != Skv (1000
+   x 1500, and Skv < Sq), kv_splits 1 to 32 with kv_len < S, kv_len 0
+   (held to zeros, the TPU kernel's output there) and spans shorter
+   than a tile, within the tolerance
    stated beside ``flash_error`` (``kernels/flash_attention/ref.py``:
    each element, and each query row's error norm against the row's
    norm); (b) the agent loop on each family at its production
@@ -59,6 +67,8 @@ is missing or any phase fails.  Phases:
    (one batch row at a time — one head at a time at 16384 — since its
    materialised scores would not fit the card), one
    ``scaled_dot_product_attention`` call and the cost model's estimate;
+   for decode, beside the whole ``mha_decode`` call, the device time of
+   its split kernel and of its combine kernel (``torch.profiler``);
 8. moe — the paper's third family on the card: (a) the grouped-FFN
    kernel against its plain version in bfloat16 and float32 over the
    default config and the family example (block_t 8), block_t 16 to 256
@@ -219,6 +229,10 @@ def phase_card(torch):
 # -- phase 2 -----------------------------------------------------------------
 
 def phase_build():
+    """Build every kernel; log ptxas's registers, shared memory and
+    spills for each instance and, for the flash libraries, the tensor-core
+    and copy instructions of each instance in the SASS: HGMMA (wgmma),
+    HMMA (mma.sync), UTMALDG (TMA tensor loads), UBLKCP (bulk copies)."""
     from repro_torch.kernels import ALL_KERNELS, build_all
     t0 = time.perf_counter()
     logs = build_all(ALL_KERNELS)
@@ -231,7 +245,49 @@ def phase_build():
                 entry = _instance(ln)
             elif "registers" in ln or "spill" in ln or "bytes smem" in ln:
                 log(f"[build] {name}{entry}: {ln.strip()}")
-    return secs
+    sass = {}
+    for k in ALL_KERNELS:
+        if k.name not in ("flash_attention", "flash_decode"):
+            continue
+        for fn, counts in _sass_counts(k._lib_path()).items():
+            inst = f"{k.name}{_instance(fn)}"
+            sass[inst] = counts
+            log(f"[build] sass {inst}: " + ", ".join(
+                f"{op} {n}" for op, n in counts.items()))
+    for inst, c in sass.items():
+        if "wgmma" in inst:
+            check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
+                  f"{inst}: no wgmma or no TMA load in its SASS: {c}")
+        if "decode bf16" in inst:
+            check(c["HMMA"] > 0 and c["UTMALDG"] > 0,
+                  f"{inst}: no tensor-core product or no TMA load: {c}")
+    return dict(seconds=secs, sass=sass)
+
+
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP")
+
+
+def _sass_counts(lib):
+    """{kernel function: {op: count}} over SASS_OPS, from
+    ``cuobjdump -sass`` of a built library."""
+    import re
+    from repro_torch.kernels._build import nvcc_path
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed on {lib.name}: "
+          f"{out.stderr.strip()[-2000:]}")
+    counts, fn = {}, None
+    for ln in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", ln):
+                    counts[fn][op] += 1
+    return counts
 
 
 def _instance(ptxas_line):
@@ -247,6 +303,15 @@ def _instance(ptxas_line):
     if m:
         rows = int(m.group(3)) * (16 if m.group(1) == "bf16" else 1)
         return f" {m.group(1)} D={m.group(2)} tile={rows}"
+    m = re.search(r"fa_wgmma_kernelILi(\d+)ELi(\d+)E", ptxas_line)
+    if m:
+        return f" bf16 wgmma D={m.group(1)} tile={64 * int(m.group(2))}"
+    m = re.search(r"decode_(bf16|f32)_kernelI(?:f)?Li(\d+)E", ptxas_line)
+    if m:
+        return f" decode {m.group(1)} D={m.group(2)}"
+    m = re.search(r"combine_kernelI(13__nv_bfloat16|f)E", ptxas_line)
+    if m:
+        return f" combine {'bf16' if m.group(1) != 'f' else 'f32'}"
     m = re.search(r"ffn_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELb([01])E",
                   ptxas_line)
     if m:
@@ -973,17 +1038,37 @@ FA_CASES = [
      dict(block_q=256, block_kv=16, causal_block_skip=False)),
     ("non-causal transv", 1, 8, 1, 300, 900, 64, False,
      dict(block_q=64, block_kv=64, v_transposed_staging=True)),
+    # the wgmma instances (128- and 64-row CTAs) at D 64 and 128, ragged
+    # against the 128-key tile, Skv < Sq, a key edge inside the first tile
+    ("wgmma bq=128 D=128", 2, 8, 1, 1024, 1024, 128, True,
+     dict(block_q=128)),
+    ("wgmma bq=64 D=64", 2, 8, 2, 1024, 1024, 64, True, dict(block_q=64)),
+    ("wgmma bq=128 D=64 non-causal", 1, 8, 1, 640, 896, 64, False,
+     dict(block_q=128)),
+    ("wgmma bq=64 D=128 non-causal", 1, 4, 1, 500, 700, 128, False,
+     dict(block_q=64)),
+    ("wgmma 1000x1500 bq=128", 1, 8, 2, 1000, 1500, 128, True,
+     dict(block_q=128)),
+    ("wgmma Skv<Sq bq=128", 1, 8, 1, 1000, 333, 128, True,
+     dict(block_q=128)),
+    ("wgmma Skv=77 bq=128", 1, 2, 1, 300, 77, 64, True, dict(block_q=128)),
 ] + [(f"bq={bq} bkv={bkv}", 1, 4, 2, 300, 400, 64, True,
       dict(block_q=bq, block_kv=bkv))
      for bq in (16, 64, 128, 256) for bkv in (16, 64, 128, 256)]
 DEC_CASES = [
-    # (label, B, Hq, Hkv, S, kv_len, D, kv_splits)
+    # (label, B, Hq, Hkv, S, kv_len, D, kv_splits): a tile is 64 positions
+    # at D = 128 and 128 at D = 64 in bf16
     ("splits=1", 4, 8, 1, 2048, 2048, 128, 1),
     ("splits=2 G=1", 4, 4, 4, 2048, 1500, 64, 2),
     ("splits=8 kv_len<S", 8, 8, 1, 4096, 3001, 128, 8),
     ("splits=16 short", 2, 8, 1, 4096, 100, 128, 16),
     ("splits=8 G=1", 2, 2, 2, 1024, 1000, 128, 8),
     ("default splits", 2, 8, 1, 8192, 5000, 64, None),
+    ("G=2", 4, 8, 4, 2048, 1999, 128, 4),
+    ("G=4 D=64", 4, 8, 2, 2048, 2000, 64, 8),
+    ("kv_len=0", 2, 8, 1, 1024, 0, 128, 4),
+    ("span < tile", 2, 8, 1, 1024, 1000, 128, 32),
+    ("span < tile D=64", 2, 8, 1, 1024, 1024, 64, 16),
 ]
 
 
@@ -1053,7 +1138,10 @@ def phase_flash_kernels(torch):
             torch.cuda.synchronize()
             check(DECODE_KERNEL.launches == n0 + 1, f"decode {label}: no "
                   "launch")
-            want = mha_ref(q, k, v, causal=False, kv_len=kv_len)
+            # at kv_len 0 every span has l = 0 and the kernel writes
+            # zeros, as the TPU kernel does (mha_ref would average V)
+            want = (torch.zeros_like(q) if kv_len == 0 else
+                    mha_ref(q, k, v, causal=False, kv_len=kv_len))
             err, row, ok = flash_error(got, want)
             check(ok, f"flash_decode {dtype} {label}: max |kernel - "
                   f"plain| {err}, worst row {row}: beyond the tolerance")
@@ -1068,8 +1156,9 @@ def phase_flash_kernels(torch):
         worst[key] = (max(e, c["max_abs_err"]), max(r, c["row_err"]))
     log(f"[flash] kernels against their plain versions: {len(out)} cases "
         f"(bf16 and f32; default, example bq=8, bq x bkv 16..256, causal "
-        f"and not, skip and transv on/off, G 1/2/8, D 64/128, 1000x1500; "
-        f"decode kv_splits 1..16, kv_len < S, G 1/8), all within "
+        f"and not, skip and transv on/off, G 1/2/4/8, D 64/128, 1000x1500, "
+        f"Skv < Sq, the wgmma tiles 128 and 64; decode kv_splits 1..32, "
+        f"kv_len < S and 0, spans shorter than a tile), all within "
         f"f32 1e-4, rows 1e-3; bf16 1e-2 + 2^-7 |o|, rows 2^-6; worst "
         f"(max abs, row) " + ", ".join(
             f"{n}/{SHORT[d]} {e:.3g} {r:.3g}" for (n, d), (e, r)
@@ -1175,6 +1264,11 @@ def phase_flash_time(torch, family, best_cfg):
             slow = family == "flash_attention" and cfg.block_q < 16
             ms = time_ms(torch, run(cfg), iters=3 if slow else 10,
                          warmup=1 if slow else 3)
+            parts = ""
+            if family == "flash_decode":
+                k_ms, c_ms = decode_parts_ms(torch, run(cfg))
+                parts = (f" (device: split kernel {k_ms:.4f} ms, combine "
+                         f"{c_ms:.4f} ms; the rest host time)")
             est = fam.cost(cfg, prob).time_s * 1e3
             rows.append(dict(problem=dataclasses.astuple(prob),
                              config=which, cfg=cfg.name(), ms=ms,
@@ -1185,8 +1279,11 @@ def phase_flash_time(torch, family, best_cfg):
                              model_over_measured=est / ms,
                              tflops=flops / ms / 1e9,
                              gbps=n_bytes / ms / 1e6))
+            if family == "flash_decode":
+                rows[-1].update(kernel_ms=k_ms, combine_ms=c_ms)
             log(f"[flash] {family} {dataclasses.astuple(prob)[:6]} {which} "
-                f"{cfg.name()}: {ms:.4f} ms ({rows[-1]['tflops']:.1f} "
+                f"{cfg.name()}: {ms:.4f} ms{parts} ("
+                f"{rows[-1]['tflops']:.1f} "
                 f"TFLOP/s, {rows[-1]['gbps']:.0f} GB/s), bound {bms:.4f} ms "
                 f"({by}), plain {plain:.4f} ms ("
                 f"{'one head' if heads else 'one batch row'} at a time), "
@@ -1196,6 +1293,37 @@ def phase_flash_time(torch, family, best_cfg):
         del q, k, v, want
         torch.cuda.empty_cache()
     return rows
+
+
+def decode_parts_ms(torch, call, n=20):
+    """Device time per call of ``mha_decode`` (``call``), from
+    ``torch.profiler`` over ``n`` calls: the split kernel (the kernels
+    whose name holds ``decode_``) and the merge of the spans' partials
+    (every other kernel: the combine kernel, or the tensor ops that an
+    older wrapper ran after its kernel).  No L2 flush between the calls:
+    the cache they stream (134 MB at the family's problems) is larger
+    than the L2."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    split = merge = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if not us or "cuda" not in str(getattr(e, "device_type",
+                                               "")).lower():
+            continue
+        if "decode_" in e.key:
+            split += us
+        else:
+            merge += us
+    check(split > 0, "the profiler saw no decode kernel on the card")
+    return split / n / 1e3, merge / n / 1e3
 
 
 def _sdpa_ms(torch, q, k, v, causal):
@@ -1929,7 +2057,7 @@ def main():
     summary = {}
     try:
         summary["card"] = phase_card(torch)
-        summary["build_s"] = phase_build()
+        summary["build"] = phase_build()
         kern = {}
         for dtype in ("bfloat16", "float32"):
             kern[("paged_decode", dtype)] = phase_decode_kernel(torch, dtype)

@@ -13,13 +13,17 @@ The structural, cost and speed-of-light hooks are a Hopper model of the
 CUDA kernel that runs the family
 (``repro_torch/kernels/flash_attention/csrc/flash_attention.cu``), as
 ``families/gemm.py`` describes gemm: the config's ``block_q`` runs on
-CTAs of the largest compiled tile of 64, 32 or 16 query rows that
+CTAs of the largest compiled tile of 128, 64, 32 or 16 query rows that
 divides it (:func:`cta_tile`; 16 with masked rows when none does), a
-larger block on several CTAs; each CTA walks the keys in chunks of 64
-(bf16, ``mma.sync``) or 32 (f32, CUDA-core FMAs), stopping after its last
-query row under ``causal_block_skip``.  So one program step (bh, qi, kv)
-is run by ``cdiv(block_q, tile)`` CTAs, each doing the kv axis itself in
-its own chunks; ``block_kv`` and ``v_transposed_staging`` select nothing
+larger block on several CTAs; each CTA walks the keys in tiles, stopping
+after its last query row under ``causal_block_skip``.  In bf16 the 128-
+and 64-row tiles are the Hopper kernel: a producer warpgroup loads
+128-key K and V tiles by TMA into a two-stage ring, and one or two
+consumer warpgroups of 64 rows run both products on ``wgmma``; the 32-
+and 16-row tiles run ``mma.sync`` over 64-key chunks, and f32 runs
+CUDA-core FMAs over 32-key chunks.  So one program step (bh, qi, kv) is
+run by ``cdiv(block_q, tile)`` CTAs, each doing the kv axis itself in
+its own tiles; ``block_kv`` and ``v_transposed_staging`` select nothing
 in the kernel.
 """
 from __future__ import annotations
@@ -179,9 +183,16 @@ def build_flash_attention_program(cfg: FlashAttentionConfig,
 
 # -- the CUDA kernel's decomposition -----------------------------------------
 
-CTA_TILES = (64, 32, 16)      # query rows per CTA (compiled instances)
-HEAD_DIMS = (64, 128)         # head dims the kernel is compiled for
-CHUNK = {"bf16": 64, "f32": 32}   # keys per chunk of a CTA's walk
+CTA_TILES = (128, 64, 32, 16)  # query rows per CTA (compiled instances)
+HEAD_DIMS = (64, 128)          # head dims the kernel is compiled for
+WGMMA_TILES = (128, 64)        # bf16 tiles on wgmma: 64 rows a warpgroup
+KEY_TILE = 128                 # keys per TMA tile of the wgmma instances
+STAGES = 2                     # K/V ring depth of the wgmma instances
+CHUNK = {"bf16": 64, "f32": 32}  # keys per chunk of the other instances
+CONSUMER_REGS, PRODUCER_REGS = 232, 40   # setmaxnreg, wgmma instances
+# the tensor cores' rate that each instance reaches at most: wgmma the
+# card's peak, mma.sync fed by ldmatrix about half of it (model)
+MMA_SYNC_DERATE = 0.5
 
 
 def cta_tile(block_q: int) -> int:
@@ -191,27 +202,52 @@ def cta_tile(block_q: int) -> int:
     return next((t for t in CTA_TILES if block_q % t == 0), CTA_TILES[-1])
 
 
+def is_wgmma(tile: int, dtype: str) -> bool:
+    return dtype != "f32" and tile in WGMMA_TILES
+
+
+def key_tile(tile: int, dtype: str) -> int:
+    """Keys per step of a CTA's walk (its running max's unit)."""
+    return KEY_TILE if is_wgmma(tile, dtype) else CHUNK.get(dtype, 64)
+
+
 def smem_bytes(tile: int, head_dim: int, dtype: str) -> int:
-    """Shared memory of one CTA (the kernel's layout): bf16 — the Q tile
-    and two buffers each of a 64-key K and V chunk, rows padded by 16
-    bytes; f32 — Q, one 32-key K and V chunk and the weights, rows padded
-    by one word."""
+    """Shared memory of one CTA (the kernel's layout): bf16 wgmma — 1024
+    bytes of alignment slack, the Q tile and a two-stage ring of 128-key
+    K and V tiles (128-byte swizzle, no padding) and the mbarriers; bf16
+    mma.sync — the Q tile and two buffers each of a 64-key K and V chunk,
+    rows padded by 16 bytes; f32 — Q, one 32-key K and V chunk and the
+    weights, rows padded by one word."""
     if dtype == "f32":
         kc = CHUNK["f32"]
         return ((tile + 2 * kc) * (head_dim + 1) + tile * (kc + 1)) * 4
+    if is_wgmma(tile, dtype):
+        return (1024 + tile * head_dim * 2
+                + 2 * STAGES * KEY_TILE * head_dim * 2 + 8 * (1 + 4 * STAGES))
     return (tile + 4 * CHUNK["bf16"]) * (head_dim + 8) * 2
 
 
 def threads(tile: int, dtype: str) -> int:
-    """bf16: one warp per 16 query rows; f32: four threads per row."""
-    return 4 * tile if dtype == "f32" else 2 * tile
+    """bf16 wgmma: a consumer warpgroup per 64 rows and one producer
+    warpgroup; bf16 mma.sync: one warp per 16 query rows; f32: four
+    threads per row."""
+    if dtype == "f32":
+        return 4 * tile
+    if is_wgmma(tile, dtype):
+        return 128 * (tile // 64 + 1)
+    return 2 * tile
 
 
-def _regs(head_dim: int, dtype: str) -> int:
-    """Registers per thread (model): the accumulator, the score chunk and
-    Q's fragments (bf16), plus 40 beside them."""
+def _regs(tile: int, head_dim: int, dtype: str) -> int:
+    """Registers per thread (model): wgmma — the CTA's mean after
+    setmaxnreg (consumers 232, the producer warpgroup 40); otherwise the
+    accumulator, the score chunk and Q's fragments (bf16), plus 40 beside
+    them."""
     if dtype == "f32":
         return 4 * head_dim // 16 + 8 + 40
+    if is_wgmma(tile, dtype):
+        n_c = tile // 64
+        return (n_c * CONSUMER_REGS + PRODUCER_REGS) // (n_c + 1)
     return head_dim // 2 + CHUNK["bf16"] // 2 + head_dim // 4 + 40
 
 
@@ -220,8 +256,8 @@ def structural_flash_attention(cfg: FlashAttentionConfig,
     """Hopper model of ``flash_attention.cu``: a head_dim it is not
     compiled for, its shared memory per CTA, a block_q off the CTA tile
     (masked rows) or beyond it (several CTAs), rows that are not 16-byte
-    aligned for cp.async, and the two semantic masking checks of the JAX
-    family."""
+    aligned for the copies, and the two semantic masking checks of the
+    JAX family."""
     D = prob.head_dim
     tile = cta_tile(cfg.block_q)
     issues = []
@@ -250,10 +286,11 @@ def flash_attention_cost(cfg: FlashAttentionConfig,
                          prob: FlashAttentionProblem) -> CostEstimate:
     """H100 model of ``flash_attention.cu``: the products issued (the
     causal half under the skip, masked rows of a block below the CTA
-    tile included) at the dtype's peak, quantised in waves over the 132
-    SMs; Q, K, V and O cross HBM once, and every CTA streams its (b, KV
-    head)'s K and V — 4 MB at 8192 x 128 in bf16, which L2 holds — at
-    the L2 rate."""
+    tile included) at the dtype's peak — half of it on the ``mma.sync``
+    instances — quantised in waves over the 132 SMs; Q, K, V and O cross
+    HBM once, and every CTA streams its (b, KV head)'s K and V — 4 MB at
+    8192 x 128 in bf16, which L2 holds for the G query heads that share
+    it — at the L2 rate."""
     sz = DTYPE_BYTES.get(prob.dtype, 2)
     B, H, HK = prob.batch, prob.q_heads, prob.kv_heads
     SQ, SKV, D = prob.seq_q, prob.seq_kv, prob.head_dim
@@ -264,9 +301,12 @@ def flash_attention_cost(cfg: FlashAttentionConfig,
     causal_frac = 0.5 if (prob.causal and cfg.causal_block_skip) else 1.0
     flops = 4.0 * B * H * SQ * SKV * D * causal_frac
     grain = bq / (cps * tile)
-    per_sm = ctas_per_sm(threads(tile, prob.dtype), _regs(D, prob.dtype),
+    per_sm = ctas_per_sm(threads(tile, prob.dtype),
+                         _regs(tile, D, prob.dtype),
                          smem_bytes(tile, D, prob.dtype))
-    util = grain * wave_eff(n_ctas, per_sm)
+    rate = 1.0 if (prob.dtype == "f32" or is_wgmma(tile, prob.dtype)) \
+        else MMA_SYNC_DERATE
+    util = grain * wave_eff(n_ctas, per_sm) * rate
     hbm = (2 * B * H * SQ * D + 2 * B * HK * SKV * D) * sz
     l2 = n_ctas * 2 * SKV * D * sz * causal_frac
     return CostEstimate(

@@ -14,7 +14,12 @@ The structural, cost and speed-of-light hooks are a Hopper model of the
 CUDA kernel (``repro_torch/kernels/flash_attention/csrc/
 flash_decode.cu``): one CTA per (span, KV head, batch row) runs the G
 program steps (bh, s) of the query heads that share that KV head
-together, reading the span once instead of G times, in 16 KB tiles.
+together, reading the span once instead of G times.  In bf16 its
+products run on tensor cores with the operands swapped (K · Qᵀ, G heads
+padded to the n = 8 of ``mma.sync``), and a producer warp streams the
+span through a three-stage TMA ring of 16 KB K and V tiles; f32 runs
+CUDA-core FMAs over one 16 KB tile at a time.  A second kernel of the
+same call merges the spans' partials on the card.
 """
 from __future__ import annotations
 
@@ -132,19 +137,37 @@ def build_flash_decode_program(cfg: FlashDecodeConfig,
 
 MAX_GROUP = 8            # query heads per KV head one CTA serves
 HEAD_DIMS = (64, 128)    # head dims the kernel is compiled for
-KERNEL_THREADS = 128
+TILE_BYTES = 16384       # one K (or V) tile
+STAGES = {"bf16": 3, "f32": 1}        # K/V tiles of a CTA in flight
+KERNEL_THREADS = {"bf16": 160, "f32": 128}   # bf16: 4 consumer warps and
+#                                              a producer warp
 
 
 def tile_tokens(head_dim: int, itemsize: int) -> int:
-    """Positions of K (and of V) one step stages: 16 KB, at most 64."""
-    return min(64, 16384 // (head_dim * itemsize))
+    """Positions of K (and of V) one step stages: 16 KB, at most 64 in
+    f32; in bf16 16 KB exactly (64 positions at head_dim 128, 128 at
+    64: 16 or 32 for each of the four consumer warps)."""
+    if itemsize == 2:
+        return TILE_BYTES // (head_dim * 2)
+    return min(64, TILE_BYTES // (head_dim * itemsize))
+
+
+def smem_bytes(head_dim: int, dtype: str) -> int:
+    """Shared memory of one CTA: bf16 — 1024 bytes of alignment slack,
+    the ring of K and V tiles and its mbarriers; f32 — one K and V tile,
+    Q and the weights in float32."""
+    sz = DTYPE_BYTES.get(dtype, 2)
+    tt = tile_tokens(head_dim, sz)
+    if dtype == "f32":
+        return 2 * tt * head_dim * sz + MAX_GROUP * (head_dim + tt) * 4
+    return 1024 + STAGES["bf16"] * 2 * TILE_BYTES + 16 * STAGES["bf16"]
 
 
 def structural_flash_decode(cfg: FlashDecodeConfig,
                             prob: FlashDecodeProblem):
     """Hopper model of ``flash_decode.cu``: splits that do not tile the
     cache, a geometry it is not compiled for, rows that are not 16-byte
-    aligned (it reads the cache in 16-byte vectors)."""
+    aligned (it copies the cache in 16-byte units)."""
     span = cdiv(prob.seq_kv, cfg.kv_splits)
     issues = []
     if span * cfg.kv_splits != prob.seq_kv:
@@ -166,24 +189,34 @@ def structural_flash_decode(cfg: FlashDecodeConfig,
 def flash_decode_cost(cfg: FlashDecodeConfig,
                       prob: FlashDecodeProblem) -> CostEstimate:
     """H100 model of ``flash_decode.cu``: memory-bound cache streaming,
-    one CTA per (span, KV head, row) with one step's K and V tiles in
-    flight per round trip, so splits buy bandwidth (more CTAs in flight)
-    at the cost of the partials' write and read — the kv_splits knob the
-    harness tunes.  The products are FMAs on the CUDA cores."""
+    one CTA per (span, KV head, row) keeping its ring's K and V tiles in
+    flight per round trip, the bandwidth shared by the SMs that hold a
+    CTA, so splits buy bandwidth (more CTAs, on more SMs) at the cost of
+    the partials, which the split kernel writes and the
+    combine kernel reads before writing the output — the kv_splits knob
+    the harness tunes.  The products run on the tensor cores in bf16
+    (the G heads padded to 8) and on the CUDA cores in f32."""
     sz = DTYPE_BYTES.get(prob.dtype, 2)
     B, H, HK = prob.batch, prob.q_heads, prob.kv_heads
     S, D = prob.seq_kv, prob.head_dim
     ns = cfg.kv_splits
     flops = 4.0 * B * H * S * D
     kv_bytes = 2 * B * HK * S * D * sz
-    part_bytes = B * H * ns * (D + 2) * 4 * 2     # partials write+read
+    # partials written and read once, the output written once
+    part_bytes = B * H * ns * (D + 2) * 4 * 2 + B * H * D * sz
     n_ctas = B * HK * ns
-    tt = tile_tokens(D, sz)
-    smem = 2 * tt * D * sz + MAX_GROUP * (D + tt) * 4
-    per_sm = ctas_per_sm(KERNEL_THREADS, 64, smem)
-    eff = stream_eff(min(n_ctas, N_SMS * per_sm), 2 * tt * D * sz)
+    dt = "f32" if prob.dtype == "f32" else "bf16"
+    per_sm = ctas_per_sm(KERNEL_THREADS[dt], 64, smem_bytes(D, prob.dtype))
+    in_flight = STAGES[dt] * 2 * TILE_BYTES
+    eff = stream_eff(min(n_ctas, N_SMS * per_sm), in_flight) \
+        * min(1.0, n_ctas / N_SMS)
+    if dt == "f32":
+        compute_s = flops / (PEAK_FLOPS["f32"] * wave_eff(n_ctas, per_sm))
+    else:   # tensor cores, 8 heads a tile whatever G is
+        compute_s = (flops * MAX_GROUP / prob.group
+                     / (PEAK_FLOPS["bf16"] * wave_eff(n_ctas, per_sm)))
     return CostEstimate(
-        compute_s=flops / (PEAK_FLOPS["f32"] * wave_eff(n_ctas, per_sm)),
+        compute_s=compute_s,
         memory_s=(kv_bytes + part_bytes) / (HBM_BW * eff),
         flops=flops, hbm_bytes=kv_bytes + part_bytes)
 

@@ -2,11 +2,14 @@
 through ctypes.
 
 Each kernel is one ``.cu`` file with a plain C entry point (no PyTorch
-headers, so ``nvcc`` takes seconds, not minutes).  It is compiled for
-Hopper (``-gencode arch=compute_90a,code=sm_90a``) into
+headers, so ``nvcc`` takes seconds, not minutes); it may include the
+shared Hopper header ``kernels/csrc/hopper.cuh`` (``#include
+"hopper.cuh"``, found through ``-I`` on :data:`INCLUDE_DIR`).  It is
+compiled for Hopper (``-gencode arch=compute_90a,code=sm_90a``) into
 ``build/kernels/`` at the root of the checkout, a directory that
 ``.gitignore`` lists; the library's file name carries a hash of the
-source and flags, so an edited source is rebuilt.  Nothing is compiled
+source, of every repository header it includes and of the flags, so an
+edited source or header is rebuilt.  Nothing is compiled
 when a module is imported: :meth:`CudaKernel.library` builds on the
 first launch, and :func:`build_all` builds several kernels at once,
 one ``nvcc`` process per source, all started together.
@@ -22,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,6 +34,8 @@ from typing import Dict, List, Optional, Sequence
 
 _ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = _ROOT / "build" / "kernels"
+INCLUDE_DIR = Path(__file__).resolve().parent / "csrc"
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo")
@@ -51,6 +57,25 @@ def nvcc_path() -> str:
                        "to build the port's CUDA kernels")
 
 
+def included_headers(source: Path) -> List[Path]:
+    """The headers of the repository that ``source`` includes, directly or
+    through another header, each looked up as ``nvcc`` does: beside the
+    including file first, then in :data:`INCLUDE_DIR`."""
+    found: List[Path] = []
+    todo = [Path(source)]
+    while todo:
+        f = todo.pop()
+        for name in _INCLUDE.findall(f.read_text()):
+            for d in (f.parent, INCLUDE_DIR):
+                h = (d / name).resolve()
+                if h.is_file():
+                    if h not in found:
+                        found.append(h)
+                        todo.append(h)
+                    break
+    return sorted(found)
+
+
 class CudaKernel:
     """One hand-written CUDA kernel: its source, its C entry point, the
     library built from it, and its launch counter (``launches``)."""
@@ -69,12 +94,14 @@ class CudaKernel:
     # -- build ----------------------------------------------------------------
     def _lib_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for hdr in included_headers(self.source):
+            h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
         h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 
     def _nvcc_cmd(self, out: Path) -> List[str]:
-        return [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(out),
-                str(self.source)]
+        return [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, "-I",
+                str(INCLUDE_DIR), "-o", str(out), str(self.source)]
 
     def start_build(self) -> Optional[subprocess.Popen]:
         """Start ``nvcc`` for this kernel (None if already built)."""

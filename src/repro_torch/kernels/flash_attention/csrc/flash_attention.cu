@@ -13,36 +13,60 @@
 //     -1e30 with an explicit zero weight, and a row whose l is 0 writes
 //     zeros;
 //   * p is cast to v's type before P·V, as the TPU kernel does: in bf16 it
-//     is exactly the bf16 A operand of an mma.sync m16n8k16, built in
-//     registers from the S accumulator fragments; l sums the float32 p.
+//     is the bf16 A operand of the P·V product, built in registers from
+//     the S accumulator fragments; l sums the float32 p.
 //
 // Design.  One CTA per (b·Hq + h, query tile).  The config's block_q maps
 // onto compiled CTA tiles as gemm.cu maps its tiles: the wrapper picks the
-// largest tile of 64, 32 or 16 query rows that divides block_q (16 when
-// none does, with the rows past the config block masked), and a config
-// block larger than the tile runs on several CTAs.  So the family
-// example's block_q = 8 runs on a 16-row tile, and block_q = 256 on four
-// 64-row CTAs.  Inside a CTA the keys are walked in chunks; with
-// causal_block_skip (only under `causal`) the walk stops after the chunk
-// that holds the CTA's last query row, which is exact: a later chunk
-// would give alpha = 1 and p = 0 to every row of the CTA.
+// largest tile of 128, 64, 32 or 16 query rows that divides block_q (16
+// when none does, with the rows past the config block masked), and a
+// config block larger than the tile runs on several CTAs.  So the family
+// example's block_q = 8 runs on a 16-row tile, and block_q = 256 on two
+// 128-row CTAs.  The grid walks the query tiles last to first, so that
+// under `causal` the longest key walks are dispatched first.  Inside a
+// CTA the keys are walked in tiles; with causal_block_skip (only under
+// `causal`) the walk stops after the tile that holds the CTA's last query
+// row, which is exact: a later tile would give alpha = 1 and p = 0 to
+// every row of the CTA.
 //
-// The running max is updated once per kernel chunk (64 keys in bf16, 32
-// in f32), whatever block_kv is, where the TPU kernel updates it once per
-// block_kv keys.  p is rounded to bf16 against the running max of its
-// chunk, so a bf16 result can move by about one bf16 step against the TPU
-// kernel's; f32 results agree to f32 rounding.  block_kv and
-// v_transposed_staging select nothing here: V's fragments come through
-// ldmatrix.trans from V as it is staged (rows of keys), which is where a
-// transposed staging would be honoured.
+// The running max is updated once per kernel key tile (128 keys on the
+// 128- and 64-row bf16 tiles, 64 on the 32- and 16-row ones, 32 in f32),
+// whatever block_kv is, where the TPU kernel updates it once per block_kv
+// keys.  p is rounded to bf16 against the running max of its tile, so a
+// bf16 result can move by about one bf16 step against the TPU kernel's;
+// f32 results agree to f32 rounding.  block_kv and v_transposed_staging
+// select nothing here: V is read as it is staged (rows of keys), by the
+// transposed (MN-major) B mode of wgmma or by ldmatrix.trans, which is
+// where a transposed staging would be honoured.
 //
-//   * bf16: 16 query rows per warp (1, 2 or 4 warps for a 16, 32 or
-//     64-row tile).  Q, and each 64-key chunk of K and V, are staged in
-//     shared memory by 16-byte cp.async copies (zero-filled past the
-//     edge), K and V double-buffered; rows are padded by 16 bytes so the
-//     ldmatrix reads are free of bank conflicts.  Q·Kᵀ and P·V run on
-//     mma.sync.m16n8k16 with float32 accumulators; Q's fragments are
-//     loaded once, K's by ldmatrix, V's by ldmatrix.trans.
+//   * bf16, 128- and 64-row tiles (fa_wgmma_kernel): the FlashAttention-3
+//     layout.  A producer warpgroup (one thread issues) loads Q once and
+//     each 128-key tile of K and of V by TMA (128-byte swizzle, zero fill
+//     past Sq and Skv) into a two-stage ring of shared memory and runs
+//     ahead of the consumers; K and V of a stage each have a "full" and
+//     an "empty" mbarrier, so K is refilled once S has been computed and
+//     V once P·V has.  One or two consumer warpgroups of 64 query rows
+//     each compute S = Q·Kᵀ by wgmma.mma_async m64n128k16 (Q and K from
+//     shared memory, f32 accumulator in registers), the softmax in
+//     registers with exp2f and log2(e) folded into the scale, masking only
+//     the tiles that cross the causal diagonal or the Skv edge, and O +=
+//     P·V by wgmma with P as the bf16 register A operand and V as the
+//     MN-major shared-memory B operand.  The softmax of a tile that
+//     crosses neither the diagonal nor the edge takes its max on the raw
+//     scores and one FFMA and one exp2f per score (the scale folded into
+//     the FFMA): an earlier form with a multiply, a subtract and the
+//     mask's selects per score took 6.39 ms at the family's production
+//     problem on an H100, this one 4.22 (chip_smoke.py phase 7c;
+//     PERF.md).
+//     setmaxnreg moves registers from the producer (40) to the consumers
+//     (232).
+//   * bf16, 32- and 16-row tiles (fa_bf16_kernel): 16 query rows per warp.
+//     Q, and each 64-key chunk of K and V, are staged in shared memory by
+//     16-byte cp.async copies (zero-filled past the edge), K and V
+//     double-buffered; rows are padded by 16 bytes so the ldmatrix reads
+//     are free of bank conflicts.  Q·Kᵀ and P·V run on mma.sync.m16n8k16
+//     with float32 accumulators.  These tiles serve block_q below 64 (the
+//     family example's 8).
 //   * f32: CUDA-core FMAs (TF32 stays off, as resolve_device sets it), 4
 //     threads per query row: each thread holds a 4 x 2 tile of scores and
 //     a 4 x D/16 tile of the accumulator; Q and each 32-key chunk of K and
@@ -55,17 +79,20 @@
 // (16 x 8 query heads over 1 KV head, 8192 x 8192, D = 128, causal, bf16)
 // the causal half of the products is 2.2e12 operations against 0.6 GB of
 // q, k, v and o: 2.22 ms at 989 TFLOP/s against 0.18 ms at 3.35 TB/s, so
-// operations bound it.  mma.sync fed by ldmatrix reaches a fraction of the
-// tensor-core rate; wgmma fed by TMA with warp specialisation (the shape
-// of a fast Hopper attention kernel) is left for a later change.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// operations bound it, and only wgmma reaches the tensor cores' full rate
+// on Hopper.  A warpgroup's softmax does not overlap its own products
+// here: issuing S of tile j with P·V of tile j-1, and ping-pong turns
+// between the two warpgroups, both measured slower on an H100 than this
+// plain order (PERF.md).
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
+
 constexpr float kNegInf = -1e30f;
-constexpr int kChunkBf16 = 64;  // keys per chunk, bf16 path
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kChunkBf16 = 64;  // keys per chunk, 32- and 16-row bf16 tiles
 constexpr int kChunkF32 = 32;   // keys per chunk, f32 path
 
 struct Params {
@@ -82,6 +109,7 @@ struct Params {
 
 // Rows [r0, rend) of this CTA, the base of its (b, h) slices, and the
 // number of key chunks it walks.  False when the CTA lies past the edge.
+// Query tiles are taken last to first (the longest causal walks first).
 struct Work {
   int r0, rend, n_chunks;
   size_t q_base, kv_base;
@@ -90,7 +118,8 @@ struct Work {
 __device__ __forceinline__ bool cta_work(const Params& p, int tile, int kc,
                                          Work& w) {
   const int bh = blockIdx.x;
-  const int qi = blockIdx.y / p.cps, sub = blockIdx.y % p.cps;
+  const int y = gridDim.y - 1 - blockIdx.y;
+  const int qi = y / p.cps, sub = y % p.cps;
   w.r0 = qi * p.bq + sub * tile;
   w.rend = min(min(qi * p.bq + p.bq, w.r0 + tile), p.Sq);
   if (w.r0 >= w.rend) return false;
@@ -108,7 +137,7 @@ __device__ __forceinline__ bool admitted(const Params& p, int qpos,
   return kpos < p.Skv && (!p.causal || qpos >= kpos);
 }
 
-// -- bf16: mma.sync ----------------------------------------------------------
+// -- bf16, 32- and 16-row tiles: mma.sync -------------------------------------
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
@@ -122,37 +151,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* p) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi)))
-          << 16);
 }
 
 // max / sum over the four lanes of a quad (the lanes holding one row of an
@@ -242,7 +240,7 @@ fa_bf16_kernel(Params p) {
       for (int kt = 0; kt < D / 16; ++kt) {
         const int mi = lane >> 3;
         const int row = warp * 16 + (mi & 1) * 8 + (lane & 7);
-        ldmatrix_x4(qa[kt], q_s + row * LDS + kt * 16 + (mi >> 1) * 8);
+        ldmatrix_x4(qa[kt], smem_u32(q_s + row * LDS + kt * 16 + (mi >> 1) * 8));
       }
     }
     const __nv_bfloat16* kb = k_s + (ch & 1) * KC * LDS;
@@ -259,7 +257,7 @@ fa_bf16_kernel(Params p) {
         const int mi = lane >> 3;
         const int key = np * 16 + (mi >> 1) * 8 + (lane & 7);
         uint32_t b[4];
-        ldmatrix_x4(b, kb + key * LDS + kt * 16 + (mi & 1) * 8);
+        ldmatrix_x4(b, smem_u32(kb + key * LDS + kt * 16 + (mi & 1) * 8));
         mma_bf16(s[2 * np], qa[kt], b[0], b[1]);
         mma_bf16(s[2 * np + 1], qa[kt], b[2], b[3]);
       }
@@ -320,7 +318,7 @@ fa_bf16_kernel(Params p) {
         const int mi = lane >> 3;
         const int key = kk * 16 + (mi & 1) * 8 + (lane & 7);
         uint32_t b[4];
-        ldmatrix_x4_trans(b, vb + key * LDS + dp * 16 + (mi >> 1) * 8);
+        ldmatrix_x4_trans(b, smem_u32(vb + key * LDS + dp * 16 + (mi >> 1) * 8));
         mma_bf16(acc[2 * dp], a, b[0], b[1]);
         mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
       }
@@ -339,6 +337,247 @@ fa_bf16_kernel(Params p) {
     if (qrow_b < w.rend)
       *reinterpret_cast<uint32_t*>(o + (w.q_base + qrow_b) * D + col) =
           pack_bf16(acc[j][2] * inv_b, acc[j][3] * inv_b);
+  }
+}
+
+// -- bf16, 128- and 64-row tiles: wgmma fed by TMA ----------------------------
+
+constexpr int kBN = 128;          // keys per K/V tile
+constexpr int kStages = 2;        // K/V ring depth
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+
+template <int D, int NCW>
+struct WgCfg {
+  static constexpr int BM = 64 * NCW;              // query rows per CTA
+  static constexpr int kPanels = D / 64;           // 64-column TMA boxes
+  static constexpr int kThreads = 128 * (NCW + 1);
+  static constexpr int kQBytes = BM * D * 2;
+  static constexpr int kTileBytes = kBN * D * 2;   // one K (or V) tile
+  // 1024 of alignment slack (the swizzled tiles need 1024-byte bases),
+  // Q, the ring, and the mbarriers
+  static constexpr int kSmem =
+      1024 + kQBytes + 2 * kStages * kTileBytes + 8 * (1 + 4 * kStages);
+};
+
+template <int D, int NCW>
+__global__ void __launch_bounds__(128 * (NCW + 1), 1)
+fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, Params p) {
+  using C = WgCfg<D, NCW>;
+  constexpr int BM = C::BM, TB = C::kTileBytes;
+  Work w;
+  if (!cta_work(p, BM, kBN, w)) return;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* q_s = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* k_s = q_s + C::kQBytes;        // [stage][panel][kBN][64]
+  unsigned char* v_s = k_s + kStages * TB;      // [stage][panel][kBN][64]
+  // K and V of a stage fill and drain apart: K is free once S has been
+  // computed, V once P·V has
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + kStages * TB);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* k_empty = v_full + kStages;
+  uint64_t* v_empty = k_empty + kStages;
+
+  const int bh = blockIdx.x;
+  const int hk = (bh % p.Hq) / (p.Hq / p.Hkv);
+  const int bkv = (bh / p.Hq) * p.Hkv + hk;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], NCW);   // one arrival per consumer warpgroup
+      mbar_init(&v_empty[s], NCW);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == NCW) {
+    // producer: one thread keeps the ring full
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == NCW * 128) {
+      mbar_expect_tx(q_full, C::kQBytes);
+#pragma unroll
+      for (int pn = 0; pn < C::kPanels; ++pn)
+        tma_load_3d(q_s + pn * BM * 128, &tm_q, pn * 64, w.r0, bh, q_full);
+      for (int it = 0; it < w.n_chunks; ++it) {
+        const int st = it % kStages, ph = (it / kStages) & 1;
+        mbar_wait(&k_empty[st], ph ^ 1);
+        mbar_expect_tx(&k_full[st], TB);
+#pragma unroll
+        for (int pn = 0; pn < C::kPanels; ++pn)
+          tma_load_3d(k_s + st * TB + pn * kBN * 128, &tm_k, pn * 64,
+                      it * kBN, bkv, &k_full[st]);
+        mbar_wait(&v_empty[st], ph ^ 1);
+        mbar_expect_tx(&v_full[st], TB);
+#pragma unroll
+        for (int pn = 0; pn < C::kPanels; ++pn)
+          tma_load_3d(v_s + st * TB + pn * kBN * 128, &tm_v, pn * 64,
+                      it * kBN, bkv, &v_full[st]);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: query rows [wg·64, wg·64 + 64) of the tile
+  reg_alloc<kConsumerRegs>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg_row0 = w.r0 + wg * 64;
+  const int qrow_a = wg_row0 + warp * 16 + g, qrow_b = qrow_a + 8;
+  const float sl2 = p.scale * kLog2e;
+  const unsigned char* q_wg = q_s + wg * 64 * 128;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  // running max in log2 units; l is this thread's share of its rows' sum
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+  mbar_wait(q_full, 0);
+
+  for (int it = 0; it < w.n_chunks; ++it) {
+    const int st = it % kStages, ph = (it / kStages) & 1;
+    const unsigned char* kt_s = k_s + st * TB;
+    const unsigned char* vt_s = v_s + st * TB;
+
+    // S = Q Kᵀ, 64 rows x 128 keys
+    float s[kBN / 2];
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
+    mbar_wait(&k_full[st], ph);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int pn = kk / 4, off = (kk % 4) * 32;
+      wgmma_m64n128k16_ss(
+          s, desc_sw128(q_wg + pn * BM * 128 + off, 16, 1024),
+          desc_sw128(kt_s + pn * kBN * 128 + off, 16, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(s);
+    if (tid == 0) mbar_arrive(&k_empty[st]);   // K of this stage is read
+
+    // online softmax in log2 units, s becoming p (rounded to bf16 below
+    // against this tile's running max).  A tile that crosses the causal
+    // diagonal or the Skv edge is masked element by element; any other
+    // takes its max on the raw scores and one FFMA and one exp2 a score.
+    const int k0 = it * kBN;
+    const bool masked =
+        k0 + kBN > p.Skv || (p.causal && k0 + kBN - 1 > wg_row0);
+    float mx_a = kNegInf, mx_b = kNegInf, sum_a = 0.f, sum_b = 0.f;
+    float al_a, al_b;
+    if (!masked) {
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      const float mn_a = fmaxf(m_a, quad_max(mx_a) * sl2);
+      const float mn_b = fmaxf(m_b, quad_max(mx_b) * sl2);
+      al_a = exp2f(m_a - mn_a);
+      al_b = exp2f(m_b - mn_b);
+      m_a = mn_a;
+      m_b = mn_b;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        s[4 * j] = exp2f(fmaf(s[4 * j], sl2, -mn_a));
+        s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], sl2, -mn_a));
+        s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], sl2, -mn_b));
+        s[4 * j + 3] = exp2f(fmaf(s[4 * j + 3], sl2, -mn_b));
+        sum_a += s[4 * j] + s[4 * j + 1];
+        sum_b += s[4 * j + 2] + s[4 * j + 3];
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[4 * j + e] * sl2;
+          if (!admitted(p, e < 2 ? qrow_a : qrow_b,
+                        k0 + j * 8 + 2 * t + (e & 1)))
+            x = kNegInf;
+          s[4 * j + e] = x;
+          if (e < 2) mx_a = fmaxf(mx_a, x); else mx_b = fmaxf(mx_b, x);
+        }
+      }
+      const float mn_a = fmaxf(m_a, quad_max(mx_a));
+      const float mn_b = fmaxf(m_b, quad_max(mx_b));
+      al_a = exp2f(m_a - mn_a);
+      al_b = exp2f(m_b - mn_b);
+      m_a = mn_a;
+      m_b = mn_b;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = s[4 * j + e];
+          // a masked score gets an explicit zero weight
+          const float pe =
+              x == kNegInf ? 0.f : exp2f(x - (e < 2 ? mn_a : mn_b));
+          s[4 * j + e] = pe;
+          if (e < 2) sum_a += pe; else sum_b += pe;
+        }
+      }
+    }
+    l_a = l_a * al_a + sum_a;
+    l_b = l_b * al_b + sum_b;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= al_a;
+      o[4 * j + 1] *= al_a;
+      o[4 * j + 2] *= al_b;
+      o[4 * j + 3] *= al_b;
+    }
+
+    // P rounded to bf16 (the TPU kernel's p.astype(v.dtype)), as the
+    // register A operand: k-step kk holds keys [16kk, 16kk + 16)
+    uint32_t pa[kBN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+
+    // O += P V
+    mbar_wait(&v_full[st], ph);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      const uint64_t dv = desc_sw128(vt_s + kk * 2048, kBN * 128, 1024);
+      if constexpr (D == 128)
+        wgmma_m64n128k16_rs_tb(o, pa[kk], dv, 1);
+      else
+        wgmma_m64n64k16_rs_tb(o, pa[kk], dv, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(o);
+    if (tid == 0) mbar_arrive(&v_empty[st]);   // V of this stage is read
+  }
+
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);
+  const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = j * 8 + 2 * t;
+    if (qrow_a < w.rend)
+      *reinterpret_cast<uint32_t*>(out + (w.q_base + qrow_a) * D + col) =
+          pack_bf16(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
+    if (qrow_b < w.rend)
+      *reinterpret_cast<uint32_t*>(out + (w.q_base + qrow_b) * D + col) =
+          pack_bf16(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
   }
 }
 
@@ -480,30 +719,44 @@ fa_f32_kernel(Params p) {
 
 // -- launch ------------------------------------------------------------------
 
-template <typename Kern>
+template <typename Kern, typename... Args>
 int launch_kernel(Kern kern, int smem, int threads, dim3 grid,
-                  const Params& p, cudaStream_t s) {
+                  cudaStream_t s, Args... args) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<grid, threads, smem, s>>>(p);
+  kern<<<grid, threads, smem, s>>>(args...);
   return (int)cudaGetLastError();
 }
 
+template <int D, int NCW>
+int launch_wgmma(int B, dim3 grid, const Params& p, cudaStream_t s) {
+  using C = WgCfg<D, NCW>;
+  CUtensorMap tq, tk, tv;
+  int e = encode_tensor_map_3d(&tq, p.q, D, p.Sq, (uint64_t)B * p.Hq, C::BM);
+  if (!e) e = encode_tensor_map_3d(&tk, p.k, D, p.Skv, (uint64_t)B * p.Hkv, kBN);
+  if (!e) e = encode_tensor_map_3d(&tv, p.v, D, p.Skv, (uint64_t)B * p.Hkv, kBN);
+  if (e) return e;
+  return launch_kernel(fa_wgmma_kernel<D, NCW>, C::kSmem, C::kThreads, grid,
+                       s, tq, tk, tv, p);
+}
+
 template <int D>
-int launch_d(int tile, int is_bf16, dim3 grid, const Params& p,
+int launch_d(int tile, int is_bf16, int B, dim3 grid, const Params& p,
              cudaStream_t s) {
   if (is_bf16) {
     switch (tile) {
-      case 16: return launch_kernel(fa_bf16_kernel<D, 1>, Bf16Cfg<D, 1>::kSmem, 32, grid, p, s);
-      case 32: return launch_kernel(fa_bf16_kernel<D, 2>, Bf16Cfg<D, 2>::kSmem, 64, grid, p, s);
-      case 64: return launch_kernel(fa_bf16_kernel<D, 4>, Bf16Cfg<D, 4>::kSmem, 128, grid, p, s);
+      case 16: return launch_kernel(fa_bf16_kernel<D, 1>, Bf16Cfg<D, 1>::kSmem, 32, grid, s, p);
+      case 32: return launch_kernel(fa_bf16_kernel<D, 2>, Bf16Cfg<D, 2>::kSmem, 64, grid, s, p);
+      case 64: return launch_wgmma<D, 1>(B, grid, p, s);
+      case 128: return launch_wgmma<D, 2>(B, grid, p, s);
     }
   } else {
     switch (tile) {
-      case 16: return launch_kernel(fa_f32_kernel<D, 16>, F32Cfg<D, 16>::kSmem, 64, grid, p, s);
-      case 32: return launch_kernel(fa_f32_kernel<D, 32>, F32Cfg<D, 32>::kSmem, 128, grid, p, s);
-      case 64: return launch_kernel(fa_f32_kernel<D, 64>, F32Cfg<D, 64>::kSmem, 256, grid, p, s);
+      case 16: return launch_kernel(fa_f32_kernel<D, 16>, F32Cfg<D, 16>::kSmem, 64, grid, s, p);
+      case 32: return launch_kernel(fa_f32_kernel<D, 32>, F32Cfg<D, 32>::kSmem, 128, grid, s, p);
+      case 64: return launch_kernel(fa_f32_kernel<D, 64>, F32Cfg<D, 64>::kSmem, 256, grid, s, p);
+      case 128: return launch_kernel(fa_f32_kernel<D, 128>, F32Cfg<D, 128>::kSmem, 512, grid, s, p);
     }
   }
   return (int)cudaErrorInvalidValue;
@@ -513,7 +766,7 @@ int launch_d(int tile, int is_bf16, dim3 grid, const Params& p,
 
 // q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D), o (B, Hq, Sq, D); contiguous, on
 // one device, 16-byte aligned, all bf16 (is_bf16) or all f32; D in {64,
-// 128}; tile in {16, 32, 64} query rows per CTA; block_q the config's
+// 128}; tile in {16, 32, 64, 128} query rows per CTA; block_q the config's
 // query block (a multiple of tile, or smaller than it).  Returns the CUDA
 // error code of the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -544,8 +797,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const dim3 grid(B * Hq, (unsigned)(nq * p.cps));
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
-    case 64: return launch_d<64>(tile, is_bf16, grid, p, s);
-    case 128: return launch_d<128>(tile, is_bf16, grid, p, s);
+    case 64: return launch_d<64>(tile, is_bf16, B, grid, p, s);
+    case 128: return launch_d<128>(tile, is_bf16, B, grid, p, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -2,59 +2,68 @@
 //
 // Replaces the JAX package's Pallas TPU kernel
 // src/repro/kernels/flash_attention/decode.py (`flash_decode`, body
-// `_decode_kernel`): one query token per (batch row, query head),
-// q (B, Hq, 1, D), against a dense cache k, v (B, Hkv, S, D) of which the
-// first kv_len positions are valid (one length shared by every row, read
-// from a device int32 so the host never waits).  The cache is cut into
-// kv_splits spans of S / kv_splits positions; each span writes float32
-// partials o (B·Hq, ns, D), m and l (B·Hq, ns, 1): its running max, its sum
-// of exp(s - m), and its unnormalised sum of p·v.  p is cast to v's type
-// before P·V, as the TPU kernel does, and l sums the float32 p.  A span
-// with no valid position writes m = -1e30, l = 0, o = 0, as the TPU kernel
-// does.  The log-sum-exp combine of the partials runs after this kernel,
-// as plain tensor ops (in JAX it is an XLA epilogue outside the kernel).
+// `_decode_kernel`, and the log-sum-exp combine that follows it): one
+// query token per (batch row, query head), q (B, Hq, 1, D), against a
+// dense cache k, v (B, Hkv, S, D) of which the first kv_len positions are
+// valid (one length shared by every row, read from a device int32 so the
+// host never waits).  The cache is cut into kv_splits spans of
+// S / kv_splits positions; each span writes float32 partials o (B·Hq, ns,
+// D), m and l (B·Hq, ns): its max, its sum of exp(s - m), and its
+// unnormalised sum of p·v.  p is cast to v's type before P·V, as the TPU
+// kernel does, and l sums the float32 p.  A span with no valid position
+// writes m = -1e30, l = 0, o = 0, as the TPU kernel does.  A second
+// kernel, enqueued by the same entry point, merges the partials (the
+// TPU path's XLA epilogue) and writes o (B, Hq, 1, D) in q's type; a row
+// whose merged l is 0 writes zeros.
 //
-// Design.  One CTA of 128 threads per (span, KV head, batch row) serves
-// the G = Hq / Hkv query heads of that KV head, so each K/V element of the
+// Design (bf16).  One CTA per (span, KV head, batch row) serves the
+// G = Hq / Hkv query heads of that KV head, so each K/V element of the
 // span is read once, where the TPU grid (B·Hq, ns) reads it G times.  The
-// CTA walks its span in 16 KB tiles of K and of V (64 positions in bf16 at
-// D = 128, 32 in f32), staged in shared memory with all of a thread's
-// 16-byte loads in flight before any store, and stops at kv_len (a tile
-// past it would give alpha = 1 and p = 0: skipping is exact).  Scores: each
-// warp takes whole positions, lanes split D; softmax: one warp per query
-// head; P·V: one thread per output column, all G accumulators in
-// registers.  Products are FMAs on the CUDA cores: G rows of one token do
-// not fill a tensor-core tile.
+// operands are swapped so that G <= 8 heads fill a tensor-core tile:
+// Sᵀ (positions x 8) = K (positions x D) · Qᵀ (D x 8) and Oᵀ (D x 8) =
+// Vᵀ (D x positions) · Pᵀ (positions x 8) on mma.sync.m16n8k16, K's
+// fragments by ldmatrix, V's by ldmatrix.trans, Q's (zero past G) held in
+// registers, Pᵀ moved from the S accumulator layout to the B operand
+// layout by movmatrix.trans after its rounding to bf16.  A producer warp
+// streams the span through a three-stage ring of 16 KB K and V tiles (64
+// positions at D = 128, 128 at D = 64) by TMA with a 128-byte swizzle
+// (conflict-free ldmatrix), one "full" and one "empty" mbarrier a stage,
+// and stops at kv_len (a tile past it would give alpha = 1 and p = 0:
+// skipping is exact).  Four consumer warps each take 16 (D = 128) or 32
+// (D = 64) positions of every tile and keep their own running max, sum
+// and accumulator, merged in shared memory at the span's end; V rows past
+// the valid positions of a partial tile are zeroed first, so that
+// whatever the cache holds there meets p = 0.  Two CTAs fit an SM, so up
+// to four tiles (128 KB) are in flight on each.
 //
-// The running max is updated once per tile, where the TPU kernel takes the
-// max of its whole span at once: m and l agree to f32 rounding, and a bf16
-// p rounded against an earlier max moves o by a fraction of a bf16 step.
+// The running max is updated once per warp's slice of a tile, where the
+// TPU kernel takes the max of its whole span at once: m and l agree to f32
+// rounding, and a bf16 p rounded against an earlier max moves o by a
+// fraction of a bf16 step.
+//
+// f32 keeps CUDA-core FMAs (TF32 stays off, as resolve_device sets it):
+// one CTA of 128 threads per (span, KV head, row) walks its span in 16 KB
+// tiles of K and V staged in shared memory; scores with each warp taking
+// whole positions and lanes splitting D, the softmax one warp per head,
+// P·V one thread per output column.
 //
 // What bounds it on the H100: memory.  It reads the valid part of the
 // cache once, 2·B·Hkv·kv_len·D·sizeof(T) bytes (134 MB at the family's
 // production problem, 0.040 ms at 3.35 TB/s), and does 4·G·D operations
 // per position, far below the card's ~295 operations per byte.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+using namespace hopper;
+
+constexpr int kThreads = 128;      // f32 kernel
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 8;           // query heads per KV head
 constexpr int kTileBytes = 16384;  // one K (or V) tile per step
-constexpr int kMaxStep = 64;       // positions per step
+constexpr int kMaxStep = 64;       // positions per step, f32 kernel
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-// p.astype(v.dtype), back in float32 for the FMA
-__device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -67,6 +76,250 @@ __device__ __forceinline__ float warp_max(float v) {
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
+// max / sum over the eight lanes that share lane % 4 (one column of an
+// mma.sync accumulator fragment)
+__device__ __forceinline__ float col_max(float v) {
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float col_sum(float v) {
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// -- bf16: tensor cores, TMA ring ---------------------------------------------
+
+template <int D>
+struct Bf16Dec {
+  static constexpr int kR = 128 / D;               // 16-row slabs a warp
+  static constexpr int kConsumers = 4;             // consumer warps
+  static constexpr int kT = 16 * kR * kConsumers;  // positions a tile
+  static constexpr int kPanels = D / 64;
+  static constexpr int kTile = kT * D * 2;         // bytes of K (or V)
+  static constexpr int kStages = 3;
+  static constexpr int kThreads = 32 * (kConsumers + 1);
+  static constexpr int kSmem = 1024 + kStages * 2 * kTile + 16 * kStages;
+  static_assert(kTile == kTileBytes, "16 KB tiles");
+};
+
+template <int D>
+__global__ void __launch_bounds__(Bf16Dec<D>::kThreads, 2)
+decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __nv_bfloat16* __restrict__ q,  // (B, Hq, D)
+                   const int* __restrict__ kv_len,       // () int32
+                   float* __restrict__ o_part,           // (B·Hq, ns, D)
+                   float* __restrict__ m_part,           // (B·Hq, ns)
+                   float* __restrict__ l_part,           // (B·Hq, ns)
+                   int Hq, int Hkv, int S, int ns, float scale) {
+  using C = Bf16Dec<D>;
+  constexpr int T = C::kT, R = C::kR, TB = C::kTile, NST = C::kStages;
+  const int s = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int G = Hq / Hkv, span = S / ns;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + NST * 2 * TB);
+  uint64_t* empty = full + NST;
+
+  const int len = max(0, min(*kv_len, S));
+  const int p_begin = s * span;
+  const int p_end = min(p_begin + span, len);   // valid positions: [begin, end)
+  const int n_tiles = p_end > p_begin ? (p_end - p_begin + T - 1) / T : 0;
+  const int bkv = b * Hkv + hk;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], C::kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == C::kConsumers) {
+    // producer: K and V tiles of the span, kept NST ahead
+    if (lane == 0) {
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % NST, ph = (i / NST) & 1;
+        mbar_wait(&empty[st], ph ^ 1);
+        mbar_expect_tx(&full[st], 2 * TB);
+        unsigned char* kd = ring + st * 2 * TB;
+#pragma unroll
+        for (int pn = 0; pn < C::kPanels; ++pn) {
+          tma_load_3d(kd + pn * T * 128, &tm_k, pn * 64, p_begin + i * T, bkv,
+                      &full[st]);
+          tma_load_3d(kd + TB + pn * T * 128, &tm_v, pn * 64, p_begin + i * T,
+                      bkv, &full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warp: rows [warp·16R, warp·16R + 16R) of every tile.
+  // Qᵀ as the B operand (8 heads, zero past G): element (d, head g)
+  uint32_t qb[D / 16][2];
+  {
+    const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
+        q + ((size_t)b * Hq + hk * G + g) * D);
+#pragma unroll
+    for (int kt = 0; kt < D / 16; ++kt) {
+      qb[kt][0] = g < G ? qrow[kt * 8 + t] : 0u;
+      qb[kt][1] = g < G ? qrow[kt * 8 + 4 + t] : 0u;
+    }
+  }
+  // Oᵀ accumulator: m-tile mt holds d in [16mt, 16mt + 16), heads 2t, 2t+1
+  float acc[D / 16][4];
+#pragma unroll
+  for (int mt = 0; mt < D / 16; ++mt)
+    acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf;   // heads 2t and 2t + 1
+  float l0 = 0.f, l1 = 0.f;           // this lane's share of their sums
+  const int row0 = warp * 16 * R;     // first row of this warp in a tile
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % NST, ph = (i / NST) & 1;
+    const int nt = min(T, p_end - p_begin - i * T);   // valid rows
+    unsigned char* kt_s = ring + st * 2 * TB;
+    unsigned char* vt_s = kt_s + TB;
+    mbar_wait(&full[st], ph);
+    if (nt < T) {
+      // rows past the valid positions may hold anything: zero this warp's
+      // V rows there, so that p = 0 meets a finite value
+      for (int c = lane; c < 16 * R * C::kPanels * 8; c += 32) {
+        const int row = row0 + c / (C::kPanels * 8);
+        const int pn = (c / 8) % C::kPanels;
+        if (row >= nt)
+          *reinterpret_cast<uint4*>(vt_s + pn * T * 128 + row * 128 +
+                                    (c % 8) * 16) = make_uint4(0, 0, 0, 0);
+      }
+      __syncwarp();
+    }
+
+    // Sᵀ = K Qᵀ for each 16-row slab: rows g and g+8, heads 2t, 2t+1
+    float sc[R][4];
+    const int mi = lane >> 3, r8 = lane & 7;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      sc[r][0] = sc[r][1] = sc[r][2] = sc[r][3] = 0.f;
+      const int row = row0 + 16 * r + (mi & 1) * 8 + r8;
+#pragma unroll
+      for (int kt = 0; kt < D / 16; ++kt) {
+        uint32_t a[4];
+        ldmatrix_x4(a, smem_u32(kt_s + (kt / 4) * T * 128 +
+                                swz_offset(row, (kt % 4) * 2 + (mi >> 1))));
+        mma_bf16(sc[r], a, qb[kt][0], qb[kt][1]);
+      }
+    }
+
+    // mask past the valid positions, online softmax (natural-log max,
+    // exp2f with log2(e) folded in)
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 16 * r + g + (e >> 1) * 8;
+        const float x = row < nt ? sc[r][e] * scale : kNegInf;
+        sc[r][e] = x;
+        if (e & 1) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
+      }
+    }
+    const float mn0 = fmaxf(m0, col_max(mx0)), mn1 = fmaxf(m1, col_max(mx1));
+    const float al0 = exp2f((m0 - mn0) * kLog2e);
+    const float al1 = exp2f((m1 - mn1) * kLog2e);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+    uint32_t pb[R][2];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float pe[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 16 * r + g + (e >> 1) * 8;
+        pe[e] = row < nt ? exp2f((sc[r][e] - ((e & 1) ? mn1 : mn0)) * kLog2e)
+                         : 0.f;
+        if (e & 1) sum1 += pe[e]; else sum0 += pe[e];
+      }
+      // p rounded to bf16 (the TPU kernel's p.astype(v.dtype)), then
+      // transposed into the B operand: element (position, head g)
+      pb[r][0] = movmatrix_trans(pack_bf16(pe[0], pe[1]));
+      pb[r][1] = movmatrix_trans(pack_bf16(pe[2], pe[3]));
+    }
+    l0 = l0 * al0 + sum0;
+    l1 = l1 * al1 + sum1;
+
+    // Oᵀ = Oᵀ·alpha + Vᵀ Pᵀ
+#pragma unroll
+    for (int mt = 0; mt < D / 16; ++mt) {
+      acc[mt][0] *= al0;
+      acc[mt][1] *= al1;
+      acc[mt][2] *= al0;
+      acc[mt][3] *= al1;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        uint32_t a[4];
+        const int row = row0 + 16 * r + (mi >> 1) * 8 + r8;
+        ldmatrix_x4_trans(a, smem_u32(vt_s + (mt / 4) * T * 128 +
+                                      swz_offset(row, (mt % 4) * 2 + (mi & 1))));
+        mma_bf16(acc[mt], a, pb[r][0], pb[r][1]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+  l0 = col_sum(l0);
+  l1 = col_sum(l1);
+
+  // merge the four warps' (m, l, o) in shared memory (the ring is idle:
+  // every tile issued has been consumed)
+  asm volatile("bar.sync 1, %0;\n" :: "n"(32 * C::kConsumers));
+  float* o_w = reinterpret_cast<float*>(ring);          // [warp][8][D]
+  float* m_w = o_w + C::kConsumers * kMaxG * D;         // [warp][8]
+  float* l_w = m_w + C::kConsumers * kMaxG;             // [warp][8]
+#pragma unroll
+  for (int mt = 0; mt < D / 16; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      o_w[(warp * kMaxG + 2 * t + (e & 1)) * D + mt * 16 + g + (e >> 1) * 8] =
+          acc[mt][e];
+  if (g == 0) {
+    m_w[warp * kMaxG + 2 * t] = m0;
+    m_w[warp * kMaxG + 2 * t + 1] = m1;
+    l_w[warp * kMaxG + 2 * t] = l0;
+    l_w[warp * kMaxG + 2 * t + 1] = l1;
+  }
+  asm volatile("bar.sync 1, %0;\n" :: "n"(32 * C::kConsumers));
+  for (int i = threadIdx.x; i < G * D; i += 32 * C::kConsumers) {
+    const int h = i / D, d = i % D;
+    float m = kNegInf;
+#pragma unroll
+    for (int w = 0; w < C::kConsumers; ++w) m = fmaxf(m, m_w[w * kMaxG + h]);
+    float o = 0.f, l = 0.f;
+#pragma unroll
+    for (int w = 0; w < C::kConsumers; ++w) {
+      const float f = expf(m_w[w * kMaxG + h] - m);
+      o += o_w[(w * kMaxG + h) * D + d] * f;
+      l += l_w[w * kMaxG + h] * f;
+    }
+    const size_t row = ((size_t)b * Hq + hk * G + h) * ns + s;
+    o_part[row * D + d] = o;
+    if (d == 0) {
+      m_part[row] = m;
+      l_part[row] = l;
+    }
+  }
+}
+
+// -- f32: CUDA-core FMAs ------------------------------------------------------
 
 template <typename T, int D>
 struct Tile {
@@ -82,7 +335,7 @@ struct Tile {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const T* __restrict__ q,        // (B, Hq, D)
+decode_f32_kernel(const T* __restrict__ q,        // (B, Hq, D)
                     const T* __restrict__ k,        // (B, Hkv, S, D)
                     const T* __restrict__ v,        // (B, Hkv, S, D)
                     const int* __restrict__ kv_len,  // () int32
@@ -105,7 +358,7 @@ flash_decode_kernel(const T* __restrict__ q,        // (B, Hq, D)
 
   for (int i = tid; i < G * D; i += kThreads) {
     const int g = i / D, d = i % D;
-    q_s[g][d] = to_f32(q[((size_t)b * Hq + hk * G + g) * D + d]);
+    q_s[g][d] = q[((size_t)b * Hq + hk * G + g) * D + d];
   }
   if (tid < G) {
     m_s[tid] = kNegInf;
@@ -152,7 +405,7 @@ flash_decode_kernel(const T* __restrict__ q,        // (B, Hq, D)
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) part[g] = 0.f;
       for (int d = lane; d < D; d += 32) {
-        const float kv = to_f32(k_s[t * D + d]);
+        const float kv = k_s[t * D + d];
 #pragma unroll
         for (int g = 0; g < kMaxG; ++g)
           if (g < G) part[g] = fmaf(q_s[g][d], kv, part[g]);
@@ -195,10 +448,10 @@ flash_decode_kernel(const T* __restrict__ q,        // (B, Hq, D)
       for (int g = 0; g < kMaxG; ++g)
         if (g < G) acc[g] *= alpha_s[g];
       for (int t = 0; t < nt; ++t) {
-        const float vv = to_f32(v_s[t * D + tid]);
+        const float vv = v_s[t * D + tid];
 #pragma unroll
         for (int g = 0; g < kMaxG; ++g)
-          if (g < G) acc[g] = fmaf(round_to(w_s[g][t], T()), vv, acc[g]);
+          if (g < G) acc[g] = fmaf(w_s[g][t], vv, acc[g]);
       }
     }
   }
@@ -216,49 +469,106 @@ flash_decode_kernel(const T* __restrict__ q,        // (B, Hq, D)
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* kv_len,
-           void* o, void* m, void* l, int B, int Hq, int Hkv, int S, int ns,
-           float scale, cudaStream_t st) {
-  const dim3 grid(ns, Hkv, B);
-  flash_decode_kernel<T, D><<<grid, kThreads, 0, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)kv_len, (float*)o,
+// -- the log-sum-exp combine --------------------------------------------------
+
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// One CTA of D threads per (b·Hq + h) row: merges the row's ns partials
+// as decode.py's `combine` does, and writes the output in q's type.
+template <typename T>
+__global__ void combine_kernel(const float* __restrict__ o_part,
+                               const float* __restrict__ m_part,
+                               const float* __restrict__ l_part,
+                               T* __restrict__ out, int ns, int D) {
+  const size_t row = blockIdx.x;
+  const int d = threadIdx.x;
+  const float* m = m_part + row * ns;
+  const float* l = l_part + row * ns;
+  float mg = kNegInf;
+  for (int s = 0; s < ns; ++s) mg = fmaxf(mg, m[s]);
+  float lg = 0.f, o = 0.f;
+  for (int s = 0; s < ns; ++s) {
+    const float w = expf(m[s] - mg);
+    lg += l[s] * w;
+    o += o_part[(row * ns + s) * D + d] * w;
+  }
+  store_out(out + row * D + d, o / (lg == 0.f ? 1.f : lg));
+}
+
+template <int D>
+int launch_split_bf16(const void* q, const void* k, const void* v,
+                      const void* kv_len, void* o, void* m, void* l, int B,
+                      int Hq, int Hkv, int S, int ns, float scale,
+                      cudaStream_t st) {
+  using C = Bf16Dec<D>;
+  CUtensorMap tk, tv;
+  int e = encode_tensor_map_3d(&tk, k, D, S, (uint64_t)B * Hkv, C::kT);
+  if (!e) e = encode_tensor_map_3d(&tv, v, D, S, (uint64_t)B * Hkv, C::kT);
+  if (e) return e;
+  cudaError_t ce = cudaFuncSetAttribute(
+      decode_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmem);
+  if (ce != cudaSuccess) return (int)ce;
+  decode_bf16_kernel<D><<<dim3(ns, Hkv, B), C::kThreads, C::kSmem, st>>>(
+      tk, tv, (const __nv_bfloat16*)q, (const int*)kv_len, (float*)o,
       (float*)m, (float*)l, Hq, Hkv, S, ns, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v,
-             const void* kv_len, void* o, void* m, void* l, int B, int Hq,
-             int Hkv, int S, int ns, float scale, cudaStream_t st) {
-  switch (D) {
-    case 64: return launch<T, 64>(q, k, v, kv_len, o, m, l, B, Hq, Hkv, S, ns, scale, st);
-    case 128: return launch<T, 128>(q, k, v, kv_len, o, m, l, B, Hq, Hkv, S, ns, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+template <int D>
+int launch_split_f32(const void* q, const void* k, const void* v,
+                     const void* kv_len, void* o, void* m, void* l, int B,
+                     int Hq, int Hkv, int S, int ns, float scale,
+                     cudaStream_t st) {
+  decode_f32_kernel<float, D><<<dim3(ns, Hkv, B), kThreads, 0, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const int*)kv_len,
+      (float*)o, (float*)m, (float*)l, Hq, Hkv, S, ns, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q (B, Hq, 1, D), k/v (B, Hkv, S, D), kv_len () int32, all on one device,
-// contiguous and 16-byte aligned, q/k/v all bf16 (is_bf16) or all f32;
-// D in {64, 128}; Hq / Hkv <= 8; kv_splits divides S.  Writes float32
-// partials o (B·Hq, ns, D), m (B·Hq, ns), l (B·Hq, ns).  Returns the CUDA
-// error code of the launch (0 on success).
+// q (B, Hq, 1, D), k/v (B, Hkv, S, D), kv_len () int32, out (B, Hq, 1, D),
+// all on one device, contiguous and 16-byte aligned, q/k/v/out all bf16
+// (is_bf16) or all f32; D in {64, 128}; Hq / Hkv <= 8; kv_splits divides
+// S.  o_part (B·Hq, ns, D), m_part and l_part (B·Hq, ns) are float32
+// scratch for the spans' partials.  Enqueues the split kernel, then the
+// combine.  Returns the CUDA error code of the launches (0 on success).
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* kv_len,
                                    void* o_part, void* m_part, void* l_part,
-                                   int B, int Hq, int Hkv, int S, int D,
-                                   int kv_splits, float scale, int is_bf16,
-                                   void* stream) {
+                                   void* out, int B, int Hq, int Hkv, int S,
+                                   int D, int kv_splits, float scale,
+                                   int is_bf16, void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxG || S <= 0 ||
-      kv_splits <= 0 || S % kv_splits != 0 || B > 65535 || Hkv > 65535)
+      kv_splits <= 0 || S % kv_splits != 0 || B > 65535 || Hkv > 65535 ||
+      (D != 64 && D != 128))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const int ns = kv_splits;
+  int e;
   if (is_bf16)
-    return launch_d<__nv_bfloat16>(D, q, k, v, kv_len, o_part, m_part,
-                                   l_part, B, Hq, Hkv, S, kv_splits, scale,
-                                   st);
-  return launch_d<float>(D, q, k, v, kv_len, o_part, m_part, l_part, B, Hq,
-                         Hkv, S, kv_splits, scale, st);
+    e = D == 64 ? launch_split_bf16<64>(q, k, v, kv_len, o_part, m_part,
+                                        l_part, B, Hq, Hkv, S, ns, scale, st)
+                : launch_split_bf16<128>(q, k, v, kv_len, o_part, m_part,
+                                         l_part, B, Hq, Hkv, S, ns, scale, st);
+  else
+    e = D == 64 ? launch_split_f32<64>(q, k, v, kv_len, o_part, m_part,
+                                       l_part, B, Hq, Hkv, S, ns, scale, st)
+                : launch_split_f32<128>(q, k, v, kv_len, o_part, m_part,
+                                        l_part, B, Hq, Hkv, S, ns, scale, st);
+  if (e) return e;
+  const unsigned rows = (unsigned)B * (unsigned)Hq;
+  if (is_bf16)
+    combine_kernel<__nv_bfloat16><<<rows, D, 0, st>>>(
+        (const float*)o_part, (const float*)m_part, (const float*)l_part,
+        (__nv_bfloat16*)out, ns, D);
+  else
+    combine_kernel<float><<<rows, D, 0, st>>>(
+        (const float*)o_part, (const float*)m_part, (const float*)l_part,
+        (float*)out, ns, D);
+  return (int)cudaGetLastError();
 }

@@ -2,14 +2,15 @@
 ``csrc/flash_decode.cu``, which replaces the JAX package's Pallas TPU
 kernel ``kernels/flash_attention/decode.py`` (``flash_decode``).
 
-The kernel writes each span's float32 partials (o, m, l); the
-log-sum-exp combine that merges them runs here as plain tensor ops, as
-the JAX package runs it as an XLA epilogue outside its kernel.  The
-choice of implementation follows the tensors' device: on CUDA tensors
-the wrapper launches the kernel (and counts the launch in
-``KERNEL.launches``) or raises; on CPU tensors it runs the plain
-PyTorch version ``mha_ref(..., causal=False, kv_len=kv_len)``.  There is
-no fallback from one to the other.
+The kernel writes each span's float32 partials (o, m, l) and, from the
+same C entry point, merges them on the card (the log-sum-exp combine,
+the JAX package's XLA epilogue) into the output in q's dtype;
+:func:`combine` is the plain version of that merge.  The choice of
+implementation follows the tensors' device: on CUDA tensors the wrapper
+launches the kernel (and counts the launch in ``KERNEL.launches``) or
+raises; on CPU tensors it runs the plain PyTorch version
+``mha_ref(..., causal=False, kv_len=kv_len)``.  There is no fallback
+from one to the other.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ _I = ctypes.c_int
 KERNEL = CudaKernel(
     "flash_decode", Path(__file__).parent / "csrc" / "flash_decode.cu",
     "flash_decode_launch",
-    [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _P])
+    [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P])
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -60,7 +61,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len,
     if ns < 1 or S % ns:
         raise ValueError(f"kv_splits {ns} must tile the cache ({S})")
     if not q.is_cuda:
-        return mha_ref(q, k, v, causal=False, scale=scale, kv_len=kv_len)
+        out = mha_ref(q, k, v, causal=False, scale=scale, kv_len=kv_len)
+        # no valid position: every span's l is 0 and the kernel writes
+        # zeros, where the plain softmax would average V
+        return out.zero_() if int(kv_len) == 0 else out
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_decode kernel takes bf16 or f32 q, k, v of "
                         f"one type, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -72,9 +76,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len,
         raise ValueError("flash_decode: q, k, v must be on one device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_decode: q, k, v must be contiguous")
-    if any(t.data_ptr() % 16 for t in (k, v)):
-        raise ValueError("flash_decode: k and v must be 16-byte aligned "
-                         "(the kernel reads them in 16-byte vectors)")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_decode: q, k and v must be 16-byte aligned "
+                         "(the kernel copies them in 16-byte rows)")
     if B > 65535 or Hkv > 65535:
         raise ValueError("flash_decode: batch or KV heads exceed one "
                          "launch's grid")
@@ -83,13 +87,16 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len,
     else:
         kl = torch.tensor(int(kv_len), dtype=torch.int32, device=q.device)
     scale = float(scale if scale is not None else D ** -0.5)
-    BH = B * Hq
-    o = torch.empty(BH, ns, D, dtype=torch.float32, device=q.device)
-    m = torch.empty(BH, ns, 1, dtype=torch.float32, device=q.device)
-    l = torch.empty(BH, ns, 1, dtype=torch.float32, device=q.device)
-    if BH == 0:
-        return torch.empty_like(q)
+    out = torch.empty_like(q)
+    if B * Hq == 0:
+        return out
+    # float32 scratch for the spans' partials o (BH, ns, D), m and l
+    # (BH, ns): one allocation
+    BHs = B * Hq * ns
+    part = torch.empty(BHs * (D + 2), dtype=torch.float32, device=q.device)
+    o, m, l = part[:BHs * D], part[BHs * D:BHs * (D + 1)], part[BHs * (D + 1):]
     KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(kl), ptr(o), ptr(m), ptr(l),
-                  B, Hq, Hkv, S, D, ns, scale,
+                  ptr(out), B, Hq, Hkv, S, D, ns, scale,
                   int(q.dtype == torch.bfloat16), stream_handle(q.device))
-    return combine(o, m, l).reshape(B, Hq, 1, D).to(q.dtype)
+    return out
+

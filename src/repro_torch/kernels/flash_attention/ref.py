@@ -44,8 +44,11 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # How far a flash kernel may be from ``mha_ref`` on the same inputs.
 # Each element: float32 1e-4 (the same products summed in another order);
 # bfloat16 1e-2 plus one bfloat16 step of the value (2^-7 |o|): the kernel
-# rounds p to bfloat16 before P·V, against the running max of its
-# 64-key chunk, where the plain version keeps p in float32, and each
+# rounds p to bfloat16 before P·V, against the running max of its key
+# tile (128 keys on the wgmma CTAs, 64 on the others; a warp's 16 or 32
+# positions of a 64- or 128-position tile in decode;
+# tests/test_torch_flash_tiling.py emulates both against the TPU
+# kernels), where the plain version keeps p in float32, and each
 # rounds its output once, so the two may land on neighbouring values (a
 # step of 2^-6 at |o| >= 2, which early causal rows reach).  Each query
 # row, its D outputs together: the error's norm within ROW_RTOL of the

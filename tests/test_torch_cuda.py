@@ -285,8 +285,18 @@ def test_paged_decode_kernel_steps_tile_the_table(card):
 # -- flash attention -----------------------------------------------------------
 
 FA_CASES = [
-    # (B, Hq, Hkv, Sq, Skv, D, causal, cfg fields)
+    # (B, Hq, Hkv, Sq, Skv, D, causal, cfg fields): block_q 128 and 64
+    # run the wgmma kernel (128- and 64-row CTAs), 32 and 16 (and the
+    # family example's 8) the mma.sync one; Sq and Skv ragged against
+    # the 128-key tile, Skv < Sq, a key edge inside the first tile
     (1, 2, 1, 256, 256, 64, True, {}),
+    (1, 4, 2, 512, 512, 64, True, dict(block_q=128)),
+    (1, 4, 2, 512, 512, 128, True, dict(block_q=64)),
+    (1, 4, 1, 384, 448, 64, False, dict(block_q=64)),
+    (1, 4, 2, 1000, 1500, 128, True, dict(block_q=128)),
+    (1, 4, 2, 1000, 1500, 64, False, dict(block_q=128)),
+    (1, 8, 1, 700, 300, 128, True, dict(block_q=256)),
+    (1, 2, 1, 200, 77, 64, True, dict(block_q=128)),
     (2, 8, 1, 1000, 1500, 128, True, dict(block_q=64, block_kv=64)),
     (2, 8, 1, 1000, 1500, 128, False, dict(block_q=256)),
     (1, 4, 2, 300, 200, 64, True, dict(block_q=8,
@@ -327,11 +337,18 @@ def test_flash_attention_kernel_matches_plain(card, case, dtype):
 
 
 DEC_CASES = [
-    # (B, Hq, Hkv, S, D, kv_len, kv_splits)
+    # (B, Hq, Hkv, S, D, kv_len, kv_splits): groups 8, 1, 2 and 4, a
+    # kv_len that is not a multiple of the tile (64 positions at D = 128,
+    # 128 at 64), spans shorter than a tile, kv_len 0
     (2, 8, 1, 1024, 128, 1000, 8),
     (3, 2, 2, 512, 64, 512, 1),
     (1, 16, 2, 4096, 128, 3001, 16),
     (4, 8, 8, 256, 64, 17, 2),
+    (2, 4, 2, 1024, 128, 1000, 4),
+    (2, 8, 2, 2048, 64, 1999, 8),
+    (1, 8, 1, 512, 128, 500, 16),
+    (1, 8, 1, 256, 64, 256, 8),
+    (2, 8, 1, 512, 128, 0, 4),
 ]
 
 
@@ -351,7 +368,12 @@ def test_flash_decode_kernel_matches_plain(card, case, dtype):
     got = mha_decode(q, k, v, kl, cfg=FlashDecodeConfig(kv_splits=ns))
     torch.cuda.synchronize()
     assert DECODE_KERNEL.launches == before + 1
-    _flash_check(got, mha_ref(q, k, v, causal=False, kv_len=kv_len))
+    assert got.dtype == dtype and got.shape == q.shape
+    # at kv_len 0 every span writes l = 0 and the merged row is zero, as
+    # the TPU kernel writes it (mha_ref would average V)
+    want = (torch.zeros_like(q) if kv_len == 0 else
+            mha_ref(q, k, v, causal=False, kv_len=kv_len))
+    _flash_check(got, want)
 
 
 def test_flash_attention_backward_on_the_card(card):

@@ -293,8 +293,8 @@ def test_skills_and_examples_match_the_jax_family(family):
 def test_flash_cta_tiles_and_structural_warnings():
     from repro_torch.core import kernelspec as ks
     from repro_torch.core.families import flash_attention as fa
-    assert [fa.cta_tile(b) for b in (8, 16, 24, 32, 48, 64, 256)] == \
-        [16, 16, 16, 32, 16, 64, 64]
+    assert [fa.cta_tile(b) for b in (8, 16, 24, 32, 48, 64, 192, 256)] == \
+        [16, 16, 16, 32, 16, 64, 64, 128]
     assert all(fa.smem_bytes(t, d, dt) <= ks.SMEM_PER_CTA
                for t in fa.CTA_TILES for d in fa.HEAD_DIMS
                for dt in ("bf16", "f32"))
@@ -303,10 +303,49 @@ def test_flash_cta_tiles_and_structural_warnings():
     assert kinds == ["grain"]                # block_q 8 on a 16-row tile
     big = fa.FlashAttentionConfig(block_q=256)
     [i] = fa.structural_flash_attention(big, prob)
-    assert i.kind == "cta_split" and "4 CTAs of 64x128" in i.message
+    assert i.kind == "cta_split" and "2 CTAs of 128x128" in i.message
     odd = dataclasses.replace(prob, head_dim=96)
     assert "unsupported" in [i.kind for i in
                              fa.structural_flash_attention(big, odd)]
+
+
+def test_flash_instances_fit_the_card_and_match_the_kernels_layout():
+    """Every compiled instance of the two flash kernels fits a CTA's
+    shared memory and the registers of an SM, and the model's threads
+    are the kernels' layout: a producer warpgroup beside a consumer
+    warpgroup per 64 rows on the wgmma tiles (flash_attention.cu
+    WgCfg), a warp per 16 rows on the mma.sync tiles, four threads a
+    row in f32; decode four consumer warps and a producer warp in bf16
+    (Bf16Dec), 128 threads in f32."""
+    from repro_torch.core import kernelspec as ks
+    from repro_torch.core.families import flash_attention as fa
+    from repro_torch.core.families import flash_decode as fd
+    want = {(128, "bf16"): 384, (64, "bf16"): 256, (32, "bf16"): 64,
+            (16, "bf16"): 32, (128, "f32"): 512, (64, "f32"): 256,
+            (32, "f32"): 128, (16, "f32"): 64}
+    for (tile, dt), n in want.items():
+        assert fa.threads(tile, dt) == n
+        for d in fa.HEAD_DIMS:
+            assert fa.smem_bytes(tile, d, dt) <= ks.SMEM_PER_CTA
+            regs = fa._regs(tile, d, dt)
+            assert regs <= ks.MAX_REGS_PER_THREAD
+            assert n * regs <= ks.REGS_PER_SM
+    # setmaxnreg: the consumers' 232 and the producer's 40 registers are
+    # the pool that 168 a thread (384) and 136 (256) reserve at launch
+    assert (2 * fa.CONSUMER_REGS + fa.PRODUCER_REGS) * 128 <= 384 * 168
+    assert (fa.CONSUMER_REGS + fa.PRODUCER_REGS) * 128 <= 256 * 136
+    # the wgmma tiles: 128 keys a step; 64 on the others in bf16
+    assert [fa.key_tile(t, "bf16") for t in fa.CTA_TILES] == \
+        [128, 128, 64, 64]
+    assert fd.KERNEL_THREADS == {"bf16": 160, "f32": 128}
+    for d in fd.HEAD_DIMS:
+        assert fd.tile_tokens(d, 2) * d * 2 == fd.TILE_BYTES
+        assert fd.tile_tokens(d, 2) % (16 * 4) == 0     # 4 consumer warps
+        for dt in ("bf16", "f32"):
+            assert fd.smem_bytes(d, dt) <= ks.SMEM_PER_CTA
+    # two bf16 decode CTAs share an SM
+    assert 2 * fd.smem_bytes(128, "bf16") <= ks.SMEM_PER_SM
+    assert fd.STAGES["bf16"] >= 3
 
 
 def test_flash_speed_of_light_at_the_production_problems():

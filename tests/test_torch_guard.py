@@ -4,6 +4,7 @@ to report on a host without a CUDA card, and every entry point of the
 port raises without a CUDA device unless it is asked for the CPU."""
 import os
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -201,6 +202,31 @@ def test_a_failed_launch_raises_and_is_not_counted():
     with pytest.raises(RuntimeError, match="failed to launch"):
         k.launch()
     assert k.launches == 1
+
+
+def test_an_edited_header_rebuilds_the_kernels_that_include_it(
+        tmp_path, monkeypatch):
+    """The library's name hashes the repository headers a source
+    includes (``kernels/csrc/hopper.cuh``), so editing one rebuilds; the
+    compiler is given their directory.  Edits a copy of a kernel and of
+    its header in tmp_path, never the repository's."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import DECODE_KERNEL
+    src = tmp_path / "flash_decode.cu"
+    hdr = tmp_path / "hopper.cuh"
+    shutil.copy(DECODE_KERNEL.source, src)
+    shutil.copy(_build.INCLUDE_DIR / "hopper.cuh", hdr)
+    assert _build.included_headers(src) == [hdr.resolve()]
+    assert _build.included_headers(DECODE_KERNEL.source) == \
+        [(_build.INCLUDE_DIR / "hopper.cuh").resolve()]
+    k = _build.CudaKernel("copy", src, "flash_decode_launch", [])
+    before = k._lib_path()
+    assert k._lib_path() == before                # deterministic
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    assert k._lib_path() != before
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    cmd = k._nvcc_cmd(tmp_path / "out.so")
+    assert cmd[cmd.index("-I") + 1] == str(_build.INCLUDE_DIR)
 
 
 def test_a_failed_build_stops_the_other_builds(tmp_path):
