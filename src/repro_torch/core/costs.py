@@ -27,6 +27,9 @@ STAGGER_DERATE = 0.75  # unstaggered streaming keeps ~75% of HBM bw (model)
 SCALAR_PATH_DERATE = 0.5  # masked scalar loads instead of 16-byte copies
 L2_BW = 5.5e12         # L2 bytes/s: operand re-reads that hit L2 (model)
 MEM_LATENCY_S = 1e-6   # one HBM round trip under load (model parameter)
+# the tensor cores' rate a kernel instance reaches at most: wgmma the
+# card's peak, mma.sync fed from shared memory about half of it (model)
+MMA_SYNC_DERATE = 0.5
 
 # Narrow-dtype tensor-core rate multiplier: int8/fp8 operands run at twice
 # the bf16 rate (model parameter); the quantized families' compute term

@@ -32,8 +32,8 @@ from dataclasses import dataclass, replace
 from typing import Optional
 
 from .. import dsl
-from ..costs import (CostEstimate, HBM_BW, L2_BW, peak_flops, sol_estimate,
-                     wave_eff)
+from ..costs import (CostEstimate, HBM_BW, L2_BW, MMA_SYNC_DERATE,
+                     peak_flops, sol_estimate, wave_eff)
 from ..kernelspec import (DTYPE_BYTES, StructuralIssue, cdiv,
                           check_cta_split, check_smem,
                           check_vector_alignment, ctas_per_sm)
@@ -190,9 +190,6 @@ KEY_TILE = 128                 # keys per TMA tile of the wgmma instances
 STAGES = 2                     # K/V ring depth of the wgmma instances
 CHUNK = {"bf16": 64, "f32": 32}  # keys per chunk of the other instances
 CONSUMER_REGS, PRODUCER_REGS = 232, 40   # setmaxnreg, wgmma instances
-# the tensor cores' rate that each instance reaches at most: wgmma the
-# card's peak, mma.sync fed by ldmatrix about half of it (model)
-MMA_SYNC_DERATE = 0.5
 
 
 def cta_tile(block_q: int) -> int:

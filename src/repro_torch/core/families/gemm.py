@@ -9,11 +9,17 @@ stability across the reduction axis, and disjoint/covering output writes.
 The tile program models what the CUDA kernel
 (``repro_torch/kernels/gemm/csrc/gemm.cu``) does: one step per output
 tile (i, j[, s]) with the K walk inside it.  The structural model and
-the cost model read how the kernel runs a config: each bm x bn config
-tile runs on CTAs of the largest compiled CTA tile that divides it
-(:func:`cta_tile`), the K walk is staged through shared memory in
-32-deep chunks, and operand rows that are not 16-byte aligned take the
-masked scalar load path (:func:`vector_path`).
+the cost model read how the kernel runs a config (:func:`is_wgmma`,
+:func:`cta_tile`): bf16 configs whose rows meet TMA's 16-byte rule, whose
+K block is a multiple of 64 and whose tile holds whole 128 x 128 (or
+128 x 256) CTA tiles run on ``wgmma`` fed by TMA, 64-deep stages in a
+192 KB ring; every other config runs on the ``mma.sync`` / FMA design,
+each bm x bn config tile on CTAs of the largest compiled CTA tile that
+divides it, the K walk staged in 32-deep chunks, and operand rows that
+are not 16-byte aligned on the masked scalar load path
+(:func:`vector_path`).  Either way the config tile's blocks keep their
+meaning (the K order, the split), so the program is built at the
+config's blocks.
 """
 from __future__ import annotations
 
@@ -21,14 +27,14 @@ from dataclasses import dataclass, replace
 from typing import Optional
 
 from .. import dsl
-from ..costs import (CostEstimate, HBM_BW, SCALAR_PATH_DERATE,
-                     STAGGER_DERATE, grain_util, peak_flops, sol_estimate,
-                     wave_eff)
+from ..costs import (CostEstimate, HBM_BW, MMA_SYNC_DERATE,
+                     SCALAR_PATH_DERATE, STAGGER_DERATE, grain_util,
+                     peak_flops, sol_estimate, wave_eff)
 from ..kernelspec import (CTA_THREADS, DTYPE_BYTES, K_CHUNK, REG_OVERHEAD,
-                          STAGES, VECTOR_BYTES, cdiv, check_cta_split,
-                          check_grain, check_masking, check_registers,
-                          check_smem, check_vector_alignment, ctas_per_sm,
-                          work_ctas)
+                          STAGES, VECTOR_BYTES, StructuralIssue, cdiv,
+                          check_cta_split, check_grain, check_masking,
+                          check_registers, check_smem,
+                          check_vector_alignment, ctas_per_sm, work_ctas)
 from ..tags import Expr, make_tag
 from .base import (BugSignature, KernelFamily, Skill, generic_skill,
                    register)
@@ -136,45 +142,92 @@ def build_gemm_program(cfg: GemmConfig, prob: GemmProblem,
     return p
 
 
-# CTA tiles compiled into the CUDA kernel (template instances): rows,
+# CTA tiles of the mma.sync / FMA design (template instances): rows,
 # then columns, largest first.  Four warps per CTA; a 16-row CTA puts
 # its warps side by side, a taller one in a 2 x 2 grid.
 CTA_ROWS = (128, 64, 32, 16)
 CTA_COLS = (128, 64, 32)
+# the wgmma design: 128-row CTA tiles (two consumer warpgroups of 64
+# rows and a producer warpgroup), 256 or 128 columns, 64-deep stages
+WGMMA_ROWS = 128
+WGMMA_COLS = (256, 128)
+WGMMA_DEPTH = 64
+WGMMA_STAGES = {256: 4, 128: 6}
+WGMMA_THREADS = 384
+CONSUMER_REGS, PRODUCER_REGS = 232, 40   # setmaxnreg
 
 
-def cta_tile(cfg: GemmConfig):
-    """The CTA tile (rows, cols) the kernel runs ``cfg`` on: the largest
-    compiled instance that divides the config tile, else the smallest
-    (with the config tile's edge masked).  A config tile larger than the
-    CTA tile is covered by several CTAs."""
+def vector_path(cfg: GemmConfig, prob: GemmProblem) -> bool:
+    """True when every operand row and block start is 16-byte aligned, so
+    the kernel stages tiles with 16-byte copies (TMA or ``cp.async``);
+    otherwise it loads element by element, masked."""
+    q = VECTOR_BYTES // DTYPE_BYTES.get(prob.dtype, 2)
+    return all(x % q == 0 for x in (prob.k, prob.n, cfg.bk, cfg.bn))
+
+
+def is_wgmma(cfg: GemmConfig, prob: GemmProblem) -> bool:
+    """The kernel runs ``cfg`` on its wgmma design: bf16 operands, rows
+    that meet TMA's 16-byte rule (:func:`vector_path`; the wrapper also
+    needs 16-byte-aligned base pointers), K blocks of whole 64-deep
+    stages, and a config tile of whole 128 x 128 CTA tiles."""
+    return (prob.dtype == "bf16" and vector_path(cfg, prob)
+            and cfg.bk % WGMMA_DEPTH == 0 and cfg.bm % WGMMA_ROWS == 0
+            and cfg.bn % WGMMA_COLS[-1] == 0)
+
+
+def mma_tile(cfg: GemmConfig):
+    """The CTA tile (rows, cols) of the mma.sync / FMA design for
+    ``cfg``: the largest compiled instance that divides the config tile,
+    else the smallest (with the config tile's edge masked)."""
     tm = next((t for t in CTA_ROWS if cfg.bm % t == 0), CTA_ROWS[-1])
     tn = next((t for t in CTA_COLS if cfg.bn % t == 0), CTA_COLS[-1])
     return tm, tn
 
 
-def smem_bytes(tm: int, tn: int, dtype: str) -> int:
-    """Shared memory one CTA stages: ``STAGES`` buffers of an A chunk
-    (tm x 32) and a B chunk (32 x tn), each row padded by 16 bytes (the
-    kernel's layout, ``gemm.cu``)."""
+def cta_tile(cfg: GemmConfig, prob: GemmProblem):
+    """The CTA tile (rows, cols) the kernel runs ``cfg`` on: on the wgmma
+    design 128 x 256 where bn allows it, else 128 x 128; otherwise
+    :func:`mma_tile`.  A config tile larger than the CTA tile is covered
+    by several CTAs."""
+    if is_wgmma(cfg, prob):
+        return WGMMA_ROWS, next(t for t in WGMMA_COLS if cfg.bn % t == 0)
+    return mma_tile(cfg)
+
+
+def smem_bytes(tm: int, tn: int, dtype: str, wgmma: bool = False) -> int:
+    """Shared memory one CTA stages (the kernel's layouts, ``gemm.cu``):
+    on the wgmma design 1024 bytes of alignment slack, a ring of 64-deep
+    stages of an A tile (128 x 64) and a B tile (64 x tn), 128-byte
+    swizzled, and two mbarriers a stage; otherwise ``STAGES`` buffers of
+    an A chunk (tm x 32) and a B chunk (32 x tn), each row padded by 16
+    bytes."""
     sz = DTYPE_BYTES.get(dtype, 2)
+    if wgmma:
+        stage = (tm + tn) * WGMMA_DEPTH * sz
+        return 1024 + WGMMA_STAGES[tn] * (stage + 16)
     pad = VECTOR_BYTES // sz
     return STAGES * (tm * (K_CHUNK + pad) + K_CHUNK * (tn + pad)) * sz
 
 
-def vector_path(cfg: GemmConfig, prob: GemmProblem) -> bool:
-    """True when every operand row and block start is 16-byte aligned, so
-    the kernel stages tiles with 16-byte ``cp.async`` copies; otherwise
-    it loads element by element, masked."""
-    q = VECTOR_BYTES // DTYPE_BYTES.get(prob.dtype, 2)
-    return all(x % q == 0 for x in (prob.k, prob.n, cfg.bk, cfg.bn))
+def _acc_regs(tm: int, tn: int, wgmma: bool) -> int:
+    """f32 accumulator registers per thread: a consumer warpgroup holds
+    64 x tn, the mma.sync design's 128 threads the whole tile."""
+    return 64 * tn // 128 if wgmma else tm * tn // CTA_THREADS
 
 
 def structural_gemm(cfg: GemmConfig, prob: GemmProblem):
-    tm, tn = cta_tile(cfg)
+    wg = is_wgmma(cfg, prob)
+    tm, tn = cta_tile(cfg, prob)
     issues = []
-    issues += check_smem("CTA", smem_bytes(tm, tn, prob.dtype))
-    issues += check_registers("CTA", tm * tn // CTA_THREADS)
+    issues += check_smem("CTA", smem_bytes(tm, tn, prob.dtype, wg))
+    acc = _acc_regs(tm, tn, wg)
+    if wg and acc + REG_OVERHEAD > CONSUMER_REGS:
+        issues.append(StructuralIssue(
+            "registers", f"CTA: {acc} accumulator registers per consumer "
+                         f"thread (+{REG_OVERHEAD}) exceed the "
+                         f"{CONSUMER_REGS} setmaxnreg gives it"))
+    elif not wg:
+        issues += check_registers("CTA", acc)
     issues += check_grain("C", (cfg.bm, cfg.bn, cfg.bk), (tm, tn))
     issues += check_vector_alignment(
         "A/B rows", (("k", prob.k), ("n", prob.n), ("bk", cfg.bk),
@@ -189,8 +242,9 @@ def gemm_cost(cfg: GemmConfig, prob: GemmProblem) -> CostEstimate:
     """H100 model of the CUDA kernel: block-revisit traffic of the config
     tiles (the CTAs of one config tile run one after another and share
     its operand panels in L2) over HBM bandwidth, against the useful
-    tensor-core work at the grain of the CTA tile, quantised in waves
-    over the 132 SMs."""
+    tensor-core work at the grain of the instance that runs
+    (:func:`is_wgmma`: the card's peak on wgmma, half of it on
+    mma.sync), quantised in waves over the 132 SMs."""
     sz = DTYPE_BYTES.get(prob.dtype, 2)
     m, n, k = prob.m, prob.n, prob.k
     mi, nj = cdiv(m, cfg.bm), cdiv(n, cfg.bn)
@@ -203,13 +257,22 @@ def gemm_cost(cfg: GemmConfig, prob: GemmProblem) -> CostEstimate:
         c_bytes = (2 * cfg.split_k + 1) * m * n * 4   # partials f32 w+r
     bw = HBM_BW if (cfg.stagger_k or nj * mi < 8) else HBM_BW * \
         STAGGER_DERATE
-    tm, tn = cta_tile(cfg)
+    wg = is_wgmma(cfg, prob)
+    tm, tn = cta_tile(cfg, prob)
     n_ctas = work_ctas(m, cfg.bm, tm) * work_ctas(n, cfg.bn, tn) \
         * max(cfg.split_k, 1)
-    per_sm = ctas_per_sm(CTA_THREADS, tm * tn // CTA_THREADS + REG_OVERHEAD,
-                         smem_bytes(tm, tn, prob.dtype))
-    util = grain_util((cfg.bm, cfg.bn, cfg.bk), (tm, tn), K_CHUNK) \
-        * wave_eff(n_ctas, per_sm)
+    if wg:
+        per_sm = ctas_per_sm(WGMMA_THREADS, CONSUMER_REGS,
+                             smem_bytes(tm, tn, prob.dtype, True))
+        util = grain_util((cfg.bm, cfg.bn, cfg.bk), (tm, tn), WGMMA_DEPTH)
+    else:
+        per_sm = ctas_per_sm(CTA_THREADS, _acc_regs(tm, tn, False)
+                             + REG_OVERHEAD,
+                             smem_bytes(tm, tn, prob.dtype))
+        util = grain_util((cfg.bm, cfg.bn, cfg.bk), (tm, tn), K_CHUNK)
+        if prob.dtype != "f32":
+            util *= MMA_SYNC_DERATE
+    util *= wave_eff(n_ctas, per_sm)
     if not vector_path(cfg, prob):
         util *= SCALAR_PATH_DERATE
     return CostEstimate(

@@ -10,15 +10,18 @@ conforms with the weight it gates), tail masking, packed coverage and
 carried-output stability.
 
 **Which decomposition is verified.**  The CUDA kernel
-(``repro_torch/kernels/ragged_prefill/csrc/ragged_prefill.cu``) runs one
-CTA per (query head, 64 packed queries) over 32-key blocks, whatever the
-config's ``block_q`` / ``block_kv`` are.  :func:`kernel_config` gives the
-program that step: ``block_q = 64`` and ``block_kv = 32`` wherever they
-tile the packed buffer, which the serving engine guarantees (it pads both
-extents to 64 tokens).  The program's blocks must tile the buffer; on a
-buffer they do not tile (the kernel then masks its last CTA's rows and
-its last block's keys) the program takes the largest power-of-two blocks
-below them that do — the same rows and keys, each read once.  The
+(``repro_torch/kernels/ragged_prefill/csrc/ragged_prefill.cu``) runs, in
+bf16 at head_dim 64 and 128 (:func:`is_wgmma`), one CTA per (query head,
+128 packed queries) over 128-key tiles on ``wgmma``, and otherwise one
+CTA per (query head, 64 packed queries) over 32-key blocks on the CUDA
+cores, whatever the config's ``block_q`` / ``block_kv`` are.
+:func:`kernel_config` gives the program that step: ``128 x 128`` or
+``64 x 32`` wherever they tile the packed buffer.  The serving engine pads
+both extents to 64 tokens, so the wgmma step is 128 on a buffer of a
+multiple of 128 tokens and 64 on the others.  On a buffer the kernel's
+blocks do not tile (the kernel then masks its last CTA's rows and its
+last tile's keys) the program takes the largest power-of-two blocks below
+them that do — the same rows and keys, each read once.  The
 config's blocks stay the precondition they are in the JAX family: they
 must tile the buffer.  Verdicts, findings and counterexamples are the
 JAX gate's at those blocks.
@@ -33,8 +36,8 @@ from dataclasses import dataclass, replace
 from typing import Optional
 
 from .. import dsl
-from ..costs import (CostEstimate, HBM_BW, L2_BW, PEAK_FLOPS, sol_estimate,
-                     wave_eff)
+from ..costs import (CostEstimate, HBM_BW, L2_BW, PEAK_FLOPS, peak_flops,
+                     sol_estimate, wave_eff)
 from ..kernelspec import (DTYPE_BYTES, StructuralIssue, cdiv, check_smem,
                           ctas_per_sm)
 from ..tags import Expr, app, make_tag
@@ -72,26 +75,53 @@ class RaggedPrefillConfig:
 
 # -- the CUDA kernel's decomposition -----------------------------------------
 
-KERNEL_BQ = 64                 # packed queries per CTA
-KERNEL_BK = 32                 # packed keys per block
+KERNEL_BQ = 64                 # packed queries per CTA (CUDA cores)
+KERNEL_BK = 32                 # packed keys per block (CUDA cores)
 KERNEL_THREADS = 256
 HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernel is compiled for
+WGMMA_HEAD_DIMS = (64, 128)    # bf16 head dims on the wgmma design
+WGMMA_BQ = 128                 # packed queries per CTA: two warpgroups
+WGMMA_BK = 128                 # packed keys per TMA tile
+WGMMA_STAGES = 2               # K/V ring depth
+WGMMA_THREADS = 384
+CONSUMER_REGS = 232            # setmaxnreg, consumer warpgroups
+# static shared arrays beside the dynamic block: on wgmma the four 32-row
+# summaries (5 ints), a masked tile's (seg, pos) pairs for each consumer
+# warpgroup and the live-tile count; on the CUDA cores the seg/pos of the
+# query and key blocks, three ints of query metadata and a flag a thread
+WGMMA_STATIC_SMEM = 4 * 5 * 4 + 2 * WGMMA_BK * 8 + 4
+KERNEL_STATIC_SMEM = (2 * KERNEL_BQ + 2 * KERNEL_BK + 3) * 4 + KERNEL_THREADS
+
+
+def is_wgmma(prob: RaggedPrefillProblem) -> bool:
+    """The kernel runs ``prob`` on its wgmma design: bf16 at head_dim 64
+    or 128 (float32 and the small head dims stay on the CUDA cores)."""
+    return prob.dtype == "bf16" and prob.head_dim in WGMMA_HEAD_DIMS
+
+
+def kernel_blocks(prob: RaggedPrefillProblem):
+    """(packed queries per CTA, keys per step) of the design that runs
+    ``prob``."""
+    return (WGMMA_BQ, WGMMA_BK) if is_wgmma(prob) else (KERNEL_BQ,
+                                                        KERNEL_BK)
 
 
 def kernel_config(cfg: RaggedPrefillConfig,
                   prob: RaggedPrefillProblem) -> RaggedPrefillConfig:
     """The config whose program is the decomposition the kernel runs:
-    the kernel's 64 x 32 blocks (or the largest power-of-two blocks below
-    them that tile the buffer).  Raises ``ValueError`` where the JAX
-    program would: the config's blocks must tile the buffer."""
+    the kernel's blocks (:func:`kernel_blocks`: 128 x 128 on wgmma, else
+    64 x 32), or the largest power-of-two blocks below them that tile the
+    buffer.  Raises ``ValueError`` where the JAX program would: the
+    config's blocks must tile the buffer."""
     T = prob.total_tokens
     if T % cfg.block_q or T % cfg.block_kv:
         raise ValueError(
             f"block_q {cfg.block_q} and block_kv {cfg.block_kv} must tile "
             f"the packed buffer ({T} tokens)")
-    bq = next(b for b in (64, 32, 16, 8, 4, 2, 1) if T % b == 0)
-    bkv = next(b for b in (32, 16, 8, 4, 2, 1) if T % b == 0)
-    return RaggedPrefillConfig(block_q=bq, block_kv=bkv)
+    bq0, bk0 = kernel_blocks(prob)
+    pow2 = lambda top: next(b for b in (128, 64, 32, 16, 8, 4, 2, 1)
+                            if b <= top and T % b == 0)
+    return RaggedPrefillConfig(block_q=pow2(bq0), block_kv=pow2(bk0))
 
 
 def _kernel_config_or_cfg(cfg, prob):
@@ -299,11 +329,20 @@ def build_ragged_prefill_program(cfg: RaggedPrefillConfig,
                         inject_bug=inject_bug)
 
 
-def _smem_bytes(head_dim: int) -> int:
-    """The kernel's shared memory: Q, K, V and the weights as float32,
-    rows padded by one word."""
-    return ((KERNEL_BQ + 2 * KERNEL_BK) * (head_dim + 1)
-            + KERNEL_BQ * (KERNEL_BK + 1)) * 4
+def _smem_bytes(prob: RaggedPrefillProblem) -> int:
+    """The kernel's shared memory for ``prob``, static arrays included:
+    on wgmma 1024 bytes of alignment slack, the Q tile, a two-stage ring
+    of K and V tiles (128-byte swizzle), the mbarriers, and a flag byte
+    and a 2-byte list entry a key tile; otherwise Q, K, V and the weights
+    as float32, rows padded by one word."""
+    D = prob.head_dim
+    if is_wgmma(prob):
+        n_tiles = cdiv(prob.total_tokens, WGMMA_BK)
+        return (1024 + WGMMA_BQ * D * 2 + 2 * WGMMA_STAGES * WGMMA_BK * D * 2
+                + 8 * (1 + 4 * WGMMA_STAGES) + 2 * cdiv(n_tiles, 2)
+                + 2 * n_tiles + WGMMA_STATIC_SMEM)
+    return ((KERNEL_BQ + 2 * KERNEL_BK) * (D + 1)
+            + KERNEL_BQ * (KERNEL_BK + 1)) * 4 + KERNEL_STATIC_SMEM
 
 
 def structural_ragged_prefill(cfg: RaggedPrefillConfig,
@@ -325,33 +364,44 @@ def structural_ragged_prefill(cfg: RaggedPrefillConfig,
         issues.append(StructuralIssue(
             "unsupported", f"the kernel takes head_dim in {HEAD_DIMS}, "
                            f"not {prob.head_dim}"))
-    issues += check_smem("CTA", _smem_bytes(prob.head_dim))
+    issues += check_smem("CTA", _smem_bytes(prob))
     return issues
 
 
 def ragged_prefill_cost(cfg: RaggedPrefillConfig,
                         prob: RaggedPrefillProblem) -> CostEstimate:
-    """H100 model of ``ragged_prefill.cu``: one CTA per (query head, 64
-    packed queries) visits only the 32-key blocks that share a segment
-    with its rows and are not causally past them (about the segment's
-    prefix), with float32 FMAs on the CUDA cores; Q, K, V and O cross
-    HBM once and the KV re-reads of the CTAs of one head hit L2.  The
-    config's blocks change nothing the kernel does."""
+    """H100 model of ``ragged_prefill.cu``: one CTA per (query head,
+    block of packed queries) visits only the key tiles that share a
+    segment with its rows and are not causally past them (about the
+    segment's prefix, plus the query block's own span).  On wgmma
+    (:func:`is_wgmma`) it issues S = Q·Kᵀ and P·V twice (p split into two
+    bf16 terms) at the tensor cores' peak, one CTA an SM; otherwise
+    float32 FMAs on the CUDA cores.  Q, K, V and O cross HBM once and the
+    KV re-reads of the CTAs of one head hit L2.  The config's blocks
+    change nothing the kernel does."""
     sz = DTYPE_BYTES.get(prob.dtype, 2)
     T, D = prob.total_tokens, prob.head_dim
     H, HK = prob.q_heads, prob.kv_heads
-    nq = cdiv(T, KERNEL_BQ)
+    bq, _ = kernel_blocks(prob)
+    nq = cdiv(T, bq)
     # causal within each segment: ~half the full packed score rectangle
     flops = 4.0 * H * T * (prob.avg_len / 2.0) * D
     q_bytes = 2 * H * T * D * sz                      # Q in, O out
     kv_bytes = 2 * HK * T * D * sz
     meta_bytes = (prob.n_seqs + 1) * 4 + 2 * T * 4    # cu + seg/pos ids
-    kv_reread = 2 * H * nq * (prob.avg_len / 2.0 + KERNEL_BQ) * D * sz
+    walked = prob.avg_len / 2.0 + bq                  # keys a query tile
+    kv_reread = 2 * H * nq * walked * D * sz
     n_ctas = H * nq
-    per_sm = ctas_per_sm(KERNEL_THREADS, 64, _smem_bytes(D))
     hbm = q_bytes + kv_bytes + meta_bytes
+    if is_wgmma(prob):
+        issued = 6.0 * H * T * walked * D             # S, then P·V twice
+        per_sm = ctas_per_sm(WGMMA_THREADS, CONSUMER_REGS, _smem_bytes(prob))
+        compute_s = issued / (peak_flops("bf16") * wave_eff(n_ctas, per_sm))
+    else:
+        per_sm = ctas_per_sm(KERNEL_THREADS, 64, _smem_bytes(prob))
+        compute_s = flops / (PEAK_FLOPS["f32"] * wave_eff(n_ctas, per_sm))
     return CostEstimate(
-        compute_s=flops / (PEAK_FLOPS["f32"] * wave_eff(n_ctas, per_sm)),
+        compute_s=compute_s,
         memory_s=hbm / HBM_BW + kv_reread / L2_BW,
         flops=flops, hbm_bytes=hbm)
 

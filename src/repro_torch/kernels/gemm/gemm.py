@@ -17,7 +17,7 @@ from pathlib import Path
 import torch
 
 from ...core.families.gemm import (GemmConfig, GemmProblem, cta_tile,
-                                   vector_path)
+                                   is_wgmma, mma_tile, vector_path)
 from ...core.kernelspec import cdiv
 from .._build import CudaKernel, ptr, stream_handle
 from .ref import matmul_ref
@@ -27,10 +27,9 @@ _I = ctypes.c_int
 
 KERNEL = CudaKernel(
     "gemm", Path(__file__).parent / "csrc" / "gemm.cu", "gemm_launch",
-    [_P, _P, _P] + [_I] * 13 + [_P])
+    [_P, _P, _P] + [_I] * 14 + [_P])
 
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
-
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *,
          cfg: GemmConfig = GemmConfig(), out_dtype=None) -> torch.Tensor:
@@ -62,9 +61,10 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *,
     if m == 0 or n == 0 or k == 0:
         return torch.zeros(m, n, dtype=out_dtype, device=a.device)
     prob = GemmProblem(m, n, k, _DTYPES[a.dtype])
-    vec = (vector_path(cfg, prob) and a.data_ptr() % 16 == 0
-           and b.data_ptr() % 16 == 0)
-    tm, tn = cta_tile(cfg)
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    vec = vector_path(cfg, prob) and aligned
+    wgmma = is_wgmma(cfg, prob) and aligned
+    tm, tn = cta_tile(cfg, prob) if wgmma else mma_tile(cfg)
     if split > 1:
         out = torch.empty(split * m, n, dtype=torch.float32, device=a.device)
     else:
@@ -72,7 +72,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *,
     KERNEL.launch(ptr(a), ptr(b), ptr(out), m, n, k, cfg.bm, cfg.bn,
                   cfg.bk, split, int(cfg.stagger_k), tm, tn,
                   int(a.dtype == torch.bfloat16),
-                  int(out.dtype == torch.bfloat16), int(vec),
+                  int(out.dtype == torch.bfloat16), int(vec), int(wgmma),
                   stream_handle(a.device))
     if split > 1:
         out = out.view(split, m, n).sum(0, dtype=torch.float32)

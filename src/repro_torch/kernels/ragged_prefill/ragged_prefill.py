@@ -15,8 +15,9 @@ from pathlib import Path
 
 import torch
 
-from ...core.families.ragged_prefill import HEAD_DIMS, RaggedPrefillConfig
-from .._build import CudaKernel, ptr, stream_handle
+from ...core.families.ragged_prefill import (HEAD_DIMS, RaggedPrefillConfig,
+                                             RaggedPrefillProblem, is_wgmma)
+from .._build import CudaKernel, dtype_name, ptr, stream_handle
 from .ref import ragged_prefill_ref
 
 _P = ctypes.c_void_p
@@ -70,6 +71,10 @@ def ragged_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("ragged_prefill: all tensors must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ragged_prefill: tensors must be contiguous")
+    prob = RaggedPrefillProblem(1, TK, Hq, Hkv, D, dtype_name(q.dtype))
+    if is_wgmma(prob) and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("ragged_prefill: the bf16 kernel loads q, k and v "
+                         "by TMA and needs them 16-byte aligned")
     out = torch.empty_like(q)
     if TQ == 0 or TK == 0:
         return out.zero_()

@@ -116,6 +116,75 @@ def test_ragged_prefill_kernel_matches_plain(card, dtype, Hq, Hkv, D):
     assert float(got[:, dev[3] < 0].abs().max()) == 0.0
 
 
+def _packed_case(Hq, Hkv, D, chunks, prefixes, dtype, seed):
+    """Engine-style packing (both extents padded to 64 tokens) of chunks
+    against their prefixes; inputs from a seeded generator."""
+    pad = lambda t: -(-t // 64) * 64
+    TQ, TK = pad(sum(chunks)), pad(sum(p + n for p, n in
+                                       zip(prefixes, chunks)))
+    sq = torch.full((TQ,), -1, dtype=torch.int32)
+    pq = torch.zeros(TQ, dtype=torch.int32)
+    sk = torch.full((TK,), -1, dtype=torch.int32)
+    pk = torch.zeros(TK, dtype=torch.int32)
+    qt = kt = 0
+    for j, (p, n) in enumerate(zip(prefixes, chunks)):
+        sq[qt:qt + n], pq[qt:qt + n] = j, torch.arange(p, p + n)
+        sk[kt:kt + p + n], pk[kt:kt + p + n] = j, torch.arange(p + n)
+        qt, kt = qt + n, kt + p + n
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(Hq, TQ, D, generator=g).to(dtype)
+    k = torch.randn(Hkv, TK, D, generator=g).to(dtype)
+    v = torch.randn(Hkv, TK, D, generator=g).to(dtype)
+    return q, k, v, sq, pq, sk, pk
+
+
+@pytest.mark.parametrize("Hq,Hkv,D", [(16, 8, 128), (24, 8, 64)])
+@pytest.mark.parametrize("chunks,prefixes", [
+    # the serving phase's tick: 8 chunks against prefixes up to 768
+    ([256] * 7 + [200], [0, 256, 512, 768] * 2),
+    # segments shorter than a tile, starting mid-tile, a 64-row tail
+    ([40, 64, 7, 100, 3, 130], [0, 30, 200, 64, 700, 5])])
+def test_ragged_prefill_wgmma_instance_matches_plain(card, Hq, Hkv, D,
+                                                     chunks, prefixes):
+    """The bf16 wgmma instance at qwen3's and granite's head geometry:
+    within the tolerance, bit-identical to the plain version on all but
+    ``P_SPLIT_MISMATCH`` of the outputs, padding rows zero, and a
+    poisoned foreign segment leaves every other row bit-identical."""
+    from repro_torch.core.families.ragged_prefill import (
+        RaggedPrefillProblem, is_wgmma)
+    from repro_torch.kernels.ragged_prefill import (KERNEL, default_config,
+                                                    ragged_prefill_ref)
+    from repro_torch.kernels.ragged_prefill.ragged_prefill import \
+        ragged_prefill
+    from repro_torch.kernels.ragged_prefill.ref import (P_SPLIT_MISMATCH,
+                                                        mismatch_share)
+    case = _packed_case(Hq, Hkv, D, chunks, prefixes, torch.bfloat16, 3)
+    q, k, v, sq, pq, sk, pk = [t.to(card) for t in case]
+    assert is_wgmma(RaggedPrefillProblem(len(chunks), k.shape[1], Hq, Hkv,
+                                         D, "bf16"))
+    cfg = default_config(q.shape[1], k.shape[1])
+    before = KERNEL.launches
+    got = ragged_prefill(q, k, v, sq, pq, sk, pk, cfg=cfg)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    want = ragged_prefill_ref(q, k, v, sq, pq, sk, pk)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= TOL[torch.bfloat16], err
+    # p kept at float32 accuracy: the bf16 output is the plain version's
+    # almost everywhere (p rounded to bf16 alone moves a third of it)
+    share = mismatch_share(got, want, sq)
+    assert share <= P_SPLIT_MISMATCH, share
+    assert float(got[:, sq < 0].abs().max()) == 0.0
+    k2, v2 = k.clone(), v.clone()
+    foreign = (sk == 3) | (sk < 0)
+    k2[:, foreign] = 1e6
+    v2[:, foreign] = 1e6
+    poisoned = ragged_prefill(q, k2, v2, sq, pq, sk, pk, cfg=cfg)
+    torch.cuda.synchronize()
+    keep = sq != 3
+    assert torch.equal(got[:, keep], poisoned[:, keep])
+
+
 def test_reduced_engine_on_the_card_matches_the_cpu(card):
     """float32 reduced model, kernel paths: the card (CUDA kernels) and
     the CPU (plain versions) give the same tokens."""
@@ -203,13 +272,50 @@ def test_gemm_kernel_matches_plain(card, m, n, k, fields, dtype, out):
     _gemm_check(got, matmul_ref(a, b, out_dtype=out_dtype), out_dtype)
 
 
-def test_gemm_kernel_at_the_production_problem(card):
+WGMMA_CASES = [
+    # (m, n, k, cfg fields): the wgmma instances, 128 x 128 and 128 x 256,
+    # ragged m, n and k (a B panel wholly past n, a last K block of one
+    # partial stage), split_k 2 and 4, stagger_k, a config tile of
+    # several CTA tiles
+    (1000, 800, 1000, dict(bm=128, bn=256, bk=128)),
+    (1000, 1000, 1000, dict(bm=128, bn=128, bk=64, stagger_k=True)),
+    (2048, 2048, 4096, dict(bm=128, bn=256, bk=128, split_k=2)),
+    (512, 512, 8192, dict(bm=128, bn=128, bk=256, split_k=4)),
+    (1024, 2048, 2048, dict(bm=256, bn=512, bk=192, stagger_k=True)),
+    (2048, 2048, 2048, dict(bm=512, bn=1024, bk=128, stagger_k=True)),
+]
+
+
+@pytest.mark.parametrize("out", [None, torch.float32])
+@pytest.mark.parametrize("m,n,k,fields", WGMMA_CASES)
+def test_gemm_wgmma_instances_match_plain(card, m, n, k, fields, out):
+    from repro_torch.core.families.gemm import (GemmConfig, GemmProblem,
+                                                is_wgmma)
+    from repro_torch.kernels.gemm import KERNEL, matmul, matmul_ref
+    cfg = GemmConfig(**fields)
+    assert is_wgmma(cfg, GemmProblem(m, n, k, "bf16"))
+    g = torch.Generator().manual_seed(m + n + k)
+    a = torch.randn(m, k, generator=g).bfloat16().to(card)
+    b = torch.randn(k, n, generator=g).bfloat16().to(card)
+    before = KERNEL.launches
+    got = matmul(a, b, cfg=cfg, out_dtype=out)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    out_dtype = out or torch.bfloat16
+    assert got.dtype == out_dtype and tuple(got.shape) == (m, n)
+    _gemm_check(got, matmul_ref(a, b, out_dtype=out_dtype), out_dtype)
+
+
+@pytest.mark.parametrize("fields", [{}, dict(bm=512, bn=1024, bk=128,
+                                             stagger_k=True)])
+def test_gemm_kernel_at_the_production_problem(card, fields):
     from repro_torch.kernels.gemm import KERNEL, matmul, matmul_ref
     g = torch.Generator(device="cuda").manual_seed(0)
     a = torch.randn(8192, 8192, generator=g, device="cuda").bfloat16()
     b = torch.randn(8192, 8192, generator=g, device="cuda").bfloat16()
+    from repro_torch.core.families.gemm import GemmConfig
     before = KERNEL.launches
-    got = matmul(a, b)
+    got = matmul(a, b, cfg=GemmConfig(**fields))
     torch.cuda.synchronize()
     assert KERNEL.launches == before + 1
     _gemm_check(got, matmul_ref(a, b), torch.bfloat16)

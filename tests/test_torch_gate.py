@@ -19,8 +19,9 @@ from repro_torch.core.costs import (HBM_BW, grain_util, peak_flops,
                                     wave_eff)
 from repro_torch.core.families import (MATCH_EXACT, MATCH_NONE,
                                        family_names, get_family)
-from repro_torch.core.families.gemm import (GemmConfig, GemmProblem,
-                                            cta_tile, gemm_cost, gemm_sol,
+from repro_torch.core.families.gemm import (WGMMA_COLS, GemmConfig,
+                                            GemmProblem, cta_tile,
+                                            gemm_cost, gemm_sol, is_wgmma,
                                             smem_bytes, structural_gemm,
                                             vector_path)
 from repro_torch.core.verify_engine import (ConstraintCache,
@@ -222,19 +223,52 @@ def test_the_production_config_has_no_structural_issue():
                            GemmProblem(8192, 8192, 8192, "bf16")) == []
 
 
-@pytest.mark.parametrize("bm,bn,want", [
-    (128, 128, (128, 128)), (1024, 1024, (128, 128)), (64, 32, (64, 32)),
-    (8, 8, (16, 32)), (16, 64, (16, 64)), (96, 96, (32, 32)),
-    (24, 200, (16, 32)), (256, 64, (128, 64))])
-def test_cta_tile_is_the_largest_instance_dividing_the_tile(bm, bn, want):
-    assert cta_tile(GemmConfig(bm=bm, bn=bn)) == want
+BF16 = GemmProblem(8192, 8192, 8192, "bf16")
+F32 = GemmProblem(8192, 8192, 8192, "f32")
 
 
-def test_a_tile_larger_than_a_cta_is_a_cta_split_warning():
-    prob = GemmProblem(8192, 8192, 8192, "bf16")
+@pytest.mark.parametrize("bm,bn,prob,want", [
+    # the mma.sync / FMA design: the largest instance dividing the tile
+    (128, 128, F32, (128, 128)), (1024, 1024, F32, (128, 128)),
+    (64, 32, BF16, (64, 32)), (8, 8, BF16, (16, 32)),
+    (16, 64, BF16, (16, 64)), (96, 96, BF16, (32, 32)),
+    (24, 200, BF16, (16, 32)), (256, 64, BF16, (128, 64)),
+    # the wgmma design: 128 x 256 where bn allows it, else 128 x 128
+    (128, 128, BF16, (128, 128)), (1024, 1024, BF16, (128, 256)),
+    (256, 384, BF16, (128, 128)), (512, 1024, BF16, (128, 256))])
+def test_cta_tile_is_the_largest_instance_dividing_the_tile(bm, bn, prob,
+                                                            want):
+    assert cta_tile(GemmConfig(bm=bm, bn=bn), prob) == want
+
+
+@pytest.mark.parametrize("fields,prob,wgmma", [
+    ({}, BF16, True),
+    (dict(bm=512, bn=1024, bk=128, stagger_k=True), BF16, True),
+    (dict(bk=64, split_k=4), BF16, True),
+    (dict(bm=256, bn=384, bk=192), GemmProblem(1000, 1000, 1000, "bf16"),
+     True),
+    ({}, F32, False),                                    # float32
+    (dict(bk=32), BF16, False),                          # a 32-deep block
+    (dict(bk=96), BF16, False),                          # not whole stages
+    (dict(bm=8), BF16, False),                           # below 128 rows
+    (dict(bm=64, bn=64), BF16, False),
+    (dict(bn=64), BF16, False),
+    ({}, GemmProblem(1000, 777, 1500, "bf16"), False),   # unaligned rows
+])
+def test_the_wgmma_design_runs_aligned_bf16_of_whole_tiles_and_stages(
+        fields, prob, wgmma):
+    cfg = GemmConfig(**fields)
+    assert is_wgmma(cfg, prob) == wgmma
+    tm, tn = cta_tile(cfg, prob)
+    assert (tm == 128 and tn in WGMMA_COLS) or not wgmma
+
+
+@pytest.mark.parametrize("prob,ctas", [(BF16, "8 CTAs of 128x256"),
+                                       (F32, "16 CTAs of 128x128")])
+def test_a_tile_larger_than_a_cta_is_a_cta_split_warning(prob, ctas):
     issues = structural_gemm(GemmConfig(bm=1024, bn=256), prob)
     assert [i.kind for i in issues] == ["cta_split"]
-    assert "16 CTAs of 128x128" in issues[0].message
+    assert ctas in issues[0].message
 
 
 def test_tiles_off_the_tensor_core_grain_are_grain_warnings():
@@ -247,6 +281,8 @@ def test_tiles_off_the_tensor_core_grain_are_grain_warnings():
     from repro_torch.core.families.gemm import CTA_COLS, CTA_ROWS
     assert all(ks.check_grain("C", (t, u, 32), (t, u)) == []
                for t in CTA_ROWS for u in CTA_COLS)
+    assert all(ks.check_grain("C", (128, u, 64), (128, u)) == []
+               for u in WGMMA_COLS)
     [i] = ks.check_grain("C", (24, 128, 32), (24, 128))
     assert "m16n8" in i.message
 
@@ -268,13 +304,24 @@ def test_rows_below_16_bytes_take_the_scalar_path():
 
 
 def test_shared_memory_and_register_checks():
-    # the kernel's layout: two stages of (tm x 32) and (32 x tn), each
+    # the mma.sync design: two stages of (tm x 32) and (32 x tn), each
     # row padded by 16 bytes
     assert smem_bytes(128, 128, "bf16") == 2 * (128 * 40 + 32 * 136) * 2
     assert smem_bytes(128, 128, "f32") == 2 * (128 * 36 + 32 * 132) * 4
     assert all(smem_bytes(m, n, d) <= ks.SMEM_PER_CTA
                for m in (16, 32, 64, 128) for n in (32, 64, 128)
                for d in ("bf16", "f32"))
+    # the wgmma design: 1024 of slack, 4 (tn 256) or 6 (tn 128) 64-deep
+    # stages of A (128 x 64) and B (64 x tn), two mbarriers a stage
+    assert smem_bytes(128, 256, "bf16", True) == 1024 + 4 * (
+        (128 + 256) * 64 * 2 + 16) == 197_696
+    assert smem_bytes(128, 128, "bf16", True) == 1024 + 6 * (
+        256 * 64 * 2 + 16) == 197_728
+    assert all(smem_bytes(128, n, "bf16", True) <= ks.SMEM_PER_CTA
+               for n in WGMMA_COLS)
+    # 128 accumulators a consumer thread (64 x 256 over 128 threads) fit
+    # the 232 registers setmaxnreg gives it
+    assert structural_gemm(GemmConfig(bm=128, bn=256), BF16) == []
     assert ks.check_smem("x", ks.SMEM_PER_CTA) == []
     [i] = ks.check_smem("x", ks.SMEM_PER_CTA + 1)
     assert i.kind == "smem" and "232448" in i.message

@@ -197,16 +197,44 @@ def test_paged_program_is_built_at_the_kernels_step():
         pa.kernel_config(pa.PagedAttentionConfig(2), big)
 
 
-def test_ragged_program_is_built_at_the_kernels_blocks():
-    prob = rp.RaggedPrefillProblem(8, 2048, 8, 1, 128, "bf16")
-    for cfg in (rp.RaggedPrefillConfig(128, 128), rp.RaggedPrefillConfig(8, 8),
-                rp.RaggedPrefillConfig(256, 64)):
-        assert rp.kernel_config(cfg, prob) == rp.RaggedPrefillConfig(64, 32)
+RP_BF16 = rp.RaggedPrefillProblem(8, 2048, 8, 1, 128, "bf16")
+
+
+@pytest.mark.parametrize("cfg,prob,want", [
+    # bf16 at head_dim 64 and 128: the wgmma design's 128 x 128 step
+    ((128, 128), RP_BF16, (128, 128)), ((8, 8), RP_BF16, (128, 128)),
+    ((256, 64), RP_BF16, (128, 128)),
+    # 192 tokens (the engine pads to 64): the largest blocks that tile
+    ((64, 64), rp.RaggedPrefillProblem(4, 192, 4, 4, 64, "bf16"), (64, 64)),
+    # float32 and head_dim 16: the CUDA-core design's 64 x 32
+    ((128, 128), dataclasses.replace(RP_BF16, dtype="f32"), (64, 32)),
+    ((128, 128), dataclasses.replace(RP_BF16, head_dim=16), (64, 32)),
+    ((8, 16), rp.RaggedPrefillProblem(3, 48, 4, 2, 16, "f32"), (16, 16))])
+def test_ragged_program_is_built_at_the_kernels_blocks(cfg, prob, want):
+    got = rp.kernel_config(rp.RaggedPrefillConfig(*cfg), prob)
+    assert got == rp.RaggedPrefillConfig(*want)
     odd = rp.RaggedPrefillProblem(3, 48, 4, 2, 16, "f32")
-    assert rp.kernel_config(rp.RaggedPrefillConfig(8, 16), odd) == \
-        rp.RaggedPrefillConfig(16, 16)
     with pytest.raises(ValueError, match="must tile"):
         rp.kernel_config(rp.RaggedPrefillConfig(32, 16), odd)
+
+
+@pytest.mark.parametrize("dtype,D,wgmma", [
+    ("bf16", 128, True), ("bf16", 64, True), ("f32", 128, False),
+    ("f32", 64, False), ("bf16", 32, False), ("bf16", 16, False)])
+def test_ragged_bf16_at_head_dim_64_and_128_runs_on_wgmma(dtype, D, wgmma):
+    from repro_torch.core import kernelspec as ks
+    prob = rp.RaggedPrefillProblem(8, 2048, 16, 8, D, dtype)
+    assert rp.is_wgmma(prob) == wgmma
+    assert rp.kernel_blocks(prob) == ((128, 128) if wgmma else (64, 32))
+    assert rp.structural_ragged_prefill(rp.RaggedPrefillConfig(), prob) == []
+    # the wgmma instance holds Q, a two-stage K/V ring and a byte and a
+    # list entry a key tile, beside 2,132 bytes of static arrays (the row
+    # summaries, two tiles' (seg, pos) pairs, the live count); one CTA an SM
+    smem = rp._smem_bytes(prob)
+    assert smem <= ks.SMEM_PER_CTA
+    if wgmma:
+        assert smem == (1024 + 128 * D * 2 + 4 * 128 * D * 2 + 72
+                        + 16 + 2 * 16 + 2132)
 
 
 # -- injected bugs ------------------------------------------------------------
