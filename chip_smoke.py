@@ -11,24 +11,34 @@ is missing or any phase fails.  Phases:
 1. card — name and power limit as ``nvidia-smi`` reports them;
 2. build — the eight CUDA kernels from the repository's sources, one
    ``nvcc`` per source, started together; ptxas's registers, shared
-   memory and spills for each instance, and for the gemm, ragged-prefill
-   and two flash libraries the HGMMA (wgmma), HMMA (mma.sync), UTMALDG
-   (TMA) and UBLKCP (bulk copy) instructions of each instance in
-   ``cuobjdump -sass``: each of the four has wgmma instances, which must
-   show HGMMA and UTMALDG, and the bf16 decode kernel HMMA and UTMALDG;
+   memory and spills for each instance, and for the gemm, ragged-prefill,
+   grouped-FFN, paged-decode and two flash libraries the HGMMA (wgmma),
+   HMMA (mma.sync), UTMALDG (TMA) and UBLKCP (bulk copy) instructions of
+   each instance in ``cuobjdump -sass``: gemm, ragged_prefill,
+   flash_attention and grouped_ffn have wgmma instances, which must show
+   HGMMA and UTMALDG, and the bf16 decode kernels (flash_decode's, and
+   paged_decode's tensor-core instance) HMMA and UTMALDG;
 3. kernels against their plain PyTorch versions at the serving path's
    shapes (qwen3-1.7b: 16 query heads, 8 KV heads, head_dim 128, page
    size 16), in bfloat16 and float32 (ragged prefill's bf16 case on its
-   wgmma instance, float32 on its CUDA-core one), including poisoned
-   pages and segments that must not move the output by a bit, and on
-   ragged prefill's wgmma instance the share of outputs that differ from
-   the plain version's bf16 value (at most ``P_SPLIT_MISMATCH``: the sign
-   that p kept float32 accuracy through P·V); each
-   kernel's time, its plain version's time, the least time the card
-   could take (``bound_ms``) and, for ragged prefill, one
+   wgmma instance, float32 on its CUDA-core one; paged decode's bf16 on
+   its tensor-core split walk, float32 on CUDA cores; each case names
+   its instance), including poisoned pages and segments that must not
+   move the output by a bit, a zero-length row that must give zeros,
+   and on both kernels' bf16 tensor-core instances the share of outputs
+   that differ from the plain version's bf16 value (at most
+   ``P_SPLIT_MISMATCH``: the sign that p kept float32 accuracy through
+   P·V); each kernel's time, its plain version's time, the least time
+   the card could take (``bound_ms``) and, for ragged prefill, one
    ``scaled_dot_product_attention`` call as a yardstick, the two also
    over 20 calls launched back to back (a call of ~0.1 ms makes the
-   card wait for its host time);
+   card wait for its host time); for paged decode the whole call beside
+   its split kernel's and its combine's device time
+   (``decode_parts_ms``), a 125-page table in spans and in one span a
+   row, and the family's production problem (32 rows x 8/1 heads x
+   8192 tokens in 128-token pages, a pool of 2304, bf16) held to the
+   plain version and timed beside the dense flash_decode kernel at the
+   same bytes;
 4. serve — qwen3-1.7b at full width and depth (28 layers, random
    weights from a seeded ``torch.Generator``) behind
    ``PagedServingEngine(decode_path="kernel", prefill_path="kernel")``
@@ -82,8 +92,10 @@ is missing or any phase fails.  Phases:
    kernel against its plain version in bfloat16 and float32 over the
    default config and the family example (block_t 8), block_t 16 to 256
    and block_f 8 to 2048, fuse_gate off and gates None, one expert,
-   d_model 1536 and 96 and empty capacity rows, and the production
+   d_model 1536 and 96 and empty capacity rows, the wgmma instance's 64-
+   and 128-row CTAs with gates None and fuse off, and the production
    problem (16,384 tokens, top-8 of 32 experts, 7168 x 2048, bf16),
+   each case naming its instance (wgmma, mma.sync or fma),
    within the tolerance stated beside ``moe_error``
    (``kernels/moe/ref.py``); (b) ``moe_ffn`` end to end at
    granite-moe-3b-a800m's layer against the dense oracle through the
@@ -274,7 +286,7 @@ def phase_build():
                 log(f"[build] {name}{entry}: {ln.strip()}")
     sass = {}
     for k in ALL_KERNELS:
-        if k.name not in WGMMA_LIBS + ("flash_decode",):
+        if k.name not in WGMMA_LIBS + ("flash_decode", "paged_decode"):
             continue
         for fn, counts in _sass_counts(k._lib_path()).items():
             inst = f"{k.name}{_instance(fn)}"
@@ -285,18 +297,21 @@ def phase_build():
         if "wgmma" in inst:
             check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
                   f"{inst}: no wgmma or no TMA load in its SASS: {c}")
-        if "decode bf16" in inst:
+        if "decode bf16" in inst or "tensor cores" in inst:
             check(c["HMMA"] > 0 and c["UTMALDG"] > 0,
                   f"{inst}: no tensor-core product or no TMA load: {c}")
     for name in WGMMA_LIBS:
         check(any(i.startswith(name + " ") and "wgmma" in i for i in sass),
               f"{name}: no wgmma instance in its SASS")
+    check(any(i.startswith("paged_decode ") and "tensor cores" in i
+              for i in sass), "paged_decode: no tensor-core instance in "
+          "its SASS")
     return dict(seconds=secs, sass=sass)
 
 
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP")
 # the libraries with instances on wgmma fed by TMA
-WGMMA_LIBS = ("gemm", "ragged_prefill", "flash_attention")
+WGMMA_LIBS = ("gemm", "ragged_prefill", "flash_attention", "grouped_ffn")
 
 
 def _sass_counts(lib):
@@ -348,6 +363,21 @@ def _instance(ptxas_line):
     m = re.search(r"fa_wgmma_kernelILi(\d+)ELi(\d+)E", ptxas_line)
     if m:
         return f" bf16 wgmma D={m.group(1)} tile={64 * int(m.group(2))}"
+    m = re.search(r"paged_decode_bf16_kernelILi(\d+)E", ptxas_line)
+    if m:
+        return f" tensor cores bf16 D={m.group(1)}"
+    m = re.search(r"paged_decode_f32_kernelI(13__nv_bfloat16|f)Li(\d+)E",
+                  ptxas_line)
+    if m:
+        dtype = "bf16" if m.group(1) != "f" else "f32"
+        return f" cuda cores {dtype} D={m.group(2)}"
+    m = re.search(r"paged_combine_kernelI(13__nv_bfloat16|f)E", ptxas_line)
+    if m:
+        return f" combine {'bf16' if m.group(1) != 'f' else 'f32'}"
+    m = re.search(r"ffn_wgmma_kernelILi(\d+)ELb([01])E", ptxas_line)
+    if m:
+        launch = "gate/up" if m.group(2) == "1" else "down"
+        return f" bf16 wgmma {launch} BM={m.group(1)}"
     m = re.search(r"decode_(bf16|f32)_kernelI(?:f)?Li(\d+)E", ptxas_line)
     if m:
         return f" decode {m.group(1)} D={m.group(2)}"
@@ -366,10 +396,6 @@ def _instance(ptxas_line):
     m = re.search(r"ssd_kernelI(13__nv_bfloat16|f)E", ptxas_line)
     if m:
         return f" {'bf16' if m.group(1) != 'f' else 'f32'}"
-    m = re.search(r"(flash|paged)_decode_kernelI(13__nv_bfloat16|f)Li(\d+)E",
-                  ptxas_line)
-    if m:
-        return f" {'bf16' if m.group(2) != 'f' else 'f32'} D={m.group(3)}"
     return ""
 
 
@@ -417,11 +443,15 @@ def _decode_case(torch, dtype, seed=0, NP=128,
 
 
 def phase_decode_kernel(torch, dtype, heads=QWEN_HEADS):
+    from repro_torch.core.families.paged_attention import instance
     from repro_torch.kernels.paged_attention import paged_decode_ref
     from repro_torch.kernels.paged_attention.paged_attention import \
         paged_decode
+    from repro_torch.kernels.paged_attention.ref import (P_SPLIT_MISMATCH,
+                                                         mismatch_share)
     (q, kp, vp, table, lens), (kp2, vp2), lengths, (Hq, Hkv, D) = \
         _decode_case(torch, dtype, heads=heads)
+    inst = instance(D, q.element_size())
     got = paged_decode(q, kp, vp, table, lens)
     torch.cuda.synchronize()
     want = paged_decode_ref(q, kp, vp, table, lens)
@@ -429,13 +459,23 @@ def phase_decode_kernel(torch, dtype, heads=QWEN_HEADS):
     err = float((got.float() - want.float()).abs().max())
     check(err <= TOL[dtype], f"paged_decode {dtype}: max |kernel - plain| "
           f"{err} > {TOL[dtype]}")
+    share = None
+    if inst == "tensor cores":
+        # p at float32 accuracy (p_hi + p_lo): the bf16 output is the
+        # plain version's almost everywhere
+        share = mismatch_share(got, want, lens)
+        check(share <= P_SPLIT_MISMATCH, f"paged_decode {dtype}: {share} "
+              f"of the outputs differ from the plain version's (> "
+              f"{P_SPLIT_MISMATCH}): p lost float32 accuracy")
     check(float(got[0].abs().max()) == 0.0,
           "paged_decode: a zero-length row must give zeros")
     poisoned = paged_decode(q, kp2, vp2, table, lens)
     torch.cuda.synchronize()
     check(torch.equal(got, poisoned), f"paged_decode {dtype}: poisoned "
           "foreign/null/tail pages moved the output")
-    ms = time_ms(torch, lambda: paged_decode(q, kp, vp, table, lens))
+    call = lambda: paged_decode(q, kp, vp, table, lens)
+    ms = time_ms(torch, call)
+    split_ms, combine_ms = decode_parts_ms(torch, call)
     plain = time_ms(torch, lambda: paged_decode_ref(q, kp, vp, table, lens))
     elt = q.element_size()
     tokens = sum(lengths)
@@ -443,24 +483,32 @@ def phase_decode_kernel(torch, dtype, heads=QWEN_HEADS):
                + table.numel() * 4 + lens.numel() * 4)
     flops = 4 * Hq * D * tokens
     bms, by = bound_ms(n_bytes, flops, dtype)
-    log(f"[kernels] paged_decode {dtype} {Hq}/{Hkv}x{D}: max_abs_err "
-        f"{err:.3g} (tol "
-        f"{TOL[dtype]}), poisoned run bit-identical; {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, bound {bms:.4f} ms ({by}), library: none")
-    out = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-               bound_by=by, library_ms=None, bytes=n_bytes, flops=flops,
-               heads=list(heads))
+    log(f"[kernels] paged_decode {dtype} {Hq}/{Hkv}x{D} on its {inst} "
+        f"instance: max_abs_err {err:.3g} (tol {TOL[dtype]}), outputs "
+        f"differing from the plain version {share} (limit "
+        f"{P_SPLIT_MISMATCH} on tensor cores), poisoned run bit-identical; "
+        f"{ms:.4f} ms a call (device: split {split_ms:.4f}, combine "
+        f"{combine_ms:.4f}), plain {plain:.4f} ms, bound {bms:.4f} ms "
+        f"({by}), library: none")
+    out = dict(max_abs_err=err, mismatch_share=share, ms=ms,
+               decode_parts_ms=dict(split=split_ms, combine=combine_ms),
+               plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+               bytes=n_bytes, flops=flops, heads=list(heads), instance=inst)
     if heads == QWEN_HEADS:
         out["width_125"] = _decode_width_125(torch, dtype)
+        if dtype == "bfloat16":
+            out["production"] = _decode_production(torch)
     return out
 
 
 def _decode_width_125(torch, dtype):
     """A table width the tile's page count does not divide: 125 pages
-    (max_len 2000) walk as 31 steps of four pages and one of one (bf16;
-    f32 tiles hold two).  Beside it, the same kernel at one page a step,
-    the largest step dividing 125 that fits a tile."""
-    from repro_torch.core.families.paged_attention import pages_per_step
+    (max_len 2000) walk as 31 tiles of four pages and one of one (bf16;
+    f32 tiles hold two), in the spans the wrapper derives from the
+    shapes, the last span shorter.  Beside it, the same kernel with the
+    whole row in one span (no split walk)."""
+    from repro_torch.core.families.paged_attention import (pages_per_step,
+                                                           span_pages)
     from repro_torch.kernels._build import ptr, stream_handle
     from repro_torch.kernels.paged_attention import KERNEL, paged_decode_ref
     from repro_torch.kernels.paged_attention.paged_attention import \
@@ -468,31 +516,122 @@ def _decode_width_125(torch, dtype):
     (q, kp, vp, table, lens), _, _, (Hq, Hkv, D) = _decode_case(
         torch, dtype, NP=125, lengths=(0, 1, 17, 256, 300, 777, 1040, 2000))
     want = paged_decode_ref(q, kp, vp, table, lens)
-    B, PS, NP = q.shape[0], kp.shape[2], table.shape[1]
+    B, P, PS, NP = q.shape[0], kp.shape[0], kp.shape[2], table.shape[1]
+    elt = q.element_size()
+    step = pages_per_step(PS, D, elt)
     out = torch.empty_like(q)
+    one_span = -(-NP // step) * step
+    o_part = torch.empty(B * Hq, 1, D, dtype=torch.float32, device=q.device)
+    ml = torch.empty(2, B * Hq, 1, dtype=torch.float32, device=q.device)
 
-    def at_step(step):
+    def whole_row():
         KERNEL.launch(ptr(q), ptr(kp), ptr(vp), ptr(table), ptr(lens),
-                      ptr(out), B, Hq, Hkv, D, PS, NP, step, D ** -0.5,
-                      int(q.dtype == torch.bfloat16), stream_handle(q.device))
+                      ptr(o_part), ptr(ml[0]), ptr(ml[1]), ptr(out), B, Hq,
+                      Hkv, P, D, PS, NP, one_span, D ** -0.5, int(elt == 2),
+                      stream_handle(q.device))
         return out
 
-    step = pages_per_step(PS, D, q.element_size())
     res = {}
     cfg = PagedAttentionConfig(block_pages=1)     # divides 125
-    for name, fn in (("tile", lambda: paged_decode(q, kp, vp, table, lens,
-                                                   cfg=cfg)),
-                     ("one_page", lambda: at_step(1))):
+    for name, fn in (("spans", lambda: paged_decode(q, kp, vp, table, lens,
+                                                    cfg=cfg)),
+                     ("one_span", whole_row)):
         err = float((fn().float() - want.float()).abs().max())
         check(err <= TOL[dtype], f"paged_decode {dtype} at 125 pages, "
-              f"{name} steps: max |kernel - plain| {err} > {TOL[dtype]}")
+              f"{name}: max |kernel - plain| {err} > {TOL[dtype]}")
         res[name] = dict(max_abs_err=err, ms=time_ms(torch, fn))
-    log(f"[kernels] paged_decode {dtype} at 125 pages: {step}-page steps "
-        f"(the last shorter) {res['tile']['ms']:.4f} ms, one-page steps "
-        f"{res['one_page']['ms']:.4f} ms; max_abs_err "
-        f"{res['tile']['max_abs_err']:.3g} / "
-        f"{res['one_page']['max_abs_err']:.3g}")
+    sp = span_pages(B, Hkv, NP, PS, D, elt)
+    log(f"[kernels] paged_decode {dtype} at 125 pages: {step}-page tiles "
+        f"(the last shorter), spans of {sp} pages "
+        f"{res['spans']['ms']:.4f} ms, the whole row in one span "
+        f"{res['one_span']['ms']:.4f} ms; max_abs_err "
+        f"{res['spans']['max_abs_err']:.3g} / "
+        f"{res['one_span']['max_abs_err']:.3g}")
     return res
+
+
+def decode_production_case(torch):
+    """The paged family's production problem and its inputs on the card:
+    every row at its full length, its pages drawn without repeats from
+    the pool (page 0, the null page, left out)."""
+    from repro_torch.core.families import get_family
+    prob = get_family("paged_attention").example()[1]
+    B, Hq, Hkv, S = prob.batch, prob.q_heads, prob.kv_heads, prob.seq_kv
+    PS, P, D = prob.page_size, prob.pool_pages, prob.head_dim
+    NP = S // PS
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q = torch.randn(B, Hq, 1, D, generator=g, device="cuda").bfloat16()
+    kp = torch.randn(P, Hkv, PS, D, generator=g, device="cuda").bfloat16()
+    vp = torch.randn(P, Hkv, PS, D, generator=g, device="cuda").bfloat16()
+    table = (torch.randperm(P - 1, generator=g, device="cuda")[:B * NP] + 1
+             ).reshape(B, NP).to(torch.int32)
+    lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    return prob, (q, kp, vp, table, lens)
+
+
+def _decode_production(torch):
+    """The family's production problem (``paged_attention`` example: 32
+    rows of 8192 positions, 8 query heads over 1 KV head, head_dim 128,
+    128-token pages, a pool of 2304, bf16), held to the plain version and
+    timed: the whole call, its split kernel and combine on the device,
+    the plain version, the bound, and beside them the port's dense
+    split-KV decode (``mha_decode``, the flash_decode kernel at its best
+    config, 8 spans) on the same positions gathered into a dense cache:
+    the same bytes, read without a table."""
+    from repro_torch.core.families.flash_decode import FlashDecodeConfig
+    from repro_torch.core.families.paged_attention import (instance,
+                                                           n_spans)
+    from repro_torch.kernels.flash_attention import mha_decode
+    from repro_torch.kernels.paged_attention import (gather_cache,
+                                                     paged_decode_ref)
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        paged_decode
+    from repro_torch.kernels.paged_attention.ref import (P_SPLIT_MISMATCH,
+                                                         mismatch_share)
+    prob, (q, kp, vp, table, lens) = decode_production_case(torch)
+    B, Hq, Hkv, S = prob.batch, prob.q_heads, prob.kv_heads, prob.seq_kv
+    PS, P, D = prob.page_size, prob.pool_pages, prob.head_dim
+    call = lambda: paged_decode(q, kp, vp, table, lens)
+    got = call()
+    want = paged_decode_ref(q, kp, vp, table, lens)
+    err = float((got.float() - want.float()).abs().max())
+    check(err <= TOL["bfloat16"], f"paged_decode at the production "
+          f"problem: max |kernel - plain| {err} > {TOL['bfloat16']}")
+    share = mismatch_share(got, want, lens)
+    check(share <= P_SPLIT_MISMATCH, f"paged_decode at the production "
+          f"problem: {share} of the outputs differ from the plain version")
+    ms = time_ms(torch, call)
+    split_ms, combine_ms = decode_parts_ms(torch, call)
+    plain = time_ms(torch, lambda: paged_decode_ref(q, kp, vp, table, lens),
+                    iters=5, warmup=1)
+    kd, vd = gather_cache(kp, table), gather_cache(vp, table)
+    kv_len = torch.tensor(S, dtype=torch.int32, device="cuda")
+    dense = lambda: mha_decode(q, kd, vd, kv_len,
+                               cfg=FlashDecodeConfig(kv_splits=8))
+    dense_ms = time_ms(torch, dense)
+    dense_split, dense_combine = decode_parts_ms(torch, dense)
+    n_bytes = (2 * B * Hkv * S * D * 2 + 2 * q.numel() * 2
+               + table.numel() * 4 + lens.numel() * 4)
+    flops = 4 * Hq * D * S * B
+    bms, by = bound_ms(n_bytes, flops, "bfloat16")
+    ns = n_spans(prob)
+    log(f"[kernels] paged_decode at the family's production problem ({B} "
+        f"x {Hq}/{Hkv} x {S}, {PS}-token pages, pool {P}, bf16) on its "
+        f"{instance(D, 2)} instance, {ns} spans a row: max_abs_err "
+        f"{err:.3g}, outputs differing from the plain version {share:.4f}; "
+        f"{ms:.4f} ms a call (device: split {split_ms:.4f}, combine "
+        f"{combine_ms:.4f}), plain {plain:.4f} ms, bound {bms:.4f} ms "
+        f"({by}); the dense flash_decode kernel at the same bytes "
+        f"{dense_ms:.4f} ms a call (device: split {dense_split:.4f}, "
+        f"combine {dense_combine:.4f})")
+    del kp, vp, kd, vd, want
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, mismatch_share=share, ms=ms,
+                decode_parts_ms=dict(split=split_ms, combine=combine_ms),
+                plain_ms=plain, bound_ms=bms, bound_by=by, bytes=n_bytes,
+                spans=ns, dense_flash_decode_ms=dense_ms,
+                dense_flash_decode_parts_ms=dict(split=dense_split,
+                                                 combine=dense_combine))
 
 
 def _prefill_case(torch, dtype, seed=1, heads=QWEN_HEADS):
@@ -1397,14 +1536,10 @@ def phase_flash_time(torch, family, best_cfg):
     return rows
 
 
-def decode_parts_ms(torch, call, n=20):
-    """Device time per call of ``mha_decode`` (``call``), from
-    ``torch.profiler`` over ``n`` calls: the split kernel (the kernels
-    whose name holds ``decode_``) and the merge of the spans' partials
-    (every other kernel: the combine kernel, or the tensor ops that an
-    older wrapper ran after its kernel).  No L2 flush between the calls:
-    the cache they stream (134 MB at the family's problems) is larger
-    than the L2."""
+def device_parts_ms(torch, call, part_of, n=20):
+    """Device time per call of ``call``, from ``torch.profiler`` over
+    ``n`` calls, summed by ``part_of(kernel name)`` (a part's name, or
+    None to leave the kernel out).  No L2 flush between the calls."""
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
@@ -1415,22 +1550,34 @@ def decode_parts_ms(torch, call, n=20):
             for _ in range(n):
                 call()
             torch.cuda.synchronize()
-        split = merge = 0.0
+        parts = {}
         for e in prof.key_averages():
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = getattr(e, "self_cuda_time_total", 0)
-            if not us or "cuda" not in str(getattr(e, "device_type",
-                                                   "")).lower():
+            part = part_of(e.key)
+            if not us or part is None or "cuda" not in str(
+                    getattr(e, "device_type", "")).lower():
                 continue
-            if "decode_" in e.key:
-                split += us
-            else:
-                merge += us
-        if split > 0:
+            parts[part] = parts.get(part, 0.0) + us / n / 1e3
+        if parts:
             break
-    check(split > 0, "the profiler saw no decode kernel on the card")
-    return split / n / 1e3, merge / n / 1e3
+    check(bool(parts), "the profiler saw no kernel of the call on the card")
+    return parts
+
+
+def decode_parts_ms(torch, call, n=20):
+    """Device time per call of a split decode (``mha_decode`` or
+    ``paged_decode``, ``call``): the split kernel (the kernels whose name
+    holds ``decode_``) and the merge of the spans' partials (every other
+    kernel: the combine kernel, or the tensor ops that an older wrapper
+    ran after its kernel).  The cache they stream (134 MB at the
+    families' production problems) is larger than the L2."""
+    parts = device_parts_ms(
+        torch, call, lambda k: "split" if "decode_" in k else "merge", n)
+    check(parts.get("split", 0.0) > 0,
+          "the profiler saw no decode kernel on the card")
+    return parts["split"], parts.get("merge", 0.0)
 
 
 def _sdpa_ms(torch, q, k, v, causal):
@@ -1471,7 +1618,23 @@ MOE_CASES = [
     ("E=1", 1, 256, 512, 512, dict(block_t=64, block_f=128), True),
     ("d_model 1536 (granite)", 40, 128, 1536, 512, None, True),
     ("d_model 96 bf=8", 2, 64, 96, 64, dict(block_t=8, block_f=8), True),
+    # the wgmma instance's 64- and 128-row CTAs (bf16; f32 runs these
+    # configs on FMAs), gates None and fuse off, 192 rows an expert (the
+    # last 128-row block half past the edge at bt 64)
+    ("wgmma bt=64 bf=128 gates None", 4, 192, 512, 512,
+     dict(block_t=64, block_f=128), False),
+    ("wgmma bt=128 bf=256 unfused", 4, 256, 1024, 512,
+     dict(block_t=128, block_f=256, fuse_gate=False), True),
 ]
+
+
+def moe_instance(cfg, x, wg):
+    """The instance ``grouped_ffn`` runs ``cfg`` on for these tensors."""
+    from repro_torch.core.families.moe import is_wgmma
+    from repro_torch.kernels.moe.moe import instance_problem
+    if is_wgmma(cfg, instance_problem(x, wg)):
+        return "wgmma"
+    return "mma.sync" if x.element_size() == 2 else "fma"
 
 
 def _moe_inputs(torch, E, C, DM, DF, dtype, seed):
@@ -1545,16 +1708,19 @@ def phase_moe_kernels(torch):
                   f"grouped_ffn {dtype} {label}: an empty row gave "
                   "non-zeros")
             out.append(dict(label=label, dtype=dtype, cfg=cfg.name(),
+                            instance=moe_instance(cfg, x, ws[0]),
                             max_abs_err=err,
                             max_abs_out=float(want.float().abs().max())))
     out.append(_moe_production_check(torch))
+    check(any(c["instance"] == "wgmma" for c in out),
+          "grouped_ffn: no case ran on the wgmma instance")
     log(f"[moe] grouped_ffn against its plain version: {len(out)} cases "
         f"(bf16 and f32; default, example bt=8, bt 16..256, bf 8..2048, "
         f"fuse_gate off, gates None, E=1, d_model 1536 and 96, empty rows; "
         f"the production problem in bf16), all within the tolerance "
         f"beside moe_error; max abs err " + ", ".join(
-            f"{SHORT[c['dtype']]}/{c['label']} {c['max_abs_err']:.3g}"
-            for c in out))
+            f"{SHORT[c['dtype']]}/{c['label']} ({c['instance']}) "
+            f"{c['max_abs_err']:.3g}" for c in out))
     return out
 
 
@@ -1576,10 +1742,11 @@ def _moe_production_check(torch):
     err, ok = moe_error(got, want)
     check(ok, f"grouped_ffn at the production problem: max |kernel - "
           f"plain| {err} beyond the tolerance")
+    inst = moe_instance(cfg, x, ws[0])
     del x, ws, gates, got, want
     torch.cuda.empty_cache()
     return dict(label="production", dtype="bfloat16", cfg=cfg.name(),
-                max_abs_err=err, E=E, C=C)
+                instance=inst, max_abs_err=err, E=E, C=C)
 
 
 def phase_moe_ffn(torch):
@@ -1671,15 +1838,17 @@ def phase_moe_time(torch, best_cfg):
             n_bytes, flops = _moe_bound(E, C, DM, DF, 2, cfg.fuse_gate)
             bms, by = bound_ms(n_bytes, flops, "bfloat16")
             rows.append(dict(problem=dataclasses.astuple(prob),
-                             config=which, cfg=cfg.name(), rows=E * C,
-                             ms=ms, bound_ms=bms, bound_by=by,
+                             config=which, cfg=cfg.name(),
+                             instance=moe_instance(cfg, x, ws[0]),
+                             rows=E * C, ms=ms, bound_ms=bms, bound_by=by,
                              sol_routed_ms=sol, plain_ms=plain,
                              plain_by="expert", library_ms=None,
                              yardstick_ms=bmm, max_abs_err=err,
                              model_ms=est, model_over_measured=est / ms,
                              tflops=flops / ms / 1e9))
             log(f"[moe] {dataclasses.astuple(prob)[:5]} {which} "
-                f"{cfg.name()}: {ms:.3f} ms ({rows[-1]['tflops']:.1f} "
+                f"{cfg.name()} on {rows[-1]['instance']}: {ms:.3f} ms "
+                f"({rows[-1]['tflops']:.1f} "
                 f"TFLOP/s over {E * C} capacity rows), bound {bms:.3f} ms "
                 f"({by}; moe_sol over the routed rows {sol:.3f} ms), plain "
                 f"{plain:.3f} ms (expert by expert), yardstick (3 bmm + "
@@ -2201,6 +2370,16 @@ def main():
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"],
             ported=True, dtype="bfloat16", instance=k.get("instance")))
+        if name == "paged_decode":
+            prod = k["production"]
+            line[-1].update(
+                decode_parts_ms=k["decode_parts_ms"],
+                mismatch_share=k["mismatch_share"],
+                production=dict(
+                    ms=prod["ms"], decode_parts_ms=prod["decode_parts_ms"],
+                    bound_ms=prod["bound_ms"], plain_ms=prod["plain_ms"],
+                    max_abs_err=prod["max_abs_err"],
+                    dense_flash_decode_ms=prod["dense_flash_decode_ms"]))
     # gemm: the loop's best config at the production problem, 8192^3 bf16
     best = next(r for r in gemm["time"] if r["config"] == "best"
                 and r["problem"] == [8192, 8192, 8192])
@@ -2248,7 +2427,8 @@ def main():
         bound_by=best["bound_by"], library_ms=None,
         yardstick_ms=best["yardstick_ms"],
         yardstick="3 torch.bmm (cuBLAS) + elementwise SwiGLU and gate",
-        ported=True, dtype="bfloat16", cfg=best["cfg"]))
+        ported=True, dtype="bfloat16", cfg=best["cfg"],
+        instance=best["instance"]))
     # quant_gemm: the loop's best config at the production problem; no
     # single PyTorch call computes it (library_ms null); the torch._int_mm
     # yardstick applies no group scale

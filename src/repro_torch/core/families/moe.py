@@ -23,15 +23,22 @@ SM holds.  So the CUDA kernel runs two launches:
   to device memory as (E, C, d_ff) in x's dtype — exactly the program's
   rounding point, so nothing changes numerically;
 * down: ``y = (act·wd)_f32 * gate`` per expert, each CTA owning a
-  (rows, 128 or 64 columns of d_model) output tile and walking d_ff in
-  order, its accumulator in registers.
+  (rows, d_model columns) output tile and walking d_ff in order, its
+  accumulator in registers.
 
-A config's ``block_t`` x ``block_f`` tile of the gate/up launch runs on
-CTAs of the largest compiled tile that divides it (:func:`cta_tiles`:
-rows 128/64/32/16, d_ff columns 64/32; 16 rows with the rest masked when
-none divides, as for ``block_t`` 8), a larger tile on several CTAs
-launched one after another; the down launch takes the same rows.  The
-program's ``f`` axis is the down launch's d_ff walk, in the same order.
+Two instances run them, chosen by :func:`is_wgmma` from the config and
+the problem alone.  On the wgmma instance (bf16, ``block_t`` a multiple
+of 64, ``block_f`` of 128, d_model of 64) a CTA owns 128 rows of one
+expert (64 where ``block_t`` is no multiple of 128) and 128 d_ff columns
+of wg and of wu (gate/up) or 256 d_model columns (down), on a persistent
+grid whose work list runs expert by expert, config tile by config tile.
+Otherwise a config's ``block_t`` x ``block_f`` tile of the gate/up
+launch runs on CTAs of the largest mma.sync / FMA tile that divides it
+(:func:`cta_tiles`: rows 128/64/32/16, d_ff columns 64/32; 16 rows with
+the rest masked when none divides, as for ``block_t`` 8), a larger tile
+on several CTAs launched one after another; the down launch takes the
+same rows.  The program's ``f`` axis is the down launch's d_ff walk, in
+the same order, on both.
 """
 from __future__ import annotations
 
@@ -39,8 +46,8 @@ from dataclasses import dataclass, replace
 from typing import Optional
 
 from .. import dsl
-from ..costs import (CostEstimate, HBM_BW, L2_BW, grain_util, peak_flops,
-                     sol_estimate, wave_eff)
+from ..costs import (CostEstimate, HBM_BW, L2_BW, MMA_SYNC_DERATE,
+                     grain_util, peak_flops, sol_estimate, wave_eff)
 from ..kernelspec import (CTA_THREADS, DTYPE_BYTES, K_CHUNK, REG_OVERHEAD,
                           STAGES, VECTOR_BYTES, StructuralIssue, cdiv,
                           check_cta_split, check_grain, check_masking,
@@ -181,6 +188,13 @@ def build_moe_program(cfg: MoEConfig, prob: MoEProblem,
 CTA_ROWS = (128, 64, 32, 16)  # expert rows per CTA (compiled instances)
 UP_COLS = (64, 32)            # d_ff columns per CTA of the gate/up launch
 DOWN_COLS = (128, 64)         # d_model columns per CTA of the down launch
+# the wgmma instance: 128- or 64-row CTAs, 128 d_ff columns of wg and of
+# wu (gate/up) or 256 d_model columns (down), 64-deep stages in a ring of
+# four, two consumer warpgroups beside a producer warp
+WGMMA_ROWS = (128, 64)
+WGMMA_UP_COLS, WGMMA_DOWN_COLS = 128, 256
+WGMMA_DEPTH, WGMMA_STAGES = 64, 4
+WGMMA_THREADS, CONSUMER_REGS = 384, 232
 
 
 def capacity_for(tokens: int, top_k: int, n_experts: int, block_t: int,
@@ -192,38 +206,68 @@ def capacity_for(tokens: int, top_k: int, n_experts: int, block_t: int,
     return max(block_t, cdiv(cap, block_t) * block_t)
 
 
-def cta_tiles(cfg: MoEConfig, d_model: int):
+def is_wgmma(cfg: MoEConfig, prob: MoEProblem) -> bool:
+    """Whether ``cfg`` runs on the wgmma instance: bf16, ``block_t`` a
+    multiple of 64, ``block_f`` of 128 and d_model of 64 (whole 64-column
+    TMA panels, 16-byte rows).  The wrapper, the structural model and the
+    cost model all route by this."""
+    return (prob.dtype == "bf16" and cfg.block_t % 64 == 0
+            and cfg.block_f % WGMMA_UP_COLS == 0 and prob.d_model % 64 == 0)
+
+
+def cta_tiles(cfg: MoEConfig, d_model: int, wgmma: bool = False):
     """(rows, gate/up columns, down columns) of the CTAs that run
-    ``cfg``: the largest compiled row tile dividing ``block_t`` (else 16,
-    rows past the block masked), the largest d_ff tile dividing
-    ``block_f`` (else 32, masked), and 128 d_model columns (64 where
-    d_model is no multiple of 128).  The gate/up tile keeps two
+    ``cfg``.  On the wgmma instance: 128 rows (64 where ``block_t`` is no
+    multiple of 128), 128 d_ff columns of wg and of wu, 256 d_model
+    columns.  Otherwise the largest compiled row tile dividing
+    ``block_t`` (else 16, rows past the block masked), the largest d_ff
+    tile dividing ``block_f`` (else 32, masked), and 128 d_model columns
+    (64 where d_model is no multiple of 128); that gate/up tile keeps two
     accumulators, so it stops at 64 columns: 128 x 64 is 128 float32
     registers a thread, as is the down launch's 128 x 128."""
+    if wgmma:
+        tm = next(t for t in WGMMA_ROWS if cfg.block_t % t == 0)
+        return tm, WGMMA_UP_COLS, WGMMA_DOWN_COLS
     tm = next((t for t in CTA_ROWS if cfg.block_t % t == 0), CTA_ROWS[-1])
     tu = next((t for t in UP_COLS if cfg.block_f % t == 0), UP_COLS[-1])
     td = DOWN_COLS[0] if d_model % DOWN_COLS[0] == 0 else DOWN_COLS[1]
     return tm, tu, td
 
 
-def smem_bytes(tm: int, tn: int, n_b: int, dtype: str) -> int:
-    """Shared memory one CTA stages (the kernel's layout): ``STAGES``
-    buffers of an A chunk (tm x 32) and ``n_b`` B chunks (32 x tn; two
-    in the gate/up launch, wg and wu), each row padded by 16 bytes."""
+def smem_bytes(tm: int, tn: int, n_b: int, dtype: str,
+               wgmma: bool = False) -> int:
+    """Shared memory one CTA stages (the kernel's layouts).  wgmma: 1024
+    bytes of alignment slack, a ring of 64-deep stages of an A tile
+    (tm x 64) and four 64 x 64 B panels (wg | wu, or wd), 128-byte
+    swizzled, and two mbarriers a stage.  Otherwise ``STAGES`` buffers of
+    an A chunk (tm x 32) and ``n_b`` B chunks (32 x tn; two in the
+    gate/up launch, wg and wu), each row padded by 16 bytes."""
     sz = DTYPE_BYTES.get(dtype, 2)
+    if wgmma:
+        stage = (tm + 4 * 64) * WGMMA_DEPTH * sz
+        return 1024 + WGMMA_STAGES * (stage + 16)
     pad = VECTOR_BYTES // sz
     return STAGES * (tm * (K_CHUNK + pad) + n_b * K_CHUNK * (tn + pad)) * sz
+
+
+def _consumer_regs(tm: int) -> int:
+    """f32 accumulator registers of a wgmma consumer thread: 64 rows x 256
+    columns (tm 128) or 64 x 128 (tm 64) over its warpgroup's 128
+    threads."""
+    return 64 * (256 if tm == 128 else 128) // 128
 
 
 def structural_moe(cfg: MoEConfig, prob: MoEProblem):
     """Hopper model of ``grouped_ffn.cu``: a row width it does not take
     (rows are copied as 16-byte vectors, so d_model, d_ff and block_f
     must be multiples of 16 bytes), shared memory and accumulator
-    registers of each launch's CTA, the tensor-core grain of the config
-    tile (masked rows and columns, zero-filled depth), a config tile on
-    several CTAs, and the JAX family's masking check."""
+    registers of each launch's CTA (on the wgmma instance, a consumer's
+    against the 232 that setmaxnreg gives it), the tensor-core grain of
+    the config tile (masked rows and columns, zero-filled depth), a
+    config tile on several CTAs, and the JAX family's masking check."""
     DM, DF, bt, bf = prob.d_model, prob.d_ff, cfg.block_t, cfg.block_f
-    tm, tu, td = cta_tiles(cfg, prob.d_model)
+    wg = is_wgmma(cfg, prob)
+    tm, tu, td = cta_tiles(cfg, prob.d_model, wg)
     issues = []
     q = VECTOR_BYTES // DTYPE_BYTES.get(prob.dtype, 2)
     bad = [f"{n}={v}" for n, v in (("d_model", DM), ("d_ff", DF),
@@ -233,12 +277,23 @@ def structural_moe(cfg: MoEConfig, prob: MoEProblem):
             "unsupported", f"rows of {', '.join(bad)} {prob.dtype} "
                            f"elements are not a multiple of "
                            f"{VECTOR_BYTES} bytes: the kernel refuses them"))
-    issues += check_smem("gate/up CTA", smem_bytes(tm, tu, 2, prob.dtype))
-    issues += check_smem("down CTA", smem_bytes(tm, td, 1, prob.dtype))
-    issues += check_registers("gate/up CTA", 2 * tm * tu // CTA_THREADS)
-    issues += check_registers("down CTA", tm * td // CTA_THREADS)
-    issues += check_grain("act", (bt, bf, DM), (tm, tu))
-    issues += check_grain("Y", (bt, DM, DF), (tm, td))
+    if wg:
+        issues += check_smem("CTA", smem_bytes(tm, 0, 0, prob.dtype, True))
+        acc = _consumer_regs(tm)
+        if acc + REG_OVERHEAD > CONSUMER_REGS:
+            issues.append(StructuralIssue(
+                "registers", f"CTA: {acc} accumulator registers per "
+                             f"consumer thread (+{REG_OVERHEAD}) exceed "
+                             f"the {CONSUMER_REGS} setmaxnreg gives it"))
+        issues += check_grain("Y", (bt, DM, DF), (tm, td))
+    else:
+        issues += check_smem("gate/up CTA",
+                             smem_bytes(tm, tu, 2, prob.dtype))
+        issues += check_smem("down CTA", smem_bytes(tm, td, 1, prob.dtype))
+        issues += check_registers("gate/up CTA", 2 * tm * tu // CTA_THREADS)
+        issues += check_registers("down CTA", tm * td // CTA_THREADS)
+        issues += check_grain("act", (bt, bf, DM), (tm, tu))
+        issues += check_grain("Y", (bt, DM, DF), (tm, td))
     issues += check_cta_split("act", (bt, bf), (tm, tu))
     issues += check_masking("routed", (prob.routed_rows,),
                             (cfg.block_t,), masked_dims=(0,))
@@ -250,27 +305,41 @@ def moe_cost(cfg: MoEConfig, prob: MoEProblem) -> CostEstimate:
     model and the L2 term of the flash model.  The kernel computes every
     capacity row, E x ``capacity_for`` (1.25 x the routed rows, rounded
     up to ``block_t``), not the routed rows alone: the two launches'
-    products at the dtype's peak, at the grain of their CTA tiles and
-    quantised in waves over the 132 SMs; x, the three weight sets, act
-    (written and read back), y and the gates cross HBM once, and every
-    CTA streams its A rows and B panels through L2."""
+    products at the grain of their CTA tiles and quantised in waves over
+    the 132 SMs, on the instance that runs (:func:`is_wgmma`: wgmma at
+    the card's peak, mma.sync at ``MMA_SYNC_DERATE`` of it, f32 FMAs at
+    the f32 peak); x, the three weight sets, act (written and read back),
+    y and the gates cross HBM once, and every CTA streams its A rows and
+    B panels through L2."""
     sz = DTYPE_BYTES.get(prob.dtype, 2)
     E, DM, DF = prob.n_experts, prob.d_model, prob.d_ff
     bt, bf = cfg.block_t, cfg.block_f
     C = capacity_for(prob.tokens, prob.top_k, E, bt)
     M = E * C
-    tm, tu, td = cta_tiles(cfg, prob.d_model)
+    wg = is_wgmma(cfg, prob)
+    tm, tu, td = cta_tiles(cfg, prob.d_model, wg)
     row_ctas = E * cdiv(C, bt) * cdiv(bt, tm)
     ctas_up = row_ctas * cdiv(DF, bf) * cdiv(bf, tu)
     ctas_dn = row_ctas * cdiv(DM, td)
-    per_up = ctas_per_sm(CTA_THREADS, 2 * tm * tu // CTA_THREADS
-                         + REG_OVERHEAD, smem_bytes(tm, tu, 2, prob.dtype))
-    per_dn = ctas_per_sm(CTA_THREADS, tm * td // CTA_THREADS + REG_OVERHEAD,
-                         smem_bytes(tm, td, 1, prob.dtype))
-    util_up = grain_util((bt, bf, DM), (tm, tu), K_CHUNK) \
-        * wave_eff(ctas_up, per_up)
-    util_dn = grain_util((bt, DM, DF), (tm, td), K_CHUNK) \
-        * wave_eff(ctas_dn, per_dn)
+    if wg:
+        per_up = per_dn = ctas_per_sm(WGMMA_THREADS, CONSUMER_REGS,
+                                      smem_bytes(tm, 0, 0, prob.dtype, True))
+        depth, derate = WGMMA_DEPTH, 1.0
+        # a consumer's 64 rows against the CTA's columns: a 64-row CTA
+        # halves the columns each warpgroup takes, not the B panels staged
+    else:
+        per_up = ctas_per_sm(CTA_THREADS, 2 * tm * tu // CTA_THREADS
+                             + REG_OVERHEAD,
+                             smem_bytes(tm, tu, 2, prob.dtype))
+        per_dn = ctas_per_sm(CTA_THREADS, tm * td // CTA_THREADS
+                             + REG_OVERHEAD,
+                             smem_bytes(tm, td, 1, prob.dtype))
+        depth = K_CHUNK
+        derate = MMA_SYNC_DERATE if prob.dtype != "f32" else 1.0
+    util_up = grain_util((bt, bf, DM), (tm, tu), depth) \
+        * wave_eff(ctas_up, per_up) * derate
+    util_dn = grain_util((bt, DM, DF), (tm, td), depth) \
+        * wave_eff(ctas_dn, per_dn) * derate
     flops_up, flops_dn = 4.0 * M * DM * DF, 2.0 * M * DF * DM
     peak = peak_flops(prob.dtype)
     hbm = (2 * M * DM + 3 * E * DM * DF + 2 * M * DF) * sz \

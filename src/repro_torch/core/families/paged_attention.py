@@ -9,20 +9,27 @@ operands, GQA head mapping, logical coverage of the sequence's pages,
 position honesty, length-gate conformity and carried-output stability.
 
 **Which decomposition is verified.**  The CUDA kernel
-(``repro_torch/kernels/paged_attention/csrc/paged_decode.cu``) walks the
-pages of a sequence in steps of as many pages as fit one shared-memory
-tile of at most 16 KB (64 tokens in bf16 at head_dim 128, 32 in f32),
-the last step shorter where that count does not divide the table width,
-whatever the config's ``block_pages`` is (:func:`pages_per_step`).
+(``repro_torch/kernels/paged_attention/csrc/paged_decode.cu``) cuts each
+row's pages into spans of :func:`span_pages` pages, a number fixed by
+the shapes alone, one CTA per (span, KV head, row), and merges the
+spans' partials by log-sum-exp in a second kernel.  Each span walks its
+pages in tiles of :func:`tile_tokens` positions (16 KB of K and of V:
+64 positions in bf16 at head_dim 128, 128 at 64, 32 in f32 at 128), a
+tile holding :func:`pages_per_step` whole pages, or a page of 8 to 256
+tokens spanning several tiles; a span is a whole number of tiles, the
+last span shorter where that count does not divide the table width.
 :func:`build_paged_attention_program` builds the JAX program at
 ``block_pages = gcd(step, width)`` (:func:`kernel_config`): every kernel
-step, the short last one included, is a whole run of consecutive program
-steps (six 16-token pages at four pages a bf16 step: the kernel walks
-4 + 2 pages, the program 2 + 2 + 2).  ``block_pages`` stays the
-precondition it is in the JAX family: it must divide the table width.  A
-geometry the kernel cannot run (a page larger than one tile, a head_dim
-that is not compiled) is a build error.  Verdicts, findings and
-counterexamples are the JAX gate's at that step.
+tile, the short last one included, is a whole run of consecutive
+program steps (six 16-token pages at four pages a bf16 tile: the kernel
+walks 4 + 2 pages, the program 2 + 2 + 2), or a part of one step where a
+page spans several tiles, and every span is a run of whole program
+steps, so the program each span walks is the JAX program over the
+span's pages.  ``block_pages`` stays the precondition it is in the JAX
+family: it must divide the table width.  A geometry the kernel cannot
+run (a page size outside 8..256 or neither dividing nor divided by the
+tile, a head_dim that is not compiled) is a build error.  Verdicts,
+findings and counterexamples are the JAX gate's at that step.
 
 The structural and cost hooks are a Hopper model of that kernel
 (:mod:`repro_torch.core.kernelspec`, :mod:`repro_torch.core.costs`); the
@@ -36,9 +43,9 @@ from dataclasses import dataclass, replace
 from typing import Optional
 
 from .. import dsl
-from ..costs import (CostEstimate, HBM_BW, PEAK_FLOPS, sol_estimate,
-                     stream_eff, wave_eff)
-from ..kernelspec import (DTYPE_BYTES, StructuralIssue, cdiv,
+from ..costs import (CostEstimate, HBM_BW, MMA_SYNC_DERATE, PEAK_FLOPS,
+                     sol_estimate, stream_eff, wave_eff)
+from ..kernelspec import (DTYPE_BYTES, N_SMS, StructuralIssue, cdiv,
                           check_vector_alignment, ctas_per_sm)
 from ..tags import Expr, app, make_tag
 from .base import (BugSignature, KernelFamily, generic_skill,
@@ -78,30 +85,78 @@ class PagedAttentionConfig:
 
 MAX_GROUP = 8                  # query heads per KV head the kernel serves
 HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernel is compiled for
-KERNEL_THREADS = 128
+TC_HEAD_DIMS = (64, 128)       # bf16 head dims on the tensor-core instance
+PAGE_RANGE = (8, 256)          # page sizes (tokens) the kernel takes
+TILE_BYTES = 16384             # one K (or V) tile
+STAGES = 3                     # TMA ring depth of the tensor-core instance
+KERNEL_THREADS = 128           # the CUDA-core instance
+TC_THREADS = 160               # four consumer warps and a producer warp
+# CTAs the span split aims for: four for each SM (two resident at a time)
+SPAN_TARGET_CTAS = 4 * N_SMS
+
+
+def tensor_cores(head_dim: int, itemsize: int) -> bool:
+    """The instance that runs: bf16 at head_dim 64 or 128 on the tensor
+    cores fed by TMA; float32, and bf16 at 16 or 32, on CUDA-core FMAs."""
+    return itemsize == 2 and head_dim in TC_HEAD_DIMS
+
+
+def instance(head_dim: int, itemsize: int) -> str:
+    return ("tensor cores" if tensor_cores(head_dim, itemsize)
+            else "cuda cores")
 
 
 def tile_tokens(head_dim: int, itemsize: int) -> int:
-    """Tokens of K (and of V) the kernel stages per step at most: a 16 KB
-    tile, at most 64 tokens.  A page must fit in one tile."""
-    return min(64, 16384 // (head_dim * itemsize))
+    """Positions of K (and of V) in one tile of the walk: 16 KB, at most
+    64 positions on the CUDA-core instance."""
+    if tensor_cores(head_dim, itemsize):
+        return TILE_BYTES // (head_dim * itemsize)
+    return min(64, TILE_BYTES // (head_dim * itemsize))
 
 
 def pages_per_step(page_size: int, head_dim: int, itemsize: int) -> int:
-    """Pages the kernel walks per step: as many as fit one tile; 0 when a
-    page does not fit (or head_dim is not compiled)."""
-    if head_dim not in HEAD_DIMS:
+    """Whole pages one tile holds (1 where a page spans several tiles);
+    0 where the kernel cannot run the geometry: head_dim not compiled, a
+    page size outside 8..256 tokens or one that neither divides the tile
+    nor is divided by it."""
+    lo, hi = PAGE_RANGE
+    if head_dim not in HEAD_DIMS or not lo <= page_size <= hi:
         return 0
-    return tile_tokens(head_dim, itemsize) // page_size
+    tile = tile_tokens(head_dim, itemsize)
+    if tile % page_size == 0:
+        return tile // page_size
+    return 1 if page_size % tile == 0 else 0
+
+
+def span_pages(batch: int, kv_heads: int, pages_per_seq: int,
+               page_size: int, head_dim: int, itemsize: int) -> int:
+    """Pages of one span of a row's walk, from the shapes alone (never
+    the lengths, so the grid is fixed for a decode geometry): whole
+    tiles (whole pages where a page spans tiles), as few as give
+    ``batch x kv_heads x spans`` about ``SPAN_TARGET_CTAS`` CTAs."""
+    step = pages_per_step(page_size, head_dim, itemsize)
+    if not step:
+        raise ValueError(f"the CUDA kernel cannot walk {page_size}-token "
+                         f"pages at head_dim {head_dim}")
+    units = cdiv(pages_per_seq, step)
+    want = cdiv(SPAN_TARGET_CTAS, max(batch * kv_heads, 1))
+    return cdiv(units, min(units, want)) * step
+
+
+def n_spans(prob: PagedAttentionProblem) -> int:
+    sz = DTYPE_BYTES.get(prob.dtype, 2)
+    sp = span_pages(prob.batch, prob.kv_heads, prob.pages_per_seq,
+                    prob.page_size, prob.head_dim, sz)
+    return cdiv(prob.pages_per_seq, sp)
 
 
 def kernel_config(cfg: PagedAttentionConfig,
                   prob: PagedAttentionProblem) -> PagedAttentionConfig:
-    """The config whose program the kernel's steps are made of for
-    ``cfg`` on ``prob``: ``block_pages`` = gcd(the kernel's step, the
-    table width).  Raises ``ValueError`` where the JAX program would (the
-    preconditions on ``page_size`` and ``block_pages``) and where the
-    kernel cannot run."""
+    """The config whose program the kernel's tiles and spans are made of
+    for ``cfg`` on ``prob``: ``block_pages`` = gcd(the pages of a tile,
+    the table width).  Raises ``ValueError`` where the JAX program would
+    (the preconditions on ``page_size`` and ``block_pages``) and where
+    the kernel cannot run."""
     if prob.seq_kv % prob.page_size != 0:
         raise ValueError("page_size must tile seq_kv")
     NP = prob.pages_per_seq
@@ -113,9 +168,10 @@ def kernel_config(cfg: PagedAttentionConfig,
     step = pages_per_step(prob.page_size, prob.head_dim, sz)
     if not step:
         raise ValueError(
-            f"the CUDA kernel takes head_dim in {HEAD_DIMS} and a page "
-            f"within one {tile_tokens(prob.head_dim, sz)}-token tile; got "
-            f"head_dim {prob.head_dim}, page_size {prob.page_size}")
+            f"the CUDA kernel takes head_dim in {HEAD_DIMS} and pages of "
+            f"{PAGE_RANGE[0]}..{PAGE_RANGE[1]} tokens that divide its "
+            f"tile or are divided by it; got head_dim {prob.head_dim}, "
+            f"page_size {prob.page_size}")
     return PagedAttentionConfig(block_pages=math.gcd(step, NP))
 
 
@@ -303,7 +359,8 @@ def structural_paged_attention(cfg: PagedAttentionConfig,
                                prob: PagedAttentionProblem):
     """Hopper model of ``paged_decode.cu``: a tail page, a pool too small
     for the batch, a geometry the kernel is not compiled for, rows that
-    are not 16-byte aligned (the kernel reads pages in 16-byte vectors)."""
+    are not 16-byte aligned (the kernel copies rows in 16-byte vectors
+    or TMA boxes)."""
     issues = []
     sz = DTYPE_BYTES.get(prob.dtype, 2)
     if prob.seq_kv % prob.page_size != 0:
@@ -320,9 +377,10 @@ def structural_paged_attention(cfg: PagedAttentionConfig,
         issues.append(StructuralIssue(
             "unsupported", f"the kernel takes at most {MAX_GROUP} query "
                            f"heads per KV head, head_dim in {HEAD_DIMS} "
-                           f"and a page within one tile; got group "
-                           f"{prob.group}, head_dim {prob.head_dim}, "
-                           f"page_size {prob.page_size}"))
+                           f"and pages of {PAGE_RANGE[0]}..{PAGE_RANGE[1]} "
+                           f"tokens that divide its tile or are divided "
+                           f"by it; got group {prob.group}, head_dim "
+                           f"{prob.head_dim}, page_size {prob.page_size}"))
     issues += check_vector_alignment("KP rows",
                                      (("head_dim", prob.head_dim),),
                                      prob.dtype)
@@ -330,33 +388,50 @@ def structural_paged_attention(cfg: PagedAttentionConfig,
 
 
 def _smem_bytes(head_dim: int, itemsize: int) -> int:
+    """Shared memory of one CTA: on the tensor-core instance 1024 bytes of
+    alignment slack, the ring of K and V tiles and two mbarriers a stage;
+    on the CUDA-core one a K and a V tile, the heads' queries and weights."""
+    if tensor_cores(head_dim, itemsize):
+        return 1024 + STAGES * (2 * TILE_BYTES + 16)
     tt = tile_tokens(head_dim, itemsize)
     return 2 * tt * head_dim * itemsize + MAX_GROUP * (head_dim + tt) * 4
 
 
 def paged_attention_cost(cfg: PagedAttentionConfig,
                          prob: PagedAttentionProblem) -> CostEstimate:
-    """H100 model of ``paged_decode.cu``: one CTA per (sequence, KV head)
-    streams the live pages once, a step's K and V tiles in flight per
-    round trip (so few CTAs leave HBM bandwidth unused); the products are
-    FMAs on the CUDA cores.  ``block_pages`` changes nothing the kernel
-    does, so the model does not read it."""
+    """H100 model of ``paged_decode.cu``: one CTA per (span, KV head,
+    row) streams its span's live pages once, each resident CTA keeping
+    its ring (tensor-core instance) or one tile of K and V (CUDA-core
+    instance) in flight per round trip; the spans' float32 partials are
+    written and read back by the combine.  The products run on mma.sync
+    (the P·V product twice, for the split p, on an 8-head n-tile of
+    which G heads are used) or as FMAs.  ``block_pages`` changes nothing
+    the kernel does, so the model does not read it."""
     sz = DTYPE_BYTES.get(prob.dtype, 2)
     B, H, HK = prob.batch, prob.q_heads, prob.kv_heads
     S, D = prob.seq_kv, prob.head_dim
-    step = min(pages_per_step(prob.page_size, D, sz),
-               prob.pages_per_seq) or 1
     flops = 4.0 * B * H * S * D
     kv_bytes = 2 * B * HK * S * D * sz
     table_bytes = B * prob.pages_per_seq * 4
-    n_ctas = B * HK
-    per_sm = ctas_per_sm(KERNEL_THREADS, 64, _smem_bytes(D, sz))
-    eff = stream_eff(min(n_ctas, 132 * per_sm),
-                     2 * step * prob.page_size * D * sz)
-    return CostEstimate(
-        compute_s=flops / (PEAK_FLOPS["f32"] * wave_eff(n_ctas, per_sm)),
-        memory_s=(kv_bytes + table_bytes) / (HBM_BW * eff),
-        flops=flops, hbm_bytes=kv_bytes + table_bytes)
+    # a geometry the kernel refuses is priced as one span a row
+    ns = n_spans(prob) if pages_per_step(prob.page_size, D, sz) else 1
+    part_bytes = 2 * B * H * ns * (D + 2) * 4 + B * H * D * sz
+    n_ctas = B * HK * ns
+    tile = tile_tokens(D, sz) * D * sz
+    if tensor_cores(D, sz):
+        per_sm = ctas_per_sm(TC_THREADS, 64, _smem_bytes(D, sz))
+        in_flight = STAGES * 2 * tile
+        issued = 1.5 * flops * MAX_GROUP / max(min(prob.group, MAX_GROUP), 1)
+        compute_s = issued / (PEAK_FLOPS["bf16"] * MMA_SYNC_DERATE
+                              * wave_eff(n_ctas, per_sm))
+    else:
+        per_sm = ctas_per_sm(KERNEL_THREADS, 64, _smem_bytes(D, sz))
+        in_flight = 2 * tile
+        compute_s = flops / (PEAK_FLOPS["f32"] * wave_eff(n_ctas, per_sm))
+    eff = stream_eff(min(n_ctas, N_SMS * per_sm), in_flight)
+    hbm = kv_bytes + table_bytes + part_bytes
+    return CostEstimate(compute_s=compute_s, memory_s=hbm / (HBM_BW * eff),
+                        flops=flops, hbm_bytes=hbm)
 
 
 def paged_attention_sol(prob: PagedAttentionProblem) -> CostEstimate:

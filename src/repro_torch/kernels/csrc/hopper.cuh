@@ -61,6 +61,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
+// orders this thread's generic-proxy writes to shared memory before
+// later async-proxy (TMA) accesses of the same bytes, e.g. a consumer
+// that zeroes rows of a ring stage the producer will refill
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 // waits until the phase of parity `parity` has completed (a fresh barrier
 // is in phase 0: waiting on parity 1 returns at once)
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
@@ -409,6 +415,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
          (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi)))
           << 16);
+}
+
+// p = hi + lo, each a bf16 pair (lo in the low half): hi = bf16(p), lo =
+// bf16(p - hi); hi + lo is within 2^-16 of p relatively
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat16 xh = __float2bfloat16_rn(x), yh = __float2bfloat16_rn(y);
+  hi = static_cast<uint32_t>(__bfloat16_as_ushort(xh)) |
+       (static_cast<uint32_t>(__bfloat16_as_ushort(yh)) << 16);
+  lo = pack_bf16(x - __bfloat162float(xh), y - __bfloat162float(yh));
 }
 
 }  // namespace hopper

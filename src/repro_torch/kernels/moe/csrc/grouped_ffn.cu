@@ -27,46 +27,69 @@
 //      rounding point, so nothing changes numerically; the cost is
 //      2·E·C·DF elements of extra traffic (1.34 GB at the production
 //      problem, ~0.4 ms at 3.35 TB/s, against a 14.6 ms operations bound).
-//   2. down: y[e] = (act[e]·wd[e]) * g[e], each CTA owning a (rows, 128 or
-//      64 columns of DM) output tile and walking d_ff in order with its
+//   2. down: y[e] = (act[e]·wd[e]) * g[e], each CTA owning a (rows, DM
+//      columns) output tile and walking d_ff in order with its
 //      accumulator in registers, the gate in its epilogue.
 //
 // (One kernel that split DM across CTAs and recomputed the up product for
 // each output tile would repeat the up product's 2/3 of the operations
 // DM / 128 = 56 times over; the buffer costs 3% of the bound.)
 //
-// Both launches are one batched tile GEMM, templated on the CTA tile
-// TM x TN and on the launch (UP: two B operands, wg and wu, and the SwiGLU
-// epilogue; else one, wd, and the gate epilogue).  One CTA of 128 threads
-// (four warps) computes a TM x TN tile of one expert, TM in
-// {16, 32, 64, 128}, TN in {32, 64} (gate/up, two accumulators) or
-// {64, 128} (down).  The caller picks the largest TM dividing block_t
-// (16 with the rest of the rows masked when none does, as for block_t 8)
-// and the largest gate/up TN dividing block_f; a larger config tile
-// (block_t x block_f) is covered by several CTAs launched one after
-// another, so that they share the tile's operand panels in L2.  The
-// depth (DM, then DF) is staged through shared memory in 32-deep chunks,
-// two stages deep, by 16-byte cp.async copies with zero-fill past the
-// edge (the caller requires DM, DF and block_f to be multiples of 16
-// bytes).  bf16 products run on the tensor cores with
-// mma.sync.m16n8k16 (f32 accumulator fragments in registers); f32
-// products run as FMAs on the CUDA cores, since the tensor cores would
-// take f32 only as TF32 and the port keeps TF32 off.
-//
 // What bounds it.  At the production problem (16,384 tokens, top-8 of 32
 // experts, DM 7168, DF 2048, bf16) the kernel computes E·C = 163,840
 // capacity rows: 6·E·C·DM·DF = 1.44e13 operations, 14.6 ms at 989
 // TFLOP/s, against 7.5 GB of operands (2.2 ms at 3.35 TB/s): operations
-// bound it.  This simple kernel does not come near that: like gemm.cu,
-// mma.sync fed by 16- and 32-bit shared-memory loads reaches a fraction
-// of the tensor-core rate, and every CTA streams its A rows and B panels
-// through L2.  wgmma fed by TMA, in a persistent grouped schedule, is
-// left for a later change.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
+// bound it, and only wgmma reaches the tensor cores' full rate on Hopper.
+//
+// Two designs, chosen by the wrapper from the config and the problem
+// alone (core/families/moe.py `is_wgmma`), before any launch:
+//
+//   * bf16 on wgmma fed by TMA (ffn_wgmma_kernel), when x and the weights
+//     are bf16, block_t is a multiple of 64, block_f of 128 and d_model of
+//     64.  A CTA owns BM = 128 rows of one expert (64 where block_t is no
+//     multiple of 128).  Gate/up: the CTA's 128 d_ff columns of wg and of
+//     wu are staged side by side as one 256-column MN-major B, so each
+//     consumer warpgroup issues one wgmma m64n256k16 a 16-deep slice (at
+//     BM = 64 each warpgroup takes 64 of the columns of both, one
+//     m64n128k16); in that accumulator the thread holding hg[r, j] also
+//     holds hu[r, j], 64 (32) registers later, so the SwiGLU epilogue,
+//     h / (1 + exp(-h)) * hu rounded to bf16 as the TPU writes it, stays
+//     in the thread.  Down: act (K-major) · wd (MN-major) on BM x 256
+//     tiles, d_ff walked in 64-deep stages in the TPU's f order, each row
+//     scaled by its gate in float32 before the one rounding.  3-D tensor
+//     maps over (expert, rows, columns) with 128-byte swizzle: a box past
+//     an expert's last row or column is zero-filled, never the next
+//     expert's.  One producer warp of a third warpgroup (40 registers
+//     after setmaxnreg) keeps a four-stage ring full; two consumer
+//     warpgroups (232 registers) run the products, one stage's in flight
+//     while the previous stage is released.  The grid is persistent: one
+//     CTA an SM walks a work list ordered expert by expert, then by config
+//     tile (block_t x block_f for gate/up, block_t rows x 256 columns for
+//     down), then by the CTA tiles in it, so the CTAs that run together
+//     share an expert's weight panels in L2; the producer runs ahead into
+//     the next tile's stages while the consumers store.
+//   * everything else (f32, block_t 8, 16 or 32, block_f or d_model off
+//     those multiples) on the first design, unchanged: one batched tile
+//     GEMM templated on the CTA tile TM x TN and on the launch (UP: two B
+//     operands, wg and wu, and the SwiGLU epilogue; else one, wd, and the
+//     gate epilogue).  One CTA of 128 threads (four warps) computes a
+//     TM x TN tile of one expert, TM in {16, 32, 64, 128}, TN in {32, 64}
+//     (gate/up, two accumulators) or {64, 128} (down).  The caller picks
+//     the largest TM dividing block_t (16 with the rest of the rows masked
+//     when none does, as for block_t 8) and the largest gate/up TN
+//     dividing block_f; a larger config tile (block_t x block_f) is
+//     covered by several CTAs launched one after another, so that they
+//     share the tile's operand panels in L2.  The depth (DM, then DF) is
+//     staged through shared memory in 32-deep chunks, two stages deep, by
+//     16-byte cp.async copies with zero-fill past the edge (the caller
+//     requires DM, DF and block_f to be multiples of 16 bytes).  bf16
+//     products run on the tensor cores with mma.sync.m16n8k16 (f32
+//     accumulator fragments in registers); f32 products run as FMAs on
+//     the CUDA cores, since the tensor cores would take f32 only as TF32
+//     and the port keeps TF32 off.
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -382,6 +405,245 @@ cudaError_t launch_tile(const Params& p, bool up, int tm, int tn,
   return cudaErrorInvalidValue;
 }
 
+// -- bf16 on wgmma fed by TMA, persistent grouped schedule --------------------
+
+constexpr int kWgDepth = 64;     // depth of a stage: one 128-byte row
+constexpr int kWgStages = 4;
+constexpr int kPanelBytes = kWgDepth * 64 * 2;   // a 64-deep x 64 B panel
+constexpr int kWgUpCols = 128;   // d_ff columns of wg (and of wu) a CTA
+constexpr int kWgDownCols = 256; // d_model columns a CTA
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+
+template <int BM>
+struct WgCfg {
+  static constexpr int kABytes = BM * kWgDepth * 2;
+  static constexpr int kStageBytes = kABytes + 4 * kPanelBytes;
+  // columns of one consumer warpgroup's product: all 256 of the CTA's
+  // (its 64 rows), or at BM = 64 half of them (all 64 rows)
+  static constexpr int kN = BM == 128 ? 256 : 128;
+  // 1024 of alignment slack (swizzled tiles need 1024-byte bases), the
+  // ring, a full and an empty mbarrier a stage
+  static constexpr int kSmem =
+      1024 + kWgStages * kStageBytes + 16 * kWgStages;
+};
+
+struct WgTile {
+  int e, row0, col0;
+};
+
+// CTA tile L of a launch's work list: expert by expert, then the config
+// tiles of one expert in row order, then the CTA tiles of one config
+// tile; false past the edge.
+__device__ __forceinline__ bool wg_tile(const Params& p, int L, int BM,
+                                        int TN, WgTile& w) {
+  const int per_tile = p.subm * p.subn;
+  const int per_expert = p.mi * p.nj * per_tile;
+  w.e = L / per_expert;
+  const int r = L % per_expert;
+  const int tile = r / per_tile, sub = r % per_tile;
+  w.row0 = (tile / p.nj) * p.bm + (sub / p.subn) * BM;
+  w.col0 = (tile % p.nj) * p.bn + (sub % p.subn) * TN;
+  return w.row0 < p.m && w.col0 < p.n;
+}
+
+__device__ __forceinline__ float swiglu(float hg, float hu) {
+  return hg / (1.f + expf(-hg)) * hu;
+}
+
+// UP: act (E, m, n) = round(silu(x·wg) * (x·wu)), B panels wg | wu;
+// else y (E, m, n) = round((act·wd) * gate).  tm_a is the A operand (x or
+// act) as (k, m, E) in BM-row boxes, tm_b0 / tm_b1 the B operands (wg and
+// wu, or wd twice) as (n, k, E) in 64-row boxes.
+template <int BM, bool UP>
+__global__ void __launch_bounds__(384, 1)
+ffn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
+                 const __grid_constant__ CUtensorMap tm_b0,
+                 const __grid_constant__ CUtensorMap tm_b1, const Params p,
+                 int n_work) {
+  using C = WgCfg<BM>;
+  constexpr int S = kWgStages, NW = C::kN;
+  constexpr int TN = UP ? kWgUpCols : kWgDownCols;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * C::kStageBytes);
+  uint64_t* empty = full + S;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);   // one arrival per consumer
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  const int n_stages = (p.k + kWgDepth - 1) / kWgDepth;
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: one thread keeps the ring full, tile after tile
+    hopper::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x != 256) return;
+    int it = 0;
+    for (int L = blockIdx.x; L < n_work; L += gridDim.x) {
+      WgTile w;
+      if (!wg_tile(p, L, BM, TN, w)) continue;
+      // gate/up: wg's and wu's 128 columns, as [wg0 wg1 wu0 wu1] (BM
+      // 128) or [wg0 wu0 wg1 wu1] (BM 64: warpgroup i takes 2i, 2i + 1);
+      // down: wd's panels, those wholly past n not loaded (their columns
+      // are never stored)
+      const int panels = UP ? 4 : min(4, (p.n - w.col0 + 63) / 64);
+      for (int c = 0; c < n_stages; ++c, ++it) {
+        const int st = it % S, ph = (it / S) & 1;
+        unsigned char* a_s = ring + st * C::kStageBytes;
+        const int k0 = c * kWgDepth;
+        hopper::mbar_wait(&empty[st], ph ^ 1);
+        hopper::mbar_expect_tx(&full[st], C::kABytes + panels * kPanelBytes);
+        hopper::tma_load_3d(a_s, &tm_a, k0, w.row0, w.e, &full[st]);
+        for (int pn = 0; pn < panels; ++pn) {
+          unsigned char* b_s = a_s + C::kABytes + pn * kPanelBytes;
+          if constexpr (UP) {
+            const int src = BM == 128 ? pn / 2 : pn % 2;
+            const int half = BM == 128 ? pn % 2 : pn / 2;
+            hopper::tma_load_3d(b_s, src ? &tm_b1 : &tm_b0,
+                                w.col0 + half * 64, k0, w.e, &full[st]);
+          } else {
+            hopper::tma_load_3d(b_s, &tm_b0, w.col0 + pn * 64, k0, w.e,
+                                &full[st]);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: at BM 128 rows [wg·64, wg·64 + 64) and all the
+  // CTA's columns; at BM 64 every row and panels 2wg, 2wg + 1
+  hopper::reg_alloc<kConsumerRegs>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, q4 = lane & 3;
+  float acc[NW / 2];
+  int it = 0;
+  for (int L = blockIdx.x; L < n_work; L += gridDim.x) {
+    WgTile w;
+    if (!wg_tile(p, L, BM, TN, w)) continue;
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+    int prev = -1;
+    for (int c = 0; c < n_stages; ++c, ++it) {
+      const int st = it % S, ph = (it / S) & 1;
+      const unsigned char* a_s = ring + st * C::kStageBytes +
+                                 (BM == 128 ? wg * 64 * 128 : 0);
+      const unsigned char* b_s = ring + st * C::kStageBytes + C::kABytes +
+                                 (BM == 128 ? 0 : wg * 2 * kPanelBytes);
+      hopper::mbar_wait(&full[st], ph);
+      hopper::fence_operands(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgDepth / 16; ++kk) {
+        const uint64_t da = hopper::desc_sw128(a_s + kk * 32, 16, 1024);
+        const uint64_t db =
+            hopper::desc_sw128(b_s + kk * 2048, kPanelBytes, 1024);
+        if constexpr (NW == 256)
+          hopper::wgmma_m64n256k16_ss_tb(acc, da, db, 1);
+        else
+          hopper::wgmma_m64n128k16_ss_tb(acc, da, db, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::fence_operands(acc);
+      // this stage's products stay in flight; the previous stage's are
+      // done, so its buffers go back to the producer
+      hopper::wgmma_wait<1>();
+      if (prev >= 0 && tid == 0) hopper::mbar_arrive(&empty[prev]);
+      prev = st;
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(acc);
+    if (prev >= 0 && tid == 0) hopper::mbar_arrive(&empty[prev]);
+
+    // accumulator element 4j + i: column 8j + 2·q4 + (i & 1) of the
+    // warpgroup's product, row g (i < 2) or g + 8
+    const int r_a = w.row0 + (BM == 128 ? wg * 64 : 0) + warp * 16 + g;
+    const int r_b = r_a + 8;
+    const size_t base = static_cast<size_t>(w.e) * p.m;
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.c);
+    if constexpr (UP) {
+      // hg in the warpgroup's first half of the columns, hu in the second:
+      // NW / 4 registers later
+      constexpr int H = NW / 4;
+      const int c0 = w.col0 + (BM == 128 ? 0 : wg * 64);
+#pragma unroll
+      for (int j = 0; j < NW / 16; ++j) {
+        const int col = c0 + j * 8 + 2 * q4, i = 4 * j;
+        if (r_a < p.m)
+          *reinterpret_cast<uint32_t*>(out + (base + r_a) * p.n + col) =
+              hopper::pack_bf16(swiglu(acc[i], acc[i + H]),
+                                swiglu(acc[i + 1], acc[i + H + 1]));
+        if (r_b < p.m)
+          *reinterpret_cast<uint32_t*>(out + (base + r_b) * p.n + col) =
+              hopper::pack_bf16(swiglu(acc[i + 2], acc[i + H + 2]),
+                                swiglu(acc[i + 3], acc[i + H + 3]));
+      }
+    } else {
+      const int c0 = w.col0 + (BM == 128 ? 0 : wg * 128);
+      const float ga = p.gate && r_a < p.m ? p.gate[base + r_a] : 1.f;
+      const float gb = p.gate && r_b < p.m ? p.gate[base + r_b] : 1.f;
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j) {
+        const int col = c0 + j * 8 + 2 * q4, i = 4 * j;
+        if (col >= p.n) continue;   // n is even: col + 1 < n too
+        if (r_a < p.m)
+          *reinterpret_cast<uint32_t*>(out + (base + r_a) * p.n + col) =
+              hopper::pack_bf16(acc[i] * ga, acc[i + 1] * ga);
+        if (r_b < p.m)
+          *reinterpret_cast<uint32_t*>(out + (base + r_b) * p.n + col) =
+              hopper::pack_bf16(acc[i + 2] * gb, acc[i + 3] * gb);
+      }
+    }
+  }
+}
+
+template <int BM, bool UP>
+cudaError_t launch_wgmma(const Params& p, int E, cudaStream_t st) {
+  using C = WgCfg<BM>;
+  constexpr int TN = UP ? kWgUpCols : kWgDownCols;
+  // A as (k, m, E) in BM-row boxes; B as (n, k, E) in 64-row boxes
+  CUtensorMap ta, tb0, tb1;
+  int e = hopper::encode_tensor_map_3d(&ta, p.a, p.k, p.m, E, BM);
+  if (!e) e = hopper::encode_tensor_map_3d(&tb0, p.b0, p.n, p.k, E,
+                                           kWgDepth);
+  if (!e) e = hopper::encode_tensor_map_3d(&tb1, UP ? p.b1 : p.b0, p.n, p.k,
+                                           E, kWgDepth);
+  if (e) return static_cast<cudaError_t>(e);
+  const long long n_work = static_cast<long long>(E) * p.mi * p.nj *
+                           p.subm * p.subn;
+  if (n_work > 0x7fffffffLL || p.subm * BM != p.bm ||
+      (UP && p.subn * TN != p.bn))
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t r = cudaGetDevice(&dev);
+  if (r == cudaSuccess)
+    r = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (r != cudaSuccess) return r;
+  const int grid = n_work < sms ? static_cast<int>(n_work) : sms;
+  r = cudaFuncSetAttribute(ffn_wgmma_kernel<BM, UP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           C::kSmem);
+  if (r != cudaSuccess) return r;
+  ffn_wgmma_kernel<BM, UP><<<grid, 384, C::kSmem, st>>>(
+      ta, tb0, tb1, p, static_cast<int>(n_work));
+  return cudaGetLastError();
+}
+
+template <bool UP>
+cudaError_t launch_wgmma_bm(const Params& p, int E, int tm,
+                            cudaStream_t st) {
+  switch (tm) {
+    case 64: return launch_wgmma<64, UP>(p, E, st);
+    case 128: return launch_wgmma<128, UP>(p, E, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // C entry point.  x (E, C, DM), wg and wu (E, DM, DF), wd (E, DF, DM) of
@@ -390,17 +652,23 @@ cudaError_t launch_tile(const Params& p, bool up, int tm, int tn,
 // type.  bt x bf is the config tile (C a multiple of bt, DF of bf), tm the
 // CTA rows, tn_up the gate/up CTA's columns, tn_down the down CTA's.  The
 // caller guarantees that DM, DF and bf are multiples of 16 bytes and that
-// every pointer is 16-byte aligned.  Launches gate/up, then down, on
-// `stream`; returns cudaGetLastError() after each launch, the first that
-// is not cudaSuccess.
+// every pointer is 16-byte aligned.  With `wgmma` (bf16 only, bt a
+// multiple of 64 and of tm, tm 64 or 128, bf a multiple of 128, DM of 64)
+// tn_up is 128 and tn_down 256, each launch on a grid of one CTA an SM.
+// Launches gate/up, then down, on `stream`; returns cudaGetLastError()
+// after each launch, the first that is not cudaSuccess.
 extern "C" int grouped_ffn_launch(const void* x, const void* wg,
                                   const void* wu, const void* wd,
                                   const float* gates, void* act, void* y,
                                   int E, int C, int DM, int DF, int bt,
                                   int bf, int tm, int tn_up, int tn_down,
-                                  int bf16, void* stream) {
+                                  int bf16, int wgmma, void* stream) {
   if (E <= 0 || C <= 0 || DM <= 0 || DF <= 0 || bt <= 0 || bf <= 0 ||
       tm <= 0 || tn_up <= 0 || tn_down <= 0 || C % bt || DF % bf)
+    return cudaErrorInvalidValue;
+  if (wgmma && (!bf16 || bt % 64 || bt % tm || (tm != 64 && tm != 128) ||
+                bf % kWgUpCols || DM % 64 || tn_up != kWgUpCols ||
+                tn_down != kWgDownCols))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long mi = C / bt, subm = (bt + tm - 1) / tm;
@@ -441,6 +709,11 @@ extern "C" int grouped_ffn_launch(const void* x, const void* wg,
   if (ctas_up > 0x7fffffffLL || ctas_down > 0x7fffffffLL)
     return cudaErrorInvalidValue;
 
+  if (wgmma) {
+    cudaError_t e = launch_wgmma_bm<true>(up, E, tm, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(launch_wgmma_bm<false>(down, E, tm, st));
+  }
   cudaError_t e =
       bf16 ? launch_tile<__nv_bfloat16>(up, true, tm, tn_up, ctas_up, st)
            : launch_tile<float>(up, true, tm, tn_up, ctas_up, st);

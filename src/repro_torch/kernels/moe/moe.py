@@ -6,10 +6,14 @@ package.
 
 The choice of implementation follows the tensors' device: on CUDA
 tensors the wrapper launches the kernel (and counts the launch in
-``KERNEL.launches``) or raises; on CPU tensors it runs the plain
-PyTorch version :func:`~.ref.grouped_ffn_ref`.  There is no fallback from
-one to the other.  The config is not checked against the ARGUS gate
-here: :func:`~.ops.moe_ffn` does that before it calls this.
+``KERNEL.launches``: one per call, the gate/up and the down launch
+together) or raises; on CPU tensors it runs the plain PyTorch version
+:func:`~.ref.grouped_ffn_ref`.  There is no fallback from one to the
+other.  Which instance runs on the card, wgmma fed by TMA on a
+persistent grid or the mma.sync / FMA tiles, follows
+``core/families/moe.py::is_wgmma`` of the config and the widths.  The
+config is not checked against the ARGUS gate here:
+:func:`~.ops.moe_ffn` does that before it calls this.
 """
 from __future__ import annotations
 
@@ -19,7 +23,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ...core.families.moe import MoEConfig, cta_tiles
+from ...core.families.moe import (MoEConfig, MoEProblem, cta_tiles,
+                                  is_wgmma)
 from .._build import CudaKernel, dtype_name, ptr, stream_handle
 from .ref import grouped_ffn_ref
 
@@ -28,7 +33,7 @@ _I = ctypes.c_int
 
 KERNEL = CudaKernel(
     "grouped_ffn", Path(__file__).parent / "csrc" / "grouped_ffn.cu",
-    "grouped_ffn_launch", [_P] * 7 + [_I] * 10 + [_P])
+    "grouped_ffn_launch", [_P] * 7 + [_I] * 11 + [_P])
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -86,12 +91,22 @@ def grouped_ffn(x_routed: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
             raise ValueError("grouped_ffn: gates on another device")
         g = gates_routed.reshape(E, C).to(torch.float32).contiguous()
     act = torch.empty(E, C, DF, dtype=dt, device=x_routed.device)
-    tm, tu, td = cta_tiles(cfg, DM)
+    wgmma = is_wgmma(cfg, instance_problem(x_routed, wg))
+    tm, tu, td = cta_tiles(cfg, DM, wgmma)
     KERNEL.launch(ptr(x_routed), ptr(wg), ptr(wu), ptr(wd),
                   ptr(g) if g is not None else _P(None), ptr(act), ptr(y),
                   E, C, DM, DF, bt, bf, tm, tu, td, int(dt == torch.bfloat16),
-                  stream_handle(x_routed.device))
+                  int(wgmma), stream_handle(x_routed.device))
     return y
+
+
+def instance_problem(x_routed: torch.Tensor, wg: torch.Tensor) -> MoEProblem:
+    """The family problem of a grouped call, for routing by
+    :func:`~repro_torch.core.families.moe.is_wgmma` (which reads its
+    widths and dtype): its E x C capacity rows as tokens, one slot each."""
+    E, C, DM = x_routed.shape
+    return MoEProblem(tokens=E * C, d_model=DM, d_ff=wg.shape[-1],
+                      n_experts=E, top_k=1, dtype=dtype_name(x_routed.dtype))
 
 
 def compute_dispatch(expert_idx: torch.Tensor, n_experts: int,

@@ -1,6 +1,12 @@
 """Paged-attention decode: the wrapper of the hand-written CUDA kernel
 ``csrc/paged_decode.cu``, which replaces the JAX package's Pallas TPU
 kernel ``kernels/paged_attention/paged_attention.py`` (``paged_decode``).
+The kernel splits each row's page walk into spans, one CTA per (span, KV
+head, row), and merges the spans' float32 partials in a second kernel on
+the same stream; the span count comes from the shapes alone
+(``core/families/paged_attention.py::span_pages``), so the wrapper never
+reads the lengths and the grid is fixed for a decode geometry.  One call
+is one launch in ``KERNEL.launches``.
 
 The choice of implementation follows the tensors' device: on CUDA
 tensors the wrapper launches the kernel (and counts the launch in
@@ -16,8 +22,10 @@ from pathlib import Path
 import torch
 
 from ...core.families.paged_attention import (HEAD_DIMS, MAX_GROUP,
+                                              PAGE_RANGE,
                                               PagedAttentionConfig,
-                                              pages_per_step, tile_tokens)
+                                              pages_per_step, span_pages,
+                                              tile_tokens)
 from .._build import CudaKernel, ptr, stream_handle
 from .ref import paged_decode_ref
 
@@ -27,11 +35,10 @@ _I = ctypes.c_int
 KERNEL = CudaKernel(
     "paged_decode", Path(__file__).parent / "csrc" / "paged_decode.cu",
     "paged_decode_launch",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-     _I, _P])
+    [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _P])
 
 __all__ = ["KERNEL", "PagedAttentionConfig", "paged_decode", "tile_tokens",
-           "pages_per_step", "HEAD_DIMS", "MAX_GROUP"]
+           "pages_per_step", "span_pages", "HEAD_DIMS", "MAX_GROUP"]
 
 
 def _check(q, k_pages, v_pages, table, lengths, cfg):
@@ -73,12 +80,14 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
         raise TypeError(f"paged_decode kernel takes bf16 or f32 q and pools "
                         f"of one type, got {q.dtype}, {k_pages.dtype}, "
                         f"{v_pages.dtype}")
-    tile = tile_tokens(D, q.element_size()) if D in HEAD_DIMS else 0
-    step = pages_per_step(PS, D, q.element_size())
-    if Hq // Hkv > MAX_GROUP or not step:
+    sz = q.element_size()
+    if Hq // Hkv > MAX_GROUP or not pages_per_step(PS, D, sz):
+        tile = tile_tokens(D, sz) if D in HEAD_DIMS else 0
         raise ValueError(f"paged_decode kernel takes G <= {MAX_GROUP}, "
-                         f"D in {HEAD_DIMS}, a page within one {tile}-token "
-                         f"tile; got G={Hq // Hkv}, D={D}, PS={PS}")
+                         f"D in {HEAD_DIMS} and pages of {PAGE_RANGE[0]}.."
+                         f"{PAGE_RANGE[1]} tokens that divide the {tile}-"
+                         f"token tile or are divided by it; got "
+                         f"G={Hq // Hkv}, D={D}, PS={PS}")
     if lengths is None:
         lengths = torch.full((B,), NP * PS, dtype=torch.int32,
                              device=q.device)
@@ -89,13 +98,20 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
         raise TypeError("paged_decode: table and lengths must be int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_decode: tensors must be contiguous")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("paged_decode: pools must be 16-byte aligned "
-                         "(the kernel reads them in 16-byte vectors)")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError("paged_decode: q and the pools must be 16-byte "
+                         "aligned (the kernel copies 16-byte vectors and "
+                         "TMA boxes)")
     out = torch.empty_like(q)
     if B == 0:
         return out
+    sp = span_pages(B, Hkv, NP, PS, D, sz)
+    ns = -(-NP // sp)
+    o_part = torch.empty(B * Hq, ns, D, dtype=torch.float32,
+                         device=q.device)
+    ml = torch.empty(2, B * Hq, ns, dtype=torch.float32, device=q.device)
     KERNEL.launch(ptr(q), ptr(k_pages), ptr(v_pages), ptr(table),
-                  ptr(lengths), ptr(out), B, Hq, Hkv, D, PS, NP, step, scale,
+                  ptr(lengths), ptr(o_part), ptr(ml[0]), ptr(ml[1]),
+                  ptr(out), B, Hq, Hkv, P, D, PS, NP, sp, scale,
                   int(q.dtype == torch.bfloat16), stream_handle(q.device))
     return out

@@ -389,16 +389,6 @@ __device__ __forceinline__ void wg_barrier(int wg) {
   asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
 }
 
-// p = hi + lo, each a bf16 pair (lo in the low half): hi = bf16(p), lo =
-// bf16(p - hi)
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat16 xh = __float2bfloat16_rn(x), yh = __float2bfloat16_rn(y);
-  hi = static_cast<uint32_t>(__bfloat16_as_ushort(xh)) |
-       (static_cast<uint32_t>(__bfloat16_as_ushort(yh)) << 16);
-  lo = hopper::pack_bf16(x - __bfloat162float(xh), y - __bfloat162float(yh));
-}
-
 template <int D>
 __global__ void __launch_bounds__(384, 1)
 ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -659,8 +649,8 @@ ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int kk = 0; kk < kWgK / 16; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        split_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], p_hi[kk][r],
-                   p_lo[kk][r]);
+        hopper::split_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1],
+                           p_hi[kk][r], p_lo[kk][r]);
 
     // O += P_hi V + P_lo V
     hopper::mbar_wait(&v_full[st], ph);

@@ -366,7 +366,8 @@ def test_validator_runs_the_kernel_on_the_card(card):
 def test_paged_decode_kernel_steps_tile_the_table(card):
     """A table width the tile's page count does not divide: six 16-token
     pages walk as 4 + 2 in bf16 (64-token tiles) and 2 + 2 + 2 in f32;
-    125 pages (max_len 2000) as 31 x 4 + 1 in bf16."""
+    125 pages (max_len 2000) as 31 x 4 + 1 in bf16, in spans of whole
+    tiles, the last span shorter."""
     from repro_torch.core.families.paged_attention import pages_per_step
     from repro_torch.kernels.paged_attention import KERNEL, paged_decode_ref
     from repro_torch.kernels.paged_attention.paged_attention import \
@@ -386,6 +387,92 @@ def test_paged_decode_kernel_steps_tile_the_table(card):
         err = float((got.float() - paged_decode_ref(*dev).float()).abs()
                     .max())
         assert err <= TOL[dtype], (dtype, NP, err)
+
+
+PAGED_TC_CASES = [
+    # (B, Hq, Hkv, D, PS, NP, lengths): the serving phase's qwen3 and
+    # granite geometry (16-token pages, 128 a row), the family's
+    # production problem's 128-token pages (a page of two tiles, G = 8),
+    # pages of 8, 64 and 256 tokens, G 1 and 3, lengths 0, 1, mid-page,
+    # mid-tile, a full table, rows shorter than a span
+    (8, 16, 8, 128, 16, 128, [0, 1, 17, 256, 300, 777, 1040, 2048]),
+    (8, 24, 8, 64, 16, 128, [2048, 1040, 777, 300, 256, 17, 1, 0]),
+    (4, 8, 1, 128, 128, 64, [8192, 8000, 129, 0]),
+    (3, 8, 8, 64, 8, 64, [512, 100, 7]),
+    (3, 6, 2, 128, 64, 16, [1024, 65, 640]),
+    (2, 4, 4, 64, 256, 4, [1024, 257]),
+]
+
+
+def _poisoned(kp, vp, table, lengths, PS):
+    """Copies of the pools with every page no row maps and each row's
+    tail past its length inside its last page set to 1e6."""
+    kp2, vp2 = kp.clone(), vp.clone()
+    mapped = {int(t) for b, n in enumerate(lengths)
+              for t in table[b, :-(-n // PS)]}
+    unmapped = [p for p in range(kp.shape[0]) if p not in mapped]
+    kp2[unmapped] = 1e6
+    vp2[unmapped] = 1e6
+    for b, n in enumerate(lengths):
+        if n % PS:
+            last = int(table[b, n // PS])
+            kp2[last, :, n % PS:] = 1e6
+            vp2[last, :, n % PS:] = 1e6
+    return kp2, vp2
+
+
+@pytest.mark.parametrize("case", PAGED_TC_CASES, ids=lambda c: (
+    f"{c[1]}-{c[2]}x{c[3]}-ps{c[4]}"))
+def test_paged_decode_tensor_core_instance_matches_plain(card, case):
+    """The bf16 split walk on tensor cores: within TOL of the plain
+    version, at most P_SPLIT_MISMATCH of its outputs off the plain
+    version's bf16 value, zeros for a row of length 0, and poisoned
+    foreign, null and tail pages leave it bit-identical."""
+    from repro_torch.core.families.paged_attention import instance
+    from repro_torch.kernels.paged_attention import KERNEL, paged_decode_ref
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        paged_decode
+    from repro_torch.kernels.paged_attention.ref import (P_SPLIT_MISMATCH,
+                                                         mismatch_share)
+    B, Hq, Hkv, D, PS, NP, lengths = case
+    assert instance(D, 2) == "tensor cores"
+    P = sum(-(-n // PS) for n in lengths) + 8
+    q, kp, vp, table, lens = [t.to(card) for t in _decode_inputs(
+        B, Hq, Hkv, D, PS, NP, P, lengths, torch.bfloat16)]
+    before = KERNEL.launches
+    got = paged_decode(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    want = paged_decode_ref(q, kp, vp, table, lens)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= TOL[torch.bfloat16], err
+    share = mismatch_share(got, want, lens)
+    assert share <= P_SPLIT_MISMATCH, share
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert not got[b].any()
+    kp2, vp2 = _poisoned(kp, vp, table.cpu(), lengths, PS)
+    assert torch.equal(got, paged_decode(q, kp2, vp2, table, lens))
+
+
+def test_paged_decode_wrapper_refuses_what_the_kernel_does_not_take(card):
+    from repro_torch.kernels.paged_attention import KERNEL
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        paged_decode
+    before = KERNEL.launches
+    for Hq, Hkv, D, PS in ((8, 2, 128, 24), (8, 2, 128, 512),
+                           (32, 2, 128, 16), (8, 2, 80, 16)):
+        q, kp, vp, table, lens = [t.to(card) for t in _decode_inputs(
+            2, Hq, Hkv, D, PS, 2, 8, [PS, 1], torch.bfloat16)]
+        with pytest.raises(ValueError, match="paged_decode kernel takes"):
+            paged_decode(q, kp, vp, table, lens)
+    q, kp, vp, table, lens = [t.to(card) for t in _decode_inputs(
+        2, 8, 2, 128, 16, 2, 8, [16, 1], torch.bfloat16)]
+    with pytest.raises(TypeError, match="int32"):
+        paged_decode(q, kp, vp, table.long(), lens)
+    with pytest.raises(TypeError, match="one type"):
+        paged_decode(q, kp.float(), vp, table, lens)
+    assert KERNEL.launches == before
 
 
 # -- flash attention -----------------------------------------------------------
@@ -589,6 +676,44 @@ def test_moe_ffn_on_the_card_matches_the_dense_oracle(card, dtype, cf):
     assert bool((~keep).any()) == (cf < 1)
     err, ok = moe_error(got, moe_ffn_ref(x, gates * keep, idx, wg, wu, wd))
     assert ok, err
+
+
+MOE_WGMMA_CASES = [
+    # (E, C, DM, DF, block_t, block_f, fuse_gate, gates given) on the
+    # wgmma instance: 128-row CTAs (block_t 128, 256) and 64-row ones
+    # (block_t 64, 192 rows an expert: the last CTA half past the edge),
+    # config tiles of several CTA tiles, d_model 576 (the last down tile
+    # one panel wide) and 1536, one expert, gates None and fuse off
+    (4, 256, 512, 512, 128, 256, True, True),
+    (3, 192, 256, 384, 64, 128, True, True),
+    (2, 512, 576, 256, 256, 256, True, True),
+    (1, 128, 256, 256, 128, 128, True, True),
+    (2, 128, 512, 256, 64, 256, True, False),
+    (2, 256, 256, 512, 128, 512, False, True),
+    (8, 640, 1536, 512, 128, 512, True, True),
+]
+
+
+@pytest.mark.parametrize("case", MOE_WGMMA_CASES, ids=str)
+def test_grouped_ffn_wgmma_instance_matches_plain(card, case):
+    from repro_torch.core.families.moe import MoEConfig, is_wgmma
+    from repro_torch.kernels.moe import (KERNEL, grouped_ffn,
+                                         grouped_ffn_ref, moe_error)
+    from repro_torch.kernels.moe.moe import instance_problem
+    E, C, DM, DF, bt, bf, fuse, with_gates = case
+    (x, wg, wu, wd), gates = _moe_inputs(E, C, DM, DF, torch.bfloat16,
+                                         E + C + DM)
+    gates = gates if with_gates else None
+    cfg = MoEConfig(bt, bf, fuse)
+    assert is_wgmma(cfg, instance_problem(x, wg))
+    before = KERNEL.launches
+    got = grouped_ffn(x, wg, wu, wd, gates, cfg=cfg)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    err, ok = moe_error(got, grouped_ffn_ref(x, wg, wu, wd,
+                                             gates if fuse else None))
+    assert ok, err
+    assert not got[:, 1].any() and not got[:, -1].any()
 
 
 def test_validator_runs_the_moe_kernel_on_the_card(card):

@@ -55,7 +55,8 @@ def _fd_pairs(rng, n):
 
 def _pa_pairs(rng, n):
     # (B, Hq, Hkv, S, PS, P, D, dtype): six pages (a 64-token tile does
-    # not divide the table), a page larger than the tile, f32 tiles
+    # not divide the table), a page spanning two tiles (the family's
+    # production problem), f32 tiles
     probs = [(4, 8, 2, 96, 16, 40, 128, "bf16"),
              (4, 8, 2, 96, 16, 40, 128, "f32"),
              (3, 4, 4, 128, 8, 64, 64, "bf16"),
@@ -81,6 +82,11 @@ PAIRS = {"flash_attention": _fa_pairs, "flash_decode": _fd_pairs,
          "paged_attention": _pa_pairs, "ragged_prefill": _rp_pairs}
 N_PAIRS = {"flash_attention": 24, "flash_decode": 40,
            "paged_attention": 48, "ragged_prefill": 48}
+# after the seeded draws, pages the paged kernel cannot walk: 24 tokens
+# (neither dividing the 64-token tile nor divided by it) and 512
+EXTRA_PAIRS = {"paged_attention": [
+    ((2,), (2, 8, 2, 96, 24, 16, 128, "bf16")),
+    ((1,), (2, 8, 2, 1024, 512, 8, 128, "bf16"))]}
 
 
 def _findings(res):
@@ -121,7 +127,8 @@ def run(request):
     pe, je = VerificationEngine(), JaxEngine()
     se, sj = VerificationEngine(), JaxEngine()
     seen, results, unsupported = {}, [], []
-    for cfg_t, prob_t in PAIRS[family](rng, N_PAIRS[family]):
+    for cfg_t, prob_t in (PAIRS[family](rng, N_PAIRS[family])
+                          + EXTRA_PAIRS.get(family, [])):
         cfg, prob = fam.config_cls(*cfg_t), fam.problem_cls(*prob_t)
         jcfg = _jax_side(family, cfg, prob)
         if jcfg is None:
@@ -168,33 +175,71 @@ def test_a_geometry_the_kernel_cannot_run_is_a_build_error(run):
         assert not res.hard_ok and "CUDA kernel" in res.build_error
 
 
-def test_paged_program_is_built_at_the_kernels_step():
+PA_BF = pa.PagedAttentionProblem(4, 8, 2, 96, 16, 40, 128, "bf16")
+PA_STEPS = [
+    # (problem, config's block_pages, the kernel's step or the error)
+    (PA_BF, 2, 2),
+    (dataclasses.replace(PA_BF, dtype="f32"), 6, 2),
+    (PA_BF, 1, 2),
+    (pa.PagedAttentionProblem(8, 16, 8, 16 * 125, 16, 8 * 125 + 1, 128,
+                              "bf16"), 1, 1),
+    (pa.PagedAttentionProblem(8, 16, 8, 16 * 128, 16, 8 * 128 + 1, 128,
+                              "bf16"), 1, 4),
+    (PA_BF, 4, "block_pages 4 must divide"),
+    # 128-token pages span two 64-token tiles: one page a program step
+    (pa.PagedAttentionProblem(32, 8, 1, 8192, 128, 2304, 128, "bf16"), 2,
+     1),
+    # the tensor-core instance's 128-token tile at head_dim 64
+    (pa.PagedAttentionProblem(3, 4, 4, 128, 8, 64, 64, "bf16"), 1, 16),
+    (pa.PagedAttentionProblem(2, 8, 2, 96, 24, 16, 128, "bf16"), 2,
+     "CUDA kernel"),
+    (pa.PagedAttentionProblem(2, 8, 2, 1024, 512, 8, 128, "bf16"), 1,
+     "CUDA kernel"),
+]
+
+
+@pytest.mark.parametrize("prob,bp,want", PA_STEPS)
+def test_paged_program_is_built_at_the_kernels_step(prob, bp, want):
     """The kernel walks as many pages as fit one tile, its last step
-    shorter; the program is built at gcd(step, width), so each kernel
-    step is a run of whole program steps.  Six 16-token pages: the bf16
-    tile (64 tokens) holds four, the kernel walks 4 + 2 pages and the
-    program steps two; in f32 (32-token tiles) both step two.  125 pages
-    (max_len 2000): the kernel walks 31 x 4 + 1, the program single
-    pages; 128 pages: both step four.  block_pages stays a
-    precondition."""
-    bf = pa.PagedAttentionProblem(4, 8, 2, 96, 16, 40, 128, "bf16")
-    f32 = dataclasses.replace(bf, dtype="f32")
+    shorter, or a page of several tiles; the program is built at
+    gcd(step, width), so each kernel step is a run of whole program steps
+    or a part of one.  Six 16-token pages: the bf16 tile (64 tokens)
+    holds four, the kernel walks 4 + 2 pages and the program steps two;
+    in f32 (32-token tiles) both step two.  125 pages (max_len 2000):
+    the kernel walks 31 x 4 + 1, the program single pages; 128 pages:
+    both step four.  128-token pages: the program steps one page.  A
+    page of 24 or 512 tokens the kernel cannot walk; block_pages stays
+    a precondition."""
     assert pa.pages_per_step(16, 128, 2) == 4
     assert pa.pages_per_step(16, 128, 4) == 2
-    assert pa.kernel_config(pa.PagedAttentionConfig(2), bf).block_pages == 2
-    assert pa.kernel_config(pa.PagedAttentionConfig(6), f32).block_pages == 2
-    prog = pa.build_paged_attention_program(pa.PagedAttentionConfig(1), bf)
-    assert prog.name == "paged[bp=2]"
-    for width, step in ((125, 1), (128, 4)):
-        wide = pa.PagedAttentionProblem(8, 16, 8, 16 * width, 16,
-                                        8 * width + 1, 128, "bf16")
-        assert pa.kernel_config(pa.PagedAttentionConfig(1),
-                                wide).block_pages == step
-    with pytest.raises(ValueError, match="block_pages 4 must divide"):
-        pa.kernel_config(pa.PagedAttentionConfig(4), bf)
-    big = pa.PagedAttentionProblem(32, 8, 1, 8192, 128, 2304, 128, "bf16")
-    with pytest.raises(ValueError, match="CUDA kernel"):
-        pa.kernel_config(pa.PagedAttentionConfig(2), big)
+    assert pa.pages_per_step(128, 128, 2) == 1
+    cfg = pa.PagedAttentionConfig(bp)
+    if isinstance(want, str):
+        with pytest.raises(ValueError, match=want):
+            pa.kernel_config(cfg, prob)
+        return
+    assert pa.kernel_config(cfg, prob).block_pages == want
+    assert pa.build_paged_attention_program(cfg, prob).name == \
+        f"paged[bp={want}]"
+
+
+def test_the_span_split_depends_on_the_shapes_alone():
+    """Spans are whole tiles (whole pages where a page spans tiles) and
+    fill the card several times over at the serving shapes: 8 rows x 8
+    KV heads x 8 spans of 256 tokens at qwen3's and granite's phase-3
+    geometry, 32 x 1 x 16 spans of four 128-token pages at the family's
+    production problem."""
+    assert pa.span_pages(8, 8, 128, 16, 128, 2) == 16
+    assert pa.span_pages(8, 8, 128, 16, 64, 2) == 16
+    assert pa.span_pages(32, 1, 64, 128, 128, 2) == 4
+    for prob in (pa.PagedAttentionProblem(8, 16, 8, 2048, 16, 768, 128),
+                 pa.PagedAttentionProblem(8, 24, 8, 2048, 16, 768, 64),
+                 pa.PagedAttentionProblem(32, 8, 1, 8192, 128, 2304, 128)):
+        ns = pa.n_spans(prob)
+        assert prob.batch * prob.kv_heads * ns >= 2 * 132
+        sp = pa.span_pages(prob.batch, prob.kv_heads, prob.pages_per_seq,
+                           prob.page_size, prob.head_dim, 2)
+        assert sp * prob.page_size % pa.tile_tokens(prob.head_dim, 2) == 0
 
 
 RP_BF16 = rp.RaggedPrefillProblem(8, 2048, 8, 1, 128, "bf16")
@@ -253,9 +298,11 @@ def _bug_cases(family):
         more = [(fam.config_cls(16),
                  dataclasses.replace(prob0, seq_kv=2048, batch=128))]
     elif family == "paged_attention":
-        # the family example's 128-token pages exceed the kernel's tile
+        # 64-token pages (one tile), then the family example's 128-token
+        # pages (two tiles a page) among the more
+        more = [(cfg0, prob0)]
         prob0 = dataclasses.replace(prob0, page_size=64, pool_pages=4352)
-        more = [(fam.config_cls(1), pa.PagedAttentionProblem(
+        more += [(fam.config_cls(1), pa.PagedAttentionProblem(
                     4, 8, 2, 96, 16, 40, 128, "bf16")),
                 (fam.config_cls(2), pa.PagedAttentionProblem(
                     2, 16, 8, 256, 16, 40, 128, "f32"))]

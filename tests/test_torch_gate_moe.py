@@ -175,26 +175,37 @@ def test_skills_example_and_sweep_match_the_jax_family():
 
 # -- the Hopper structural and cost models -------------------------------------
 
-def test_cta_tiles_and_structural_warnings():
+@pytest.mark.parametrize("dtype,split", [
+    # f32 runs the mma.sync / FMA instance: 256 x 512 on 16 CTAs of
+    # 128 x 64; bf16 runs it on the wgmma instance's 128 x 128 CTAs
+    ("f32", "16 CTAs of 128x64"), ("bf16", "8 CTAs of 128x128")])
+def test_cta_tiles_and_structural_warnings(dtype, split):
     from repro_torch.core import kernelspec as ks
     assert [fm.cta_tiles(fm.MoEConfig(bt, bf), dm) for bt, bf, dm in
             ((8, 512, 7168), (16, 32, 7168), (24, 96, 1536),
              (64, 512, 1536), (256, 1024, 64), (128, 8, 96))] == \
         [(16, 64, 128), (16, 32, 128), (16, 32, 128), (64, 64, 128),
          (128, 64, 64), (128, 32, 64)]
+    assert [fm.cta_tiles(fm.MoEConfig(bt, 512), 7168, True)
+            for bt in (64, 128, 192, 256)] == \
+        [(64, 128, 256), (128, 128, 256), (64, 128, 256), (128, 128, 256)]
     for tm in fm.CTA_ROWS:
         for dt in ("bf16", "f32"):
             assert all(fm.smem_bytes(tm, tn, 2, dt) <= ks.SMEM_PER_CTA
                        for tn in fm.UP_COLS)
             assert all(fm.smem_bytes(tm, tn, 1, dt) <= ks.SMEM_PER_CTA
                        for tn in fm.DOWN_COLS)
+    for tm in fm.WGMMA_ROWS:
+        assert fm.smem_bytes(tm, 0, 0, "bf16", True) <= ks.SMEM_PER_CTA
     cfg, prob = fm._example()
+    prob = dataclasses.replace(prob, dtype=dtype)
     kinds = [i.kind for i in fm.structural_moe(cfg, prob)]
     # 8 rows on 16-row CTAs, in both launches
     assert kinds == ["grain", "grain", "cta_split"]
     assert fm.structural_moe(fm.MoEConfig(128, 64), prob) == []
     [i] = fm.structural_moe(fm.MoEConfig(256, 512), prob)
-    assert i.kind == "cta_split" and "16 CTAs of 128x64" in i.message
+    assert i.kind == "cta_split" and split in i.message
+    assert fm.is_wgmma(fm.MoEConfig(256, 512), prob) == (dtype == "bf16")
     odd = fm.MoEProblem(1000, 100, 200, 6, 2, "bf16")
     assert "unsupported" in [i.kind for i in
                              fm.structural_moe(fm.MoEConfig(8, 40), odd)]

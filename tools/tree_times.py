@@ -26,7 +26,23 @@ events with the L2 flushed before each (``chip_smoke.time_ms``):
   against prefixes up to 768), at qwen3-1.7b's heads (16/8 x 128) and
   granite-moe-3b-a800m's (24/8 x 64): ``ragged_{qwen3,granite}_ms``,
   beside the largest |kernel - plain| and the share of the real rows'
-  outputs that differ from the plain version's (``_err`` and ``_share``).
+  outputs that differ from the plain version's (``_err`` and ``_share``);
+* ``paged`` — ``paged_decode`` in bf16 at the serving phase's decode
+  batch (``chip_smoke._decode_case``: 8 rows of 0 to 2048 positions in
+  16-token pages) at qwen3-1.7b's heads and granite-moe-3b-a800m's
+  (``paged_{qwen3,granite}_ms``, the whole call; ``_device_ms``, its
+  kernels' device time from ``torch.profiler``; ``_err`` and ``_share``
+  as for ``ragged``), and at the family's production problem (32 rows x
+  8/1 heads x 8192 positions in 128-token pages,
+  ``chip_smoke.decode_production_case``): ``paged_production_ms`` and
+  ``_device_ms``, null where the tree's wrapper refuses 128-token pages;
+* ``moe`` — ``grouped_ffn`` at the MoE family's production problem
+  (16,384 tokens, top-8 of 32 experts, 7168 x 2048, bf16, the capacity
+  rows of ``chip_smoke._moe_inputs``) with ``moe[128x512]+fusedgate``
+  and ``moe[64x512]+fusedgate`` (``moe_{128,64}x512_ms``, 5 calls each),
+  beside each one's largest |kernel - plain| over two experts and the
+  device time of its gate/up and down launches (``_up_ms``,
+  ``_down_ms``, ``torch.profiler`` over 3 calls).
 
 It prints one JSON line per tree with the card's name and power limit
 as ``nvidia-smi`` reports them.
@@ -98,8 +114,68 @@ def ragged(torch, args) -> dict:
     return out
 
 
+def paged(torch, args) -> dict:
+    from chip_smoke import (GRANITE_HEADS, QWEN_HEADS, _decode_case,
+                            decode_parts_ms, decode_production_case,
+                            time_ms)
+    from repro_torch.kernels.paged_attention import paged_decode_ref
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        paged_decode
+    out = {}
+    for name, heads in (("qwen3", QWEN_HEADS), ("granite", GRANITE_HEADS)):
+        (q, kp, vp, table, lens), _, _, _ = _decode_case(
+            torch, "bfloat16", heads=heads)
+        call = lambda: paged_decode(q, kp, vp, table, lens)
+        got, want = call(), paged_decode_ref(q, kp, vp, table, lens)
+        live = lens > 0
+        out[f"paged_{name}_err"] = float(
+            (got.float() - want.float()).abs().max())
+        out[f"paged_{name}_share"] = float(
+            (got[live] != want[live]).float().mean())
+        out[f"paged_{name}_ms"] = time_ms(torch, call)
+        out[f"paged_{name}_device_ms"] = sum(decode_parts_ms(torch, call))
+    _, (q, kp, vp, table, lens) = decode_production_case(torch)
+    call = lambda: paged_decode(q, kp, vp, table, lens)
+    try:
+        call()
+    except ValueError:           # a tree whose kernel refuses the pages
+        out["paged_production_ms"] = out["paged_production_device_ms"] = None
+        return out
+    out["paged_production_ms"] = time_ms(torch, call)
+    out["paged_production_device_ms"] = sum(decode_parts_ms(torch, call))
+    return out
+
+
+def moe(torch, args) -> dict:
+    from chip_smoke import _moe_inputs, device_parts_ms, time_ms
+    from repro_torch.core.families import get_family
+    from repro_torch.core.families.moe import MoEConfig
+    from repro_torch.kernels.moe import (capacity_for, grouped_ffn,
+                                         grouped_ffn_ref, moe_error)
+    prob = get_family("moe").example()[1]
+    E, DM, DF = prob.n_experts, prob.d_model, prob.d_ff
+    C = capacity_for(prob.tokens, prob.top_k, E, 128)
+    x, ws, gates = _moe_inputs(torch, E, C, DM, DF, "bfloat16", 99)
+    want = grouped_ffn_ref(x[:2], *(w[:2] for w in ws), gates[:2])
+    out = {}
+    for bt in (128, 64):
+        cfg = MoEConfig(bt, 512)
+        got = grouped_ffn(x, *ws, gates, cfg=cfg)
+        out[f"moe_{bt}x512_err"] = moe_error(got[:2], want)[0]
+        call = lambda: grouped_ffn(x, *ws, gates, cfg=cfg)
+        out[f"moe_{bt}x512_ms"] = time_ms(torch, call, iters=5, warmup=1)
+        # the launches' kernels are templated on the launch: <..., true>
+        # is gate/up, <..., false> down
+        parts = device_parts_ms(torch, call, lambda k: (
+            None if "ffn" not in k else "up" if "true>" in k else "down"),
+            n=3)
+        out[f"moe_{bt}x512_up_ms"] = parts.get("up")
+        out[f"moe_{bt}x512_down_ms"] = parts.get("down")
+    return out
+
+
 MEASUREMENTS = {"decode_split": decode_split, "gemm": gemm,
-                "ragged": ragged}
+                "ragged": ragged, "paged": paged, "moe": moe}
 
 
 def measure(tree: Path, args) -> dict:
