@@ -16,8 +16,10 @@ is missing or any phase fails.  Phases:
    HMMA (mma.sync), UTMALDG (TMA) and UBLKCP (bulk copy) instructions of
    each instance in ``cuobjdump -sass``: gemm, ragged_prefill,
    flash_attention and grouped_ffn have wgmma instances, which must show
-   HGMMA and UTMALDG, and the bf16 decode kernels (flash_decode's, and
-   paged_decode's tensor-core instance) HMMA and UTMALDG;
+   HGMMA and UTMALDG, quant_gemm an int8 wgmma instance, which must show
+   IGMMA and UTMALDG, the bf16 decode kernels (flash_decode's, and
+   paged_decode's tensor-core instance) HMMA and UTMALDG, and the SSD
+   chunk-state and chunk-scan kernels (f32 and bf16) HMMA (TF32);
 3. kernels against their plain PyTorch versions at the serving path's
    shapes (qwen3-1.7b: 16 query heads, 8 KV heads, head_dim 128, page
    size 16), in bfloat16 and float32 (ragged prefill's bf16 case on its
@@ -122,31 +124,38 @@ is missing or any phase fails.  Phases:
    32 to 256, bk 32/64/128 with group 128 and group 64, ragged m, n and
    k on the byte and the 16-byte paths, and the production problem
    8192^3 int8 group 128, within the tolerance stated beside
-   ``quant_error`` (``kernels/quant_gemm/ref.py``); (b) the agent loop at
+   ``quant_error`` (``kernels/quant_gemm/ref.py``), each case naming its
+   instance (int8 wgmma 128 x 128 or mma.sync), and every wgmma case
+   (the default 2048^3 and 8192^3, group 64 at bk 64 and 32, bf16 out,
+   m = 40) bit-identical to the mma.sync instance at the same bk on the
+   same inputs; (b) the agent loop at
    the production problem with ``Validator(run_kernels=True)`` (phase
    6c's selector and steps), the launch counters zeroed just before and
    read just after: every unit test must have launched the kernel; (c)
    the example config and the loop's best, each first held to the plain
-   version, timed at the production problem and both sweep problems
-   beside the bound, the plain version, the cost model's estimate and a
-   yardstick of one ``torch._int_mm`` (int32, no group scales: another
-   function); (d) a bk that does not divide the group must raise before
-   any launch;
+   version, timed at the production problem and both sweep problems —
+   the call, and the device time of its transpose of B and of its GEMM
+   kernel — beside the bound, the plain version, the cost model's
+   estimate and a yardstick of one ``torch._int_mm`` with B row-major and
+   column-major (int32, no group scales: another function); (d) a bk
+   that does not divide the group must raise before any launch;
 11. ssd — the SSD family and mamba2-780m: (a) the chunk-scan kernel
    against its plain version (``ssd_ref``) in float32 and bfloat16 over
-   chunks 32 to 512 (and 96), P 16 to 128, N 12 to 128, BH 1 and 64,
+   chunks 32 to 512 (and 96), P 9 to 128, N 7 to 128, BH 1 and 64,
    one chunk and many, and the production problem (64 x 8192 x 64 x
-   128), within the tolerance stated beside ``ssd_error``
+   128) in both types, within the tolerance stated beside ``ssd_error``
    (``kernels/ssd/ref.py``); (b) the agent loop at the production
    problem, launches counted as in 10b; (c) the example config (chunk
-   64) and the best timed at the three sweep problems beside the bound,
-   the plain version and the cost model (no library call computes the
-   scan); (d) mamba2-780m at full width and depth (48 layers, random
-   weights): ``SSMLM.apply`` over 4 x 2,048 tokens, timed and profiled;
-   the SSD core of its first layer on that layer's own inputs through
-   ``ssd_via_kernel`` (the CUDA kernel, counted) against
-   ``ssd_chunked``; at depth 2 in float32, 16 ``decode_step`` tokens
-   against ``apply``'s logits;
+   64) and the best timed at the three sweep problems — the call, the
+   device time of each of its three launches and the scratch it
+   allocates — beside the bound (3xTF32's 165 TFLOP/s against the
+   bytes), the plain version and the cost model (no library call
+   computes the scan); (d) mamba2-780m at full width and depth (48
+   layers, random weights): ``SSMLM.apply`` over 4 x 2,048 tokens, timed
+   and profiled; the SSD core of its first layer on that layer's own
+   inputs through ``ssd_via_kernel`` (the CUDA kernel, counted) against
+   ``ssd_chunked``, both timed; at depth 2 in float32, 16
+   ``decode_step`` tokens against ``apply``'s logits;
 12. the kernels line (JSON, all eight kernels), then the final line
    ``{"ok": true, "device": {...}}``.
 
@@ -170,7 +179,10 @@ SRC = ROOT / "src"
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense peak rates.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12,
+              # float32-accurate tensor-core products: three TF32
+              # products a pair (3xTF32), a third of the 495 TFLOP/s
+              "tf32x3": 495e12 / 3}
 
 SERVE = dict(arch="qwen3-1.7b", max_batch=8, max_len=2048, page_size=16,
              prefill_chunk=256, requests=16, prompt_lens=(64, 1024),
@@ -269,9 +281,11 @@ def phase_card(torch):
 
 def phase_build():
     """Build every kernel; log ptxas's registers, shared memory and
-    spills for each instance and, for the flash libraries, the tensor-core
-    and copy instructions of each instance in the SASS: HGMMA (wgmma),
-    HMMA (mma.sync), UTMALDG (TMA tensor loads), UBLKCP (bulk copies)."""
+    spills for each instance and, for the libraries with tensor-core
+    instances, the tensor-core and copy instructions of each instance in
+    the SASS: HGMMA (wgmma), IGMMA (int8 wgmma), HMMA (mma.sync, TF32
+    included), IMMA (int8 mma.sync), UTMALDG (TMA tensor loads), UBLKCP
+    (bulk copies)."""
     from repro_torch.kernels import ALL_KERNELS, build_all
     t0 = time.perf_counter()
     logs = build_all(ALL_KERNELS)
@@ -286,7 +300,8 @@ def phase_build():
                 log(f"[build] {name}{entry}: {ln.strip()}")
     sass = {}
     for k in ALL_KERNELS:
-        if k.name not in WGMMA_LIBS + ("flash_decode", "paged_decode"):
+        if k.name not in WGMMA_LIBS + ("flash_decode", "paged_decode",
+                                       "ssd_chunk_scan"):
             continue
         for fn, counts in _sass_counts(k._lib_path()).items():
             inst = f"{k.name}{_instance(fn)}"
@@ -294,9 +309,15 @@ def phase_build():
             log(f"[build] sass {inst}: " + ", ".join(
                 f"{op} {n}" for op, n in counts.items()))
     for inst, c in sass.items():
-        if "wgmma" in inst:
+        if "int8 wgmma" in inst:
+            check(c["IGMMA"] > 0 and c["UTMALDG"] > 0,
+                  f"{inst}: no int8 wgmma or no TMA load in its SASS: {c}")
+        elif "wgmma" in inst:
             check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
                   f"{inst}: no wgmma or no TMA load in its SASS: {c}")
+        if " state " in inst or " scan " in inst:
+            check(c["HMMA"] > 0, f"{inst}: no TF32 tensor-core product in "
+                  f"its SASS: {c}")
         if "decode bf16" in inst or "tensor cores" in inst:
             check(c["HMMA"] > 0 and c["UTMALDG"] > 0,
                   f"{inst}: no tensor-core product or no TMA load: {c}")
@@ -306,12 +327,17 @@ def phase_build():
     check(any(i.startswith("paged_decode ") and "tensor cores" in i
               for i in sass), "paged_decode: no tensor-core instance in "
           "its SASS")
+    for part in ("state", "scan"):
+        check(sum(i.startswith(f"ssd_chunk_scan {part} ") for i in sass)
+              == 2, f"ssd_chunk_scan: no f32 and bf16 {part} kernels in "
+              f"its SASS")
     return dict(seconds=secs, sass=sass)
 
 
-SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP")
+SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA", "UTMALDG", "UBLKCP")
 # the libraries with instances on wgmma fed by TMA
-WGMMA_LIBS = ("gemm", "ragged_prefill", "flash_attention", "grouped_ffn")
+WGMMA_LIBS = ("gemm", "ragged_prefill", "flash_attention", "grouped_ffn",
+              "quant_gemm")
 
 
 def _sass_counts(lib):
@@ -392,10 +418,17 @@ def _instance(ptxas_line):
         return f" {dtype} {launch} {m.group(2)}x{m.group(3)}"
     m = re.search(r"quant_gemm_kernelILi(\d+)ELi(\d+)E", ptxas_line)
     if m:
-        return f" {m.group(1)}x{m.group(2)}"
-    m = re.search(r"ssd_kernelI(13__nv_bfloat16|f)E", ptxas_line)
+        return f" mma.sync {m.group(1)}x{m.group(2)}"
+    if "quant_wgmma_kernel" in ptxas_line:
+        return " int8 wgmma 128x128"
+    if "transpose_kernel" in ptxas_line:
+        return " transpose"
+    m = re.search(r"ssd_(state|scan)_kernelI(13__nv_bfloat16|f)E",
+                  ptxas_line)
     if m:
-        return f" {'bf16' if m.group(1) != 'f' else 'f32'}"
+        return f" {m.group(1)} {'bf16' if m.group(2) != 'f' else 'f32'}"
+    if "ssd_pass_kernel" in ptxas_line:
+        return " pass"
     return ""
 
 
@@ -1536,10 +1569,14 @@ def phase_flash_time(torch, family, best_cfg):
     return rows
 
 
-def device_parts_ms(torch, call, part_of, n=20):
+def device_parts_ms(torch, call, part_of, n=20, per_launch=False):
     """Device time per call of ``call``, from ``torch.profiler`` over
     ``n`` calls, summed by ``part_of(kernel name)`` (a part's name, or
-    None to leave the kernel out).  No L2 flush between the calls."""
+    None to leave the kernel out).  No L2 flush between the calls.  With
+    ``per_launch`` (each part one kernel launched once a call) a part's
+    time is its mean over the launches the profiler recorded: in a
+    process that has profiled many windows the profiler can drop
+    events, which would shrink a sum over ``n``."""
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
@@ -1550,7 +1587,7 @@ def device_parts_ms(torch, call, part_of, n=20):
             for _ in range(n):
                 call()
             torch.cuda.synchronize()
-        parts = {}
+        parts, counts = {}, {}
         for e in prof.key_averages():
             us = getattr(e, "self_device_time_total", None)
             if us is None:
@@ -1559,11 +1596,13 @@ def device_parts_ms(torch, call, part_of, n=20):
             if not us or part is None or "cuda" not in str(
                     getattr(e, "device_type", "")).lower():
                 continue
-            parts[part] = parts.get(part, 0.0) + us / n / 1e3
+            parts[part] = parts.get(part, 0.0) + us / 1e3
+            counts[part] = counts.get(part, 0) + e.count
         if parts:
             break
     check(bool(parts), "the profiler saw no kernel of the call on the card")
-    return parts
+    return {k: v / (counts[k] if per_launch else n)
+            for k, v in parts.items()}
 
 
 def decode_parts_ms(torch, call, n=20):
@@ -1894,7 +1933,9 @@ def phase_serve_moe(torch):
 # -- phase 10 ----------------------------------------------------------------
 
 QUANT_CASES = [
-    # (label, m, n, k, group, cfg fields (None: the default config))
+    # (label, m, n, k, group, cfg fields (None: the default config)); the
+    # default config, the example and bk 64 / 32 with 128-wide configs run
+    # on the wgmma instance, the rest on mma.sync (``instance_name``)
     ("default", 2048, 2048, 2048, 128, None),
     ("default m=40", 40, 1024, 1024, 128, None),
     ("example 128x128x128", 1024, 1024, 1024, 128, {}),
@@ -1907,6 +1948,12 @@ QUANT_CASES = [
     ("group 64 bk=32", 1024, 1024, 1024, 64, dict(bm=64, bn=64, bk=32)),
     ("ragged byte path", 1000, 777, 1500, 128, dict(bm=64, bn=64, bk=64)),
     ("ragged 16-byte path", 1000, 784, 1552, 128, None),
+    # wgmma: group 64 at bk 32, rows masked by TMA's zero fill (m = 40,
+    # 1000), columns and depth ragged against the 128 x 128 x 128 stage
+    ("wgmma group 64 bk=32", 1024, 1024, 1024, 64, dict(bk=32)),
+    ("wgmma m=40", 40, 1024, 1024, 128, dict(bm=128)),
+    ("wgmma ragged 128x256x64", 1000, 784, 1552, 128,
+     dict(bm=128, bn=256, bk=64)),
 ]
 
 
@@ -1923,7 +1970,15 @@ def _quant_inputs(torch, m, n, k, group, seed):
 
 
 def phase_quant_kernel(torch):
-    from repro_torch.core.families.quant_gemm import QuantGemmConfig
+    """Each case against the plain version within ``quant_error``, named
+    by its instance; a wgmma case also against the mma.sync instance at
+    the same bk (64 x 64 CTA tiles) on the same inputs, which must give
+    the same bits: the two promote each block with one expression, in K
+    order."""
+    from repro_torch.core.families.quant_gemm import (QuantGemmConfig,
+                                                      QuantGemmProblem,
+                                                      instance_name,
+                                                      is_wgmma)
     from repro_torch.kernels.quant_gemm import (KERNEL, default_config,
                                                 quant_error, quant_gemm_ref,
                                                 quant_matmul)
@@ -1933,6 +1988,8 @@ def phase_quant_kernel(torch):
         aq, bq, sa, sb = _quant_inputs(torch, m, n, k, group, m + n + k)
         cfg = (QuantGemmConfig(**f) if f is not None
                else default_config(m, n, k, group))
+        prob = QuantGemmProblem(m, n, k, group)
+        inst = instance_name(cfg, prob)
         outs = ("float32",) if label == "production" else ("float32",
                                                           "bfloat16")
         for od in outs:
@@ -1944,34 +2001,59 @@ def phase_quant_kernel(torch):
             check(KERNEL.launches == n0 + 1, f"quant_gemm {label}: no launch")
             want = quant_gemm_ref(aq, bq, sa, sb, group=group, out_dtype=dt)
             err, ok = quant_error(got, want)
-            check(ok, f"quant_gemm {label} out {od}: max |kernel - plain| "
-                      f"{err} beyond the tolerance beside quant_error")
+            check(ok, f"quant_gemm {label} ({inst}) out {od}: max |kernel - "
+                      f"plain| {err} beyond the tolerance beside quant_error")
             check(bool(torch.isfinite(got).all()), f"quant_gemm {label}: "
                   "non-finite output")
-            out.append(dict(label=label, out=od, m=m, n=n, k=k, group=group,
-                            cfg=cfg.name(), max_abs_err=err,
-                            max_abs_out=float(want.float().abs().max())))
+            row = dict(label=label, instance=inst, out=od, m=m, n=n, k=k,
+                       group=group, cfg=cfg.name(), max_abs_err=err,
+                       max_abs_out=float(want.float().abs().max()))
+            if is_wgmma(cfg, prob):
+                ref_cfg = QuantGemmConfig(64, 64, cfg.bk)
+                other = quant_matmul(aq, bq, sa, sb, group=group,
+                                     cfg=ref_cfg, out_dtype=dt)
+                check(not is_wgmma(ref_cfg, prob) and
+                      bool(torch.equal(got, other)),
+                      f"quant_gemm {label} out {od}: the wgmma instance "
+                      f"and the mma.sync instance at bk {cfg.bk} differ in "
+                      f"{int((got != other).sum())} outputs")
+                row["bit_identical_to"] = ref_cfg.name()
+                del other
+            out.append(row)
         del aq, bq, sa, sb, got, want
     torch.cuda.empty_cache()
+    same = [c for c in out if "bit_identical_to" in c]
     log(f"[quant_gemm] kernel against its plain version: {len(out)} cases "
         f"(out f32 and bf16; default and example configs, bm and bn 32 to "
         f"256, bk 32/64/128 with group 128 and group 64, ragged m, n, k on "
         f"the byte and 16-byte paths, 8192^3 int8 group 128), all within "
-        f"the tolerance beside quant_error; max abs err " + ", ".join(
-            f"{SHORT[c['out']]}/{c['label']} {c['max_abs_err']:.3g}"
-            for c in out))
+        f"the tolerance beside quant_error; {len(same)} on the int8 wgmma "
+        f"instance, each bit-identical to the mma.sync instance at its bk; "
+        f"max abs err " + ", ".join(
+            f"{SHORT[c['out']]}/{c['label']} [{c['instance']}] "
+            f"{c['max_abs_err']:.3g}" for c in out))
     return out
+
+
+def quant_parts_ms(torch, call, n=10):
+    """Device time per call of a ``quant_matmul`` call: the transpose of
+    B into scratch (the wgmma instance) and the GEMM kernel."""
+    return device_parts_ms(torch, call, lambda k: (
+        "transpose" if "transpose_kernel" in k else
+        "gemm" if "quant" in k else None), n, per_launch=True)
 
 
 def phase_quant_time(torch, best_cfg):
     """The family example's config and the loop's best at the production
     problem and both sweep problems, each held to the plain version and
-    then timed beside the bound, the plain version, the cost model's
-    estimate (a model, not a measurement) and a yardstick: one
-    ``torch._int_mm`` over the whole K (cuBLASLt int8 -> int32), which
-    applies no group scale and so computes another function; the port
-    never calls it."""
+    then timed (the whole call, and the device time of its transpose of
+    B and of its GEMM kernel) beside the bound, the plain version, the
+    cost model's estimate (a model, not a measurement) and a yardstick:
+    one ``torch._int_mm`` over the whole K (cuBLASLt int8 -> int32), with
+    B row-major and column-major, which applies no group scale and so
+    computes another function; the port never calls it."""
     from repro_torch.core.families import get_family
+    from repro_torch.core.families.quant_gemm import instance_name
     from repro_torch.core.verify_engine import default_engine
     from repro_torch.kernels.quant_gemm import (quant_error, quant_gemm_ref,
                                                 quant_matmul)
@@ -2003,11 +2085,16 @@ def phase_quant_time(torch, best_cfg):
                                                cfg=cfg), want)
             check(ok, f"quant_gemm {m}x{n}x{k} {cfg.name()}: max |kernel - "
                       f"plain| {err} beyond the tolerance")
-            ms = time_ms(torch, lambda: quant_matmul(aq, bq, sa, sb,
-                                                     group=group, cfg=cfg))
+            call = lambda: quant_matmul(aq, bq, sa, sb, group=group,
+                                        cfg=cfg)
+            ms = time_ms(torch, call)
+            parts = quant_parts_ms(torch, call)
             est = fam.cost(cfg, prob).time_s * 1e3
             rows.append(dict(problem=[m, n, k, group], config=which,
-                             cfg=cfg.name(), ms=ms, bound_ms=bms,
+                             cfg=cfg.name(),
+                             instance=instance_name(cfg, prob), ms=ms,
+                             transpose_ms=parts.get("transpose"),
+                             gemm_ms=parts.get("gemm"), bound_ms=bms,
                              bound_by=by, plain_ms=plain, library_ms=None,
                              yardstick_ms=yard,
                              yardstick_colmajor_b_ms=yard_cm,
@@ -2015,7 +2102,10 @@ def phase_quant_time(torch, best_cfg):
                              model_ms=est, model_over_measured=est / ms,
                              tops=ops / ms / 1e9))
             log(f"[quant_gemm] {m}x{n}x{k} int8 group {group} {which} "
-                f"{cfg.name()}: {ms:.4f} ms ({rows[-1]['tops']:.1f} TOP/s), "
+                f"{cfg.name()} [{rows[-1]['instance']}]: {ms:.4f} ms "
+                f"({rows[-1]['tops']:.1f} TOP/s; device: transpose of B "
+                f"{_ms_or(parts.get('transpose'))}, GEMM kernel "
+                f"{_ms_or(parts.get('gemm'))}), "
                 f"bound {bms:.4f} ms ({by}), plain {plain:.4f} ms, "
                 f"yardstick torch._int_mm (int32, no scales) "
                 f"{_ms_or(yard)} (B column-major {_ms_or(yard_cm)}); "
@@ -2080,6 +2170,8 @@ SSD_CASES = [
     ("one chunk BH64", 64, 256, 64, 16, 256),
     ("BH64 many chunks", 64, 2048, 64, 128, 128),
     ("chunk 96 P24 N12", 3, 480, 24, 12, 96),
+    # N·P not a multiple of 4: the state pass one element a thread
+    ("chunk 64 P9 N7", 2, 256, 9, 7, 64),
 ]
 
 
@@ -2101,9 +2193,7 @@ def phase_ssd_kernel(torch):
     out = []
     cases = SSD_CASES + [("production", 64, 8192, 64, 128, None)]
     for i, (label, BH, S, P, N, q) in enumerate(cases):
-        dtypes = ("float32",) if label == "production" else ("float32",
-                                                            "bfloat16")
-        for dtype in dtypes:
+        for dtype in ("float32", "bfloat16"):
             x, da, B, C = _ssd_inputs(torch, BH, S, P, N, dtype, i)
             cfg = SSDConfig(q) if q else None
             n0 = KERNEL.launches
@@ -2124,9 +2214,10 @@ def phase_ssd_kernel(torch):
         e, r = worst.get(c["dtype"], (0.0, 0.0))
         worst[c["dtype"]] = (max(e, c["max_abs_err"]), max(r, c["row_err"]))
     log(f"[ssd] kernel against its plain version: {len(out)} cases (f32 and "
-        f"bf16; chunks 32 to 512 and 96, P 16/24/64/128, N 12/16/128, BH 1 "
-        f"and 64, one chunk and many, the production problem 64 x 8192 x "
-        f"64 x 128 f32), all within the tolerance beside ssd_error; worst "
+        f"bf16; chunks 32 to 512 and 96, P 9/16/24/64/128, N 7/12/16/128, "
+        f"BH 1 and 64, one chunk and many, the production problem 64 x "
+        f"8192 x 64 x 128 f32 and bf16), all within the tolerance beside "
+        f"ssd_error; worst "
         f"(max abs, row) " + ", ".join(
             f"{SHORT[d]} {e:.3g} {r:.3g}" for d, (e, r) in worst.items())
         + "; each case " + ", ".join(
@@ -2138,10 +2229,14 @@ def phase_ssd_kernel(torch):
 def phase_ssd_time(torch, best_cfg):
     """The family example's config (chunk 64) and the loop's best at the
     production problem and both sweep problems, each held to the plain
-    version and then timed beside the bound, the plain version (at the
-    config's chunk) and the cost model's estimate (a model, not a
-    measurement).  No single PyTorch call computes the scan."""
+    version and then timed — the whole call, and the device time of each
+    of its three launches (chunk states, the pass over them, the chunk
+    scan), with the scratch it allocates — beside the bound, the plain
+    version (at the config's chunk) and the cost model's estimate (a
+    model, not a measurement).  No single PyTorch call computes the
+    scan."""
     from repro_torch.core.families import get_family
+    from repro_torch.core.families.ssd import scratch_bytes
     from repro_torch.core.verify_engine import default_engine
     from repro_torch.kernels.ssd import ssd, ssd_error, ssd_ref
     fam = get_family("ssd")
@@ -2151,10 +2246,11 @@ def phase_ssd_time(torch, best_cfg):
         BH, S, P, N = prob.batch_heads, prob.seq, prob.head_dim, prob.d_state
         x, da, B, C = _ssd_inputs(torch, BH, S, P, N, "float32", S)
         # the family's sol: the causal triangle of each chunk, at the
-        # chunk that needs the fewest operations
+        # chunk that needs the fewest operations, at the rate of
+        # float32-accurate tensor-core products
         sol = fam.sol_bound(prob)
         ops = sol.flops
-        bms, by = bound_ms(sol.hbm_bytes, ops, "float32")
+        bms, by = bound_ms(sol.hbm_bytes, ops, "tf32x3")
         for which, cfg in (("example", cfg0), ("best", best_cfg)):
             if not default_engine().verify("ssd", cfg, prob).hard_ok:
                 rows.append(dict(problem=dataclasses.astuple(prob),
@@ -2168,18 +2264,24 @@ def phase_ssd_time(torch, best_cfg):
             del want
             plain = time_ms(torch, lambda: ssd_ref(x, da, B, C, cfg.chunk),
                             iters=3, warmup=1)
-            ms = time_ms(torch, lambda: ssd(x, da, B, C, cfg=cfg), iters=5,
-                         warmup=1)
+            call = lambda: ssd(x, da, B, C, cfg=cfg)
+            ms = time_ms(torch, call, iters=5, warmup=1)
+            parts = ssd_parts_ms(torch, call)
             est = fam.cost(cfg, prob).time_s * 1e3
             rows.append(dict(problem=dataclasses.astuple(prob),
                              config=which, cfg=cfg.name(), ms=ms,
+                             parts_ms=parts,
+                             scratch_bytes=scratch_bytes(cfg, prob),
                              bound_ms=bms, bound_by=by, plain_ms=plain,
                              library_ms=None, max_abs_err=err, row_err=row,
                              model_ms=est, model_over_measured=est / ms,
                              tflops=ops / ms / 1e9))
             log(f"[ssd] {dataclasses.astuple(prob)[:4]} f32 {which} "
                 f"{cfg.name()}: {ms:.4f} ms ({rows[-1]['tflops']:.2f} TFLOP/s "
-                f"of the algorithmic work), bound {bms:.4f} ms ({by}), plain "
+                f"of the algorithmic work; device: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in parts.items())
+                + f" ms; scratch {rows[-1]['scratch_bytes'] / 1e6:.1f} MB), "
+                f"bound {bms:.4f} ms ({by}), plain "
                 f"{plain:.4f} ms, library: none; cost model (H100 model, not "
                 f"measured) {est:.4f} ms = {est / ms:.3f} x measured; "
                 f"against the plain version max abs {err:.3g}, worst row "
@@ -2188,6 +2290,14 @@ def phase_ssd_time(torch, best_cfg):
         del x, da, B, C
         torch.cuda.empty_cache()
     return rows
+
+
+def ssd_parts_ms(torch, call, n=3):
+    """Device time per call of an ``ssd`` call, by launch: the chunk
+    states, the pass over them in chunk order, the chunk scan."""
+    return device_parts_ms(torch, call, lambda k: next(
+        (n for n in ("state", "pass", "scan") if f"ssd_{n}_kernel" in k),
+        None), n, per_launch=True)
 
 
 # float32 decode replay against the full forward: |step - full| within
@@ -2268,20 +2378,24 @@ def phase_mamba2(torch):
     err, row, ok = ssd_error(got, want)
     check(ok, f"ssd_via_kernel at mamba2's layer: max |kernel - "
               f"ssd_chunked| {err}, worst row {row}: beyond the tolerance")
-    ms = time_ms(torch, lambda: ssd_via_kernel(xh, da, Bh, Ch, q), iters=5)
+    call = lambda: ssd_via_kernel(xh, da, Bh, Ch, q)
+    ms = time_ms(torch, call, iters=5)
+    parts = ssd_parts_ms(torch, call)
     plain = time_ms(torch, lambda: ssd_chunked(xh, da, Bh, Ch, q), iters=5)
     sol = get_family("ssd").sol_bound(SSDProblem(B_ * H, S, P, N, "f32"))
-    bms, by = bound_ms(sol.hbm_bytes, sol.flops, "float32")
+    bms, by = bound_ms(sol.hbm_bytes, sol.flops, "tf32x3")
     layer = dict(bh=B_ * H, seq=S, head_dim=P, d_state=N, chunk=q,
                  launches=launches["ssd_chunk_scan"], max_abs_err=err,
                  row_err=row, max_abs_out=float(want.abs().max()),
-                 ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+                 ms=ms, parts_ms=parts, plain_ms=plain, bound_ms=bms,
+                 bound_by=by)
     log(f"[mamba2] SSD core of layer 0 (BH {B_ * H}, S {S}, P {P}, N {N}, "
         f"chunk {q}) through ssd_via_kernel: 1 ssd_chunk_scan launch, "
         f"against ssd_chunked max abs {err:.3g} (|y| up to "
         f"{layer['max_abs_out']:.3g}), worst row {row:.3g}; "
-        f"{ms:.4f} ms (with the fold to (BH, S, P)), ssd_chunked "
-        f"{plain:.4f} ms, bound {bms:.4f} ms ({by})")
+        f"{ms:.4f} ms (with the fold to (BH, S, P); device: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in parts.items()) + f" ms), "
+        f"ssd_chunked {plain:.4f} ms, bound {bms:.4f} ms ({by})")
     del params, toks, h, xh, da, Bh, Ch, got, want
     torch.cuda.empty_cache()
 
@@ -2444,8 +2558,11 @@ def main():
         plain_ms=best["plain_ms"], bound_ms=best["bound_ms"],
         bound_by=best["bound_by"], library_ms=None,
         yardstick_ms=best["yardstick_ms"],
+        yardstick_colmajor_b_ms=best["yardstick_colmajor_b_ms"],
         yardstick="torch._int_mm (cuBLASLt int8 -> int32, no group scales)",
-        ported=True, dtype="int8", cfg=best["cfg"]))
+        ported=True, dtype="int8", cfg=best["cfg"],
+        instance=best["instance"], transpose_ms=best["transpose_ms"],
+        gemm_ms=best["gemm_ms"]))
     # ssd_chunk_scan: the loop's best config at the production problem
     # (its launches: the loop's unit tests; the mamba2 layer's one launch
     # through ssd_via_kernel is in phase 11's summary)
@@ -2460,7 +2577,15 @@ def main():
         max_abs_err=best["max_abs_err"], ms=best["ms"],
         plain_ms=best["plain_ms"], bound_ms=best["bound_ms"],
         bound_by=best["bound_by"], library_ms=None, ported=True,
-        dtype="float32", cfg=best["cfg"]))
+        dtype="float32", cfg=best["cfg"],
+        instance="3xTF32 mma.sync, chunk-parallel (3 launches)",
+        parts_ms=best["parts_ms"], scratch_bytes=best["scratch_bytes"],
+        mamba2_layer=dict(
+            launches=ssd["mamba2"]["layer"]["launches"],
+            ms=ssd["mamba2"]["layer"]["ms"],
+            ssd_chunked_ms=ssd["mamba2"]["layer"]["plain_ms"],
+            bound_ms=ssd["mamba2"]["layer"]["bound_ms"],
+            max_abs_err=ssd["mamba2"]["layer"]["max_abs_err"])))
     check(len(line) == 8, f"the kernels line lists {len(line)} kernels")
     summary["kernels_line"] = line
     out_dir = ROOT / "chiprun_out"

@@ -19,9 +19,11 @@ from dataclasses import dataclass
 
 from .kernelspec import N_SMS, cdiv
 
-# dense peak rates of an H100 SXM (model parameters): bf16 on the tensor
-# cores, f32 as FMAs on the CUDA cores (the port keeps TF32 off)
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+# dense peak rates of an H100 SXM (model parameters): bf16 and TF32 on
+# the tensor cores, f32 as FMAs on the CUDA cores (the port keeps TF32 off
+# for library matmuls; a kernel that uses TF32 splits each float32
+# operand in two and takes three products, "tf32x3", for float32 accuracy)
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "tf32": 495e12}
 HBM_BW = 3.35e12       # HBM3 bytes/s (model parameter)
 STAGGER_DERATE = 0.75  # unstaggered streaming keeps ~75% of HBM bw (model)
 SCALAR_PATH_DERATE = 0.5  # masked scalar loads instead of 16-byte copies
@@ -39,8 +41,10 @@ QUANT_FACTOR = {"i8": 2.0, "fp8": 2.0}
 
 def peak_flops(dtype: str = "bf16") -> float:
     """Dense peak for the operand dtype (model parameter)."""
-    if dtype == "f32":
-        return PEAK_FLOPS["f32"]
+    if dtype in ("f32", "tf32"):
+        return PEAK_FLOPS[dtype]
+    if dtype == "tf32x3":
+        return PEAK_FLOPS["tf32"] / 3
     return PEAK_FLOPS["bf16"] * QUANT_FACTOR.get(dtype, 1.0)
 
 

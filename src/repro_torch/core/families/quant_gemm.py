@@ -31,17 +31,31 @@ Invariants:
 
 The structural, cost and speed-of-light hooks are a Hopper model of the
 CUDA kernel that runs the family
-(``repro_torch/kernels/quant_gemm/csrc/quant_gemm.cu``): one CTA of 128
-threads per CTA tile, the largest compiled instance dividing the config
-tile (:func:`cta_tile`: rows 128/64/32/16, columns 64/32), a larger
-config tile on several CTAs launched one after another.  The K walk goes
-in ``bk``-deep blocks staged through shared memory in 32-deep int8
-chunks (one ``mma.sync.m16n8k32`` step), two stages deep; each block
-builds an int32 partial in registers and adds ``f32(partial) · sa · sb``
-into a float32 accumulator at the block's end — the TPU kernel's
-rounding point, which the program's ``acc_depends_k`` invariant is about.
-Two accumulators (int32 and f32) are why the column tile stops at 64:
-128 x 64 is 128 registers a thread before anything else.
+(``repro_torch/kernels/quant_gemm/csrc/quant_gemm.cu``), which has two
+instances, chosen by :func:`is_wgmma` from the config and the problem:
+
+* int8 ``wgmma`` fed by TMA (bm and bn multiples of 128, bk 32, 64 or
+  128, k and n multiples of 16): the call first writes Bᵀ (n, k) into
+  scratch (wgmma takes 8-bit operands K-major only), then a persistent
+  grid walks 128 x 128 CTA tiles; a producer warp streams 128-deep
+  stages of A, Bᵀ and sb by TMA into a ring of six, and two consumer
+  warpgroups take turns issuing a block's ``m64n128k32`` products into
+  their int32 partial, one promoting its partial into the float32 sum
+  while the other's products run — two accumulators a thread, 128
+  registers;
+* otherwise ``mma.sync``: one CTA of 128 threads per CTA tile, the
+  largest compiled instance dividing the config tile (:func:`mma_tile`:
+  rows 128/64/32/16, columns 64/32), a larger config tile on several
+  CTAs launched one after another; the K walk staged through shared
+  memory in 32-deep int8 chunks (one ``mma.sync.m16n8k32`` step), two
+  stages deep.  Two accumulators (int32 and f32) are why its column tile
+  stops at 64: 128 x 64 is 128 registers a thread.
+
+Both build each ``bk`` block's int32 partial and add ``f32(partial) · sa ·
+sb`` into a float32 accumulator at the block's end — the TPU kernel's
+rounding point, which the program's ``acc_depends_k`` invariant is
+about — with the same expression, so at one bk their outputs are
+bit-identical.
 """
 from __future__ import annotations
 
@@ -49,12 +63,13 @@ from dataclasses import dataclass, replace
 from typing import Optional
 
 from .. import dsl
-from ..costs import (CostEstimate, HBM_BW, L2_BW, SCALAR_PATH_DERATE,
-                     grain_util, peak_flops, sol_estimate, wave_eff)
+from ..costs import (CostEstimate, HBM_BW, L2_BW, MMA_SYNC_DERATE,
+                     SCALAR_PATH_DERATE, grain_util, peak_flops,
+                     sol_estimate, wave_eff)
 from ..kernelspec import (CTA_THREADS, DTYPE_BYTES, K_CHUNK, REG_OVERHEAD,
                           STAGES, VECTOR_BYTES, StructuralIssue, cdiv,
                           check_cta_split, check_grain, check_masking,
-                          check_smem,
+                          check_registers, check_smem,
                           check_vector_alignment, ctas_per_sm, work_ctas)
 from ..tags import Expr, make_tag
 from .base import (BugSignature, KernelFamily, Skill, generic_skill,
@@ -187,57 +202,118 @@ def build_quant_gemm_program(cfg: QuantGemmConfig, prob: QuantGemmProblem,
 
 # -- the CUDA kernel's decomposition -----------------------------------------
 
-CTA_ROWS = (128, 64, 32, 16)   # rows per CTA (compiled instances)
-CTA_COLS = (64, 32)            # columns per CTA: two accumulators
+CTA_ROWS = (128, 64, 32, 16)   # rows per CTA of the mma.sync instance
+CTA_COLS = (64, 32)            # its columns per CTA: two accumulators
+# the wgmma instance: 128 x 128 CTA tiles (two consumer warpgroups of 64
+# rows, an int32 partial and a float32 sum each), 128-deep stages (one
+# 128-byte row of int8) in a ring of six, each stage A and Bᵀ tiles and
+# four rows of sb, beside a producer warp
+WGMMA_ROWS, WGMMA_COLS = 128, 128
+WGMMA_DEPTH, WGMMA_STAGES = 128, 6
+WGMMA_BK = (32, 64, 128)       # |partial| <= bk·128·128 stays exact
+WGMMA_SB_ROWS = 4              # scale groups one stage may span
+CONSUMER_REGS = 232           # a consumer thread's registers (setmaxnreg)
 OUT_BYTES = 4                  # the kernel's default output: float32
+# FP32-pipe instructions a promoted value takes on the wgmma instance
+# (subtract, multiply, FMA; the integer add runs on the INT32 pipe), each
+# at half the float32 FLOP rate (which counts an FMA as two)
+PROMOTE_INSTRUCTIONS = 3
 
 
-def cta_tile(cfg: QuantGemmConfig):
-    """The CTA tile (rows, cols) the kernel runs ``cfg`` on: the largest
-    compiled instance dividing the config tile, else the smallest (the
-    config tile's edge masked).  A config tile larger than the CTA tile
-    is covered by several CTAs."""
+def is_wgmma(cfg: QuantGemmConfig, prob: QuantGemmProblem) -> bool:
+    """Whether ``cfg`` runs on the wgmma instance: int8, bm and bn
+    multiples of 128, bk of 32, 64 or 128, and k and n multiples of 16
+    (TMA's 16-byte rows; the wrapper also needs 16-byte-aligned A, B and
+    sb).  The wrapper, the structural model and the cost model all route
+    by this."""
+    return (prob.dtype == "i8" and cfg.bm % WGMMA_ROWS == 0
+            and cfg.bn % WGMMA_COLS == 0 and cfg.bk in WGMMA_BK
+            and prob.k % 16 == 0 and prob.n % 16 == 0)
+
+
+def mma_tile(cfg: QuantGemmConfig):
+    """The CTA tile (rows, cols) of the mma.sync instance for ``cfg``:
+    the largest compiled instance dividing the config tile, else the
+    smallest (the config tile's edge masked)."""
     tm = next((t for t in CTA_ROWS if cfg.bm % t == 0), CTA_ROWS[-1])
     tn = next((t for t in CTA_COLS if cfg.bn % t == 0), CTA_COLS[-1])
     return tm, tn
 
 
-def acc_registers(tm: int, tn: int) -> int:
-    """Accumulator registers a thread holds for a tm x tn CTA tile: the
-    int32 partial of the current K block and the float32 running sum."""
+def cta_tile(cfg: QuantGemmConfig, prob: Optional[QuantGemmProblem] = None):
+    """The CTA tile (rows, cols) the kernel runs ``cfg`` on: 128 x 128
+    on the wgmma instance, else :func:`mma_tile` (also with no problem
+    given).  A config tile larger than the CTA tile is covered by
+    several CTAs."""
+    if prob is not None and is_wgmma(cfg, prob):
+        return WGMMA_ROWS, WGMMA_COLS
+    return mma_tile(cfg)
+
+
+def acc_registers(tm: int, tn: int, wgmma: bool = False) -> int:
+    """Accumulator registers a thread holds: the int32 partial of the
+    current K block and the float32 running sum, over the CTA's 128
+    threads (mma.sync) or over a consumer warpgroup's 128 threads and its
+    64 rows x tn columns (wgmma)."""
+    if wgmma:
+        return 2 * 64 * tn // 128
     return 2 * tm * tn // CTA_THREADS
 
 
-def smem_bytes(tm: int, tn: int) -> int:
-    """Shared memory one CTA stages: ``STAGES`` buffers of an int8 A
-    chunk (tm x 32) and B chunk (32 x tn), each row padded by 16 bytes
-    (the kernel's layout, ``quant_gemm.cu``)."""
+def smem_bytes(tm: int, tn: int, wgmma: bool = False) -> int:
+    """Shared memory one CTA stages (the kernel's layouts).  wgmma: 1024
+    bytes of alignment slack and a ring of 128-deep stages, each an A
+    tile (tm x 128 bytes), a Bᵀ tile (tn x 128) and four rows of sb (tn
+    float32), with two mbarriers a stage.  mma.sync: ``STAGES`` buffers
+    of an int8 A chunk (tm x 32) and B chunk (32 x tn), each row padded
+    by 16 bytes."""
+    if wgmma:
+        stage = (tm + tn) * WGMMA_DEPTH + WGMMA_SB_ROWS * tn * 4
+        return 1024 + WGMMA_STAGES * (stage + 16)
     return STAGES * (tm * (K_CHUNK + VECTOR_BYTES)
                      + K_CHUNK * (tn + VECTOR_BYTES))
 
 
 def vector_path(cfg: QuantGemmConfig, prob: QuantGemmProblem) -> bool:
     """True when every int8 operand row and block start is 16-byte
-    aligned, so the kernel stages tiles with 16-byte ``cp.async``
-    copies; otherwise it loads byte by byte, masked."""
+    aligned, so the mma.sync instance stages tiles with 16-byte
+    ``cp.async`` copies; otherwise it loads byte by byte, masked."""
     return all(x % VECTOR_BYTES == 0 for x in (prob.k, prob.n, cfg.bk,
                                                cfg.bn))
+
+
+def instance_name(cfg: QuantGemmConfig, prob: QuantGemmProblem) -> str:
+    """The instance ``cfg`` runs on, as the logs name it."""
+    tm, tn = cta_tile(cfg, prob)
+    return f"{'wgmma' if is_wgmma(cfg, prob) else 'mma.sync'} {tm}x{tn}"
 
 
 def structural_quant_gemm(cfg: QuantGemmConfig, prob: QuantGemmProblem):
     """Hopper model of ``quant_gemm.cu``: an operand type it does not
     take (int8 only: the TPU kernel and its oracle take no fp8 either),
-    shared memory of its CTA (no compiled CTA tile spills its two
-    accumulators, :data:`CTA_COLS`), the tensor-core grain of the config tile (m16n8k32: masked rows and
-    columns, zero-filled depth), 16-byte alignment of the int8 rows, a
-    config tile on several CTAs, and the JAX family's masking check."""
-    tm, tn = cta_tile(cfg)
+    shared memory and accumulator registers of the instance's CTA (no
+    compiled tile spills: :data:`CTA_COLS`; a wgmma consumer's two
+    accumulators against the 232 registers setmaxnreg gives it), the
+    tensor-core grain of the config tile (masked rows and columns,
+    zero-filled depth), 16-byte alignment of the int8 rows, a config
+    tile on several CTAs, and the JAX family's masking check."""
+    wg = is_wgmma(cfg, prob)
+    tm, tn = cta_tile(cfg, prob)
     issues = []
     if prob.dtype != "i8":
         issues.append(StructuralIssue(
             "unsupported", f"operands of {prob.dtype}: the kernel takes "
                            f"int8 only; its wrapper raises"))
-    issues += check_smem("CTA", smem_bytes(tm, tn))
+    issues += check_smem("CTA", smem_bytes(tm, tn, wg))
+    if wg:
+        acc = acc_registers(tm, tn, True)
+        if acc + REG_OVERHEAD > CONSUMER_REGS:
+            issues.append(StructuralIssue(
+                "registers", f"CTA: {acc} accumulator registers per "
+                             f"consumer thread (+{REG_OVERHEAD}) exceed "
+                             f"the {CONSUMER_REGS} setmaxnreg gives it"))
+    else:
+        issues += check_registers("CTA", acc_registers(tm, tn))
     issues += check_grain("C", (cfg.bm, cfg.bn, cfg.bk), (tm, tn))
     issues += check_vector_alignment(
         "A/B rows", (("k", prob.k), ("n", prob.n), ("bk", cfg.bk),
@@ -250,29 +326,49 @@ def structural_quant_gemm(cfg: QuantGemmConfig, prob: QuantGemmProblem):
 
 def quant_gemm_cost(cfg: QuantGemmConfig,
                     prob: QuantGemmProblem) -> CostEstimate:
-    """H100 model of ``quant_gemm.cu``: the int8 products at the
-    tensor cores' int8 rate (``peak_flops("i8")``, twice bf16's) at the
-    grain of the CTA tile and quantised in waves over the 132 SMs, plus
-    the dequant epilogue — per ``bk`` block, two float32 multiplies and
-    an add for every output on the CUDA cores, so a short ``bk`` costs
-    more; the operands, scales and output cross HBM once, and every CTA
-    streams its A rows, B panel and scales through L2."""
+    """H100 model of ``quant_gemm.cu`` on the instance that runs
+    (:func:`is_wgmma`).  The int8 products at the tensor cores' int8 rate
+    (``peak_flops("i8")``; ``MMA_SYNC_DERATE`` of it on the mma.sync
+    instance) at the grain of the CTA tile and quantised in waves over
+    the 132 SMs, and the promotion of every ``bk`` block's partial on
+    the CUDA cores (``PROMOTE_INSTRUCTIONS`` a value on the wgmma
+    instance, where one warpgroup's promotion overlaps the other's
+    products, so the larger of the two counts; three float32 operations
+    on the mma.sync instance, where it does not, so they add) — a short
+    ``bk`` costs more.  The operands, scales and
+    output cross HBM once, the wgmma call's transpose of B reads and
+    writes B once more before the GEMM, and every CTA streams its A
+    rows, B panel and scales through L2."""
     sz = DTYPE_BYTES.get(prob.dtype, 1)
     m, n, k = prob.m, prob.n, prob.k
     ng = prob.n_groups
     nk = cdiv(k, cfg.bk)
     flops = 2.0 * m * n * k
-    epi_flops = 3.0 * m * n * nk
-    tm, tn = cta_tile(cfg)
+    wg = is_wgmma(cfg, prob)
+    tm, tn = cta_tile(cfg, prob)
     n_ctas = work_ctas(m, cfg.bm, tm) * work_ctas(n, cfg.bn, tn)
+    hbm = (m * k + k * n) * sz + (m + n) * ng * 4 + m * n * OUT_BYTES
+    l2 = n_ctas * ((tm + tn) * k * sz + (tm + tn) * ng * 4)
+    if wg:
+        # persistent: one CTA an SM walks the tiles
+        wave = wave_eff(n_ctas, 1)
+        util = grain_util((cfg.bm, cfg.bn, cfg.bk), (tm, tn), K_CHUNK) \
+            * wave
+        tensor = flops / (peak_flops(prob.dtype) * util)
+        promote = (PROMOTE_INSTRUCTIONS * m * n * nk
+                   / (peak_flops("f32") / 2 * wave))
+        transpose = 2 * k * n * sz
+        return CostEstimate(
+            compute_s=max(tensor, promote) + transpose / HBM_BW,
+            memory_s=(hbm + transpose) / HBM_BW + l2 / L2_BW,
+            flops=flops, hbm_bytes=hbm + transpose)
     per_sm = ctas_per_sm(CTA_THREADS, acc_registers(tm, tn) + REG_OVERHEAD,
                          smem_bytes(tm, tn))
     util = grain_util((cfg.bm, cfg.bn, cfg.bk), (tm, tn), K_CHUNK) \
-        * wave_eff(n_ctas, per_sm)
+        * wave_eff(n_ctas, per_sm) * MMA_SYNC_DERATE
     if not vector_path(cfg, prob):
         util *= SCALAR_PATH_DERATE
-    hbm = (m * k + k * n) * sz + (m + n) * ng * 4 + m * n * OUT_BYTES
-    l2 = n_ctas * ((tm + tn) * k * sz + (tm + tn) * ng * 4)
+    epi_flops = 3.0 * m * n * nk
     return CostEstimate(
         compute_s=flops / (peak_flops(prob.dtype) * util)
         + epi_flops / (peak_flops("f32") * wave_eff(n_ctas, per_sm)),

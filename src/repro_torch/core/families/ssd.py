@@ -11,18 +11,23 @@ must be stable across the sequential chunk axis; y coverage.
 
 The structural, cost and speed-of-light hooks are a Hopper model of the
 CUDA kernel that runs the family
-(``repro_torch/kernels/ssd/csrc/ssd_chunk_scan.cu``): one CTA of 256
-threads per (bh, 64 columns of P), which walks the chunks in order — the
-TPU grid's sequential chunk axis becomes a loop inside the CTA — with
-the (N, 64) float32 state in shared memory, reset of ``cs`` at the
-config's chunk boundaries.  Inside a chunk it tiles as flash attention
-does, without the softmax: 64-row query blocks, and for each the key
-blocks at or below it, ``s = (C_i·B_jᵀ) ⊙ exp(cs_i − cs_j)`` then
-``y_i += s·x_j``; a chunk that is no multiple of 64 leaves rows of its
-last block masked.  A P wider than 64 runs on several CTAs, each
-recomputing the scores.  Every product is a float32 FMA on the CUDA
-cores (no TF32), so the compute term is priced at
-``peak_flops("f32")``.
+(``repro_torch/kernels/ssd/csrc/ssd_chunk_scan.cu``): three launches on
+one stream, chunk-parallel.  (1) One CTA of 256 threads per (bh, chunk,
+64 columns of P) computes the chunk's cumulative decays and its own
+state contribution ``Bᵀ·(exp(cs_end − cs) ⊙ x)`` into float32 scratch
+(BH, nc, N, P); (2) one thread per (bh, state element) runs the TPU
+kernel's recurrence over the chunks in order, leaving in each slot the
+state that enters the chunk — the TPU grid's sequential chunk axis
+becomes this short pass; (3) one CTA of 256 threads per (bh, chunk,
+64-row query block, 64 columns of P) computes ``exp(cs_i)·(C_i·S)`` and,
+flash-style over the key blocks at or below it, ``s = (C_i·B_jᵀ) ⊙
+exp(cs_i − cs_j)`` then ``y_i += s·x_j``.  A chunk that is no multiple
+of 64 leaves rows of its last block masked; a P wider than 64 runs on
+several CTAs, each recomputing the scores.  Every product is
+``mma.sync`` TF32 with float32 operands split in two (3xTF32: three
+products a pair), so the compute term is priced at a third of the TF32
+rate, and the states cross HBM four times, so a short chunk pays in
+bytes what a long one pays in score work.
 """
 from __future__ import annotations
 
@@ -30,8 +35,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 from .. import dsl
-from ..costs import (CostEstimate, HBM_BW, L2_BW, peak_flops, sol_estimate,
-                     wave_eff)
+from ..costs import (CostEstimate, HBM_BW, L2_BW, MMA_SYNC_DERATE, peak_flops,
+                     sol_estimate, wave_eff)
 from ..kernelspec import (DTYPE_BYTES, REG_OVERHEAD, StructuralIssue, cdiv,
                           check_masking, check_smem, ctas_per_sm)
 from ..tags import Expr, make_tag
@@ -124,7 +129,7 @@ def build_ssd_program(cfg: SSDConfig, prob: SSDProblem,
 
 BLOCK_ROWS = 64        # query and key rows per block inside a chunk
 P_TILE = 64            # columns of P per CTA
-N_GRAIN = 16           # the state dim is zero-padded to a multiple of this
+N_GRAIN = 8            # the state dim is zero-padded to a multiple of this
 MAX_D_STATE = 128      # the largest d_state the kernel takes
 THREADS = 256
 
@@ -133,41 +138,63 @@ def padded_state(n: int) -> int:
     return cdiv(n, N_GRAIN) * N_GRAIN
 
 
+def _stride(n: int, mod: int) -> int:
+    """A tile's row stride in floats: n rounded up to 32, plus ``mod``
+    (the kernel's bank-conflict-free strides)."""
+    return cdiv(n, 32) * 32 + mod
+
+
 def smem_bytes(chunk: int, d_state: int) -> int:
-    """Shared memory of one CTA (the kernel's layout): a query block of
-    C and a key block of B (64 x (N+1) float32 each, padded N), a key
-    block of x (64 x 64), the score block (64 x 80), the (N, 64) state,
-    and the chunk's cumulative decays and decays to its end (each padded
-    to whole 64-row blocks)."""
+    """Shared memory of the larger of the two CTAs that stage tiles (the
+    kernel's layouts).  The chunk-state CTA: a key block of B (64 rows
+    of the padded N) and of ``dte ⊙ x`` (64 x 64), and the chunk's
+    cumulative decays and decays to its end.  The scan CTA: the query
+    block of C and a key block of B (64 rows of the padded N each; the
+    entering state is staged where B goes), a key block of x, the score
+    tile, and the chunk's cumulative decays.  Decays padded to whole
+    64-row blocks."""
     n = padded_state(d_state)
     rows = cdiv(chunk, BLOCK_ROWS) * BLOCK_ROWS
-    floats = (2 * BLOCK_ROWS * (n + 1) + BLOCK_ROWS * P_TILE
-              + BLOCK_ROWS * (BLOCK_ROWS + 16) + n * P_TILE + 2 * rows)
-    return 4 * floats
+    state = (BLOCK_ROWS * _stride(n, 8) + BLOCK_ROWS * (P_TILE + 8)
+             + 2 * rows)
+    scan = (2 * BLOCK_ROWS * _stride(n, 4) + BLOCK_ROWS * (P_TILE + 8)
+            + BLOCK_ROWS * (BLOCK_ROWS + 4) + rows)
+    return 4 * max(state, scan)
+
+
+def scratch_bytes(cfg: SSDConfig, prob: SSDProblem) -> int:
+    """Device scratch the wrapper allocates for one call: a float32 (N,
+    P) state per (bh, chunk) and a float32 decay per (bh, chunk)."""
+    nc = cdiv(prob.seq, cfg.chunk)
+    return 4 * prob.batch_heads * nc * (prob.d_state * prob.head_dim + 1)
 
 
 def kernel_flops(cfg: SSDConfig, prob: SSDProblem) -> float:
-    """Float32 operations the kernel issues, masked rows and padding
-    included: per chunk and P tile, the score and y products of every
-    (query block, key block at or below it) pair, C·state, and the
-    state update."""
+    """Operations of the products the kernel issues (each run as three
+    TF32 products: hi·hi, hi·lo, lo·hi), masked rows and padding
+    included: per chunk and P tile, the chunk-state product over every
+    64-row block (state rows padded to 16), and per query block C·state
+    and the score and y products of every key block at or below it."""
     BH, S = prob.batch_heads, prob.seq
     n = padded_state(prob.d_state)
     nb = cdiv(cfg.chunk, BLOCK_ROWS)
     rows = nb * BLOCK_ROWS
     pairs = nb * (nb + 1) // 2
-    per_chunk = (pairs * BLOCK_ROWS * BLOCK_ROWS * 2 * (n + P_TILE)
-                 + 2 * rows * n * P_TILE * 2)
+    states = 2 * (cdiv(n, 16) * 16) * rows * P_TILE
+    scan = (nb * 2 * BLOCK_ROWS * n * P_TILE
+            + pairs * 2 * BLOCK_ROWS * BLOCK_ROWS * (n + P_TILE))
     return float(BH * cdiv(prob.head_dim, P_TILE) * cdiv(S, cfg.chunk)
-                 * per_chunk)
+                 * (states + scan))
 
 
 def structural_ssd(cfg: SSDConfig, prob: SSDProblem):
     """Hopper model of ``ssd_chunk_scan.cu``: a d_state it does not take
-    (above 128), shared memory of its CTA, the grain of its 64-row blocks
-    and 64-column P tile and of the 16-padded state dim (masked rows,
-    columns and padding computed all the same), a P on several CTAs
-    (each recomputing the scores), and the JAX family's masking check."""
+    (above 128), shared memory of its CTAs, the grain of its 64-row
+    blocks and 64-column P tile and of the state dim padded to the TF32
+    product's k of 8 (masked rows, columns and padding computed all the
+    same), a P on several CTAs (each recomputing the scores), scratch
+    states that outweigh the operands (a chunk too short: each state
+    crosses HBM four times), and the JAX family's masking check."""
     q, P, N = cfg.chunk, prob.head_dim, prob.d_state
     issues = []
     if N > MAX_D_STATE:
@@ -190,33 +217,54 @@ def structural_ssd(cfg: SSDConfig, prob: SSDProblem):
         issues.append(StructuralIssue(
             "cta_split", f"head_dim {P} runs on {cdiv(P, P_TILE)} CTAs per "
                          f"(batch, head), each recomputing the scores"))
+    scratch = scratch_bytes(cfg, prob)
+    operands = _io_bytes(prob)
+    if scratch > operands:
+        issues.append(StructuralIssue(
+            "scratch", f"chunk {q}: {scratch} bytes of scratch states "
+                       f"outweigh the {operands} of the operands, and "
+                       f"cross HBM four times"))
     issues += check_masking("S", (prob.seq,), (cfg.chunk,),
                             masked_dims=(0,))
     return issues
 
 
+def _io_bytes(prob: SSDProblem) -> int:
+    """x, B, C, da in and y out once."""
+    sz = DTYPE_BYTES.get(prob.dtype, 4)
+    BH, S, P, N = prob.batch_heads, prob.seq, prob.head_dim, prob.d_state
+    return BH * S * (P + 2 * N + 1 + P) * sz
+
+
 def ssd_cost(cfg: SSDConfig, prob: SSDProblem) -> CostEstimate:
-    """H100 model of ``ssd_chunk_scan.cu``: the float32 FMAs it issues
-    (:func:`kernel_flops`: a longer chunk costs more score work, a
-    shorter one more state passes) at ``peak_flops("f32")``, quantised
-    in waves of CTAs over the 132 SMs — one CTA per (bh, P tile), each
-    walking its chunks in order; x, da, B, C and y cross HBM once and
-    each chunk's key blocks are re-read through L2 for every query block
-    at or above them and for the state update."""
+    """H100 model of ``ssd_chunk_scan.cu``: the products it issues
+    (:func:`kernel_flops`) at a third of the TF32 rate (3xTF32,
+    ``peak_flops("tf32x3")``) on
+    ``mma.sync`` (``MMA_SYNC_DERATE``), quantised in waves of the scan's
+    CTAs over the 132 SMs; in bytes, the chunk-state launch reads x, B
+    and da and writes the states, the pass reads and writes them, and
+    the scan reads C, B, x, da and the states and writes y — so the
+    states cross HBM four times, and a short chunk costs in bytes what
+    a long one costs in score work — and each key block below the
+    diagonal is re-read through L2 by every query block above it."""
     sz = DTYPE_BYTES.get(prob.dtype, 4)
     BH, S, P, N = prob.batch_heads, prob.seq, prob.head_dim, prob.d_state
     q = cfg.chunk
     nb = cdiv(q, BLOCK_ROWS)
-    n_ctas = BH * cdiv(P, P_TILE)
-    # registers: the 8 x 4 state block of the update, and the rest
-    per_sm = ctas_per_sm(THREADS, 32 + REG_OVERHEAD, smem_bytes(q, N))
+    nc = cdiv(S, q)
+    n_ctas = BH * nc * nb * cdiv(P, P_TILE)
+    per_sm = ctas_per_sm(THREADS, 64 + REG_OVERHEAD, smem_bytes(q, N))
     issued = kernel_flops(cfg, prob)
-    io = BH * S * (P + 2 * N + 1 + P) * sz        # x, B, C, da, y
-    rereads = nb * (nb + 1) // 2 + nb              # key-block loads a chunk
-    l2 = (n_ctas * cdiv(S, q) * rereads * BLOCK_ROWS
+    rate = peak_flops("tf32x3") * MMA_SYNC_DERATE
+    states = 4 * BH * nc * N * P * 4
+    io = (BH * S * (P + N + 1) * sz              # (1): x, B, da
+          + BH * S * (2 * P + 2 * N + 1) * sz    # (3): x, B, C, da, y
+          + states + 3 * BH * nc * 4)            # states, cs_end
+    pairs = nb * (nb + 1) // 2
+    l2 = (BH * nc * cdiv(P, P_TILE) * (pairs - nb) * BLOCK_ROWS
           * (padded_state(N) + P_TILE) * sz)
     return CostEstimate(
-        compute_s=issued / (peak_flops("f32") * wave_eff(n_ctas, per_sm)),
+        compute_s=issued / (rate * wave_eff(n_ctas, per_sm)),
         memory_s=io / HBM_BW + l2 / L2_BW,
         flops=issued, hbm_bytes=io)
 
@@ -224,12 +272,12 @@ def ssd_cost(cfg: SSDConfig, prob: SSDProblem) -> CostEstimate:
 def ssd_sol(prob: SSDProblem) -> CostEstimate:
     """Speed of light: the algorithmic flop count at the *best* reachable
     chunk size (the intra/inter trade-off minimized over the tunable
-    chunk grid) at the float32 FMA rate, vs the operand streams crossing
-    HBM once — the carried-state spill is a config artifact and is
-    excluded.  Within a chunk the score and y products need only the
-    causal triangle, q(q+1)/2 (query, key) pairs of N + P multiply-adds
-    each."""
-    sz = DTYPE_BYTES.get(prob.dtype, 4)
+    chunk grid) at the rate of float32-accurate tensor-core products
+    (3xTF32: a third of the dense TF32 rate, ``peak_flops("tf32x3")``),
+    vs the operand streams crossing HBM once — the carried-state spill
+    is a config artifact and is excluded.  Within a chunk the score and
+    y products need only the causal triangle, q(q+1)/2 (query, key)
+    pairs of N + P multiply-adds each."""
     BH, S, P, N = prob.batch_heads, prob.seq, prob.head_dim, prob.d_state
 
     def chunk_flops(q: int) -> float:
@@ -241,8 +289,7 @@ def ssd_sol(prob: SSDProblem) -> CostEstimate:
     grid = [q for q in (32, 64, 128, 256, 512) if S % q == 0]
     flops = min(chunk_flops(q) for q in grid) if grid \
         else chunk_flops(min(S, 128))
-    io = BH * S * (P + 2 * N + 1 + P) * sz
-    return sol_estimate(flops, io, dtype="f32")
+    return sol_estimate(flops, _io_bytes(prob), dtype="tf32x3")
 
 
 # -- skills -----------------------------------------------------------------

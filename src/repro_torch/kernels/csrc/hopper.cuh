@@ -8,7 +8,8 @@
 // library that includes this header needs no -lcuda link (cuda.h is
 // included for its types only).
 //
-// Layout conventions (all bf16, 128-byte swizzle):
+// Layout conventions of the wgmma operands (128-byte swizzle; bf16 below,
+// int8 the same with 128 columns to a 128-byte row and 32 a k step):
 //   * a TMA box of 64 columns (128 bytes) x R rows lands in shared memory
 //     as R rows of 128 bytes, the 16-byte chunk c of row r stored at chunk
 //     c ^ (r % 8) (swz_offset); the destination must be 1024-byte aligned;
@@ -96,18 +97,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// A 3-D bf16 tensor map, dims innermost first (d0 contiguous elements, then
-// d1 rows, then d2 slices, densely packed), box (64, box1, 1), 128-byte
-// swizzle, zero fill out of bounds.  Returns 0 or a CUDA error code.
-inline int encode_tensor_map_3d(CUtensorMap* map, const void* base,
-                                uint64_t d0, uint64_t d1, uint64_t d2,
-                                uint32_t box1) {
-  typedef CUresult (*EncodeFn)(
-      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-      const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-      const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-      CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static EncodeFn encode = nullptr;
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry
+// point (so no -lcuda link), or null.
+typedef CUresult (*TensorMapEncodeFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline int tensor_map_encoder(TensorMapEncodeFn* out) {
+  static TensorMapEncodeFn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -121,18 +120,53 @@ inline int encode_tensor_map_3d(CUtensorMap* map, const void* base,
     if (e != cudaSuccess) return (int)e;
     if (found != cudaDriverEntryPointSuccess || fn == nullptr)
       return (int)cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeFn>(fn);
+    encode = reinterpret_cast<TensorMapEncodeFn>(fn);
   }
+  *out = encode;
+  return 0;
+}
+
+inline uint32_t tensor_map_elem_bytes(CUtensorMapDataType type) {
+  switch (type) {
+    case CU_TENSOR_MAP_DATA_TYPE_UINT8: return 1;
+    case CU_TENSOR_MAP_DATA_TYPE_BFLOAT16: return 2;
+    default: return 4;   // FLOAT32
+  }
+}
+
+// A 3-D tensor map of `type`, dims innermost first (d0 contiguous
+// elements, then d1 rows, then d2 slices, densely packed), box (b0, b1,
+// 1), zero fill out of bounds, 128-byte swizzle when `swizzle` (then b0
+// must span at most 128 bytes).  Returns 0 or a CUDA error code.
+inline int encode_tensor_map(CUtensorMap* map, const void* base,
+                             CUtensorMapDataType type, uint64_t d0,
+                             uint64_t d1, uint64_t d2, uint32_t b0,
+                             uint32_t b1, bool swizzle) {
+  TensorMapEncodeFn encode;
+  const int e = tensor_map_encoder(&encode);
+  if (e) return e;
+  const uint64_t sz = tensor_map_elem_bytes(type);
   const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};  // bytes, dims 1, 2
-  const cuuint32_t box[3] = {64, box1, 1};
+  const cuuint64_t strides[2] = {d0 * sz, d0 * d1 * sz};  // bytes, dims 1, 2
+  const cuuint32_t box[3] = {b0, b1, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-      dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, 3, const_cast<void*>(base), dims, strides, box,
+      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The swizzled map of the wgmma operands: box (128 bytes of d0, box1, 1),
+// 128-byte swizzle: 64 bf16 columns (the default), 128 int8 (UINT8: TMA
+// copies bits) or 32 float32.
+inline int encode_tensor_map_3d(
+    CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
+    uint64_t d2, uint32_t box1,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  return encode_tensor_map(map, base, type, d0, d1, d2,
+                           128 / tensor_map_elem_bytes(type), box1, true);
 }
 
 // -- wgmma -------------------------------------------------------------------
@@ -163,6 +197,12 @@ template <int N>
 __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_operands(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
 template <int R>
@@ -378,6 +418,44 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss_tb(float (&d)[128],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D (64 x 128, s32) (+)= A (64 x 32, s8, smem) . B (128 x 32, s8, smem);
+// both K-major (the only layout wgmma takes for 8-bit operands).
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // -- warp-level tensor-core instructions --------------------------------------
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t saddr) {
@@ -409,6 +487,34 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d (16 x 8, f32) += a (16 x 8, row) . b (8 x 8, col), TF32 operands:
+// a0 (row g, col t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
+// b0 (row t, col g), b1 (t + 4, g); d as for the bf16 product (g =
+// lane / 4, t = lane % 4)
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// x rounded to TF32: to nearest, ties away from zero (half a unit added
+// to the magnitude bits), the 13 low bits cleared — cvt.rna.tf32.f32's
+// bits for finite x in two integer operations, where ptxas lowers the
+// instruction to four with its infinity check
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// x = hi + lo for a 3xTF32 product: hi = tf32(x), lo = x - hi (exact)
+// as float32 bits, of which the tensor core reads the top 19 (the TF32
+// operand with its 13 low bits dropped): hi + that is within 2^-21 of x
+// relatively, one operation cheaper than rounding lo too
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 // two floats rounded to bf16 (to nearest even), lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -37,9 +37,12 @@ def quant_matmul(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
                  cfg: Optional[QuantGemmConfig] = None,
                  out_dtype=torch.float32) -> torch.Tensor:
     """Validated dequantizing GEMM, through the CUDA kernel on CUDA
-    tensors and the plain version on CPU tensors.  An fp8 problem passes
-    the gate (its invariants are the same) and the kernel then refuses
-    it: the kernel takes int8 only."""
+    tensors and the plain version on CPU tensors.  On the card a config
+    that ``families/quant_gemm.py::is_wgmma`` accepts runs on the int8
+    wgmma instance (a transpose of B into scratch, then the GEMM), any
+    other on the mma.sync instance; the two give the same bits at one
+    bk.  An fp8 problem passes the gate (its invariants are the same)
+    and the kernel then refuses it: the kernel takes int8 only."""
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError("quant_matmul takes 2-D A and B")
     prob = QuantGemmProblem(m=int(a.shape[0]), n=int(b.shape[1]),

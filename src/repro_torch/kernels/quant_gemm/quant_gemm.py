@@ -3,11 +3,17 @@
 kernel ``kernels/quant_gemm/quant_gemm.py`` (``quant_gemm``).
 
 The choice of implementation follows the tensors' device: on CUDA
-tensors the wrapper launches the kernel (and counts the launch in
-``KERNEL.launches``) or raises; on CPU tensors it runs the plain
-PyTorch version :func:`~.ref.quant_gemm_ref`.  There is no fallback from
-one to the other.  The config is not checked against the ARGUS gate
-here: :func:`~.ops.quant_matmul` does that before it calls this.
+tensors the wrapper launches the kernel (and counts the call in
+``KERNEL.launches``, once, though the wgmma instance's entry point runs
+two kernels on the stream: the transpose of B into scratch from the
+caching allocator, then the GEMM) or raises; on CPU tensors it runs the
+plain PyTorch version :func:`~.ref.quant_gemm_ref`.  There is no
+fallback from one to the other.  Which instance runs (int8 wgmma fed by
+TMA, or mma.sync) is decided by
+:func:`~repro_torch.core.families.quant_gemm.is_wgmma` from the config
+and the problem, and the pointers' 16-byte alignment.  The config is not
+checked against the ARGUS gate here: :func:`~.ops.quant_matmul` does
+that before it calls this.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ from pathlib import Path
 import torch
 
 from ...core.families.quant_gemm import (QuantGemmConfig, QuantGemmProblem,
-                                         cta_tile, vector_path)
+                                         cta_tile, is_wgmma, vector_path)
 from ...core.kernelspec import cdiv
 from .._build import CudaKernel, ptr, stream_handle
 from .ref import quant_gemm_ref
@@ -27,7 +33,7 @@ _I = ctypes.c_int
 
 KERNEL = CudaKernel(
     "quant_gemm", Path(__file__).parent / "csrc" / "quant_gemm.cu",
-    "quant_gemm_launch", [_P] * 5 + [_I] * 11 + [_P])
+    "quant_gemm_launch", [_P] * 6 + [_I] * 12 + [_P])
 
 _OUT = (torch.float32, torch.bfloat16)
 
@@ -78,11 +84,16 @@ def quant_gemm(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
         return out
     if k == 0:
         return out.zero_()
-    vec = (vector_path(cfg, QuantGemmProblem(m, n, k, group))
-           and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
-    tm, tn = cta_tile(cfg)
-    KERNEL.launch(ptr(a), ptr(b), ptr(sa), ptr(sb), ptr(out), m, n, k,
-                  group, cfg.bm, cfg.bn, cfg.bk, tm, tn,
-                  int(out_dtype == torch.bfloat16), int(vec),
-                  stream_handle(a.device))
+    prob = QuantGemmProblem(m, n, k, group)
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    vec = vector_path(cfg, prob) and aligned
+    wgmma = is_wgmma(cfg, prob) and aligned and sb.data_ptr() % 16 == 0
+    tm, tn = cta_tile(cfg, prob if wgmma else None)
+    # Bᵀ (n, k): wgmma takes 8-bit operands K-major only
+    bt = torch.empty(n, k, dtype=torch.int8, device=a.device) if wgmma \
+        else None
+    KERNEL.launch(ptr(a), ptr(b), ptr(sa), ptr(sb), ptr(out),
+                  ptr(bt) if wgmma else None, m, n, k, group, cfg.bm,
+                  cfg.bn, cfg.bk, tm, tn, int(out_dtype == torch.bfloat16),
+                  int(vec), int(wgmma), stream_handle(a.device))
     return out

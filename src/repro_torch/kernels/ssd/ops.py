@@ -35,9 +35,11 @@ def ssd(x: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
         Cm: torch.Tensor, *, cfg: Optional[SSDConfig] = None
         ) -> torch.Tensor:
     """Validated SSD chunk scan, through the CUDA kernel on CUDA tensors
-    and the plain version on CPU tensors.  x: (BH, S, P); da: (BH, S)
-    log-decays; Bm, Cm: (BH, S, N) -> y (BH, S, P).  Raises when S is
-    not a multiple of the chunk."""
+    (three launches: the chunk states, the pass over them in chunk
+    order, the chunk scan, with scratch states from the caching
+    allocator) and the plain version on CPU tensors.  x: (BH, S, P); da:
+    (BH, S) log-decays; Bm, Cm: (BH, S, N) -> y (BH, S, P).  Raises when
+    S is not a multiple of the chunk."""
     BH, S, P = x.shape
     name = str(x.dtype).replace("torch.", "")
     prob = SSDProblem(batch_heads=int(BH), seq=int(S),

@@ -62,7 +62,10 @@ def ssd_ref(x: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
 # float32: 1e-4·|y| + 1e-4·M, rows 2e-4.  Both sides compute in float32
 # and differ in the order of their sums: the cumulative decays (a warp
 # scan in the kernel, torch.cumsum in the plain version), the products
-# (FMAs in another order).  A decay weight exp(cs_i - cs_j) is taken from
+# (in the kernel three TF32 tensor-core products a float32 product,
+# hi·hi + hi·lo + lo·hi, within ~2^-20 of it — one TF32 product alone
+# misses these limits, tests/test_torch_ssd_tiling.py — in another
+# order).  A decay weight exp(cs_i - cs_j) is taken from
 # two sums of up to a chunk of log decays, each rounded at |cs|'s scale,
 # so its relative error grows with |cs|.  Measured on an H100: at the
 # JAX tests' inputs (da ~ -0.08 a step; 64 x 8192 x 64 x 128) rows up

@@ -3,11 +3,17 @@
 kernel ``kernels/ssd/ssd.py`` (``ssd_chunk_scan``).
 
 The choice of implementation follows the tensors' device: on CUDA
-tensors the wrapper launches the kernel (and counts the launch in
-``KERNEL.launches``) or raises; on CPU tensors it runs the plain
-PyTorch version :func:`~.ref.ssd_ref`.  There is no fallback from one
-to the other.  The config is not checked against the ARGUS gate here:
-:func:`~.ops.ssd` does that before it calls this.
+tensors the wrapper launches the kernel (and counts the call in
+``KERNEL.launches``, once, though its entry point runs three kernels on
+the stream: the chunk states, the pass over them in chunk order, and the
+chunk scan) or raises; on CPU tensors it runs the plain PyTorch version
+:func:`~.ref.ssd_ref`.  There is no fallback from one to the other.  The
+wrapper allocates the kernel's scratch from the caching allocator: the
+(BH, S / chunk, N, P) float32 states and the (BH, S / chunk) cumulative
+decays at each chunk's end
+(:func:`~repro_torch.core.families.ssd.scratch_bytes`).  The config is
+not checked against the ARGUS gate here: :func:`~.ops.ssd` does that
+before it calls this.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ _I = ctypes.c_int
 
 KERNEL = CudaKernel(
     "ssd_chunk_scan", Path(__file__).parent / "csrc" / "ssd_chunk_scan.cu",
-    "ssd_chunk_scan_launch", [_P] * 5 + [_I] * 6 + [_P])
+    "ssd_chunk_scan_launch", [_P] * 7 + [_I] * 6 + [_P])
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -69,7 +75,11 @@ def ssd_chunk_scan(x: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
         return y
     # the decays are read as float32 (BH·S values, next to nothing)
     da = da.to(torch.float32).contiguous()
-    KERNEL.launch(ptr(x), ptr(da), ptr(Bm), ptr(Cm), ptr(y), BH, S, P, N,
-                  q, int(x.dtype == torch.bfloat16),
-                  stream_handle(x.device))
+    nc = S // q
+    states = torch.empty(BH * nc * N * P, dtype=torch.float32,
+                         device=x.device)
+    cs_end = torch.empty(BH * nc, dtype=torch.float32, device=x.device)
+    KERNEL.launch(ptr(x), ptr(da), ptr(Bm), ptr(Cm), ptr(y), ptr(states),
+                  ptr(cs_end), BH, S, P, N, q,
+                  int(x.dtype == torch.bfloat16), stream_handle(x.device))
     return y

@@ -754,12 +754,18 @@ def test_grouped_ffn_wrapper_refuses_what_the_kernel_does_not_take(card):
 
 QUANT_CASES = [
     # (m, n, k, group, bm, bn, bk)
-    (256, 256, 512, 128, 128, 128, 128),      # the default config
+    (256, 256, 512, 128, 128, 128, 128),      # the default config (wgmma)
     (200, 130, 700, 128, 64, 64, 64),         # ragged m, n, k
     (128, 96, 256, 64, 32, 32, 32),
     (64, 256, 384, 128, 16, 256, 128),        # 16-row CTAs, 4 column CTAs
     (100, 100, 300, 100, 32, 32, 100),        # the masked byte path
     (512, 512, 1024, 256, 256, 128, 256),
+    # the int8 wgmma instance: bk 32 and 64, group 64, rows masked by
+    # TMA's zero fill, n and k ragged against the 128-wide tile and stage
+    (40, 256, 512, 128, 128, 128, 128),
+    (256, 256, 512, 64, 128, 256, 32),
+    (1000, 784, 1552, 128, 128, 128, 64),
+    (2048, 2048, 2048, 128, 256, 256, 128),
 ]
 
 
@@ -789,6 +795,41 @@ def test_quant_gemm_kernel_matches_plain(card, case, out):
     want = quant_gemm_ref(aq, bq, sa, sb, group=group, out_dtype=out)
     err, ok = quant_error(got, want)
     assert ok, err
+
+
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bk", [32, 64, 128])
+def test_quant_gemm_wgmma_is_bit_identical_to_mma_sync(card, bk, out):
+    """The two instances promote each block with one expression, in K
+    order: at one bk, whatever their tiles, the same bits."""
+    from repro_torch.core.families.quant_gemm import (QuantGemmConfig,
+                                                      QuantGemmProblem,
+                                                      is_wgmma)
+    from repro_torch.kernels.quant_gemm import quant_matmul
+    aq, bq, sa, sb = _quant_inputs(1000, 784, 1552, 128, bk)
+    prob = QuantGemmProblem(1000, 784, 1552, 128)
+    wg, ms = QuantGemmConfig(128, 128, bk), QuantGemmConfig(64, 64, bk)
+    assert is_wgmma(wg, prob) and not is_wgmma(ms, prob)
+    a = quant_matmul(aq, bq, sa, sb, group=128, cfg=wg, out_dtype=out)
+    b = quant_matmul(aq, bq, sa, sb, group=128, cfg=ms, out_dtype=out)
+    assert torch.equal(a, b), int((a != b).sum())
+
+
+def test_quant_gemm_unaligned_pointers_take_the_mma_sync_instance(card):
+    """TMA needs 16-byte-aligned bases: an A one byte into its buffer
+    runs on the mma.sync instance's byte path, as the plain version."""
+    from repro_torch.kernels.quant_gemm import (KERNEL, quant_error,
+                                                quant_gemm_ref, quant_matmul)
+    aq, bq, sa, sb = _quant_inputs(256, 256, 512, 128, 2)
+    buf = torch.empty(aq.numel() + 1, dtype=torch.int8, device=aq.device)
+    a1 = buf[1:].view(aq.shape)
+    a1.copy_(aq)
+    assert a1.data_ptr() % 16 and a1.is_contiguous()
+    before = KERNEL.launches
+    got = quant_matmul(a1, bq, sa, sb, group=128)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    assert quant_error(got, quant_gemm_ref(aq, bq, sa, sb, group=128))[1]
 
 
 def test_quant_gemm_kernel_at_the_production_problem(card):
@@ -842,6 +883,9 @@ SSD_CASES = [
     (2, 1024, 128, 64, 256),          # two P tiles
     (64, 2048, 64, 128, 128),
     (4, 160, 16, 8, 160),             # a chunk of no whole 64-row blocks
+    (2, 2048, 64, 128, 32),           # 64 chunks a head through the pass
+    (2, 256, 9, 7, 64),               # N·P odd: the pass a float a thread
+    (64, 8192, 64, 128, 64),          # the family's production problem
 ]
 
 
@@ -867,6 +911,20 @@ def test_ssd_kernel_matches_plain(card, case, dtype):
     torch.cuda.synchronize()
     assert KERNEL.launches == before + 1
     want, _ = ssd_ref(x, da, B, C, q)
+    err, row, ok = ssd_error(got, want)
+    assert ok, (err, row)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_at_mamba2_decays(card, dtype):
+    """da ~ -0.7 a step (mamba2-780m's first layer), |cs| ~ 180 over a
+    256-long chunk: L from the difference of cumulative decays."""
+    from repro_torch.core.families.ssd import SSDConfig
+    from repro_torch.kernels.ssd import ssd, ssd_error, ssd_ref
+    x, da, B, C = _ssd_inputs(8, 1024, 64, 128, dtype, 7)
+    da = da * 7
+    got = ssd(x, da, B, C, cfg=SSDConfig(chunk=256))
+    want, _ = ssd_ref(x, da, B, C, 256)
     err, row, ok = ssd_error(got, want)
     assert ok, (err, row)
 

@@ -236,11 +236,13 @@ def _kinds(issues):
     return [i.kind for i in issues]
 
 
-def test_quant_cta_tiles_and_what_the_card_cannot_run():
-    """Two accumulators a thread: a 128 x 64 CTA holds 128 registers of
-    them; 128 x 128 (256) or two 256 x 256 accumulators would spill, so
-    no compiled instance is that wide, and a wide config tile runs on
-    several CTAs."""
+def test_quant_mma_sync_tiles_and_what_the_card_cannot_run():
+    """mma.sync instance: two accumulators a thread, so a 128 x 64 CTA
+    holds 128 registers of them; 128 x 128 (256) or two 256 x 256
+    accumulators would spill, so no compiled instance is that wide.
+    wgmma instance: the two over a consumer warpgroup's 64 rows, 128
+    registers at 64 x 128, beside the 232 setmaxnreg gives; at 64 x 256
+    they would not fit."""
     assert fq.acc_registers(128, 64) == 128
     assert ks.check_registers("CTA", fq.acc_registers(128, 64)) == []
     for tm, tn in ((128, 128), (256, 256)):
@@ -253,11 +255,38 @@ def test_quant_cta_tiles_and_what_the_card_cannot_run():
     assert [fq.cta_tile(fq.QuantGemmConfig(bm, bn)) for bm, bn in
             ((128, 128), (256, 256), (32, 64), (48, 96), (16, 32))] == \
         [(128, 64), (128, 64), (32, 64), (16, 32), (16, 32)]
+    wg = fq.acc_registers(fq.WGMMA_ROWS, fq.WGMMA_COLS, wgmma=True)
+    assert wg == 128 and wg + ks.REG_OVERHEAD <= fq.CONSUMER_REGS
+    # a 64 x 256 warpgroup tile could not hold its two accumulators
+    assert fq.acc_registers(128, 256, wgmma=True) + ks.REG_OVERHEAD > \
+        fq.CONSUMER_REGS
+    assert fq.smem_bytes(fq.WGMMA_ROWS, fq.WGMMA_COLS, wgmma=True) <= \
+        ks.SMEM_PER_CTA
+
+
+@pytest.mark.parametrize("instance", ["mma.sync", "wgmma"])
+def test_quant_cta_tiles_and_what_the_card_cannot_run(instance):
+    """The family example's config tile on each instance: the mma.sync
+    instance (a 256-wide group and bk, which wgmma does not take) covers
+    128 x 128 with two 128 x 64 CTAs and 256 x 256 with eight; the wgmma
+    instance (the example itself) runs 128 x 128 on one CTA and 256 x
+    256 on four."""
     cfg, prob = fq._example()
-    assert _kinds(fq.structural_quant_gemm(cfg, prob)) == ["cta_split"]
-    assert fq.structural_quant_gemm(fq.QuantGemmConfig(128, 64), prob) == []
-    [i] = fq.structural_quant_gemm(fq.QuantGemmConfig(256, 256), prob)
-    assert "8 CTAs of 128x64" in i.message
+    if instance == "mma.sync":
+        prob = dataclasses.replace(prob, group=256)
+        cfg = dataclasses.replace(cfg, bk=256)
+    big = dataclasses.replace(cfg, bm=256, bn=256)
+    assert fq.is_wgmma(cfg, prob) == (instance == "wgmma")
+    assert fq.instance_name(cfg, prob).startswith(instance)
+    tile = (128, 64) if instance == "mma.sync" else (128, 128)
+    assert fq.cta_tile(cfg, prob) == tile
+    assert _kinds(fq.structural_quant_gemm(cfg, prob)) == \
+        (["cta_split"] if instance == "mma.sync" else [])
+    assert fq.structural_quant_gemm(
+        dataclasses.replace(cfg, bn=64), prob) == []
+    [i] = fq.structural_quant_gemm(big, prob)
+    assert (f"{8 if instance == 'mma.sync' else 4} CTAs of "
+            f"{tile[0]}x{tile[1]}") in i.message
     odd = fq.QuantGemmProblem(300, 200, 500, 100)
     assert "alignment" in _kinds(fq.structural_quant_gemm(
         fq.QuantGemmConfig(64, 64, 100), odd))
@@ -281,20 +310,34 @@ def test_ssd_structural_model():
     assert kinds.count("grain") == 3
     assert "cta_split" in _kinds(fs.structural_ssd(
         cfg, dataclasses.replace(prob, head_dim=128)))
+    # the state dim pads to the TF32 product's k of 8: N 8 is on it
+    assert fs.padded_state(12) == 16 and fs.padded_state(8) == 8
+    assert "grain" not in _kinds(fs.structural_ssd(
+        cfg, dataclasses.replace(prob, d_state=8)))
+    # the scratch states: (BH, S / q, N, P) float32, four HBM passes;
+    # at a 16-long chunk they outweigh the operands
+    assert fs.scratch_bytes(cfg, prob) == 4 * 64 * 128 * (128 * 64 + 1)
+    assert "scratch" in _kinds(fs.structural_ssd(fs.SSDConfig(16), prob))
+    assert "scratch" not in _kinds(fs.structural_ssd(fs.SSDConfig(32),
+                                                     prob))
 
 
 def test_speed_of_light_of_both_families():
     """quant_gemm 8192^3 int8: 1.1e12 operations at 1,979 TOP/s, 0.556
-    ms; ssd 64 x 8192 x 64 x 128 float32: 2.08e10 at the best chunk (32,
-    the causal triangle of each chunk) over 67 TFLOP/s, 0.310 ms, and
-    8.07e8 bytes, 0.241 ms."""
+    ms; ssd 64 x 8192 x 64 x 128 float32: 2.08e10 operations at the best
+    chunk (32, the causal triangle of each chunk) over the 165 TFLOP/s of
+    float32-accurate tensor-core products (3xTF32: a third of 495), 0.126
+    ms, against 8.07e8 bytes, 0.241 ms: bytes bound it (at the 67 TFLOP/s
+    of float32 FMAs the operations took 0.310 ms and bound it)."""
     q = fq.quant_gemm_sol(fq._example()[1])
     assert q.bound == "compute"
     assert q.time_s == pytest.approx(0.5557e-3, rel=1e-3)
     s = fs.ssd_sol(fs._example()[1])
-    assert s.bound == "compute"
+    assert s.bound == "memory"
     assert s.flops == pytest.approx(2.077e10, rel=1e-3)
-    assert s.time_s == pytest.approx(0.3100e-3, rel=1e-3)
+    assert s.flops / 67e12 == pytest.approx(0.3100e-3, rel=1e-3)
+    assert s.compute_s == pytest.approx(0.1259e-3, rel=1e-3)
+    assert s.time_s == s.memory_s
     assert s.memory_s == pytest.approx(0.2410e-3, rel=1e-3)
 
 
@@ -308,15 +351,31 @@ def test_cost_never_beats_the_speed_of_light(family):
 
 def test_the_cost_models_price_what_the_kernels_do():
     """quant_gemm: a bk of 32 pays four times the dequant epilogues of
-    128; ssd: the chunk trades score work against state passes."""
+    128 (on both instances), the wgmma instance prices its transpose of
+    B and runs the example faster than the mma.sync instance's 128 x 64
+    tile; ssd: the chunk trades score work against state passes — a
+    longer chunk issues more products and moves fewer state bytes."""
     prob = fq._example()[1]
     short = fq.quant_gemm_cost(fq.QuantGemmConfig(bk=32), prob)
     full = fq.quant_gemm_cost(fq.QuantGemmConfig(bk=128), prob)
     assert short.compute_s > full.compute_s
+    g256 = dataclasses.replace(prob, group=256)
+    assert fq.quant_gemm_cost(fq.QuantGemmConfig(128, 64, 32),
+                              g256).compute_s > \
+        fq.quant_gemm_cost(fq.QuantGemmConfig(128, 64, 256), g256).compute_s
+    mma = fq.quant_gemm_cost(fq.QuantGemmConfig(128, 64, 128), prob)
+    assert full.time_s < mma.time_s
+    assert full.hbm_bytes - mma.hbm_bytes == 2 * prob.k * prob.n
     sp = fs._example()[1]
-    t = {q: fs.ssd_cost(fs.SSDConfig(q), sp).compute_s
+    t = {q: fs.ssd_cost(fs.SSDConfig(q), sp)
          for q in (32, 64, 128, 256, 512)}
-    assert t[512] > t[64]
+    assert t[512].compute_s > t[64].compute_s
+    assert t[64].hbm_bytes > t[128].hbm_bytes > t[256].hbm_bytes
+    # the states, four passes of (BH, S / q, N, P) float32
+    assert t[64].hbm_bytes - t[128].hbm_bytes == \
+        4 * 4 * 64 * (128 - 64) * 128 * 64 + 3 * 4 * 64 * (128 - 64)
+    assert fs.scratch_bytes(fs.SSDConfig(64), sp) == \
+        4 * 64 * 128 * (128 * 64 + 1)
     assert fs.kernel_flops(fs.SSDConfig(64), sp) > \
         fs.ssd_sol(sp).flops
 

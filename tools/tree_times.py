@@ -42,7 +42,25 @@ events with the L2 flushed before each (``chip_smoke.time_ms``):
   and ``moe[64x512]+fusedgate`` (``moe_{128,64}x512_ms``, 5 calls each),
   beside each one's largest |kernel - plain| over two experts and the
   device time of its gate/up and down launches (``_up_ms``,
-  ``_down_ms``, ``torch.profiler`` over 3 calls).
+  ``_down_ms``, ``torch.profiler`` over 3 calls);
+* ``quant`` — ``quant_matmul`` at the quantized GEMM family's production
+  problem (8192^3 int8, group 128, inputs of
+  ``chip_smoke._quant_inputs``) with ``qgemm[128x128x128]`` and
+  ``qgemm[128x128x32]`` (``quant_{128,32}_ms``), beside the device time
+  of the call's transpose of B and of its GEMM kernel
+  (``_transpose_ms``, ``_gemm_ms``: each kernel's mean over its launches
+  in 5 calls under ``torch.profiler``; a tree without the transpose has
+  none), the largest |kernel - plain| (``quant_err``), and the 2048 x
+  8192 x 8192 sweep problem (``quant_2048_ms``);
+* ``ssd`` — ``ssd`` at the SSD family's production problem (64 x 8192 x
+  P 64 x N 128, float32, inputs of ``chip_smoke._ssd_inputs``) with
+  chunks 64, 128 and 256 (``ssd_q{64,128,256}_ms``, 5 calls each),
+  beside each one's device time by launch (``_state_ms``, ``_pass_ms``,
+  ``_scan_ms``, or ``_kernel_ms`` for a tree with one kernel; each
+  kernel's mean over its launches in 3 calls under ``torch.profiler``)
+  and the largest |kernel - plain| at chunk 128 (``ssd_err``), and
+  mamba2-780m's layer shape (192 x 2048 x 64 x 128, chunk 256:
+  ``ssd_layer_ms``).
 
 It prints one JSON line per tree with the card's name and power limit
 as ``nvidia-smi`` reports them.
@@ -174,8 +192,62 @@ def moe(torch, args) -> dict:
     return out
 
 
+def quant(torch, args) -> dict:
+    from chip_smoke import _quant_inputs, quant_parts_ms, time_ms
+    from repro_torch.core.families.quant_gemm import QuantGemmConfig
+    from repro_torch.kernels.quant_gemm import (quant_error, quant_gemm_ref,
+                                                quant_matmul)
+    aq, bq, sa, sb = _quant_inputs(torch, 8192, 8192, 8192, 128, 8192)
+    out = {}
+    for bk in (128, 32):
+        cfg = QuantGemmConfig(128, 128, bk)
+        call = lambda: quant_matmul(aq, bq, sa, sb, group=128, cfg=cfg)
+        if bk == 128:
+            out["quant_err"] = quant_error(
+                call(), quant_gemm_ref(aq, bq, sa, sb, group=128))[0]
+        out[f"quant_{bk}_ms"] = time_ms(torch, call)
+        parts = quant_parts_ms(torch, call, n=5)
+        out[f"quant_{bk}_transpose_ms"] = parts.get("transpose")
+        out[f"quant_{bk}_gemm_ms"] = parts.get("gemm")
+    del aq, bq, sa, sb
+    aq, bq, sa, sb = _quant_inputs(torch, 2048, 8192, 8192, 128, 2048)
+    cfg = QuantGemmConfig()
+    out["quant_2048_ms"] = time_ms(
+        torch, lambda: quant_matmul(aq, bq, sa, sb, group=128, cfg=cfg))
+    return out
+
+
+def ssd(torch, args) -> dict:
+    from chip_smoke import _ssd_inputs, device_parts_ms, time_ms
+    from repro_torch.core.families.ssd import SSDConfig
+    from repro_torch.kernels.ssd import ssd as ssd_call
+    from repro_torch.kernels.ssd import ssd_error, ssd_ref
+    x, da, B, C = _ssd_inputs(torch, 64, 8192, 64, 128, "float32", 8192)
+    out = {}
+    for q in (64, 128, 256):
+        cfg = SSDConfig(q)
+        call = lambda: ssd_call(x, da, B, C, cfg=cfg)
+        if q == 128:
+            out["ssd_err"] = ssd_error(call(), ssd_ref(x, da, B, C, q)[0])[0]
+        out[f"ssd_q{q}_ms"] = time_ms(torch, call, iters=5, warmup=1)
+        # each launch's kernel once a call; a tree with one SSD kernel
+        # reports it as "kernel"
+        parts = device_parts_ms(torch, call, lambda k: next(
+            (n for n in ("state", "pass", "scan") if f"ssd_{n}_kernel" in k),
+            "kernel" if "ssd" in k else None), n=3, per_launch=True)
+        for name, ms in parts.items():
+            out[f"ssd_q{q}_{name}_ms"] = ms
+    del x, da, B, C
+    x, da, B, C = _ssd_inputs(torch, 192, 2048, 64, 128, "float32", 2048)
+    out["ssd_layer_ms"] = time_ms(
+        torch, lambda: ssd_call(x, da, B, C, cfg=SSDConfig(256)), iters=5,
+        warmup=1)
+    return out
+
+
 MEASUREMENTS = {"decode_split": decode_split, "gemm": gemm,
-                "ragged": ragged, "paged": paged, "moe": moe}
+                "ragged": ragged, "paged": paged, "moe": moe,
+                "quant": quant, "ssd": ssd}
 
 
 def measure(tree: Path, args) -> dict:
