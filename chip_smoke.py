@@ -156,11 +156,37 @@ is missing or any phase fails.  Phases:
    inputs through ``ssd_via_kernel`` (the CUDA kernel, counted) against
    ``ssd_chunked``, both timed; at depth 2 in float32, 16
    ``decode_step`` tokens against ``apply``'s logits;
-12. the kernels line (JSON, all eight kernels), then the final line
+12. tune — the fleet tuner on qwen3-1.7b's serving geometries: (a) one
+   ``make_job`` per (family, problem) that phase 4's gate verified, each
+   started from the smallest config phase 4 ran in the problem's shape
+   bucket; (b) ``run_fleet(jobs, workers=1, run_kernels=True,
+   device="cuda")`` into ``chiprun_out/fleet/w1`` (successive halving,
+   2 to 8 steps), the launch counters zeroed just before and read just
+   after: every unit test must have launched its kernel, and nothing
+   else may launch; (c) the same jobs on two spawn workers, sync and
+   async, must write a byte-identical ``dispatch_table.json``, and
+   re-invoking (b) must run 0 items; (d) phase 4's trace at full width
+   and depth without a table and with (b)'s installed
+   (``PagedServingEngine(dispatch_table=...)``), in turns (untuned,
+   tuned, tuned, untuned): every decode and
+   prefill tick through the two kernels, each geometry's config source
+   (table or default) and table hit, decode tokens/s and p50 tick beside
+   phase 4's, the share of tokens identical to phase 4's (bf16, no
+   limit); at depth 2 in float32 (phase 5's setup) the kernel path's
+   problems tuned into a table of their own, and the tokens served with
+   it identical to those without; (e) each table entry at its exact
+   problem, the kernel at the table's and at the default config, each
+   held to the plain version, timed beside the cost model's estimate and
+   the family's bound.  The table is uninstalled when the phase ends;
+13. the kernels line (JSON, all eight kernels), then the final line
    ``{"ok": true, "device": {...}}``.
 
 Phases 4 and 9 also report the ARGUS gate's verify calls on the serving
-path (one per batch geometry and per packed prefill geometry).
+path (one per batch geometry and per packed prefill geometry).  With a
+table installed (phase 12d) a geometry is verified by ``configured`` at
+the table's config and by the op at the config it resolved, so the
+count read there is of distinct (family, config, problem) triples: the
+same triple at most twice, at most two configs a geometry.
 
 A summary of every number also goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -810,36 +836,36 @@ def drive(engine, trace, torch):
     return ticks
 
 
-def phase_serve(torch, s=SERVE):
-    from repro_torch import configs
-    from repro_torch.kernels import ALL_KERNELS
-    from repro_torch.models import build
+def _pool_pages(s):
+    return s["max_batch"] * s["max_len"] // s["page_size"] * 3 // 4
+
+
+def _serve_engine(model, params, s, **kw):
+    """The serve phase's engine: both kernel paths, ``s``'s geometry."""
     from repro_torch.serve import PagedServingEngine
-    from repro_torch.serve.trace import poisson_trace
-    tag = s["tag"]
-    cfg = configs.get_config(s["arch"])
-    model = build(cfg)
-    t0 = time.perf_counter()
-    params = model.init(s["seed"], device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    pool_pages = s["max_batch"] * s["max_len"] // s["page_size"] * 3 // 4
-    eng = PagedServingEngine(
-        model, params, pool_pages=pool_pages, page_size=s["page_size"],
+    return PagedServingEngine(
+        model, params, pool_pages=_pool_pages(s), page_size=s["page_size"],
         max_batch=s["max_batch"], max_len=s["max_len"],
         prefill_chunk=s["prefill_chunk"], eos_id=-1, decode_path="kernel",
-        prefill_path="kernel", device="cuda")
-    trace = poisson_trace(seed=s["seed"], n_requests=s["requests"],
-                          mean_gap=s["mean_gap"],
-                          prompt_lens=s["prompt_lens"],
-                          max_new=s["max_new"], vocab=cfg.vocab)
-    weights_gb = sum(p.numel() * p.element_size()
-                     for p in _leaves(params["blocks"])) / 1e9
-    embed_gb = params["embed"]["tok"].numel() * 4 / 1e9
-    log(f"[{tag}] {cfg.name}: {model.n_params / 1e9:.3f} B params "
-        f"(blocks {weights_gb:.2f} GB bf16, embedding {embed_gb:.2f} GB "
-        f"f32), KV pool {pool_pages} pages = {eng.kv.nbytes / 1e9:.2f} GB; "
-        f"init {init_s:.1f} s")
+        prefill_path="kernel", device="cuda", **kw)
+
+
+def _serve_trace(cfg, s):
+    from repro_torch.serve.trace import poisson_trace
+    return poisson_trace(seed=s["seed"], n_requests=s["requests"],
+                         mean_gap=s["mean_gap"], prompt_lens=s["prompt_lens"],
+                         max_new=s["max_new"], vocab=cfg.vocab)
+
+
+def _serve_run(torch, eng, trace, cfg, s, tag):
+    """Replay ``trace`` through ``eng`` (the serve phase's engine) with
+    the launch counters zeroed just before and read just after and the
+    gate's verify calls recorded; checks that every request finished
+    with its tokens and that every tick that decoded or prefilled went
+    through the two kernels.  Returns the run's numbers, its tokens, the
+    gate calls and (under ``verified``) the recorded (family, config,
+    problem) triples."""
+    from repro_torch.kernels import ALL_KERNELS
     torch.cuda.reset_peak_memory_stats()
     gate, verified = _record_gate()
     for k in ALL_KERNELS:                      # count the main path only
@@ -851,9 +877,7 @@ def phase_serve(torch, s=SERVE):
         del gate.verify                        # the engine's own method
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in ALL_KERNELS}
-    check(len(verified) == len(set(verified)),
-          "the serving path verified a geometry twice")
-    fams = sorted({f for f, _ in verified})
+    fams = sorted({f for f, *_ in verified})
     check(fams == ["paged_attention", "ragged_prefill"],
           f"gate calls on the serving path: {len(verified)}, families "
           f"{fams}")
@@ -904,10 +928,14 @@ def phase_serve(torch, s=SERVE):
         p50_prefill_step_ms=statistics.median(
             t["seconds"] * 1e3 for t in ticks if t["prefilled"]),
         launches=launches, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-        pool_pages=pool_pages, preempted=c["preempted"],
+        pool_pages=eng.alloc.n_pages, preempted=c["preempted"],
         gate_verify_calls=len(verified),
-        gate_geometries={f: sum(g == f for g, _ in verified)
-                         for f in ("paged_attention", "ragged_prefill")})
+        gate_geometries={f: sum(g == f for g, *_ in verified)
+                         for f in ("paged_attention", "ragged_prefill")},
+        gate_calls=[dict(family=f, config=dataclasses.asdict(cf),
+                         problem=dataclasses.asdict(pb))
+                    for f, cf, pb in verified],
+        outputs={r.rid: list(r.output) for r in done})
     log(f"[{tag}] {len(done)} requests, {len(ticks)} ticks ({n_pre} "
         f"prefill, {n_dec} decode), all through the kernels; "
         f"{c['prefill_tokens']} prompt + {dec_tok} generated tokens in "
@@ -915,9 +943,37 @@ def phase_serve(torch, s=SERVE):
         f"p50 step {out['p50_step_ms']:.1f} ms (decode-only ticks "
         f"{out['p50_decode_only_step_ms']:.1f} ms, prefill ticks "
         f"{out['p50_prefill_step_ms']:.1f} ms), launches {launches}, peak "
-        f"memory {out['peak_gb']:.2f} GB, preempted {c['preempted']}; "
-        f"ARGUS gate: {len(verified)} verify calls, one per geometry "
-        f"({out['gate_geometries']})")
+        f"memory {out['peak_gb']:.2f} GB, preempted {c['preempted']}")
+    out["verified"] = verified
+    return out
+
+
+def phase_serve(torch, s=SERVE):
+    from repro_torch import configs
+    from repro_torch.models import build
+    tag = s["tag"]
+    cfg = configs.get_config(s["arch"])
+    model = build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(s["seed"], device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pool_pages = _pool_pages(s)
+    eng = _serve_engine(model, params, s)
+    trace = _serve_trace(cfg, s)
+    weights_gb = sum(p.numel() * p.element_size()
+                     for p in _leaves(params["blocks"])) / 1e9
+    embed_gb = params["embed"]["tok"].numel() * 4 / 1e9
+    log(f"[{tag}] {cfg.name}: {model.n_params / 1e9:.3f} B params "
+        f"(blocks {weights_gb:.2f} GB bf16, embedding {embed_gb:.2f} GB "
+        f"f32), KV pool {pool_pages} pages = {eng.kv.nbytes / 1e9:.2f} GB; "
+        f"init {init_s:.1f} s")
+    out = _serve_run(torch, eng, trace, cfg, s, tag)
+    verified = out.pop("verified")
+    check(len(verified) == len(set(verified)),
+          "the serving path verified a geometry twice")
+    log(f"[{tag}] ARGUS gate: {len(verified)} verify calls, one per "
+        f"geometry ({out['gate_geometries']})")
     del eng
     out["profile"] = phase_profile(torch, model, params, pool_pages, s)
     del params
@@ -927,7 +983,7 @@ def phase_serve(torch, s=SERVE):
 
 def _record_gate():
     """Wrap the shared verification engine's ``verify`` so the serve
-    phase can count its calls by (family, problem); ``del
+    phase can count its calls by (family, config, problem); ``del
     engine.verify`` restores it."""
     from repro_torch.core.verify_engine import default_engine
     gate = default_engine()
@@ -935,7 +991,7 @@ def _record_gate():
     real = gate.verify
 
     def verify(family, cfg, prob, **kw):
-        calls.append((family, prob))
+        calls.append((family, cfg, prob))
         return real(family, cfg, prob, **kw)
     gate.verify = verify
     return gate, calls
@@ -1030,13 +1086,13 @@ def _leaves(tree):
 
 # -- phase 5 -----------------------------------------------------------------
 
-def phase_paths(torch, s=SERVE, moe=None):
-    """Kernel and gather paths in float32 at depth 2, full width:
-    identical tokens.  ``moe``: fields of the MoE spec to replace."""
+def _paths_setup(s=SERVE, moe=None):
+    """Phase 5's model (float32, depth 2, full width), weights and trace,
+    and a maker of its engine on a path."""
     from repro_torch import configs
     from repro_torch.models import build
     from repro_torch.serve import PagedServingEngine
-    from repro_torch.serve.trace import poisson_trace, replay
+    from repro_torch.serve.trace import poisson_trace
     cfg = dataclasses.replace(configs.get_config(s["arch"]), n_layers=2,
                               dtype="float32")
     if moe:
@@ -1047,13 +1103,24 @@ def phase_paths(torch, s=SERVE, moe=None):
     trace = poisson_trace(seed=3, n_requests=6, mean_gap=1.0,
                           prompt_lens=(64, 600), max_new=(4, 8),
                           vocab=cfg.vocab)
-    outs, counters = {}, {}
-    for path in ("kernel", "gather"):
-        eng = PagedServingEngine(
+
+    def engine(path, **kw):
+        return PagedServingEngine(
             model, params, pool_pages=768, page_size=s["page_size"],
             max_batch=s["max_batch"], max_len=s["max_len"],
             prefill_chunk=s["prefill_chunk"], eos_id=-1, decode_path=path,
-            prefill_path=path, device="cuda")
+            prefill_path=path, device="cuda", **kw)
+    return cfg, trace, engine
+
+
+def phase_paths(torch, s=SERVE, moe=None):
+    """Kernel and gather paths in float32 at depth 2, full width:
+    identical tokens.  ``moe``: fields of the MoE spec to replace."""
+    from repro_torch.serve.trace import replay
+    cfg, trace, engine = _paths_setup(s, moe)
+    outs, counters = {}, {}
+    for path in ("kernel", "gather"):
+        eng = engine(path)
         res = replay(eng, trace)
         outs[path] = res["outputs"]
         counters[path] = res["metrics"]["counters"]
@@ -2432,6 +2499,482 @@ def phase_ssd(torch):
     return out
 
 
+# -- phase 12 ----------------------------------------------------------------
+
+# the fleet's successive-halving ladder: rungs of 2, 4 and 8 steps
+FLEET = dict(base_budget=2, max_budget=8)
+FLEET_DIR = ROOT / "chiprun_out" / "fleet"
+
+
+def _gate_jobs(calls):
+    """One tuning job per (family, problem) among ``calls`` (a serve
+    run's gate calls: family, config and problem as dicts), each started
+    from the smallest config (by its fields, in order) that the run
+    verified in the problem's shape bucket.  The H100 cost model reads
+    no block size of the two serving kernels (their tiles are fixed), so
+    the loop keeps its start unless it finds a config it prices lower;
+    a bucket's entry then tiles every packed geometry the run put in
+    that bucket.  (An entry passes ``configured`` at a neighbour's exact
+    problem, whose ``total_tokens`` is the KV extent; if its ``block_q``
+    did not tile that neighbour's packed queries, ``verified_config``
+    would give None and the tick would take the gather path, as in the
+    JAX package.)"""
+    from repro_torch.core.families import get_family
+    from repro_torch.core.tuning import make_job
+    from repro_torch.core.tuning.dispatch import shape_bucket
+    bucket_of, start = {}, {}
+    for c in calls:
+        fam = get_family(c["family"])
+        prob = fam.problem_cls(**c["problem"])
+        cfg = fam.config_cls(**c["config"])
+        key = (fam.name, shape_bucket(prob))
+        if key not in start or (dataclasses.astuple(cfg)
+                                < dataclasses.astuple(start[key])):
+            start[key] = cfg
+        bucket_of[(fam.name, prob)] = key
+    return [make_job(f, prob, start[key])
+            for (f, prob), key in bucket_of.items()]
+
+
+def _fleet_run(torch, jobs, name, **kw):
+    """``run_fleet`` into ``FLEET_DIR / name`` with the unit tests on the
+    card; returns its report, its table's bytes and a summary."""
+    from repro_torch.core.tuning import run_fleet
+    from repro_torch.core.tuning.pool import TABLE_NAME
+    t0 = time.perf_counter()
+    rep = run_fleet(jobs, out_dir=FLEET_DIR / name, run_kernels=True,
+                    device="cuda", **FLEET, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    table = (FLEET_DIR / name / TABLE_NAME).read_bytes()
+    return rep, table, dict(
+        dir=name, path=str(FLEET_DIR / name / TABLE_NAME),
+        workers=kw.get("workers", 1),
+        async_mode=kw.get("async_mode", False), wall_s=wall,
+        ran=rep.ran, resumed=rep.skipped, rungs=rep.rungs,
+        solver_discharges=rep.stats.get("solver_discharges", 0),
+        verify_calls=rep.stats.get("verify_calls", 0),
+        constraint_hits=rep.stats.get("constraint_hits", 0))
+
+
+def _count_unit_tests(families):
+    """Wrap each family's ``reference_check`` in the registry so every
+    unit test records how many launches of the family's kernel it made
+    (a precondition refusal raises before any launch and is counted
+    apart, as the validator counts it).  Returns (tests, refusals,
+    restore)."""
+    from repro_torch.core.families import base
+    from repro_torch.core.verify_engine import InvariantViolation
+    from repro_torch.kernels import ALL_KERNELS
+    kernels = {k.name: k for k in ALL_KERNELS}
+    tests = {f: [] for f in families}
+    refusals = dict.fromkeys(families, 0)
+    saved = {f: base.get_family(f) for f in families}
+
+    def wrap(fam):
+        k = kernels[fam.kernel]
+
+        def counted(cfg, prob, device="cuda"):
+            before = k.launches
+            try:
+                ok = fam.reference_check(cfg, prob, device)
+            except (ValueError, InvariantViolation):
+                refusals[fam.name] += 1
+                raise
+            tests[fam.name].append(k.launches - before)
+            return ok
+        return counted
+    for f, fam in saved.items():
+        base._REGISTRY[f] = dataclasses.replace(
+            fam, reference_check=wrap(fam))
+
+    def restore():
+        base._REGISTRY.update(saved)
+    return tests, refusals, restore
+
+
+def phase_tune_fleet(torch, serve):
+    """(a) one job per serving problem of phase 4, (b) ``run_fleet`` on
+    one in-process worker with the unit tests on the card, the launch
+    counters zeroed just before and read just after, (c) the table
+    byte-identical on two spawn workers, sync and async, and a resume
+    that runs nothing."""
+    import shutil
+    from repro_torch.core.families import get_family
+    from repro_torch.kernels import ALL_KERNELS
+    jobs = _gate_jobs(serve["gate_calls"])
+    check(sorted({j.family for j in jobs})
+          == ["paged_attention", "ragged_prefill"],
+          f"tune jobs: {[j.job_id for j in jobs]}")
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    fams = ("paged_attention", "ragged_prefill")
+    tests, refusals, restore = _count_unit_tests(fams)
+    for k in ALL_KERNELS:                      # count the main path only
+        k.launches = 0
+    try:
+        rep, table, run1 = _fleet_run(torch, jobs, "w1")
+    finally:
+        restore()
+    launches = {k.name: k.launches for k in ALL_KERNELS}
+    unit = {f: len(tests[f]) for f in fams}
+    check(rep.ran > 0 and sum(unit.values()) > 0,
+          f"the fleet ran {rep.ran} items, unit tests {unit}")
+    for f in fams:
+        kern = get_family(f).kernel
+        check(all(n > 0 for n in tests[f]),
+              f"a {f} unit test launched no {kern}: {tests[f]}")
+        check(launches[kern] == sum(tests[f]),
+              f"{kern} launched {launches[kern]} times, its unit tests "
+              f"{sum(tests[f])}")
+    check(all(n == 0 for name, n in launches.items()
+              if name not in ("paged_decode", "ragged_prefill")),
+          f"the fleet launched another kernel: {launches}")
+    runs = [run1]
+    for name, kw in (("w2", dict(workers=2)),
+                     ("w2_async", dict(workers=2, async_mode=True))):
+        _, other, run = _fleet_run(torch, jobs, name, **kw)
+        check(other == table, f"dispatch_table.json of {name} differs from "
+              f"the one-worker run's")
+        runs.append(run)
+    again, same, run = _fleet_run(torch, jobs, "w1")
+    check(again.ran == 0 and again.skipped == rep.ran and same == table,
+          f"resume ran {again.ran} items ({again.skipped} from the "
+          f"journal), table {'same' if same == table else 'changed'}")
+    runs.append(run)
+    entries = {f: {b: dict(config=e["config"], speedup=e["speedup"],
+                           est_ms=e["est_ms"], job=e["provenance"]["job"])
+                   for b, e in buckets.items()}
+               for f, buckets in rep.table.entries.items()}
+    log(f"[tune] {len(jobs)} jobs from phase 4's gate calls "
+        f"({', '.join(j.job_id for j in jobs)}); ladder {FLEET}")
+    for r in runs:
+        log(f"[tune] fleet {r['dir']}: {r['workers']} worker(s), "
+            f"{'async' if r['async_mode'] else 'sync'}, {r['ran']} items "
+            f"ran, {r['resumed']} resumed, {r['rungs']} rungs, "
+            f"{r['solver_discharges']} solver discharges, {r['verify_calls']} "
+            f"verify calls, wall {r['wall_s']:.2f} s")
+    log(f"[tune] unit tests on the card: {unit} ({refusals} refused by a "
+        f"precondition), launches paged_decode {launches['paged_decode']} "
+        f"(two passes a test), ragged_prefill {launches['ragged_prefill']}; "
+        f"tables byte-identical over workers 1/2 and sync/async, the "
+        f"resume ran 0 items; {rep.table.summary()}: " + "; ".join(
+            f"{f} {b}: {e['config']} (modelled speedup {e['speedup']:.3f})"
+            for f, bs in entries.items() for b, e in bs.items()))
+    return dict(jobs=[j.job_id for j in jobs], runs=runs, unit_tests=unit,
+                refusals=refusals, launches=launches, entries=entries,
+                table_bytes=len(table)), run1["path"]
+
+
+
+def _geometries(eng, table):
+    """Each kernel geometry the engine resolved a config for: the family
+    problem, the table's entry for its bucket, whether ``configured``
+    took it (a hit: it passes at the exact problem), the config that ran
+    (None: the gather path) and the default's."""
+    from repro_torch.core.families.paged_attention import \
+        PagedAttentionProblem
+    from repro_torch.core.families.ragged_prefill import \
+        RaggedPrefillProblem
+    from repro_torch.core.tuning import dispatch
+    from repro_torch.kernels.paged_attention.ops import \
+        default_config as paged_default
+    from repro_torch.kernels.ragged_prefill.ops import \
+        default_config as ragged_default
+    mc = eng.model.cfg
+    dt = eng._pool_dtype
+    heads = (mc.n_heads, mc.n_kv_heads)
+    out = []
+    # the engine's memo of each geometry's config (decode: one batch
+    # geometry; prefill: each packed (TQ, TK, segments))
+    if eng._kernel_sig is not None:
+        prob = PagedAttentionProblem(
+            eng.max_batch, *heads, eng.pages_per_seq * eng.page_size,
+            eng.page_size, eng.alloc.n_pages, mc.resolved_head_dim, dt)
+        out.append(("paged_attention", prob, eng._kernel_cfg,
+                    paged_default(eng.pages_per_seq),
+                    dict(batch=eng.max_batch)))
+    for (tq, tk, n), ran in sorted(eng._prefill_cfgs.items()):
+        prob = RaggedPrefillProblem(n, tk, *heads, mc.resolved_head_dim, dt)
+        out.append(("ragged_prefill", prob, ran, ragged_default(tq, tk),
+                    dict(TQ=tq, TK=tk)))
+    rows = []
+    for family, prob, ran, default, where in out:
+        entry = table.config_for(family, prob) if table else None
+        hit = dispatch.configured(family, prob)
+        source = ("gather" if ran is None else "table"
+                  if hit is not None and ran == hit else "default"
+                  if ran == default else "other")
+        rows.append(dict(
+            family=family, problem=dataclasses.asdict(prob), **where,
+            entry=None if entry is None else dataclasses.asdict(entry),
+            hit=hit is not None,
+            ran=None if ran is None else dataclasses.asdict(ran),
+            default=dataclasses.asdict(default), source=source))
+    return rows
+
+
+def _same_share(a, b):
+    same = total = 0
+    for rid, toks in a.items():
+        other = b.get(rid, [])
+        total += len(toks)
+        same += sum(x == y for x, y in zip(toks, other))
+    return same / max(total, 1)
+
+
+def phase_tune_serve(torch, serve, table_path):
+    """(d) phase 4's trace at full width and depth, without a table and
+    with the fleet's, in turns (untuned, tuned, tuned, untuned: the
+    rates are the host's and spread between runs): every tick on the
+    two kernels, each geometry's config source and table hit, the rates
+    beside phase 4's and the share of tokens identical to phase 4's
+    (bf16, no limit)."""
+    from repro_torch import configs
+    from repro_torch.core.tuning import dispatch
+    from repro_torch.core.verify_engine import default_engine
+    from repro_torch.models import build
+    s = SERVE
+    cfg = configs.get_config(s["arch"])
+    model = build(cfg)
+    params = model.init(s["seed"], device="cuda")
+    trace = _serve_trace(cfg, s)
+    table = dispatch.load(table_path)
+    out = {"untuned": [], "tuned": []}
+    for name in ("untuned", "tuned", "tuned", "untuned"):
+        t = table if name == "tuned" else None
+        dispatch.install(None)
+        eng = _serve_engine(model, params, s, dispatch_table=t)
+        check((dispatch.active() is not None) == (t is not None),
+              f"{name}: the engine's table is not the installed one")
+        before = default_engine().stats().get("solver_discharges", 0)
+        run = _serve_run(torch, eng, trace, cfg, s, f"tune/{name}")
+        verified = run.pop("verified")
+        geoms = _geometries(eng, t)
+        check(all(g["source"] != "gather" for g in geoms),
+              f"{name}: a geometry fell back to the gather path: "
+              f"{[g for g in geoms if g['source'] == 'gather']}")
+        if t is None:
+            check(len(verified) == len(set(verified)) and all(
+                g["source"] == "default" for g in geoms),
+                "untuned: a geometry verified twice or not at its default")
+        else:
+            # with a table, a geometry is verified by ``configured`` at
+            # the table's config and by the op at the config it resolved:
+            # the same (family, config, problem) twice on a hit, two
+            # configs once each on a miss with an entry
+            per_triple, per_geom = {}, {}
+            for f, c, p in verified:
+                per_triple[(f, c, p)] = per_triple.get((f, c, p), 0) + 1
+                per_geom.setdefault((f, p), set()).add(c)
+            check(max(per_triple.values()) <= 2
+                  and max(len(v) for v in per_geom.values()) <= 2,
+                  f"tuned: the gate verified a geometry more than the "
+                  f"table's config and the op's: {per_triple}")
+            run["distinct_verifies"] = len(per_triple)
+        run["solver_discharges"] = (default_engine().stats().get(
+            "solver_discharges", 0) - before)
+        run["geometries"] = geoms
+        run["table_hits"] = sum(g["hit"] for g in geoms)
+        run["table_misses"] = len(geoms) - run["table_hits"]
+        run["same_tokens_as_phase4"] = _same_share(run["outputs"],
+                                                   serve["outputs"])
+        del run["outputs"], run["gate_calls"]
+        out[name].append(run)
+        del eng
+    dispatch.install(None)
+    tu = out["tuned"][0]
+    rates = lambda k, f: ", ".join(f"{r[k]:{f}}" for r in
+                                   out["tuned"]) + " / " + ", ".join(
+        f"{r[k]:{f}}" for r in out["untuned"])
+    log("[tune/serve] tuned geometries: " + "; ".join(
+        f"{g['family']} {g.get('TQ', '')}{'x' if 'TQ' in g else ''}"
+        f"{g.get('TK', g.get('batch'))}: {g['source']} "
+        f"{'hit' if g['hit'] else 'miss'} ran {g['ran']}"
+        for g in tu["geometries"]))
+    log(f"[tune/serve] table hits {tu['table_hits']}, misses "
+        f"{tu['table_misses']}; gate: {tu['gate_verify_calls']} verify "
+        f"calls ({tu['distinct_verifies']} distinct (family, config, "
+        f"problem)), {tu['solver_discharges']} solver discharges; decode "
+        f"tok/s tuned / untuned: {rates('decode_tokens_per_s', '.1f')}, "
+        f"phase 4 {serve['decode_tokens_per_s']:.1f}; p50 tick ms: "
+        f"{rates('p50_step_ms', '.1f')}, phase 4 "
+        f"{serve['p50_step_ms']:.1f}; tokens identical to phase 4's: "
+        f"{rates('same_tokens_as_phase4', '.4f')} (bf16, no limit)")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tune_paths(torch):
+    """Phase 5's setup (float32, depth 2, full width): the kernel path's
+    problems tuned into a table of their own, then the same trace served
+    with it — tokens identical to those without it."""
+    from repro_torch.core.tuning import dispatch, run_fleet
+    from repro_torch.serve.trace import replay
+    dispatch.install(None)
+    cfg, trace, engine = _paths_setup()
+    gate, verified = _record_gate()
+    try:
+        plain = replay(engine("kernel"), trace)
+    finally:
+        del gate.verify
+    calls = [dict(family=f, config=dataclasses.asdict(c),
+                  problem=dataclasses.asdict(p)) for f, c, p in verified]
+    jobs = _gate_jobs(calls)
+    rep = run_fleet(jobs, out_dir=FLEET_DIR / "f32", run_kernels=True,
+                    device="cuda", fresh=True, **FLEET)
+    eng = engine("kernel", dispatch_table=rep.table)
+    tuned = replay(eng, trace)
+    geoms = _geometries(eng, rep.table)
+    dispatch.install(None)
+    check(tuned["outputs"] == plain["outputs"],
+          "float32 tokens with the table differ from those without it")
+    ct = tuned["metrics"]["counters"]
+    check(ct["gather_bytes"] == 0 and ct["kernel_decode_ticks"]
+          == plain["metrics"]["counters"]["kernel_decode_ticks"] > 0
+          and ct["kernel_prefill_ticks"]
+          == plain["metrics"]["counters"]["kernel_prefill_ticks"] > 0,
+          "float32 tuned engine counters")
+    hits = sum(g["hit"] for g in geoms)
+    n_tok = sum(len(o) for o in tuned["outputs"].values())
+    log(f"[tune/paths] {cfg.name} float32, 2 layers: {len(jobs)} jobs, "
+        f"{rep.ran} items; with the table {hits} of {len(geoms)} "
+        f"geometries hit, tokens identical to those without it "
+        f"({len(tuned['outputs'])} requests, {n_tok} tokens)")
+    return dict(jobs=len(jobs), ran=rep.ran, geometries=geoms, hits=hits,
+                tokens=n_tok)
+
+
+def _entry_case(torch, family, prob):
+    """Inputs at an entry's exact problem: a call of the validated op at
+    a config, a call of the kernel wrapper the serving model runs (the
+    engine resolved and verified the config already), the plain
+    version's output, and the default config.
+    paged_attention: every row full with as many pages as the pool holds
+    (pool - 1 pages over the rows, at most the table width); ragged
+    prefill: ``n_seqs`` equal segments packed over ``total_tokens``
+    (the family's packed self-attention)."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[prob.dtype]
+    rand = lambda *shape: torch.randn(*shape, generator=g,
+                                      device="cuda").to(dt)
+    if family == "paged_attention":
+        from repro_torch.kernels.paged_attention import (paged_decode,
+                                                         paged_decode_ref)
+        from repro_torch.kernels.paged_attention.ops import default_config
+        from repro_torch.kernels.paged_attention.paged_attention import \
+            paged_decode as kernel
+        B, PS, P, NP = (prob.batch, prob.page_size, prob.pool_pages,
+                        prob.pages_per_seq)
+        n = min(NP, (P - 1) // B)
+        q = rand(B, prob.q_heads, 1, prob.head_dim)
+        kp = rand(P, prob.kv_heads, PS, prob.head_dim)
+        vp = rand(P, prob.kv_heads, PS, prob.head_dim)
+        perm = torch.randperm(P - 1, generator=g, device="cuda") + 1
+        table = torch.zeros(B, NP, dtype=torch.int32, device="cuda")
+        table[:, :n] = perm[:B * n].reshape(B, n).to(torch.int32)
+        lens = torch.full((B,), n * PS, dtype=torch.int32, device="cuda")
+        args = (q, kp, vp, table, lens)
+        return (lambda c: paged_decode(*args, cfg=c),
+                lambda c: kernel(*args, cfg=c),
+                paged_decode_ref(*args), default_config(NP))
+    from repro_torch.kernels.ragged_prefill import (ragged_prefill_attend,
+                                                    ragged_prefill_ref)
+    from repro_torch.kernels.ragged_prefill.ops import default_config
+    from repro_torch.kernels.ragged_prefill.ragged_prefill import \
+        ragged_prefill as kernel
+    T, n = prob.total_tokens, prob.n_seqs
+    seg = torch.arange(T, device="cuda") * n // T
+    start = torch.searchsorted(seg, torch.arange(n, device="cuda"))
+    pos = torch.arange(T, device="cuda") - start[seg]
+    seg, pos = seg.to(torch.int32), pos.to(torch.int32)
+    q = rand(prob.q_heads, T, prob.head_dim)
+    k = rand(prob.kv_heads, T, prob.head_dim)
+    v = rand(prob.kv_heads, T, prob.head_dim)
+    args = (q, k, v, seg, pos, seg, pos)
+    return (lambda c: ragged_prefill_attend(*args, cfg=c),
+            lambda c: kernel(*args, cfg=c),
+            ragged_prefill_ref(*args), default_config(T, T))
+
+
+def phase_tune_time(torch, table_path):
+    """(e) each table entry at its exact problem: the kernel at the
+    table's config and at the default, each first held to the plain
+    version through the validated op, then the kernel wrapper the
+    serving model calls timed in turns (table, default, default, table;
+    CUDA events, L2 flushed, and over 20 calls back to back) beside the
+    cost model's estimate of each and the family's bound.  Nothing is
+    re-ranked."""
+    from repro_torch.core.families import get_family
+    from repro_torch.core.tuning import dispatch
+    table = dispatch.load(table_path)
+    rows = []
+    for family, buckets in sorted(table.entries.items()):
+        fam = get_family(family)
+        for bucket, e in sorted(buckets.items()):
+            prob = fam.problem_cls(**e["problem"])
+            call, kernel, want, default = _entry_case(torch, family, prob)
+            dtype = {"bf16": "bfloat16", "f32": "float32"}[prob.dtype]
+            sol = fam.sol_bound(prob)
+            bms, by = bound_ms(sol.hbm_bytes, sol.flops, dtype)
+            row = dict(family=family, bucket=bucket,
+                       problem=dataclasses.asdict(prob), bound_ms=bms,
+                       bound_by=by, sol_model_ms=sol.time_s * 1e3)
+            cfgs = {"table": fam.config_cls(**e["config"]),
+                    "default": default}
+            for name, c in cfgs.items():
+                got = call(c)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                check(err <= TOL[dtype], f"{family} {prob} at {c.name()}: "
+                      f"max |kernel - plain| {err} > {TOL[dtype]}")
+                row[name] = dict(cfg=dataclasses.asdict(c), name=c.name(),
+                                 max_abs_err=err, runs_ms=[],
+                                 back_to_back_ms=[],
+                                 model_ms=fam.cost(c, prob).time_s * 1e3)
+            for name in ("table", "default", "default", "table"):
+                c = cfgs[name]
+                row[name]["runs_ms"].append(time_ms(torch,
+                                                    lambda: kernel(c)))
+                row[name]["back_to_back_ms"].append(back_to_back_ms(
+                    torch, lambda: kernel(c)))
+            for name in cfgs:
+                row[name]["ms"] = statistics.mean(row[name]["runs_ms"])
+            rows.append(row)
+            t, d = row["table"], row["default"]
+            runs = lambda r: ", ".join(f"{x:.4f}" for x in r["runs_ms"])
+            b2b = lambda r: ", ".join(f"{x:.4f}"
+                                      for x in r["back_to_back_ms"])
+            log(f"[tune/time] {family} {prob}: table {t['name']} "
+                f"{t['ms']:.4f} ms ({runs(t)}; back to back {b2b(t)}; "
+                f"model {t['model_ms']:.4f}), default {d['name']} "
+                f"{d['ms']:.4f} ms ({runs(d)}; back to back {b2b(d)}; "
+                f"model {d['model_ms']:.4f}); bound {bms:.4f} ms ({by}), "
+                f"the family's SoL model {row['sol_model_ms']:.4f} ms; "
+                f"max_abs_err {t['max_abs_err']:.3g} / "
+                f"{d['max_abs_err']:.3g}")
+    return rows
+
+
+def phase_tune(torch, serve):
+    """Phase 12: tune qwen3-1.7b's serving geometries with the fleet,
+    build the table, serve through it.  The table is uninstalled at the
+    end, whatever happens."""
+    from repro_torch.core.tuning import dispatch
+    t0 = time.perf_counter()
+    try:
+        out = {}
+        out["fleet"], table_path = phase_tune_fleet(torch, serve)
+        out["serve"] = phase_tune_serve(torch, serve, table_path)
+        out["paths"] = phase_tune_paths(torch)
+        out["time"] = phase_tune_time(torch, table_path)
+    finally:
+        dispatch.install(None)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[tune] phase wall {out['wall_s']:.1f} s")
+    return out
+
+
 # -- main --------------------------------------------------------------------
 
 def main():
@@ -2463,6 +3006,7 @@ def main():
         summary["serve_moe"] = phase_serve_moe(torch)
         summary["quant_gemm"] = quant = phase_quant(torch)
         summary["ssd"] = ssd = phase_ssd(torch)
+        summary["tune"] = phase_tune(torch, serve)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

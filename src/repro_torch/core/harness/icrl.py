@@ -40,7 +40,7 @@ class StepRecord:
 @dataclass
 class OptimizeCheckpoint:
     """Resumable hillclimb state — what a budgeted run hands to its
-    continuation.  A fleet tuner (ROADMAP A7, not ported yet) runs
+    continuation.  The fleet tuner (:mod:`repro_torch.core.tuning`) runs
     successive-halving rungs as budgeted :func:`optimize_kernel` slices:
     each rung resumes from the previous rung's checkpoint, so doubling a
     survivor's budget continues its trajectory instead of restarting it.
@@ -186,8 +186,8 @@ def export_lessons(result: OptimizeResult, *, family: str,
                    source: str) -> List[Dict]:
     """Distill one optimize run into structured, publishable lesson
     entries — the wire format of the fleet's shared lesson store
-    (ROADMAP A7, not ported yet).  One entry per skill the episode
-    produced an advantage signal for, stage-attributed with the
+    (:mod:`repro_torch.core.tuning.lessons`).  One entry per skill the
+    episode produced an advantage signal for, stage-attributed with the
     (stage, assertion) the skill's rewrites tripped most.  ``source``
     (the work-item id) makes re-publication after a crash/re-dispatch
     idempotent: the store keys entries on a content hash that includes

@@ -8,10 +8,12 @@ invariants (the shared :func:`repro_torch.core.verify_engine
 rejects raises :class:`InvariantViolation`, with the rendered report,
 before any launch.  The backward pass saves nothing but q, k and v and
 differentiates the plain version ``mha_ref`` on them (FlashAttention-2's
-recompute backward; the JAX package's ``custom_vjp``).  There is no
-fleet dispatch table in the port yet (ROADMAP A7): with no ``cfg`` the
-shape-adaptive :func:`default_config` (prefill) or the kv_splits rule
-of :func:`mha_decode` is used.
+recompute backward; the JAX package's ``custom_vjp``).  With no ``cfg``,
+the config comes from the installed fleet dispatch table
+(:func:`repro_torch.core.tuning.dispatch.configured`: the tuned config
+of the problem's shape bucket, verified at the exact problem) and,
+failing that, from the shape-adaptive :func:`default_config` (prefill)
+or the kv_splits rule of :func:`mha_decode`.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from ...core.families.flash_attention import (FlashAttentionConfig,
 from ...core.families.flash_decode import (FlashDecodeConfig,
                                            FlashDecodeProblem)
 from ...core.verify_engine import InvariantViolation, default_engine
+from ...core.tuning.dispatch import configured
 from .._build import dtype_name
 from . import ref
 from .decode import flash_decode
@@ -86,7 +89,7 @@ def mha_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len,
     prob = FlashDecodeProblem(
         batch=int(B), q_heads=int(Hq), kv_heads=int(Hkv), seq_kv=int(S),
         head_dim=int(D), dtype=dtype_name(q.dtype))
-    cfg = cfg or FlashDecodeConfig(
+    cfg = cfg or configured("flash_decode", prob) or FlashDecodeConfig(
         kv_splits=max(1, min(16, S // max(S // 16, 128))))
     while S % cfg.kv_splits:
         cfg = FlashDecodeConfig(kv_splits=cfg.kv_splits - 1)
@@ -107,7 +110,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         batch=int(B), q_heads=int(Hq), kv_heads=int(Hkv), seq_q=int(Sq),
         seq_kv=int(Skv), head_dim=int(D), causal=bool(causal),
         dtype=dtype_name(q.dtype))
-    cfg = cfg or default_config(Sq, Skv, D)
+    cfg = cfg or configured("flash_attention", prob) \
+        or default_config(Sq, Skv, D)
     if prob.causal is False and cfg.causal_block_skip:
         cfg = FlashAttentionConfig(cfg.block_q, cfg.block_kv,
                                    cfg.v_transposed_staging, False,

@@ -6,9 +6,11 @@ must pass compile-time invariant validation (the shared
 may launch: a config that mispairs operands, clobbers its accumulator,
 or under-covers the output is rejected *here*, with a concrete
 counterexample, by :class:`InvariantViolation`.  The engine memoizes
-verdicts, so a repeat config revalidates for free.  There is no fleet
-dispatch table in the port yet (ROADMAP A7): with no ``cfg`` the
-shape-adaptive :func:`default_config` is used.
+verdicts, so a repeat config revalidates for free.  With no ``cfg``, the
+config comes from the installed fleet dispatch table
+(:func:`repro_torch.core.tuning.dispatch.configured`: the tuned config
+of the problem's shape bucket, verified at the exact problem) and,
+failing that, from the shape-adaptive :func:`default_config`.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from ...core.families.gemm import GemmConfig, GemmProblem
 from ...core.verify_engine import InvariantViolation, default_engine
+from ...core.tuning.dispatch import configured
 from .._build import dtype_name
 from .gemm import gemm
 
@@ -41,7 +44,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     prob = GemmProblem(m=int(a.shape[0]), n=int(b.shape[1]),
                        k=int(a.shape[1]),
                        dtype=dtype_name(a.dtype))
-    cfg = cfg or default_config(prob.m, prob.n, prob.k)
+    cfg = cfg or configured("gemm", prob) \
+        or default_config(prob.m, prob.n, prob.k)
     _validate(cfg, prob)
     return gemm(a, b, cfg=cfg, out_dtype=out_dtype)
 

@@ -2,12 +2,15 @@
 combine, with the ARGUS gate on the kernel config.
 
 The port of the JAX package's ``kernels/moe/ops.py``.  A kernel config
-must pass compile-time validation of the family's invariants (the
-shared :func:`repro_torch.core.verify_engine.default_engine`) before
-the kernel may launch: a config the gate rejects raises
+must pass compile-time validation of the family's invariants (the shared
+:func:`repro_torch.core.verify_engine.default_engine`) before the kernel
+may launch: a config the gate rejects raises
 :class:`InvariantViolation`, with the rendered report, before any
-launch.  There is no fleet dispatch table in the port yet (ROADMAP A7):
-with no ``cfg`` the shape-adaptive :func:`default_config` is used.
+launch.  With no ``cfg``, the config comes from the installed fleet
+dispatch table (:func:`repro_torch.core.tuning.dispatch.configured`: the
+tuned config of the problem's shape bucket, verified at the exact
+problem) and, failing that, from the shape-adaptive
+:func:`default_config`.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 
 from ...core.families.moe import MoEConfig, MoEProblem, capacity_for
 from ...core.verify_engine import InvariantViolation, default_engine
+from ...core.tuning.dispatch import configured
 from .._build import dtype_name
 from .moe import compute_dispatch, grouped_ffn
 
@@ -63,7 +67,7 @@ def moe_ffn(x: torch.Tensor, gates: torch.Tensor, expert_idx: torch.Tensor,
     prob = MoEProblem(tokens=int(T), d_model=int(DM), d_ff=int(DF),
                       n_experts=int(E), top_k=int(K),
                       dtype=dtype_name(x.dtype))
-    cfg = cfg or default_config(DM, DF)
+    cfg = cfg or configured("moe", prob) or default_config(DM, DF)
     _validate(cfg, prob)
     C = capacity_for(T, K, E, cfg.block_t, capacity_factor)
 

@@ -9,9 +9,11 @@ mapping, a stale V-path table, a wrong GQA head or an under-covering
 page grid is rejected with :class:`InvariantViolation` before any
 launch.  :func:`validate_block_tables` adds the concrete runtime checks
 the serving path makes before a kernel reads through a block table: the
-page range, the mapped length of each row and the absence of null
-holes.  Kernel configs come from :func:`default_config`; the fleet
-dispatch table is not ported (ROADMAP A7).
+page range, the mapped length of each row and the absence of null holes.
+With no ``cfg``, kernel configs come from the installed fleet dispatch
+table (:func:`repro_torch.core.tuning.dispatch.configured`: the tuned
+config of the problem's shape bucket, verified at the exact problem)
+and, failing that, from :func:`default_config` — the JAX order.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from ...core.families.paged_attention import (PagedAttentionConfig,
                                               PagedAttentionProblem)
 from ...core.verify_engine import InvariantViolation, default_engine
+from ...core.tuning.dispatch import configured
 from .._build import dtype_name
 from .paged_attention import paged_decode as _paged_decode_kernel
 
@@ -57,7 +60,7 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
         batch=int(B), q_heads=int(Hq), kv_heads=int(Hkv),
         seq_kv=NP * int(PS), page_size=int(PS), pool_pages=int(P),
         head_dim=int(D), dtype=dtype_name(q.dtype))
-    cfg = cfg or default_config(NP)
+    cfg = cfg or configured("paged_attention", prob) or default_config(NP)
     _validate(cfg, prob)
     return _paged_decode_kernel(q, k_pages, v_pages, table, lengths,
                                 cfg=cfg, scale=scale)
@@ -87,8 +90,8 @@ def validate_block_tables(tables, *, model=None, page_size: int,
     logical to physical pages; its contents are range-checked against
     the pool.  Given the head geometry, it builds the family problem for
     this batch geometry and statically verifies the indirection
-    invariants of the config (:func:`default_config` unless ``cfg``) at
-    the step the kernel runs for ``dtype`` (the pool's type), raising
+    invariants of the config (``cfg``, else the installed dispatch
+    table's, else :func:`default_config`) at the step the kernel runs for ``dtype`` (the pool's type), raising
     :class:`InvariantViolation` on a rejection.  ``lengths``
     (per-sequence logical token counts) adds the mapped-length
     consistency check: each row must map exactly
@@ -141,6 +144,6 @@ def validate_block_tables(tables, *, model=None, page_size: int,
         batch=B, q_heads=int(q_heads), kv_heads=int(kv_heads),
         seq_kv=NP * page_size, page_size=page_size,
         pool_pages=pool_pages, head_dim=int(head_dim), dtype=dtype)
-    cfg = cfg or default_config(NP)
+    cfg = cfg or configured("paged_attention", prob) or default_config(NP)
     _validate(cfg, prob)
     return cfg

@@ -5,9 +5,11 @@ config must pass compile-time scale-provenance validation (the shared
 :func:`repro_torch.core.verify_engine.default_engine`) before the kernel
 may launch: a config that pairs a dequant scale with the wrong K-slice,
 row or column is rejected *here*, with a concrete counterexample, by
-:class:`InvariantViolation`.  There is no fleet dispatch table in the
-port yet (ROADMAP A7): with no ``cfg`` the shape-adaptive
-:func:`default_config` is used.
+:class:`InvariantViolation`.  With no ``cfg``, the config comes from the
+installed fleet dispatch table
+(:func:`repro_torch.core.tuning.dispatch.configured`: the tuned config
+of the problem's shape bucket, verified at the exact problem) and,
+failing that, from the shape-adaptive :func:`default_config`.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 
 from ...core.families.quant_gemm import QuantGemmConfig, QuantGemmProblem
 from ...core.verify_engine import InvariantViolation, default_engine
+from ...core.tuning.dispatch import configured
 from .quant_gemm import quant_gemm
 
 __all__ = ["quant_matmul", "default_config", "InvariantViolation"]
@@ -48,7 +51,8 @@ def quant_matmul(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
     prob = QuantGemmProblem(m=int(a.shape[0]), n=int(b.shape[1]),
                             k=int(a.shape[1]), group=int(group),
                             dtype="fp8" if a.dtype in _FP8 else "i8")
-    cfg = cfg or default_config(prob.m, prob.n, prob.k, prob.group)
+    cfg = cfg or configured("quant_gemm", prob) \
+        or default_config(prob.m, prob.n, prob.k, prob.group)
     _validate(cfg, prob)
     return quant_gemm(a, b, sa, sb, group=group, cfg=cfg,
                       out_dtype=out_dtype)

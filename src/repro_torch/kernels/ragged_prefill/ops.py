@@ -9,9 +9,11 @@ CUDA kernel runs) before the kernel may launch: a cross-sequence leak,
 an off-by-one causal bound, a mis-based cu_seqlens offset or a
 skipped/replayed KV block is rejected with :class:`InvariantViolation`
 before any launch.  The concrete metadata is range-checked by
-:func:`.packing.validate_packing`.  Kernel configs come from
-:func:`default_config`; the fleet dispatch table is not ported
-(ROADMAP A7).
+:func:`.packing.validate_packing`.  With no ``cfg``, kernel configs come
+from the installed fleet dispatch table
+(:func:`repro_torch.core.tuning.dispatch.configured`: the tuned config
+of the problem's shape bucket, verified at the exact problem) and,
+failing that, from :func:`default_config` — the JAX order.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from ...core.families.ragged_prefill import (RaggedPrefillConfig,
                                              RaggedPrefillProblem)
 from ...core.verify_engine import InvariantViolation, default_engine
+from ...core.tuning.dispatch import configured
 from .._build import dtype_name
 from .ragged_prefill import ragged_prefill as _ragged_prefill_kernel
 
@@ -70,7 +73,8 @@ def ragged_prefill_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_seqs = int(segs.max()) + 1 if segs.size and segs.max() >= 0 else 1
     prob = _problem(TK, n_seqs, Hq, Hkv, D,
                     dtype_name(q.dtype))
-    cfg = cfg or default_config(int(TQ), int(TK))
+    cfg = cfg or configured("ragged_prefill", prob) \
+        or default_config(int(TQ), int(TK))
     _validate(cfg, prob)
     return _ragged_prefill_kernel(q, k, v, seg_q, pos_q, seg_k, pos_k,
                                   cfg=cfg, scale=scale)
@@ -83,14 +87,19 @@ def verified_config(total_q: int, total_k: int, n_seqs: int, *,
                     ) -> Optional[RaggedPrefillConfig]:
     """ARGUS gate for a serving engine's packed-prefill geometry.
 
-    Statically verifies the leakage invariants of the config
-    (:func:`default_config` unless ``cfg``) for this packing geometry.
-    Returns the verified config, or ``None`` when the geometry is
-    unverifiable (blocks cannot tile the buffers, or the invariant check
-    rejects) — the serving engine's signal to stay on the dense fallback
-    path."""
+    Resolves the config (``cfg``, else the installed fleet dispatch
+    table's, else :func:`default_config`) and statically verifies its
+    leakage invariants for this packing geometry.  Returns the verified
+    config, or ``None`` when the geometry is unverifiable (blocks cannot
+    tile the buffers, or the invariant check rejects) — the serving
+    engine's signal to stay on the dense fallback path.  As in the JAX
+    package, a table config that passes at the problem (whose
+    ``total_tokens`` is the KV extent) but whose ``block_q`` does not
+    tile ``total_q`` gives ``None`` too: no second try at the
+    default."""
     prob = _problem(total_k, n_seqs, q_heads, kv_heads, head_dim, dtype)
-    cfg = cfg or default_config(total_q, total_k)
+    cfg = cfg or configured("ragged_prefill", prob) \
+        or default_config(total_q, total_k)
     if total_q % cfg.block_q or total_k % cfg.block_q \
             or total_k % cfg.block_kv:
         return None

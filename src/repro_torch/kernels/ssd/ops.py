@@ -1,13 +1,15 @@
 """Public SSD entry point with the ARGUS gate.
 
 The port of the JAX package's ``kernels/ssd/ops.py``.  A kernel config
-must pass compile-time validation of the family's invariants (the
-shared :func:`repro_torch.core.verify_engine.default_engine`) before the
-kernel may launch: a config the gate rejects raises
+must pass compile-time validation of the family's invariants (the shared
+:func:`repro_torch.core.verify_engine.default_engine`) before the kernel
+may launch: a config the gate rejects raises
 :class:`InvariantViolation`, with the rendered report, before any
-launch.  There is no fleet dispatch table in the port yet (ROADMAP A7):
-with no ``cfg`` the JAX default ``SSDConfig(chunk=min(128, S))`` is
-used.
+launch.  With no ``cfg``, the config comes from the installed fleet
+dispatch table (:func:`repro_torch.core.tuning.dispatch.configured`: the
+tuned config of the problem's shape bucket, verified at the exact
+problem) and, failing that, from the JAX default
+``SSDConfig(chunk=min(128, S))``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 
 from ...core.families.ssd import SSDConfig, SSDProblem
 from ...core.verify_engine import InvariantViolation, default_engine
+from ...core.tuning.dispatch import configured
 from .ssd import ssd_chunk_scan
 
 __all__ = ["ssd", "InvariantViolation"]
@@ -45,6 +48,6 @@ def ssd(x: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
     prob = SSDProblem(batch_heads=int(BH), seq=int(S),
                       head_dim=int(P), d_state=int(Bm.shape[-1]),
                       dtype=_DTYPE_NAMES.get(name, name))
-    cfg = cfg or SSDConfig(chunk=min(128, S))
+    cfg = cfg or configured("ssd", prob) or SSDConfig(chunk=min(128, S))
     _validate(cfg, prob)
     return ssd_chunk_scan(x, da, Bm, Cm, cfg=cfg)

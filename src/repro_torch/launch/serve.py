@@ -3,7 +3,8 @@ a CUDA card by default.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         [--reduced] [--engine paged] [--requests 16] [--slots 4] \\
-        [--pool-pages N] [--device cuda]
+        [--pool-pages N] [--dispatch-table dispatch_table.json] \\
+        [--device cuda]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
         --engine dense [--reduced] [--device cuda]
 
@@ -18,9 +19,14 @@ the kernels' plain versions on the CPU.  The SSM family (mamba2-780m)
 has no KV cache to page: it serves through ``--engine dense`` only, as
 in the JAX package, whose paged engine refuses it too.
 
-Not ported yet (they raise when given): ``--ckpt-dir`` (checkpoint
-restore, ROADMAP port item A9) and ``--dispatch-table`` (the fleet
-tuner's kernel configs, ROADMAP port item A7).
+``--dispatch-table FILE`` loads a fleet tuner's ``dispatch_table.json``
+(``python -m repro_torch.launch.tune`` writes one), prints its summary
+and hands it to the engine, which installs it: every validated kernel
+entry point then takes the table's config for its problem's shape
+bucket, verified at the exact problem, before its default.
+
+Not ported yet (it raises when given): ``--ckpt-dir`` (checkpoint
+restore, ROADMAP port item A9).
 
 Observability: ``--metrics-port N`` serves the live metrics snapshot in
 Prometheus text format at ``http://127.0.0.1:N/metrics`` (port 0 picks a
@@ -63,7 +69,9 @@ def main(argv=None):
     ap.add_argument("--max-new-tokens", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dispatch-table", default=None,
-                    help="not ported yet: raises")
+                    help="fleet tuner dispatch_table.json with tuned "
+                         "kernel configs (python -m "
+                         "repro_torch.launch.tune)")
     ap.add_argument("--metrics-port", type=int, default=None,
                     help="serve Prometheus text metrics on this port "
                          "(0 = pick a free one)")
@@ -75,11 +83,6 @@ def main(argv=None):
         raise NotImplementedError(
             "--ckpt-dir: checkpoint restore is not ported yet "
             "(ROADMAP, port item A9)")
-    if args.dispatch_table is not None:
-        raise NotImplementedError(
-            "--dispatch-table: the fleet dispatch table is not ported yet "
-            "(ROADMAP, port item A7)")
-
     device = resolve_device(args.device)
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))
@@ -90,6 +93,11 @@ def main(argv=None):
             "well; use --engine dense (ROADMAP, port item A8)")
     model = build(cfg)
     params = model.init(args.seed, device=device)
+    table = None
+    if args.dispatch_table:
+        from repro_torch.core.tuning import load_dispatch_table
+        table = load_dispatch_table(args.dispatch_table)
+        print(f"dispatch table: {table.summary()}")
 
     if args.engine == "paged":
         pool_pages = args.pool_pages or max(
@@ -98,11 +106,12 @@ def main(argv=None):
             model, params, pool_pages=pool_pages,
             page_size=args.page_size, max_batch=args.slots,
             max_len=args.max_len, prefill_chunk=args.prefill_chunk,
-            eos_id=-1, decode_path="kernel", prefill_path="kernel",
-            device=device)
+            eos_id=-1, dispatch_table=table, decode_path="kernel",
+            prefill_path="kernel", device=device)
     else:
         eng = ServingEngine(model, params, n_slots=args.slots,
-                            max_len=args.max_len, eos_id=-1, device=device)
+                            max_len=args.max_len, eos_id=-1,
+                            dispatch_table=table, device=device)
     if args.trace_out:
         obs.enable()
     server = None

@@ -8,8 +8,10 @@ same buckets, ``merge`` is element-wise addition of counts — an
 associative, commutative, order-free operation.
 
 A copy of the JAX package's ``obs/hist.py`` (the port imports nothing
-of that package), without ``merge_save_hist``: the locked shared-file
-merge belongs to the fleet tuner, which is not ported yet.
+of that package), without ``merge_save_hist``: a locked shared-file
+merge that no path of the JAX package calls (its fleet tuner, ported in
+``repro_torch.core.tuning``, shares proofs and lessons, not
+histograms).
 
 Quantiles are nearest-rank over bucket counts and return the bucket's
 inclusive upper bound, so the estimate errs by at most one bucket

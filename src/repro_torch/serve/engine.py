@@ -35,11 +35,22 @@ dense view), as in the JAX package; the
 ticks did not.  A kernel that fails to build or launch raises: nothing
 catches it.
 
+Kernel configs come from the fleet tuner's ``dispatch_table.json``
+(:mod:`repro_torch.core.tuning.dispatch`), as in the JAX engines: pass
+``dispatch_table=`` (a path, a dict or a loaded table) and the engine
+installs it process-wide, so every validated kernel entry point it
+reaches resolves its config from the tuned table's shape buckets — at
+the exact problem, verified — before the shape-adaptive default.  The
+table is read where the engine already resolves a config once per
+geometry (the decode batch geometry, each packed prefill geometry, the
+gather path's gate).  The install is process-global, as in the JAX
+package: one table per process, last install wins; without
+``dispatch_table=`` an engine takes the table already installed, if
+any.
+
 Both engines decode greedily and take ``device=`` (default ``"cuda"``;
 see :func:`repro_torch.device.resolve_device`); the model's parameters
-must already live there.  The fleet dispatch table of the JAX engines
-is not ported yet (ROADMAP, port item A7): kernel configs are the
-defaults.
+must already live there.
 """
 from __future__ import annotations
 
@@ -51,6 +62,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs as _obs
+from repro_torch.core.tuning import dispatch as _dispatch
 from repro_torch.device import DeviceLike, device_of, resolve_device
 
 from .metrics import ServingMetrics
@@ -97,11 +109,17 @@ class ServingEngine:
     """Dense-slab slot engine (the paged engine's token oracle)."""
 
     def __init__(self, model, params, *, n_slots: int = 4,
-                 max_len: int = 512, eos_id: int = 1, clock=None,
+                 max_len: int = 512, eos_id: int = 1,
+                 dispatch_table=None, clock=None,
                  device: DeviceLike = "cuda"):
         self.model = model
         self.params = params
         self.device = _engine_device(params, device)
+        # tuned kernel configs: install the fleet dispatch table so the
+        # validated kernel entry points consult it (process-wide)
+        self.dispatch = (_dispatch.install(dispatch_table)
+                         if dispatch_table is not None
+                         else _dispatch.active())
         self.n_slots = n_slots
         self.max_len = max_len
         self.eos_id = eos_id
@@ -238,7 +256,8 @@ class PagedServingEngine:
     def __init__(self, model, params, *, pool_pages: int,
                  page_size: int = 16, max_batch: int = 8,
                  max_len: int = 512, prefill_chunk: int = 32,
-                 eos_id: int = 1, decode_path: str = "gather",
+                 eos_id: int = 1, dispatch_table=None,
+                 decode_path: str = "gather",
                  prefill_path: str = "gather",
                  clock=None, device: DeviceLike = "cuda"):
         if max_len % page_size:
@@ -255,6 +274,9 @@ class PagedServingEngine:
         self.model = model
         self.params = params
         self.device = _engine_device(params, device)
+        self.dispatch = (_dispatch.install(dispatch_table)
+                         if dispatch_table is not None
+                         else _dispatch.active())
         self.page_size = page_size
         self.max_batch = max_batch
         self.max_len = max_len
@@ -401,8 +423,8 @@ class PagedServingEngine:
         sig = (tables.shape, self.alloc.n_pages)
         if sig != self._table_sig:
             # ARGUS gate: verify the paged_attention family's indirection
-            # invariants for this batch geometry before the gather
-            # consumes it
+            # invariants for this batch geometry (config resolved from the
+            # installed dispatch table) before the gather consumes it
             from repro_torch.kernels.paged_attention.ops import \
                 validate_block_tables
             validate_block_tables(
@@ -526,7 +548,7 @@ class PagedServingEngine:
         key = (TQp, TKp, len(spans))
         if key not in self._prefill_cfgs:
             # ARGUS gate: verify the leakage invariants once per packed
-            # geometry
+            # geometry, config resolved from the dispatch table
             self._prefill_cfgs[key] = verified_config(
                 TQp, TKp, len(spans), q_heads=mcfg.n_heads,
                 kv_heads=mcfg.n_kv_heads,
@@ -573,10 +595,11 @@ class PagedServingEngine:
 
     # -- decode --------------------------------------------------------------
     def _kernel_config(self, tables: np.ndarray):
-        """Resolve and statically verify the kernel config for this batch
-        geometry (memoized on it, like ``_gather``'s gate).  None when
-        the gate rejects it or the cache cannot be paged-attended — the
-        tick then falls back to the gather path."""
+        """Resolve (from the installed dispatch table, else the default)
+        and statically verify the kernel config for this batch geometry
+        (memoized on it, like ``_gather``'s gate).  None when the gate
+        rejects it or the cache cannot be paged-attended — the tick then
+        falls back to the gather path."""
         sig = (tables.shape, self.alloc.n_pages)
         if sig != self._kernel_sig:
             from repro_torch.kernels.paged_attention.ops import (

@@ -974,3 +974,26 @@ def test_validator_runs_the_ssd_kernel_on_the_card(card):
             64, 8192, 64, 128)).refresh()
         assert v.evaluate(LoweredState(st), incumbent_s=1.0).ok
     assert KERNEL.launches - before == v.reference_runs == 3
+
+
+def test_fleet_runs_its_unit_tests_on_the_card(card, tmp_path):
+    """A one-job fleet (the reduced qwen3 paged decode geometry) with
+    ``run_kernels=True`` on the card: every unit test launches the
+    paged-decode kernel (two passes a test), and the table is the one
+    the same fleet writes without unit tests."""
+    from repro_torch.core.families.paged_attention import \
+        PagedAttentionProblem
+    from repro_torch.core.tuning import make_job, run_fleet
+    from repro_torch.kernels.paged_attention import KERNEL
+    job = make_job("paged_attention", PagedAttentionProblem(
+        4, 4, 2, 64, 8, 25, 16, "bf16"))
+    KERNEL.launches = 0
+    rep = run_fleet([job], out_dir=tmp_path / "card", base_budget=2,
+                    max_budget=4, run_kernels=True)
+    tests = sum(r["verdict_stages"].get("ok", 0)
+                for r in rep.records.values())
+    assert tests > 0 and KERNEL.launches == 2 * tests
+    run_fleet([job], out_dir=tmp_path / "model", base_budget=2,
+              max_budget=4, device="cpu")
+    assert (tmp_path / "card" / "dispatch_table.json").read_bytes() == \
+        (tmp_path / "model" / "dispatch_table.json").read_bytes()

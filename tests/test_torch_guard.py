@@ -7,6 +7,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -33,7 +34,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.core, repro_torch.core.harness, "
             "repro_torch.kernels.gemm, repro_torch.kernels.flash_attention, "
             "repro_torch.kernels.quant_gemm, repro_torch.kernels.ssd, "
-            "repro_torch.models.ssm, repro_torch.configs.mamba2_780m\n"
+            "repro_torch.models.ssm, repro_torch.configs.mamba2_780m, "
+            "repro_torch.core.tuning, repro_torch.core.tuning.pool, "
+            "repro_torch.core.tuning.lessons, repro_torch.launch.tune\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -101,7 +104,9 @@ def _entry_points():
     from repro_torch.core.families import get_family
     from repro_torch.core.families.gemm import GemmConfig, GemmProblem
     from repro_torch.core.harness import Validator
+    from repro_torch.core.tuning import make_job, run_fleet
     from repro_torch.launch import serve as launch
+    from repro_torch.launch import tune
     from repro_torch.models import build, from_jax_numpy
     from repro_torch.serve import (KVPool, PagedServingEngine,
                                    ServingEngine)
@@ -109,6 +114,8 @@ def _entry_points():
     model = build(cfg)
     ssm = build(configs.get_reduced("mamba2-780m"))
     tree = {"w": np.zeros((2, 2), np.float32)}
+    job = make_job("gemm", GemmProblem(64, 64, 128, "f32"))
+    out = str(Path(tempfile.gettempdir()) / "repro_torch_guard_fleet")
     return {
         "resolve_device": lambda **kw: resolve_device(**kw),
         "init": lambda **kw: model.init(0, **kw),
@@ -148,6 +155,13 @@ def _entry_points():
             ["--arch", "qwen3-1.7b", "--reduced", "--requests", "1",
              "--max-new-tokens", "1", "--max-len", "32", "--page-size",
              "8"] + (["--device", kw["device"]] if kw else [])),
+        "run_fleet": lambda **kw: run_fleet(
+            [job], out_dir=out, base_budget=1, max_budget=1,
+            run_kernels=True, fresh=True, **kw),
+        "launch.tune": lambda **kw: tune.main(
+            ["--family", "gemm", "--base-budget", "1", "--max-budget", "1",
+             "--out-dir", out, "--fresh"]
+            + (["--device", kw["device"]] if kw else [])),
     }
 
 
@@ -161,7 +175,8 @@ def _entry_points():
                                   "quant_gemm_reference_check",
                                   "ssd_reference_check", "SSMLM.init",
                                   "SSMLM.init_cache", "SSM ServingEngine",
-                                  "launch.serve", "launch.serve mamba2"])
+                                  "launch.serve", "launch.serve mamba2",
+                                  "run_fleet", "launch.tune"])
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -172,11 +187,16 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(name):
 
 
 def test_launcher_refuses_what_is_not_ported():
+    """``--ckpt-dir`` (checkpoint restore) is not ported and raises;
+    ``--dispatch-table`` is (``test_torch_tuning_fleet.py`` serves with
+    one), and a path that holds no table fails as a missing file."""
     from repro_torch.launch import serve as launch
-    for flag in ("--ckpt-dir", "--dispatch-table"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            launch.main(["--arch", "qwen3-1.7b", "--reduced", "--device",
-                         "cpu", flag, "x"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        launch.main(["--arch", "qwen3-1.7b", "--reduced", "--device",
+                     "cpu", "--ckpt-dir", "x"])
+    with pytest.raises(FileNotFoundError):
+        launch.main(["--arch", "qwen3-1.7b", "--reduced", "--device",
+                     "cpu", "--dispatch-table", "no/such/table.json"])
 
 
 def test_resolve_device_pins_tf32_off():
