@@ -178,7 +178,25 @@ is missing or any phase fails.  Phases:
    problem, the kernel at the table's and at the default config, each
    held to the plain version, timed beside the cost model's estimate and
    the family's bound.  The table is uninstalled when the phase ends;
-13. the kernels line (JSON, all eight kernels), then the final line
+13. serve-flavours — the other decoder-only architectures: (a) both
+   serving kernels against their plain versions at stablelm-3b's heads
+   (32/32, head_dim 80), gemma-7b's (16/16, head_dim 256), codeqwen1.5-
+   7b's (32/32, 128: group 1) and chameleon-34b's (64/8, 128: group 8),
+   bf16 and float32, with phase 3's poisoned pages and zero-length row,
+   each case naming its instance, timed beside its bound and, for ragged
+   prefill, one SDPA call; (b) phase 4's trace and engine at full width
+   and depth on codeqwen1.5-7b, gemma-7b and stablelm-3b, every prefill
+   and decode tick through the two kernels, the launch counters zeroed
+   just before each run and read just after; (c) the same on
+   chameleon-34b at 16 of its 48 layers (all 48 do not fit one card
+   beside the pool); (d) deepseek-v2-lite-16b at full width and depth,
+   every tick on the gather paths (its MLA cache has no heads axis, as
+   in the JAX engine), neither kernel launched; (e) phase 5 for each at
+   depth 2 in float32 — for deepseek-v2-lite-16b the dense engine
+   against the paged one — identical tokens;
+14. the kernels line (JSON, all eight kernels; paged_decode's and
+   ragged_prefill's entries list phase 13a's instances with their
+   launches in phase 13's runs), then the final line
    ``{"ok": true, "device": {...}}``.
 
 Phases 4 and 9 also report the ARGUS gate's verify calls on the serving
@@ -546,8 +564,8 @@ def phase_decode_kernel(torch, dtype, heads=QWEN_HEADS):
         f"instance: max_abs_err {err:.3g} (tol {TOL[dtype]}), outputs "
         f"differing from the plain version {share} (limit "
         f"{P_SPLIT_MISMATCH} on tensor cores), poisoned run bit-identical; "
-        f"{ms:.4f} ms a call (device: split {split_ms:.4f}, combine "
-        f"{combine_ms:.4f}), plain {plain:.4f} ms, bound {bms:.4f} ms "
+        f"{ms:.4f} ms a call (device: split {_ms_or(split_ms)}, combine "
+        f"{_ms_or(combine_ms)}), plain {plain:.4f} ms, bound {bms:.4f} ms "
         f"({by}), library: none")
     out = dict(max_abs_err=err, mismatch_share=share, ms=ms,
                decode_parts_ms=dict(split=split_ms, combine=combine_ms),
@@ -678,11 +696,11 @@ def _decode_production(torch):
         f"x {Hq}/{Hkv} x {S}, {PS}-token pages, pool {P}, bf16) on its "
         f"{instance(D, 2)} instance, {ns} spans a row: max_abs_err "
         f"{err:.3g}, outputs differing from the plain version {share:.4f}; "
-        f"{ms:.4f} ms a call (device: split {split_ms:.4f}, combine "
-        f"{combine_ms:.4f}), plain {plain:.4f} ms, bound {bms:.4f} ms "
+        f"{ms:.4f} ms a call (device: split {_ms_or(split_ms)}, combine "
+        f"{_ms_or(combine_ms)}), plain {plain:.4f} ms, bound {bms:.4f} ms "
         f"({by}); the dense flash_decode kernel at the same bytes "
-        f"{dense_ms:.4f} ms a call (device: split {dense_split:.4f}, "
-        f"combine {dense_combine:.4f})")
+        f"{dense_ms:.4f} ms a call (device: split {_ms_or(dense_split)}, "
+        f"combine {_ms_or(dense_combine)})")
     del kp, vp, kd, vd, want
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, mismatch_share=share, ms=ms,
@@ -857,14 +875,15 @@ def _serve_trace(cfg, s):
                          max_new=s["max_new"], vocab=cfg.vocab)
 
 
-def _serve_run(torch, eng, trace, cfg, s, tag):
+def _serve_run(torch, eng, trace, cfg, s, tag, path="kernel"):
     """Replay ``trace`` through ``eng`` (the serve phase's engine) with
     the launch counters zeroed just before and read just after and the
     gate's verify calls recorded; checks that every request finished
     with its tokens and that every tick that decoded or prefilled went
-    through the two kernels.  Returns the run's numbers, its tokens, the
-    gate calls and (under ``verified``) the recorded (family, config,
-    problem) triples."""
+    through the two kernels (``path="gather"``: that none did, and that
+    neither kernel launched — an MLA cache).  Returns the run's numbers,
+    its tokens, the gate calls and (under ``verified``) the recorded
+    (family, config, problem) triples."""
     from repro_torch.kernels import ALL_KERNELS
     torch.cuda.reset_peak_memory_stats()
     gate, verified = _record_gate()
@@ -878,7 +897,10 @@ def _serve_run(torch, eng, trace, cfg, s, tag):
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in ALL_KERNELS}
     fams = sorted({f for f, *_ in verified})
-    check(fams == ["paged_attention", "ragged_prefill"],
+    # an MLA cache has no heads axis: its gate applies the concrete
+    # block-table checks only, no family is verified
+    check(fams == (["paged_attention", "ragged_prefill"] if path == "kernel"
+                   else []),
           f"gate calls on the serving path: {len(verified)}, families "
           f"{fams}")
 
@@ -896,23 +918,32 @@ def _serve_run(torch, eng, trace, cfg, s, tag):
               f"rid {r.rid}: token outside the vocabulary")
     n_dec = sum(t["decoded"] for t in ticks)
     n_pre = sum(t["prefilled"] for t in ticks)
-    check(all(t["kernel_decode"] == t["decoded"] for t in ticks),
-          "a decode tick did not go through the paged-decode kernel")
-    check(all(t["kernel_prefill"] == t["prefilled"] for t in ticks),
-          "a prefill tick did not go through the ragged-prefill kernel")
-    check(c["kernel_decode_ticks"] == n_dec and
-          c["kernel_prefill_ticks"] == n_pre, "kernel tick counters")
-    check(c["gather_bytes"] == 0, "kernel decode gathered a dense view")
     L = cfg.n_layers
-    check(launches["paged_decode"] >= L * c["kernel_decode_ticks"],
-          f"paged_decode launched {launches['paged_decode']} times for "
-          f"{c['kernel_decode_ticks']} ticks x {L} layers")
-    check(launches["ragged_prefill"] >= L * c["kernel_prefill_ticks"],
-          f"ragged_prefill launched {launches['ragged_prefill']} times "
-          f"for {c['kernel_prefill_ticks']} ticks x {L} layers")
-    for leaf in ("k", "v"):
-        check(float(eng.kv.storage["blocks"][leaf][:, 0].abs().max()) == 0,
-              "the null page was written")
+    if path == "kernel":
+        check(all(t["kernel_decode"] == t["decoded"] for t in ticks),
+              "a decode tick did not go through the paged-decode kernel")
+        check(all(t["kernel_prefill"] == t["prefilled"] for t in ticks),
+              "a prefill tick did not go through the ragged-prefill kernel")
+        check(c["kernel_decode_ticks"] == n_dec and
+              c["kernel_prefill_ticks"] == n_pre, "kernel tick counters")
+        check(c["gather_bytes"] == 0, "kernel decode gathered a dense view")
+        check(launches["paged_decode"] >= L * c["kernel_decode_ticks"],
+              f"paged_decode launched {launches['paged_decode']} times for "
+              f"{c['kernel_decode_ticks']} ticks x {L} layers")
+        check(launches["ragged_prefill"] >= L * c["kernel_prefill_ticks"],
+              f"ragged_prefill launched {launches['ragged_prefill']} times "
+              f"for {c['kernel_prefill_ticks']} ticks x {L} layers")
+        # the null page (page 0) of every layer's pool stays unwritten
+        for leaf in eng.kv.storage["blocks"].values():
+            check(float(leaf[:, 0].abs().max()) == 0,
+                  "the null page was written")
+    else:
+        check(c["kernel_decode_ticks"] == c["kernel_prefill_ticks"] == 0,
+              "a tick of the gather path went through a kernel")
+        check(launches["paged_decode"] == launches["ragged_prefill"] == 0,
+              f"the gather path launched a serving kernel: {launches}")
+        check(c["gather_bytes"] > 0 and n_dec > 0 and n_pre > 0,
+              "the gather path gathered nothing")
     dec_ticks = [t for t in ticks if t["decoded"] and not t["prefilled"]]
     step_ms = sorted(t["seconds"] * 1e3 for t in ticks)
     dec_tok = c["decode_tokens"]
@@ -937,7 +968,8 @@ def _serve_run(torch, eng, trace, cfg, s, tag):
                     for f, cf, pb in verified],
         outputs={r.rid: list(r.output) for r in done})
     log(f"[{tag}] {len(done)} requests, {len(ticks)} ticks ({n_pre} "
-        f"prefill, {n_dec} decode), all through the kernels; "
+        f"prefill, {n_dec} decode), all through the "
+        f"{'kernels' if path == 'kernel' else 'gather paths'}; "
         f"{c['prefill_tokens']} prompt + {dec_tok} generated tokens in "
         f"{wall:.2f} s: decode {out['decode_tokens_per_s']:.1f} tok/s, "
         f"p50 step {out['p50_step_ms']:.1f} ms (decode-only ticks "
@@ -949,10 +981,16 @@ def _serve_run(torch, eng, trace, cfg, s, tag):
 
 
 def phase_serve(torch, s=SERVE):
+    """``s``'s trace through its engine at full width; ``s`` may cut the
+    depth (``n_layers``), name the path every tick must take (``path``,
+    default "kernel") and skip the profiled windows (``profile``)."""
+    import gc
     from repro_torch import configs
     from repro_torch.models import build
     tag = s["tag"]
     cfg = configs.get_config(s["arch"])
+    if s.get("n_layers"):
+        cfg = dataclasses.replace(cfg, n_layers=s["n_layers"])
     model = build(cfg)
     t0 = time.perf_counter()
     params = model.init(s["seed"], device="cuda")
@@ -961,22 +999,29 @@ def phase_serve(torch, s=SERVE):
     pool_pages = _pool_pages(s)
     eng = _serve_engine(model, params, s)
     trace = _serve_trace(cfg, s)
-    weights_gb = sum(p.numel() * p.element_size()
-                     for p in _leaves(params["blocks"])) / 1e9
-    embed_gb = params["embed"]["tok"].numel() * 4 / 1e9
-    log(f"[{tag}] {cfg.name}: {model.n_params / 1e9:.3f} B params "
-        f"(blocks {weights_gb:.2f} GB bf16, embedding {embed_gb:.2f} GB "
-        f"f32), KV pool {pool_pages} pages = {eng.kv.nbytes / 1e9:.2f} GB; "
-        f"init {init_s:.1f} s")
-    out = _serve_run(torch, eng, trace, cfg, s, tag)
+    weights_gb = sum(p.numel() * p.element_size() for k, v in params.items()
+                     if k != "embed" for p in _leaves(v)) / 1e9
+    embed_gb = sum(p.numel() * 4 for p in _leaves(params["embed"])) / 1e9
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, "
+        f"{model.n_params / 1e9:.3f} B params (layers {weights_gb:.2f} GB "
+        f"bf16, embedding{'s' if not cfg.tie_embeddings else ''} "
+        f"{embed_gb:.2f} GB f32), KV pool {pool_pages} pages = "
+        f"{eng.kv.nbytes / 1e9:.2f} GB; init {init_s:.1f} s")
+    out = _serve_run(torch, eng, trace, cfg, s, tag,
+                     path=s.get("path", "kernel"))
     verified = out.pop("verified")
     check(len(verified) == len(set(verified)),
           "the serving path verified a geometry twice")
     log(f"[{tag}] ARGUS gate: {len(verified)} verify calls, one per "
         f"geometry ({out['gate_geometries']})")
+    out.update(arch=cfg.name, n_layers=cfg.n_layers, init_s=init_s,
+               weights_gb=weights_gb, embed_gb=embed_gb,
+               pool_gb=eng.kv.nbytes / 1e9)
     del eng
-    out["profile"] = phase_profile(torch, model, params, pool_pages, s)
+    if s.get("profile", True):
+        out["profile"] = phase_profile(torch, model, params, pool_pages, s)
     del params
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -1608,8 +1653,8 @@ def phase_flash_time(torch, family, best_cfg):
             parts = ""
             if family == "flash_decode":
                 k_ms, c_ms = decode_parts_ms(torch, run(cfg))
-                parts = (f" (device: split kernel {k_ms:.4f} ms, combine "
-                         f"{c_ms:.4f} ms; the rest host time)")
+                parts = (f" (device: split kernel {_ms_or(k_ms)}, combine "
+                         f"{_ms_or(c_ms)}; the rest host time)")
             est = fam.cost(cfg, prob).time_s * 1e3
             rows.append(dict(problem=dataclasses.astuple(prob),
                              config=which, cfg=cfg.name(), ms=ms,
@@ -1650,7 +1695,8 @@ def device_parts_ms(torch, call, part_of, n=20, per_launch=False):
     # a profiled window now and then comes back without device events;
     # it is taken again, at most three times
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 call()
             torch.cuda.synchronize()
@@ -1667,7 +1713,13 @@ def device_parts_ms(torch, call, part_of, n=20, per_launch=False):
             counts[part] = counts.get(part, 0) + e.count
         if parts:
             break
-    check(bool(parts), "the profiler saw no kernel of the call on the card")
+    else:
+        # the profiler can stop recording device events for the rest of a
+        # long process: the call's time (CUDA events) stands, its
+        # breakdown is not measured
+        log("[profiler] three windows without device events: the "
+            "breakdown by kernel is not measured")
+        return {}
     return {k: v / (counts[k] if per_launch else n)
             for k, v in parts.items()}
 
@@ -1678,9 +1730,12 @@ def decode_parts_ms(torch, call, n=20):
     holds ``decode_``) and the merge of the spans' partials (every other
     kernel: the combine kernel, or the tensor ops that an older wrapper
     ran after its kernel).  The cache they stream (134 MB at the
-    families' production problems) is larger than the L2."""
+    families' production problems) is larger than the L2.  (None, None)
+    where the profiler recorded no device event."""
     parts = device_parts_ms(
         torch, call, lambda k: "split" if "decode_" in k else "merge", n)
+    if not parts:
+        return None, None
     check(parts.get("split", 0.0) > 0,
           "the profiler saw no decode kernel on the card")
     return parts["split"], parts.get("merge", 0.0)
@@ -2188,6 +2243,12 @@ def _ms_or(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
+def _parts_or(parts):
+    """A breakdown from :func:`device_parts_ms`, or "not measured"."""
+    return ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()) or \
+        "not measured"
+
+
 def _int_mm_ms(torch, aq, bq):
     """One ``torch._int_mm`` (cuBLASLt int8 x int8 -> int32) over the
     whole K, or None (logged) if this PyTorch refuses the operands."""
@@ -2345,9 +2406,8 @@ def phase_ssd_time(torch, best_cfg):
                              tflops=ops / ms / 1e9))
             log(f"[ssd] {dataclasses.astuple(prob)[:4]} f32 {which} "
                 f"{cfg.name()}: {ms:.4f} ms ({rows[-1]['tflops']:.2f} TFLOP/s "
-                f"of the algorithmic work; device: " + ", ".join(
-                    f"{k} {v:.4f}" for k, v in parts.items())
-                + f" ms; scratch {rows[-1]['scratch_bytes'] / 1e6:.1f} MB), "
+                f"of the algorithmic work; device: " + _parts_or(parts)
+                + f"; scratch {rows[-1]['scratch_bytes'] / 1e6:.1f} MB), "
                 f"bound {bms:.4f} ms ({by}), plain "
                 f"{plain:.4f} ms, library: none; cost model (H100 model, not "
                 f"measured) {est:.4f} ms = {est / ms:.3f} x measured; "
@@ -2460,8 +2520,8 @@ def phase_mamba2(torch):
         f"chunk {q}) through ssd_via_kernel: 1 ssd_chunk_scan launch, "
         f"against ssd_chunked max abs {err:.3g} (|y| up to "
         f"{layer['max_abs_out']:.3g}), worst row {row:.3g}; "
-        f"{ms:.4f} ms (with the fold to (BH, S, P); device: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in parts.items()) + f" ms), "
+        f"{ms:.4f} ms (with the fold to (BH, S, P); device: "
+        + _parts_or(parts) + "), "
         f"ssd_chunked {plain:.4f} ms, bound {bms:.4f} ms ({by})")
     del params, toks, h, xh, da, Bh, Ch, got, want
     torch.cuda.empty_cache()
@@ -2975,6 +3035,99 @@ def phase_tune(torch, serve):
     return out
 
 
+# -- phase 13 ----------------------------------------------------------------
+
+# (query heads, KV heads, head_dim) of the other GQA architectures: two new
+# head dims on the CUDA-core instances (stablelm-3b 80, gemma-7b 256) and
+# group sizes 1 and 8 at 128 on the existing ones (codeqwen1.5-7b,
+# chameleon-34b)
+FLAVOUR_HEADS = {"stablelm-3b": (32, 32, 80), "gemma-7b": (16, 16, 256),
+                 "codeqwen1.5-7b": (32, 32, 128),
+                 "chameleon-34b": (64, 8, 128)}
+# the serve phase's trace and engine on each of the other decoder-only
+# architectures: (b) at full depth; (c) chameleon-34b at 16 of its 48
+# layers (all 48 take 66.4 GB of bf16 weights and 4.3 GB of float32
+# embeddings, which with the pool and a tick's activations do not fit one
+# 80 GB card); (d) deepseek-v2-lite-16b at full depth, whose MLA cache
+# serves on the gather paths, as in the JAX engine
+SERVE_FLAVOURS = [
+    dict(SERVE, arch="codeqwen1.5-7b", tag="serve-flavours/codeqwen"),
+    dict(SERVE, arch="gemma-7b", tag="serve-flavours/gemma"),
+    dict(SERVE, arch="stablelm-3b", tag="serve-flavours/stablelm"),
+    dict(SERVE, arch="chameleon-34b", n_layers=16, profile=False,
+         tag="serve-flavours/chameleon"),
+    dict(SERVE, arch="deepseek-v2-lite-16b", path="gather", profile=False,
+         tag="serve-flavours/deepseek"),
+]
+
+
+def phase_paths_dense(torch, s, moe=None):
+    """deepseek-v2-lite-16b in float32 at depth 2 (its dense front layer
+    and one MoE layer), full width, a drop-free capacity factor: the
+    dense slot engine against the paged engine, whose ticks all take the
+    gather paths (an MLA cache); identical tokens."""
+    from repro_torch.serve import ServingEngine
+    from repro_torch.serve.trace import replay
+    cfg, trace, engine = _paths_setup(s, moe)
+    paged = engine("kernel")
+    res = replay(paged, trace)
+    c = res["metrics"]["counters"]
+    check(c["kernel_decode_ticks"] == c["kernel_prefill_ticks"] == 0
+          and c["gather_bytes"] > 0, f"{cfg.name}: a paged tick did not "
+          "take the gather path")
+    dense = ServingEngine(paged.model, paged.params, n_slots=s["max_batch"],
+                          max_len=s["max_len"], eos_id=-1, device="cuda")
+    want = replay(dense, trace)["outputs"]
+    check(res["outputs"] == want, f"{cfg.name} float32: the paged engine's "
+          "tokens differ from the dense engine's")
+    n_tok = sum(len(o) for o in want.values())
+    log(f"[{s['tag']}/paths] {cfg.name} float32, 2 layers, full width, "
+        f"capacity factor {cfg.moe.capacity_factor:g}: the paged engine "
+        f"(gather paths) and the dense engine give identical tokens "
+        f"({len(want)} requests, {n_tok} tokens)")
+    return dict(requests=len(want), tokens=n_tok, compared="dense vs paged")
+
+
+def phase_serve_flavours(torch):
+    """(a) both serving kernels against their plain versions at each
+    architecture's heads (FLAVOUR_HEADS), bf16 and float32, 16-token
+    pages, with phase 3's poisoned pages and zero-length row, each case
+    naming its instance, timed beside its bound (and, for ragged
+    prefill, one SDPA call); (b)-(d) the serve phase on each of
+    SERVE_FLAVOURS, the launch counters zeroed just before and read just
+    after each run; (e) phase 5 for each at depth 2 in float32 (for
+    deepseek-v2-lite-16b, the dense engine against the paged one)."""
+    from repro_torch import configs
+    kern = {}
+    for arch, heads in FLAVOUR_HEADS.items():
+        for dtype in ("bfloat16", "float32"):
+            kern[f"{arch}/paged_decode/{dtype}"] = phase_decode_kernel(
+                torch, dtype, heads=heads)
+            kern[f"{arch}/ragged_prefill/{dtype}"] = phase_prefill_kernel(
+                torch, dtype, heads=heads)
+    serve, paths = {}, {}
+    for s in SERVE_FLAVOURS:
+        out = phase_serve(torch, s)
+        serve[s["arch"]] = out
+        log(f"[{s['tag']}] {out['arch']} at {out['n_layers']} layers: "
+            f"decode {out['decode_tokens_per_s']:.1f} tok/s, p50 tick "
+            f"{out['p50_step_ms']:.1f} ms, {out['gate_verify_calls']} gate "
+            f"calls; ticks on the kernels: {out['prefill_ticks']} prefill "
+            f"and {out['decode_ticks']} decode "
+            f"({'none' if s.get('path') == 'gather' else 'all'}), on the "
+            f"gather paths: "
+            f"{'all' if s.get('path') == 'gather' else 'none'}")
+    for s in SERVE_FLAVOURS:
+        cfg = configs.get_config(s["arch"])
+        if cfg.attn_type == "mla":
+            m = cfg.moe
+            paths[s["arch"]] = phase_paths_dense(
+                torch, s, moe=dict(capacity_factor=m.n_experts / m.top_k))
+        else:
+            paths[s["arch"]] = phase_paths(torch, s)
+    return dict(kernels=kern, serve=serve, paths=paths)
+
+
 # -- main --------------------------------------------------------------------
 
 def main():
@@ -3007,6 +3160,7 @@ def main():
         summary["quant_gemm"] = quant = phase_quant(torch)
         summary["ssd"] = ssd = phase_ssd(torch)
         summary["tune"] = phase_tune(torch, serve)
+        summary["serve_flavours"] = flav = phase_serve_flavours(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3028,6 +3182,16 @@ def main():
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"],
             ported=True, dtype="bfloat16", instance=k.get("instance")))
+        # the other architectures' instances (phase 13a), and the
+        # kernel's launches in each of their serving runs (13b-c)
+        line[-1]["instances"] = [dict(
+            arch=arch, dtype=dtype, heads=v["heads"],
+            instance=v["instance"], max_abs_err=v["max_abs_err"],
+            ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+            bound_by=v["bound_by"], library_ms=v["library_ms"],
+            launches=flav["serve"][arch]["launches"][name])
+            for key, v in flav["kernels"].items()
+            for arch, kname, dtype in [key.split("/")] if kname == name]
         if name == "paged_decode":
             prod = k["production"]
             line[-1].update(

@@ -1,10 +1,14 @@
 """Architecture config registry of the port.
 
 ``get_config(name)`` / ``get_reduced(name)`` return ModelConfigs, as in
-the JAX package's ``repro.configs``.  The port carries the dense
-``qwen3-1.7b``, the MoE ``granite-moe-3b-a800m`` and the SSM
-``mamba2-780m``; the other seven architectures wait for the port of
-their model families (ROADMAP, port items A6 and A8).
+the JAX package's ``repro.configs``.  The port carries the eight
+decoder-only architectures: the dense ``qwen3-1.7b``, ``codeqwen1.5-7b``
+(qkv bias), ``stablelm-3b`` (layernorm, partial rotary) and
+``gemma-7b`` (GeGLU, head_dim 256, scaled embedding), the VLM
+``chameleon-34b``, the MoE ``granite-moe-3b-a800m`` and
+``deepseek-v2-lite-16b`` (MLA) and the SSM ``mamba2-780m``; the hybrid
+``recurrentgemma-2b`` and the encoder-decoder ``seamless-m4t-large-v2``
+wait for the port of their model families (ROADMAP, port item A8).
 """
 from __future__ import annotations
 
@@ -16,6 +20,11 @@ _MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "mamba2-780m": "mamba2_780m",
+    "codeqwen1.5-7b": "codeqwen1_5_7b",
+    "stablelm-3b": "stablelm_3b",
+    "gemma-7b": "gemma_7b",
+    "chameleon-34b": "chameleon_34b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

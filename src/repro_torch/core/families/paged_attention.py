@@ -84,7 +84,9 @@ class PagedAttentionConfig:
 # -- the CUDA kernel's decomposition -----------------------------------------
 
 MAX_GROUP = 8                  # query heads per KV head the kernel serves
-HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernel is compiled for
+# head dims the kernel is compiled for: every architecture's, reduced
+# and full (chameleon's reduced 8, stablelm's 80, gemma's 256)
+HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
 TC_HEAD_DIMS = (64, 128)       # bf16 head dims on the tensor-core instance
 PAGE_RANGE = (8, 256)          # page sizes (tokens) the kernel takes
 TILE_BYTES = 16384             # one K (or V) tile
@@ -97,7 +99,8 @@ SPAN_TARGET_CTAS = 4 * N_SMS
 
 def tensor_cores(head_dim: int, itemsize: int) -> bool:
     """The instance that runs: bf16 at head_dim 64 or 128 on the tensor
-    cores fed by TMA; float32, and bf16 at 16 or 32, on CUDA-core FMAs."""
+    cores fed by TMA; float32, and bf16 at the other head dims, on
+    CUDA-core FMAs."""
     return itemsize == 2 and head_dim in TC_HEAD_DIMS
 
 
@@ -107,11 +110,14 @@ def instance(head_dim: int, itemsize: int) -> str:
 
 
 def tile_tokens(head_dim: int, itemsize: int) -> int:
-    """Positions of K (and of V) in one tile of the walk: 16 KB, at most
-    64 positions on the CUDA-core instance."""
+    """Positions of K (and of V) in one tile of the walk: 16 KB on the
+    tensor cores; on the CUDA-core instance the largest power of two
+    that fits 16 KB, at most 64 (32 in float32 at head_dim 80, 16 at
+    256)."""
     if tensor_cores(head_dim, itemsize):
         return TILE_BYTES // (head_dim * itemsize)
-    return min(64, TILE_BYTES // (head_dim * itemsize))
+    fit = min(64, TILE_BYTES // (head_dim * itemsize))
+    return 1 << (fit.bit_length() - 1)
 
 
 def pages_per_step(page_size: int, head_dim: int, itemsize: int) -> int:

@@ -78,7 +78,10 @@ class RaggedPrefillConfig:
 KERNEL_BQ = 64                 # packed queries per CTA (CUDA cores)
 KERNEL_BK = 32                 # packed keys per block (CUDA cores)
 KERNEL_THREADS = 256
-HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernel is compiled for
+# head dims the kernel is compiled for: every architecture's, reduced
+# and full (chameleon's reduced 8, stablelm's 80, gemma's 256); the
+# CUDA-core instance's 64 x 32 blocks stage 137 KB at 256
+HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
 WGMMA_HEAD_DIMS = (64, 128)    # bf16 head dims on the wgmma design
 WGMMA_BQ = 128                 # packed queries per CTA: two warpgroups
 WGMMA_BK = 128                 # packed keys per TMA tile

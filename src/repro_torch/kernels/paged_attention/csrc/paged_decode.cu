@@ -53,12 +53,14 @@
 //     page, a stale stage) never reaches the output.  The running max is
 //     updated once per warp's slice of a tile; the four warps' (m, l, o)
 //     merge in shared memory at the span's end.
-//   * float32 pools, and bf16 at head_dim 16 and 32
+//   * float32 pools, and bf16 at head_dim 8, 16, 32, 80 and 256
 //     (paged_decode_f32_kernel): the same split walk on CUDA-core FMAs
 //     (TF32 stays off): a CTA of 128 threads stages each tile of up to 64
-//     positions (16 KB) with 16-byte loads through the table, scores with
-//     each warp taking whole positions, the softmax one warp per head,
-//     P·V one thread per output column, p in float32.
+//     positions (at most 16 KB, a power of two positions: 32 in float32
+//     at head_dim 80, 16 at 256) with 16-byte loads through the table,
+//     scores with each warp taking whole positions, the softmax one warp
+//     per head, P·V with each thread owning the output columns d ≡ tid
+//     (mod 128), p in float32.
 #include "hopper.cuh"
 
 namespace {
@@ -374,17 +376,24 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
 
 // -- float32 (and bf16 at head_dim 16 / 32): CUDA-core FMAs ------------------
 
+// the largest power of two <= n (n >= 1)
+constexpr int floor_pow2(int n) { return n < 2 ? 1 : 2 * floor_pow2(n / 2); }
+
 template <typename T, int D>
 struct Tile {
-  static constexpr int kTokens =
+  // positions a tile: a power of two, so that a page of 8..256 tokens
+  // divides it or is divided by it
+  static constexpr int kTokens = floor_pow2(
       kTileBytes / (D * (int)sizeof(T)) < kMaxStep
           ? kTileBytes / (D * (int)sizeof(T))
-          : kMaxStep;
+          : kMaxStep);
   static constexpr int kVec = 16 / (int)sizeof(T);    // elements per 16 B
   static constexpr int kChunksPerRow = D / kVec;
   static constexpr int kChunks = kTokens * kChunksPerRow;
   static constexpr int kPerThread = (kChunks + kThreads - 1) / kThreads;
   static constexpr int kPages = kTokens / kMinPage;   // pages a tile, at most
+  static constexpr int kCols = (D + kThreads - 1) / kThreads;  // P·V columns
+  static_assert(D % kVec == 0, "rows of whole 16-byte vectors");
 };
 
 template <typename T, int D>
@@ -426,9 +435,11 @@ paged_decode_f32_kernel(const T* __restrict__ q,         // (B, Hq, D)
   const T* v_head = v_pages + (size_t)hk * PS * D;
   const int* trow = table + (size_t)b * NP;
 
-  float acc[kMaxG];
+  float acc[TL::kCols][kMaxG];   // columns tid + 128 c of every head
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) acc[g] = 0.f;
+  for (int c = 0; c < TL::kCols; ++c)
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) acc[c][g] = 0.f;
 
   for (int pos0 = sp.begin; pos0 < sp.end; pos0 += TT) {
     const int nt = min(TT, sp.end - pos0);   // valid positions this tile
@@ -506,16 +517,20 @@ paged_decode_f32_kernel(const T* __restrict__ q,         // (B, Hq, D)
     __syncthreads();
 
     // acc[g][d] = acc * alpha + sum_t p[g][t] * v[t][d], float32 throughout
-    // (D <= kThreads: thread d owns output column d of every head)
-    if (tid < D) {
+    // (thread tid owns output columns tid + 128 c of every head)
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g)
-        if (g < G) acc[g] *= alpha_s[g];
-      for (int t = 0; t < nt; ++t) {
-        const float vv = to_f32(v_s[t * D + tid]);
+    for (int c = 0; c < TL::kCols; ++c) {
+      const int d = tid + c * kThreads;
+      if (d < D) {
 #pragma unroll
         for (int g = 0; g < kMaxG; ++g)
-          if (g < G) acc[g] = fmaf(w_s[g][t], vv, acc[g]);
+          if (g < G) acc[c][g] *= alpha_s[g];
+        for (int t = 0; t < nt; ++t) {
+          const float vv = to_f32(v_s[t * D + d]);
+#pragma unroll
+          for (int g = 0; g < kMaxG; ++g)
+            if (g < G) acc[c][g] = fmaf(w_s[g][t], vv, acc[c][g]);
+        }
       }
     }
   }
@@ -524,7 +539,11 @@ paged_decode_f32_kernel(const T* __restrict__ q,         // (B, Hq, D)
   for (int g = 0; g < kMaxG; ++g) {
     if (g < G) {
       const size_t row = ((size_t)b * Hq + hk * G + g) * ns + s;
-      if (tid < D) o_part[row * D + tid] = acc[g];
+#pragma unroll
+      for (int c = 0; c < TL::kCols; ++c) {
+        const int d = tid + c * kThreads;
+        if (d < D) o_part[row * D + d] = acc[c][g];
+      }
       if (tid == 0) {
         m_part[row] = m_s[g];
         l_part[row] = l_s[g];
@@ -609,17 +628,23 @@ int launch_f32(const Args& a, cudaStream_t st) {
 int launch_split(const Args& a, int D, int is_bf16, cudaStream_t st) {
   if (is_bf16) {
     switch (D) {
+      case 8: return launch_f32<__nv_bfloat16, 8>(a, st);
       case 16: return launch_f32<__nv_bfloat16, 16>(a, st);
       case 32: return launch_f32<__nv_bfloat16, 32>(a, st);
       case 64: return launch_bf16<64>(a, st);
+      case 80: return launch_f32<__nv_bfloat16, 80>(a, st);
       case 128: return launch_bf16<128>(a, st);
+      case 256: return launch_f32<__nv_bfloat16, 256>(a, st);
     }
   } else {
     switch (D) {
+      case 8: return launch_f32<float, 8>(a, st);
       case 16: return launch_f32<float, 16>(a, st);
       case 32: return launch_f32<float, 32>(a, st);
       case 64: return launch_f32<float, 64>(a, st);
+      case 80: return launch_f32<float, 80>(a, st);
       case 128: return launch_f32<float, 128>(a, st);
+      case 256: return launch_f32<float, 256>(a, st);
     }
   }
   return (int)cudaErrorInvalidValue;
@@ -630,7 +655,7 @@ int launch_split(const Args& a, int D, int is_bf16, cudaStream_t st) {
 // q (B, Hq, 1, D), k/v pools (P, Hkv, PS, D), table (B, NP) int32, lengths
 // (B,) int32, out (B, Hq, 1, D); all contiguous on one device and 16-byte
 // aligned, q, pools and out of one type (is_bf16: bfloat16, else float32);
-// D in {16, 32, 64, 128}; Hq / Hkv <= 8; PS in [8, 256], dividing the
+// D in {8, 16, 32, 64, 80, 128, 256}; Hq / Hkv <= 8; PS in [8, 256], dividing the
 // instance's tile or divided by it, and span_pages · PS a multiple of the
 // tile (core/families/paged_attention.py `tile_tokens`, `span_pages`).
 // o_part (B·Hq, ns, D), m_part and l_part (B·Hq, ns), ns = ceil(NP /

@@ -47,12 +47,13 @@
 //     float32 p.  TF32 would run at half the rate on V that is already
 //     exact in bf16, and p rounded to bf16 alone visibly perturbs logits
 //     (the TPU kernel's docstring).
-//   * float32, and head_dim 16 and 32 (ragged_prefill_kernel): one CTA of
-//     256 threads per (query head, block of 64 packed queries) loops over
-//     blocks of 32 packed keys, staging Q, K, V and the weights in shared
-//     memory as float32 (rows padded by one word against bank conflicts);
-//     each thread holds a 4 x 2 tile of scores and a 4 x D/16 tile of the
-//     accumulator in registers; the skip is decided from each block's
+//   * float32, and bf16 at head_dim 8, 16, 32, 80 and 256
+//     (ragged_prefill_kernel): one CTA of 256 threads per (query head,
+//     block of 64 packed queries) loops over blocks of 32 packed keys,
+//     staging Q, K, V and the weights in shared memory as float32 (rows
+//     padded by one word against bank conflicts; 137 KB at head_dim 256);
+//     each thread holds a 4 x 2 tile of scores and a 4 x ceil(D/16) tile
+//     of the accumulator (columns tx + 16 c below D) in registers; the skip is decided from each block's
 //     [seg min, seg max] and pos min, one block per thread, before any K/V
 //     is loaded; products are float32 FMAs on the CUDA cores (67 TFLOP/s).
 #include <climits>
@@ -111,7 +112,7 @@ ragged_prefill_kernel(const T* __restrict__ q,  // (Hq, TQ, D)
                       T* __restrict__ out,      // (Hq, TQ, D)
                       int Hq, int Hkv, int TQ, int TK, float scale) {
   constexpr int LD = D + 1;
-  constexpr int DC = D / 16;  // accumulator columns per thread
+  constexpr int DC = (D + 15) / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
   float* q_s = smem;               // kBQ x LD
   float* k_s = q_s + kBQ * LD;     // kBK x LD
@@ -256,6 +257,7 @@ ragged_prefill_kernel(const T* __restrict__ q,  // (Hq, TQ, D)
         for (int i = 0; i < 4; ++i) p[i] = p_s[(ty * 4 + i) * kLP + t];
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
+          if (D % 16 && tx + 16 * c >= D) break;   // head_dim 8
           const float vv = v_s[t * LD + tx + 16 * c];
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
@@ -272,8 +274,9 @@ ragged_prefill_kernel(const T* __restrict__ q,  // (Hq, TQ, D)
       const float l = l_r[i] == 0.f ? 1.f : l_r[i];
 #pragma unroll
       for (int c = 0; c < DC; ++c)
-        out[((size_t)h * TQ + row) * D + tx + 16 * c] =
-            from_f32<T>(acc[i][c] / l);
+        if (tx + 16 * c < D)
+          out[((size_t)h * TQ + row) * D + tx + 16 * c] =
+              from_f32<T>(acc[i][c] / l);
     }
   }
 }
@@ -300,10 +303,13 @@ int launch_d(int D, const void* q, const void* k, const void* v,
              void* out, int Hq, int Hkv, int TQ, int TK, float scale,
              cudaStream_t s) {
   switch (D) {
+    case 8: return launch<T, 8>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
     case 16: return launch<T, 16>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
     case 32: return launch<T, 32>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
     case 64: return launch<T, 64>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
+    case 80: return launch<T, 80>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
     case 128: return launch<T, 128>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
+    case 256: return launch<T, 256>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -717,7 +723,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* sq,
 
 // q (Hq, TQ, D), k/v (Hkv, TK, D), seg_q/pos_q (TQ,) int32, seg_k/pos_k
 // (TK,) int32, out (Hq, TQ, D); all contiguous on one device, q, k, v and
-// out of one type (is_bf16: bfloat16, else float32); D in {16, 32, 64, 128}.
+// out of one type (is_bf16: bfloat16, else float32); D in {8, 16, 32, 64,
+// 80, 128, 256}.
 // bf16 at D 64 and 128 runs the wgmma design (q, k, v 16-byte aligned),
 // everything else the CUDA-core one.  Returns the CUDA error code of the
 // launch (0 on success).

@@ -8,6 +8,10 @@ a CUDA card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
         --engine dense [--reduced] [--device cuda]
 
+``--arch`` takes every architecture of ``repro_torch.configs``:
+qwen3-1.7b, codeqwen1.5-7b, stablelm-3b, gemma-7b, chameleon-34b,
+granite-moe-3b-a800m, deepseek-v2-lite-16b and mamba2-780m.
+
 The port of the JAX package's ``launch/serve.py``.  It builds the model,
 initialises its weights from ``--seed`` with ``torch.Generator``s,
 spins the chosen engine — ``--engine paged`` (default) runs the
@@ -15,9 +19,12 @@ block-table KV-pool engine with chunked prefill and headroom admission
 on its kernel paths (the CUDA ragged-prefill and paged-decode kernels);
 ``--engine dense`` the per-slot slab baseline — and reports completion,
 throughput and the engine's metrics snapshot.  ``--device cpu`` runs
-the kernels' plain versions on the CPU.  The SSM family (mamba2-780m)
-has no KV cache to page: it serves through ``--engine dense`` only, as
-in the JAX package, whose paged engine refuses it too.
+the kernels' plain versions on the CPU.  An MLA cache
+(deepseek-v2-lite-16b) holds a latent a position, with no heads axis:
+the paged engine serves it on its gather paths, as in the JAX package.
+The SSM family (mamba2-780m) has no KV cache to page: it serves through
+``--engine dense`` only, as in the JAX package, whose paged engine
+refuses it too.
 
 ``--dispatch-table FILE`` loads a fleet tuner's ``dispatch_table.json``
 (``python -m repro_torch.launch.tune`` writes one), prints its summary

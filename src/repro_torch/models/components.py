@@ -1,18 +1,18 @@
 """Shared model components: norms, RoPE, embeddings, dense FFNs, attention.
 
-The port of the JAX package's ``models/components.py`` for the dense
-GQA family as qwen3 uses it — RMS norms, qk head-norm, full rotary,
-tied float32 embedding, SwiGLU; the other flavours of the JAX config
-(layernorm, qkv bias, partial rotary, GeGLU, scaled or untied
-embeddings) come with the architectures that use them, and
-``TransformerLM`` refuses a config that asks for one.  Pure functions
-over (params, activations), with parameter shapes declared by matching
-``*_specs`` builders (see params.py).
+The port of the JAX package's ``models/components.py``, every flavour
+its configs use: RMS norm or layernorm (head norms stay RMS), full or
+partial rotary, tied or untied float32 embeddings with an optional
+sqrt(d_model) scale, SwiGLU, GeGLU or plain GELU FFNs, and GQA
+projections with or without qkv biases.  Pure functions over (params,
+activations), with parameter shapes declared by matching ``*_specs``
+builders (see params.py).
 Tensor layouts match the JAX package: activations (B, S, D), q
 (B, Hq, S, hd), k/v (B, Hkv, S, hd).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -31,15 +31,25 @@ def dtype_of(name: str) -> torch.dtype:
 
 # -- norms -------------------------------------------------------------------
 
-def norm_specs(cfg: ModelConfig) -> Dict:
-    return {"scale": ParamSpec((cfg.d_model,), F32, ("embed",), "ones")}
+def norm_specs(cfg: ModelConfig, with_bias: Optional[bool] = None) -> Dict:
+    bias = cfg.norm_type == "layernorm" if with_bias is None else with_bias
+    s = {"scale": ParamSpec((cfg.d_model,), F32, ("embed",), "ones")}
+    if bias:
+        s["bias"] = ParamSpec((cfg.d_model,), F32, ("embed",), "zeros")
+    return s
 
 
 def apply_norm(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """RMS norm in float32, cast back to x's dtype."""
+    """RMS norm, or layernorm (the mean subtracted first), in float32,
+    cast back to x's dtype."""
     xf = x.to(F32)
+    if cfg.norm_type == "layernorm":
+        xf = xf - xf.mean(-1, keepdim=True)
     var = (xf * xf).mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(var + cfg.norm_eps) * p["scale"]).to(x.dtype)
+    y = xf * torch.rsqrt(var + cfg.norm_eps) * p["scale"]
+    if "bias" in p:
+        y = y + p["bias"]
+    return y.to(x.dtype)
 
 
 def head_norm_specs(dim: int) -> Dict:
@@ -55,37 +65,58 @@ def apply_head_norm(p: Dict, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 # -- rotary embeddings -------------------------------------------------------
 
-def rope(x: torch.Tensor, positions: torch.Tensor, *,
-         theta: float) -> torch.Tensor:
-    """x: (..., S, D) with positions (..., S) or (S,); every channel
-    rotates (rotate-half layout)."""
-    half = x.shape[-1] // 2
+def rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float,
+         frac: float = 1.0) -> torch.Tensor:
+    """x: (..., S, D) with positions (..., S) or (S,), rotate-half layout.
+    Partial rotary: only the first ``frac·D`` channels (rounded down to
+    even) rotate, with frequencies over that width; the rest pass
+    through (stablelm)."""
+    D = x.shape[-1]
+    rot = int(D * frac)
+    rot -= rot % 2
+    if rot == 0:
+        return x
+    xr, xp = x[..., :rot], x[..., rot:]
+    half = rot // 2
     freqs = theta ** (-torch.arange(0, half, dtype=F32, device=x.device)
                       / half)
     ang = positions[..., None].to(F32) * freqs          # (..., S, half)
     cos, sin = torch.cos(ang), torch.sin(ang)
-    x1, x2 = x[..., :half], x[..., half:]
+    x1, x2 = xr[..., :half], xr[..., half:]
     while cos.ndim < x1.ndim:                            # broadcast heads
         cos, sin = cos[..., None, :, :], sin[..., None, :, :]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    return torch.cat([out.to(x.dtype), xp], dim=-1)
 
 
 # -- embeddings --------------------------------------------------------------
 
 def embed_specs(cfg: ModelConfig) -> Dict:
-    """The tied float32 token table (the unembed is its transpose)."""
-    return {"tok": ParamSpec((cfg.padded_vocab, cfg.d_model), F32,
-                             ("vocab", None), "embed_normal")}
+    """The float32 token table, and an untied float32 unembed (d_model,
+    V) unless the config ties it to the table's transpose."""
+    v = cfg.padded_vocab
+    s = {"tok": ParamSpec((v, cfg.d_model), F32, ("vocab", None),
+                          "embed_normal")}
+    if not cfg.tie_embeddings:
+        s["unembed"] = ParamSpec((cfg.d_model, v), F32, (None, "vocab"),
+                                 "normal")
+    return s
 
 
 def embed(p: Dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return p["tok"][tokens.long()].to(dtype_of(cfg.dtype))
+    x = p["tok"][tokens.long()].to(dtype_of(cfg.dtype))
+    if cfg.scale_embed:
+        # sqrt(d_model) rounded to x's type first, as the JAX package
+        # multiplies by jnp.asarray(sqrt(d_model), x.dtype)
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
 
 
 def unembed(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """float32 logits (TF32 is off: see repro_torch.device)."""
-    logits = torch.matmul(x.to(F32), p["tok"].T)
+    w = p["tok"].T if cfg.tie_embeddings else p["unembed"]
+    logits = torch.matmul(x.to(F32), w)
     if cfg.padded_vocab != cfg.vocab:   # mask pad columns out of softmax
         valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab
         logits = torch.where(valid, logits,
@@ -99,16 +130,23 @@ def unembed(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def ffn_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict:
     d_ff = d_ff or cfg.d_ff
     dt = dtype_of(cfg.dtype)
-    return {
-        "wg": ParamSpec((cfg.d_model, d_ff), dt, ("embed", "mlp")),
-        "wu": ParamSpec((cfg.d_model, d_ff), dt, ("embed", "mlp")),
-        "wd": ParamSpec((d_ff, cfg.d_model), dt, ("mlp", "embed")),
-    }
+    s = {"wu": ParamSpec((cfg.d_model, d_ff), dt, ("embed", "mlp")),
+         "wd": ParamSpec((d_ff, cfg.d_model), dt, ("mlp", "embed"))}
+    if cfg.ffn_type in ("swiglu", "geglu"):
+        s["wg"] = ParamSpec((cfg.d_model, d_ff), dt, ("embed", "mlp"))
+    return s
 
 
 def apply_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """SwiGLU."""
-    return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    """SwiGLU, GeGLU or plain GELU (tanh-approximated GELU, as the JAX
+    package's ``approximate=True``)."""
+    if cfg.ffn_type == "swiglu":
+        h = F.silu(x @ p["wg"]) * (x @ p["wu"])
+    elif cfg.ffn_type == "geglu":
+        h = F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wu"])
+    else:
+        h = F.gelu(x @ p["wu"], approximate="tanh")
+    return h @ p["wd"]
 
 
 # -- GQA attention -----------------------------------------------------------
@@ -126,6 +164,13 @@ def attention_specs(cfg: ModelConfig) -> Dict:
         "wo": ParamSpec((cfg.n_heads, hd, cfg.d_model), dt,
                         ("heads", "head_dim", "embed")),
     }
+    if cfg.qkv_bias:
+        s["bq"] = ParamSpec((cfg.n_heads, hd), F32, ("heads", "head_dim"),
+                            "zeros")
+        s["bk"] = ParamSpec((cfg.n_kv_heads, hd), F32,
+                            ("kv_heads", "head_dim"), "zeros")
+        s["bv"] = ParamSpec((cfg.n_kv_heads, hd), F32,
+                            ("kv_heads", "head_dim"), "zeros")
     if cfg.qk_norm:
         s["qnorm"] = head_norm_specs(hd)
         s["knorm"] = head_norm_specs(hd)
@@ -145,28 +190,35 @@ def qkv_project(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     q = _heads_proj(x, p["wq"])
     k = _heads_proj(x, p["wk"])
     v = _heads_proj(x, p["wv"])
+    if cfg.qkv_bias:
+        # the float32 biases rounded to the activations' type first
+        q = q + p["bq"][None, :, None, :].to(q.dtype)
+        k = k + p["bk"][None, :, None, :].to(k.dtype)
+        v = v + p["bv"][None, :, None, :].to(v.dtype)
     if cfg.qk_norm:
         q = apply_head_norm(p["qnorm"], q, cfg.norm_eps)
         k = apply_head_norm(p["knorm"], k, cfg.norm_eps)
-    q = rope(q, positions, theta=cfg.rope_theta)
-    k = rope(k, positions, theta=cfg.rope_theta)
+    q = rope(q, positions, theta=cfg.rope_theta, frac=cfg.rope_frac)
+    k = rope(k, positions, theta=cfg.rope_theta, frac=cfg.rope_frac)
     return q, k, v
 
 
-def sdpa(q, k, v, *, q_positions, kv_positions=None):
+def sdpa(q, k, v, *, q_positions, kv_positions=None, scale=None):
     """Causal masked attention with GQA broadcast — the direct path of the
     JAX package's ``sdpa_xla``: one float32 score rectangle, masked to
     -1e30 where a key's position exceeds the query's, plain softmax.
     (The JAX ``sdpa`` moves to a KV-block scan at 1024+ query tokens; the
     port keeps the direct path at every length.)
 
-    q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D); q_positions (Sq,) or
-    (B, Sq); kv_positions (Skv,) (default ``arange(Skv)``)."""
+    q: (B, Hq, Sq, D); k: (B, Hkv, Skv, D); v: (B, Hkv, Skv, Dv) (Dv
+    differs from D in MLA); q_positions (Sq,) or (B, Sq); kv_positions
+    (Skv,) (default ``arange(Skv)``); ``scale`` defaults to D^-0.5."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     g = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
     qg = q.reshape(B, Hkv, g, Sq, D)
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.to(F32), k.to(F32)) * D ** -0.5
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.to(F32), k.to(F32)) * scale
     kpos = (kv_positions if kv_positions is not None
             else torch.arange(Skv, device=q.device))
     m = q_positions[..., :, None] >= kpos[None, :]     # (B|, Sq, Skv)

@@ -1,7 +1,8 @@
 """Model facade: ``build(cfg)`` returns the family's LM object — the port
-of the JAX package's ``models/model.py``.  The dense and MoE families
-are built as :class:`TransformerLM` (GQA attention only), the SSM family
-as :class:`SSMLM`."""
+of the JAX package's ``models/model.py``.  The dense, MoE and VLM
+families are built as :class:`TransformerLM` (GQA or MLA attention),
+the SSM family as :class:`SSMLM`; the hybrid and encoder-decoder
+families are not ported yet."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -19,7 +20,6 @@ from .transformer import ShapeDtype, TransformerLM, layer_slice, \
     stack_specs, zero_cache
 
 _PENDING = {
-    "vlm": "A6",
     "hybrid": "A8 (hybrid, recurrent and encoder-decoder families)",
     "encdec": "A8",
     "audio": "A8",
@@ -113,7 +113,7 @@ class SSMLM:
 
 
 def build(cfg: ModelConfig):
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return TransformerLM(cfg)
     if cfg.family == "ssm":
         return SSMLM(cfg)

@@ -139,12 +139,8 @@ def routed_experts_dense(p: Dict, x: torch.Tensor, gates: torch.Tensor,
 def moe_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out, router probs (B*S, E), idx (B*S, K)).
-    Shared experts run the dense SwiGLU FFN (the only dense flavour the
-    port has).  The serving paths call this and read no aux loss."""
-    if cfg.moe.n_shared and cfg.ffn_type != "swiglu":
-        raise NotImplementedError(
-            f"shared experts with ffn_type {cfg.ffn_type!r} are not ported "
-            "yet (ROADMAP, port item A8)")
+    Shared experts run the dense FFN of the config's ``ffn_type``.  The
+    serving paths call this and read no aux loss."""
     B, S, D = x.shape
     xf = x.reshape(B * S, D)
     gates, idx, probs = route(p, xf, cfg)

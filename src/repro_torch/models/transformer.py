@@ -1,15 +1,16 @@
-"""Decoder-only transformer stack — the dense and MoE GQA families.
+"""Decoder-only transformer stack — the dense, MoE and VLM families, GQA
+or MLA attention.
 
-The port of the JAX package's ``models/transformer.py`` for
-``family="dense"`` and ``family="moe"`` with GQA attention (MLA waits
-for ROADMAP item A6).  Parameters are the same nested dict: the leading
-dense layers of an MoE config (``first_dense_layers``) as
-``front_{i}``, then the blocks, each leaf stacked along a leading
-"layers" axis; a Python loop over the layers takes the place of
-``lax.scan``.  An MoE block's FFN is :func:`repro_torch.models.moe
-.moe_forward` (capacity-dispatched experts when a call carries several
-tokens a row, every expert densely at one token a row), as in the JAX
-package.
+The port of the JAX package's ``models/transformer.py``.  Parameters
+are the same nested dict: the leading dense layers of an MoE config
+(``first_dense_layers``) as ``front_{i}``, then the blocks, each leaf
+stacked along a leading "layers" axis; a Python loop over the layers
+takes the place of ``lax.scan``.  An MoE block's FFN is
+:func:`repro_torch.models.moe.moe_forward` (capacity-dispatched experts
+when a call carries several tokens a row, every expert densely at one
+token a row), as in the JAX package.  A VLM (chameleon) is this stack
+over a vocabulary that holds its image tokens; ``apply`` also takes
+precomputed ``inputs_embeds``.
 
 KV caches and page pools are updated **in place** (JAX returns new
 arrays; the port writes into the tensors it was given and returns
@@ -17,7 +18,11 @@ them), so a serving engine holds one pool for its whole life.  Writes
 that the JAX package drops (``.at[...].set(mode="drop")`` with an
 out-of-range page index, for inactive decode rows and padding prefill
 queries) are masked out explicitly here and never touch the pool, so
-the reserved null page 0 stays all-zero.
+the reserved null page 0 stays all-zero.  An MLA cache holds the latent
+``c_kv`` and the roped key ``k_rope`` a position, with no heads axis:
+the paged kernel paths (``decode_step_paged``, ``prefill_chunk_packed``)
+take GQA caches only and raise for MLA, whose ticks stay on the gather
+paths, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -53,10 +58,16 @@ def stack_specs(specs: Dict, n: int) -> Dict:
     return {k: stack_specs(v, n) for k, v in specs.items()}
 
 
+def _attn_specs(cfg: ModelConfig) -> Dict:
+    if cfg.attn_type == "mla":
+        return attn_mod.mla_specs(cfg)
+    return attention_specs(cfg)
+
+
 def block_specs(cfg: ModelConfig, *, moe_layer: bool = False) -> Dict:
     s = {
         "ln_attn": norm_specs(cfg),
-        "attn": attention_specs(cfg),
+        "attn": _attn_specs(cfg),
         "ln_ffn": norm_specs(cfg),
     }
     if moe_layer:
@@ -88,6 +99,16 @@ def layer_slice(tree, i: int):
 def _self_attention(p: Dict, x: torch.Tensor, positions, cfg: ModelConfig,
                     cache: Optional[Dict], pos0) -> torch.Tensor:
     """Attention output (B, S, D); ``cache`` is written in place."""
+    if cfg.attn_type == "mla":
+        c_kv, k_r = attn_mod.mla_latents(p, x, positions, cfg)
+        if cache is not None:
+            c_all = attn_mod.cache_update(cache["c_kv"], c_kv, pos0, 1)
+            kr_all = attn_mod.cache_update(cache["k_rope"], k_r, pos0, 1)
+            kv_pos = torch.arange(c_all.shape[1], device=x.device)
+        else:
+            c_all, kr_all, kv_pos = c_kv, k_r, None
+        return attn_mod.mla_attention(p, x, c_all, kr_all, positions, cfg,
+                                      kv_positions=kv_pos)
     q, k, v = qkv_project(p, x, cfg, positions)
     if cache is not None:
         k_all = attn_mod.cache_update(cache["k"], k, pos0, 2)
@@ -170,24 +191,9 @@ def _packed_prefill_attention(p: Dict, x: torch.Tensor, positions, cfg,
 
 
 class TransformerLM:
-    """Decoder-only LM (dense and MoE GQA families)."""
+    """Decoder-only LM (families: dense, moe, vlm)."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.attn_type != "gqa":
-            raise NotImplementedError(
-                f"{cfg.name}: only GQA attention is ported so far (MLA: "
-                "ROADMAP, port item A6)")
-        unported = [f for f, ok in (
-            ("norm_type", cfg.norm_type == "rmsnorm"),
-            ("ffn_type", cfg.ffn_type == "swiglu"),
-            ("qkv_bias", not cfg.qkv_bias),
-            ("rope_frac", cfg.rope_frac == 1.0),
-            ("tie_embeddings", cfg.tie_embeddings),
-            ("scale_embed", not cfg.scale_embed)) if not ok]
-        if unported:
-            raise NotImplementedError(
-                f"{cfg.name}: {', '.join(unported)} not ported yet (the "
-                "other architectures: ROADMAP, port item A8)")
         self.cfg = cfg
         m = cfg.moe
         self.n_dense_front = m.first_dense_layers if m else 0
@@ -240,13 +246,19 @@ class TransformerLM:
         return unembed(params["embed"], x, self.cfg)
 
     # -- forward -------------------------------------------------------------
-    def apply(self, params: Dict, tokens: torch.Tensor
+    def apply(self, params: Dict, tokens: Optional[torch.Tensor] = None, *,
+              inputs_embeds: Optional[torch.Tensor] = None,
+              positions: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (logits (B,S,V) f32, the MoE layers' summed aux loss (0 for
-        the dense family))."""
+        the dense family)).  ``inputs_embeds`` (B, S, D) in the model's
+        type stands in for the embedded ``tokens``; ``positions`` (S,)
+        or (B, S) default to ``arange(S)``."""
         cfg = self.cfg
-        x = embed(params["embed"], tokens, cfg)
-        positions = torch.arange(x.shape[1], device=x.device)
+        x = (embed(params["embed"], tokens, cfg)
+             if inputs_embeds is None else inputs_embeds)
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)
         aux_total = torch.zeros((), dtype=F32, device=x.device)
         for p, moe_layer in self._layers(params):
             x, routing = apply_block(p, x, positions, cfg,
@@ -258,7 +270,9 @@ class TransformerLM:
 
     # -- serving -------------------------------------------------------------
     def cache_shape(self, batch: int, max_len: int) -> Dict:
-        shp = attn_mod.gqa_cache_shape(self.cfg, batch, max_len)
+        shp = (attn_mod.mla_cache_shape(self.cfg, batch, max_len)
+               if self.cfg.attn_type == "mla"
+               else attn_mod.gqa_cache_shape(self.cfg, batch, max_len))
         dt = dtype_of(self.cfg.dtype)
         out: Dict = {f"front_{i}": {k: ShapeDtype(v, dt)
                                     for k, v in shp.items()}
@@ -268,10 +282,15 @@ class TransformerLM:
         return out
 
     def cache_axes(self) -> Dict:
-        ax = ("batch", "kv_heads", "kv_seq", "head_dim")
-        out: Dict = {f"front_{i}": {"k": ax, "v": ax}
+        if self.cfg.attn_type == "mla":
+            ax = {"c_kv": ("batch", "kv_seq", "kv_lora"),
+                  "k_rope": ("batch", "kv_seq", None)}
+        else:
+            gqa = ("batch", "kv_heads", "kv_seq", "head_dim")
+            ax = {"k": gqa, "v": gqa}
+        out: Dict = {f"front_{i}": dict(ax)
                      for i in range(self.n_dense_front)}
-        out["blocks"] = {"k": ("layers",) + ax, "v": ("layers",) + ax}
+        out["blocks"] = {k: ("layers",) + v for k, v in ax.items()}
         return out
 
     def init_cache(self, batch: int, max_len: int,
@@ -313,8 +332,11 @@ class TransformerLM:
         the (B,) write positions and ``lengths`` the (B,) int32 logical
         lengths *including* the token being written (0 for inactive
         rows — they write nothing and read nothing).  Returns (logits
-        (B, 1, V), pool updated in place)."""
+        (B, 1, V), pool updated in place).  GQA caches only: an MLA
+        cache has no heads axis and stays on the gather path."""
         cfg = self.cfg
+        if cfg.attn_type == "mla":
+            raise ValueError("paged kernel decode requires a GQA cache")
         x = embed(params["embed"], tokens, cfg)
         PS = self._page_size(pool)
         pos = pos.to(torch.int64)
@@ -363,8 +385,11 @@ class TransformerLM:
         ``gather_phys/gather_offs`` ((TK,)) each packed-KV token's
         address (null page on padding).  The kernel is called directly,
         not through ``ops``: the engine resolved ``kernel_cfg`` already.
-        Returns (logits (1, TQ, V), pool updated in place)."""
+        Returns (logits (1, TQ, V), pool updated in place).  GQA caches
+        only, as ``decode_step_paged``."""
         cfg = self.cfg
+        if cfg.attn_type == "mla":
+            raise ValueError("packed kernel prefill requires a GQA cache")
         x = embed(params["embed"], tokens, cfg)
         positions = torch.clamp(pos_q, min=0)[None, :]
         P, _, PS, _ = next(self._layers(pool))[0]["k"].shape

@@ -461,7 +461,7 @@ def test_paged_decode_wrapper_refuses_what_the_kernel_does_not_take(card):
         paged_decode
     before = KERNEL.launches
     for Hq, Hkv, D, PS in ((8, 2, 128, 24), (8, 2, 128, 512),
-                           (32, 2, 128, 16), (8, 2, 80, 16)):
+                           (32, 2, 128, 16), (8, 2, 96, 16)):
         q, kp, vp, table, lens = [t.to(card) for t in _decode_inputs(
             2, Hq, Hkv, D, PS, 2, 8, [PS, 1], torch.bfloat16)]
         with pytest.raises(ValueError, match="paged_decode kernel takes"):
@@ -473,6 +473,105 @@ def test_paged_decode_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(TypeError, match="one type"):
         paged_decode(q, kp.float(), vp, table, lens)
     assert KERNEL.launches == before
+
+
+# -- the serving kernels at the other architectures' head dims ------------------
+
+# (query heads, KV heads, head_dim): stablelm-3b's 32/32 x 80, gemma-7b's
+# 16/16 x 256 and chameleon-34b's reduced 8/2 x 8, all on the CUDA-core
+# instances of both kernels
+WIDE_HEADS = [(32, 32, 80), (16, 16, 256), (8, 2, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", WIDE_HEADS, ids=str)
+def test_paged_decode_at_the_other_head_dims_matches_plain(card, heads,
+                                                           dtype):
+    """Within TOL of the plain version in 16-token pages (8-token ones at
+    head_dim 8), zeros for a row of length 0, and poisoned foreign, null
+    and tail pages leave the output bit-identical."""
+    from repro_torch.core.families.paged_attention import instance
+    from repro_torch.kernels.paged_attention import KERNEL, paged_decode_ref
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        paged_decode
+    Hq, Hkv, D = heads
+    PS = 8 if D == 8 else 16
+    NP = 12
+    lengths = [0, 1, PS + 3, 5 * PS, 7 * PS - 1, NP * PS]
+    P = sum(-(-n // PS) for n in lengths) + 8
+    assert instance(D, dtype.itemsize) == "cuda cores"
+    q, kp, vp, table, lens = [t.to(card) for t in _decode_inputs(
+        len(lengths), Hq, Hkv, D, PS, NP, P, lengths, dtype)]
+    before = KERNEL.launches
+    got = paged_decode(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    want = paged_decode_ref(q, kp, vp, table, lens)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= TOL[dtype], err
+    assert not got[0].any()
+    kp2, vp2 = _poisoned(kp, vp, table.cpu(), lengths, PS)
+    assert torch.equal(got, paged_decode(q, kp2, vp2, table, lens))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", WIDE_HEADS, ids=str)
+def test_ragged_prefill_at_the_other_head_dims_matches_plain(card, heads,
+                                                             dtype):
+    """Within TOL of the plain version on an engine-style packing, zeros
+    on padding queries, and a poisoned foreign segment and padding keys
+    leave the other segments bit-identical."""
+    from repro_torch.core.families.ragged_prefill import (
+        RaggedPrefillProblem, is_wgmma)
+    from repro_torch.kernels.ragged_prefill import (KERNEL,
+                                                    ragged_prefill_ref)
+    from repro_torch.kernels.ragged_prefill.ragged_prefill import \
+        ragged_prefill
+    Hq, Hkv, D = heads
+    q, k, v, sq, pq, sk, pk = [t.to(card) for t in _packed_case(
+        Hq, Hkv, D, [40, 64, 7, 100], [0, 30, 200, 64], dtype, 3)]
+    assert not is_wgmma(RaggedPrefillProblem(
+        4, k.shape[1], Hq, Hkv, D, "bf16" if dtype == torch.bfloat16
+        else "f32"))
+    before = KERNEL.launches
+    got = ragged_prefill(q, k, v, sq, pq, sk, pk)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    want = ragged_prefill_ref(q, k, v, sq, pq, sk, pk)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= TOL[dtype], err
+    assert not got[:, sq < 0].any()
+    k2, v2 = k.clone(), v.clone()
+    foreign = (sk == 2) | (sk < 0)
+    k2[:, foreign] = 1e6
+    v2[:, foreign] = 1e6
+    keep = sq != 2
+    assert torch.equal(got[:, keep],
+                       ragged_prefill(q, k2, v2, sq, pq, sk, pk)[:, keep])
+
+
+def test_serving_wrappers_raise_at_a_head_dim_no_instance_has(card):
+    """head_dim 96: no instance of either kernel; both wrappers raise on
+    the card (never the plain version in their place), no launch."""
+    from repro_torch.kernels.paged_attention import KERNEL as PD
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        paged_decode
+    from repro_torch.kernels.ragged_prefill import KERNEL as RP
+    from repro_torch.kernels.ragged_prefill import default_config
+    from repro_torch.kernels.ragged_prefill.ragged_prefill import \
+        ragged_prefill
+    before = (PD.launches, RP.launches)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, kp, vp, table, lens = [t.to(card) for t in _decode_inputs(
+            2, 8, 2, 96, 16, 2, 8, [16, 1], dtype)]
+        with pytest.raises(ValueError, match="paged_decode kernel takes"):
+            paged_decode(q, kp, vp, table, lens)
+        case = [t.to(card) for t in _packed_case(8, 2, 96, [40, 7],
+                                                 [0, 30], dtype, 4)]
+        cfg = default_config(case[0].shape[1], case[1].shape[1])
+        with pytest.raises(ValueError, match="ragged_prefill kernel takes"):
+            ragged_prefill(*case, cfg=cfg)
+    assert (PD.launches, RP.launches) == before
 
 
 # -- flash attention -----------------------------------------------------------

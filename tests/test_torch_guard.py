@@ -36,7 +36,12 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.kernels.quant_gemm, repro_torch.kernels.ssd, "
             "repro_torch.models.ssm, repro_torch.configs.mamba2_780m, "
             "repro_torch.core.tuning, repro_torch.core.tuning.pool, "
-            "repro_torch.core.tuning.lessons, repro_torch.launch.tune\n"
+            "repro_torch.core.tuning.lessons, repro_torch.launch.tune, "
+            "repro_torch.models.attention, "
+            "repro_torch.configs.codeqwen1_5_7b, "
+            "repro_torch.configs.stablelm_3b, repro_torch.configs.gemma_7b, "
+            "repro_torch.configs.chameleon_34b, "
+            "repro_torch.configs.deepseek_v2_lite_16b\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"

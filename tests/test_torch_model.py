@@ -244,11 +244,7 @@ def test_cache_layout_matches_jax(pair):
     assert c["blocks"]["k"].shape == tshape["blocks"]["k"].shape
 
 
-@pytest.mark.parametrize("change", [
-    dict(family="hybrid"), dict(family="vlm"), dict(attn_type="mla"),
-    dict(norm_type="layernorm"), dict(ffn_type="geglu"),
-    dict(qkv_bias=True), dict(rope_frac=0.25), dict(tie_embeddings=False),
-    dict(scale_embed=True)])
+@pytest.mark.parametrize("change", [dict(family="hybrid")])
 def test_unported_families_and_flavours_raise_naming_the_roadmap(change):
     cfg = dataclasses.replace(tconfigs.get_reduced(ARCH), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

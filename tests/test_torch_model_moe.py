@@ -126,12 +126,6 @@ def test_decode_agrees_with_the_forward_pass_when_nothing_drops():
         _close_logits(logits[:, 0], full[:, t])
 
 
-def test_mla_still_raises_naming_the_roadmap():
-    cfg = dataclasses.replace(tconfigs.get_reduced(ARCH), attn_type="mla")
-    with pytest.raises(NotImplementedError, match="ROADMAP, port item A6"):
-        torch_build(cfg)
-
-
 # -- the launcher ----------------------------------------------------------------
 
 @pytest.mark.parametrize("engine", ["paged", "dense"])

@@ -295,10 +295,3 @@ def test_the_grouped_path_drops_what_jax_drops():
     drops = int((~compute_dispatch(idx.reshape(2, 12, -1), m.n_experts,
                                    C)[1]).sum())
     assert drops > 0
-
-
-def test_shared_experts_other_than_swiglu_raise():
-    _, tc = _granite(n_shared=1)
-    tc = dataclasses.replace(tc, ffn_type="geglu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe_layer.apply_moe({}, torch.zeros(1, 2, tc.d_model), tc)
