@@ -194,7 +194,26 @@ is missing or any phase fails.  Phases:
    in the JAX engine), neither kernel launched; (e) phase 5 for each at
    depth 2 in float32 — for deepseek-v2-lite-16b the dense engine
    against the paged one — identical tokens;
-14. the kernels line (JSON, all eight kernels; paged_decode's and
+14. hybrid and encoder-decoder — no kernel on these paths, in the JAX
+   package neither: (a) recurrentgemma-2b at full width and depth (26
+   layers, seed-0 random weights) in bf16, one forward over 2 x 4,096
+   tokens (past its 2,048-token window, on the KV-block scan of
+   ``sdpa``), finite logits, wall time, time between CUDA events and
+   peak memory; (b) at depth 3 in float32 a 2,100-token
+   ``decode_step`` replay against the forward's last position (within
+   1e-4 of each logit plus 1e-4 of the largest), and ``rglru_scan`` at
+   2 x 4,096 x 2,560 against a sequential float32 loop (1e-5); (c) the
+   dense ``ServingEngine`` on (a)'s model over phase 4's trace (8
+   slots, max_len 2,048): decode tokens/s and the p50 tick, every
+   request decoding from the zeroed state its prefill returns, as in
+   the JAX engine; (d) seamless-m4t-large-v2 at full width and depth
+   (24 + 24 layers) in bf16: encode 4 x 1,024 seeded-normal frame
+   embeddings, a teacher-forced ``apply`` over 4 x 256 tokens,
+   ``prefill`` and 32 greedy ``decode_step`` ticks; at 2 + 2 layers in
+   float32 64 teacher tokens through ``decode_step`` against ``apply``
+   (phase (b)'s tolerance); (e) every launch counter zeroed before (a)
+   and read after (d) must read 0;
+15. the kernels line (JSON, all eight kernels; paged_decode's and
    ragged_prefill's entries list phase 13a's instances with their
    launches in phase 13's runs), then the final line
    ``{"ok": true, "device": {...}}``.
@@ -2434,6 +2453,17 @@ def ssd_parts_ms(torch, call, n=3):
 REPLAY_REL = 1e-4
 
 
+def _replay_check(torch, got, want, what, rel=REPLAY_REL):
+    """Logits within ``rel`` of each plus ``rel`` of the largest; returns
+    the largest difference and its share of (|logit| + the largest)."""
+    d = (got - want).abs()
+    big = float(want.abs().max())
+    check(bool((d <= rel * want.abs() + rel * big).all()),
+          f"{what}: max |step - full| {float(d.max())} beyond {rel:g} of "
+          f"each logit plus {rel:g} of the largest ({big})")
+    return float(d.max()), float((d / (want.abs() + big)).max())
+
+
 def phase_mamba2(torch):
     """mamba2-780m at full width and depth (48 layers, bf16 blocks,
     random weights from a seeded ``torch.Generator``): ``SSMLM.apply``
@@ -2536,13 +2566,9 @@ def phase_mamba2(torch):
     V, worst = cfg.vocab, 0.0
     for t in range(16):
         step, cache = m2.decode_step(p2, cache, t2[:, t:t + 1], t)
-        a, b = step[:, 0, :V], full[:, t, :V]
-        d = (a - b).abs()
-        check(bool((d <= REPLAY_REL * b.abs()
-                    + REPLAY_REL * float(b.abs().max())).all()),
-              f"mamba2 decode step {t}: max |step - full| "
-              f"{float(d.max())} beyond the stated tolerance")
-        worst = max(worst, float(d.max()))
+        worst = max(worst, _replay_check(torch, step[:, 0, :V],
+                                         full[:, t, :V],
+                                         f"mamba2 decode step {t}")[0])
     log(f"[mamba2] depth 2 float32: 16 decode_step tokens against apply's "
         f"logits, max |step - full| {worst:.3g} (within 1e-4 of each logit "
         f"plus 1e-4 of the largest)")
@@ -3128,6 +3154,354 @@ def phase_serve_flavours(torch):
     return dict(kernels=kern, serve=serve, paths=paths)
 
 
+# -- phase 14 ----------------------------------------------------------------
+
+# (a) recurrentgemma-2b: 2 rows of 4,096 tokens, past its 2,048-token
+# window, so the window mask and the KV-block scan (1,024 or more query
+# tokens) both shape the output
+HYBRID_TOKENS = (2, 4096)
+# (b) its float32 replay at depth 3, one (rec, rec, attn) group: past the
+# window the ring is full, so the reference's position-0 slots no longer
+# enter (ROADMAP section C), and with attention last no diluted output
+# feeds a recurrence
+HYBRID_REPLAY = 2100
+# (d) seamless-m4t-large-v2: rows of seeded-normal frame embeddings (the
+# JAX package's frontend stub), teacher-forced tokens, greedy decode
+# ticks; the float32 replay at 2 + 2 layers over ``replay`` tokens
+SEAMLESS = dict(rows=4, frames=1024, tokens=256, ticks=32, replay=64)
+# seamless's float32 replay tolerance, of each logit and of the largest:
+# at full width the seeded init's attention is peaked (q and k entries of
+# tens, near-ties between keys), so the float32 rounding of the decode
+# path's one-row matmuls and the teacher-forced path's 64-row ones grows
+# with the steps to ~2e-3 of that sum; a wrong mask or position moves
+# logits by their own size
+SEAMLESS_REPLAY_REL = 5e-3
+
+
+def _events_ms(torch, fn):
+    """(fn's result, host wall ms, ms between two CUDA events around it)
+    of one synchronised call."""
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, s.elapsed_time(e)
+
+
+def _prof_line(prof):
+    """One log fragment of a ``_profile`` window."""
+    if prof["busy_share"] is None:
+        return "device time not measured (the profiler saw no kernel)"
+    return (f"profiled {prof['wall_ms']:.1f} ms wall, device "
+            f"{prof['device_ms']:.1f} ms (busy {prof['busy_share']:.3f}), "
+            f"{prof['device_launches']} device kernels; top: " + "; ".join(
+                f"{k[:48]} {v:.2f}" for k, v in prof["top_kernels_ms"][:5]))
+
+
+def _init(torch, model, seed):
+    t0 = time.perf_counter()
+    params = model.init(seed, device="cuda")
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def _hybrid_forward(torch, model, params):
+    """(a) one bf16 forward over HYBRID_TOKENS at full width and depth."""
+    cfg = model.cfg
+    B, S = HYBRID_TOKENS
+    g = torch.Generator(device="cuda").manual_seed(0)
+    toks = torch.randint(2, cfg.vocab, (B, S), generator=g, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    logits, wall0, dev0 = _events_ms(torch, lambda: model.apply(params,
+                                                                toks)[0])
+    check(tuple(logits.shape) == (B, S, cfg.padded_vocab),
+          f"recurrentgemma logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+          "recurrentgemma: non-finite logits")
+    del logits
+    runs = [_events_ms(torch, lambda: model.apply(params, toks)[0])[1:]
+            for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = _profile(torch, lambda: model.apply(params, toks))
+    out = dict(tokens=[B, S], first_wall_ms=wall0, first_device_ms=dev0,
+               wall_ms=min(w for w, _ in runs),
+               device_ms=min(d for _, d in runs), runs_ms=runs,
+               peak_gb=peak, profile=prof)
+    log(f"[hybrid] {cfg.name} apply over {B} x {S} tokens ({cfg.n_layers} "
+        f"layers, bf16, window {cfg.recurrent.window}, the KV-block scan): "
+        f"{out['wall_ms']:.1f} ms wall, {out['device_ms']:.1f} ms between "
+        f"CUDA events (runs " + ", ".join(f"{w:.1f}/{d:.1f}"
+                                          for w, d in runs)
+        + f"; first call {wall0:.1f}/{dev0:.1f}), finite logits, peak "
+        f"memory {peak:.2f} GB; " + _prof_line(prof))
+    return out
+
+
+def _hybrid_serve(torch, model, params):
+    """(c) phase 4's trace through the dense ServingEngine, then 6
+    profiled decode ticks of 8 rows."""
+    import numpy as np
+    from repro_torch.serve import ServingEngine
+    cfg, s = model.cfg, SERVE
+    eng = ServingEngine(model, params, n_slots=s["max_batch"],
+                        max_len=s["max_len"], eos_id=-1, device="cuda")
+    trace = _serve_trace(cfg, s)
+    pending = sorted(trace, key=lambda a: (a.tick, a.rid))
+    c, ticks, t = eng.metrics.counters, [], 0
+    t0 = time.perf_counter()
+    while True:
+        while pending and pending[0].tick <= t:
+            eng.submit(pending.pop(0).request())
+        dec = c["decode_tokens"]
+        t1 = time.perf_counter()
+        eng.step()
+        ticks.append(((time.perf_counter() - t1) * 1e3,
+                      c["decode_tokens"] - dec))
+        if not pending and not eng.queue and all(
+                sl.req is None for sl in eng.slots):
+            break
+        t += 1
+        check(t < 10_000, "serving did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done = eng.finished
+    check(len(done) == s["requests"], f"{len(done)} of {s['requests']} "
+          "requests finished")
+    by_rid = {a.rid: a for a in trace}
+    for r in done:
+        check(len(r.output) == by_rid[r.rid].max_new_tokens
+              and all(0 <= x < cfg.vocab for x in r.output),
+              f"rid {r.rid}: {len(r.output)} tokens or one outside the "
+              "vocabulary")
+    out = dict(requests=len(done), ticks=len(ticks),
+               prefill_tokens=c["prefill_tokens"],
+               decode_tokens=c["decode_tokens"], wall_s=wall,
+               decode_tokens_per_s=c["decode_tokens"] / wall,
+               p50_step_ms=statistics.median(ms for ms, _ in ticks),
+               p50_decode_only_step_ms=statistics.median(
+                   [ms for ms, n in ticks if n] or [0.0]))
+    # where a decode tick's time goes: 8 fresh rows admitted, then 6
+    # decode-only ticks under the profiler
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(5)
+    for rid in range(s["max_batch"]):
+        eng.submit(Request(1000 + rid, rng.integers(
+            2, cfg.vocab, size=64).tolist(), max_new_tokens=16))
+    eng.step()
+    out["profile"] = prof = _profile_window(torch, eng, 6)
+    log(f"[hybrid/serve] {cfg.name} on the dense ServingEngine "
+        f"({s['max_batch']} slots, max_len {s['max_len']}), phase 4's "
+        f"trace: {out['requests']} requests, {out['ticks']} ticks, "
+        f"{out['prefill_tokens']} prompt + {out['decode_tokens']} generated "
+        f"tokens in {wall:.2f} s: decode "
+        f"{out['decode_tokens_per_s']:.1f} tok/s, p50 tick "
+        f"{out['p50_step_ms']:.1f} ms — decodes from the zeroed state, as "
+        "the JAX engine does (ROADMAP C); 6 decode ticks of 8 rows: "
+        + _prof_line(prof))
+    return out
+
+
+def _hybrid_replay(torch):
+    """(b) float32, depth 3, full width: a stepwise replay of
+    HYBRID_REPLAY tokens against the forward's last position, and
+    ``rglru_scan`` at the full width over 4,096 steps against a
+    sequential float32 loop."""
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.models import build
+    from repro_torch.models.recurrent import C_EXP, rglru_scan
+    cfg = dataclasses.replace(configs.get_config("recurrentgemma-2b"),
+                              n_layers=3, dtype="float32")
+    model = build(cfg)
+    params, _ = _init(torch, model, 1)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    S, V = HYBRID_REPLAY, cfg.vocab
+    toks = torch.randint(2, V, (1, S), generator=g, device="cuda")
+    want = model.apply(params, toks, last_only=True)[0][0, 0, :V]
+    cache = model.init_cache(1, S, device="cuda")
+    t0 = time.perf_counter()
+    for t in range(S):
+        step, cache = model.decode_step(params, cache, toks[:, t:t + 1], t)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    err, _ = _replay_check(torch, step[0, 0, :V], want,
+                           f"recurrentgemma depth 3 float32, position "
+                           f"{S - 1}")
+    del params, cache
+    torch.cuda.empty_cache()
+
+    W, T = cfg.recurrent.lru_width, 4096
+    lam = torch.randn(W, generator=g, device="cuda")
+    r = torch.rand(2, T, W, generator=g, device="cuda")
+    a = torch.exp(C_EXP * r * F.logsigmoid(lam))
+    bx = torch.sqrt(1 - a * a) * torch.randn(2, T, W, generator=g,
+                                             device="cuda")
+    h = rglru_scan(a, bx)
+    ref = torch.empty_like(bx)
+    hc = torch.zeros(2, W, device="cuda")
+    for t in range(T):
+        hc = a[:, t] * hc + bx[:, t]
+        ref[:, t] = hc
+    d = (h - ref).abs()
+    scan_err = float(d.max())
+    check(bool((d <= 1e-5 * ref.abs() + 1e-5 * float(ref.abs().max()))
+               .all()), f"rglru_scan at W {W}, S {T}: max |scan - loop| "
+          f"{scan_err} beyond 1e-5")
+    ms = time_ms(torch, lambda: rglru_scan(a, bx), iters=5)
+    bms, by = bound_ms(3 * a.numel() * 4, 2 * a.numel(), "float32")
+    log(f"[hybrid/f32] depth 3 (rec, rec, attn), full width, float32: "
+        f"{S} decode_step tokens ({replay_s:.1f} s) against apply's last "
+        f"position, max |step - full| {err:.3g} (largest |logit| "
+        f"{float(want.abs().max()):.3g}; within 1e-4 of each plus 1e-4 of "
+        f"the largest); rglru_scan at 2 x {T} x {W} against a sequential "
+        f"float32 loop max abs {scan_err:.3g}, {ms:.3f} ms (bound {bms:.3f} "
+        f"ms, {by})")
+    return dict(replay_tokens=S, replay_max_abs=err, replay_s=replay_s,
+                scan_max_abs=scan_err, scan_ms=ms, scan_bound_ms=bms)
+
+
+def _seamless(torch):
+    """(d) seamless-m4t-large-v2 at full width and depth in bf16: encode,
+    a teacher-forced apply, prefill and greedy decode ticks; then at
+    2 + 2 layers in float32 a stepwise replay against ``apply``."""
+    from repro_torch import configs
+    from repro_torch.models import build
+    cfg = configs.get_config("seamless-m4t-large-v2")
+    model = build(cfg)
+    params, init_s = _init(torch, model, 0)
+    R, Fr, S, T = (SEAMLESS[k] for k in ("rows", "frames", "tokens",
+                                          "ticks"))
+    V = cfg.vocab
+    g = torch.Generator(device="cuda").manual_seed(0)
+    frames = torch.randn(R, Fr, cfg.d_model, generator=g,
+                         device="cuda").to(torch.bfloat16)
+    toks = torch.randint(2, V, (R, S), generator=g, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    enc = model.encode(params, frames)
+    check(tuple(enc.shape) == (R, Fr, cfg.d_model)
+          and bool(torch.isfinite(enc).all()), "seamless: encoder output")
+    logits = model.apply(params, toks, enc_embeds=frames)[0]
+    check(tuple(logits.shape) == (R, S, cfg.padded_vocab)
+          and bool(torch.isfinite(logits[..., :V]).all()),
+          f"seamless: logits {tuple(logits.shape)} or non-finite")
+    del enc, logits
+    # timed after the checked first calls, which pay the library warm-up
+    _, enc_wall, enc_dev = _events_ms(torch, lambda: model.encode(
+        params, frames))
+    _, app_wall, app_dev = _events_ms(torch, lambda: model.apply(
+        params, toks, enc_embeds=frames)[0])
+    cache, pre_wall, pre_dev = _events_ms(torch, lambda: model.prefill(
+        params, frames, T))
+    tok, out_toks = toks[:, :1], []
+    t0 = time.perf_counter()
+    for i in range(T):
+        step, cache = model.decode_step(params, cache, tok, i)
+        tok = step[:, -1, :V].argmax(-1, keepdim=True)
+        out_toks.append(tok)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    gen = torch.cat(out_toks, 1)
+    check(bool(((gen >= 0) & (gen < V)).all()), "seamless: a token outside "
+          "the vocabulary")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cache = model.prefill(params, frames, 6)
+
+    def ticks():
+        tok = toks[:, :1]
+        for i in range(6):
+            step, _ = model.decode_step(params, cache, tok, i)
+            tok = step[:, -1, :V].argmax(-1, keepdim=True)
+    prof = _profile(torch, ticks)
+    out = dict(n_params=model.n_params, init_s=init_s, rows=R, frames=Fr,
+               tokens=S, encode_wall_ms=enc_wall, encode_device_ms=enc_dev,
+               apply_wall_ms=app_wall, apply_device_ms=app_dev,
+               prefill_wall_ms=pre_wall, prefill_device_ms=pre_dev,
+               decode_ticks=T, decode_s=dec_s,
+               decode_tokens_per_s=R * T / dec_s, peak_gb=peak,
+               profile=prof)
+    log(f"[seamless] {cfg.name}: {cfg.enc_layers} + {cfg.n_layers} layers, "
+        f"{model.n_params / 1e9:.3f} B params, init {init_s:.1f} s; bf16 "
+        f"encode of {R} x {Fr} frame embeddings {enc_wall:.1f} ms wall "
+        f"({enc_dev:.1f} between CUDA events), teacher-forced apply over "
+        f"{R} x {S} tokens {app_wall:.1f} ms ({app_dev:.1f}), prefill "
+        f"(encode + cross K/V) {pre_wall:.1f} ms ({pre_dev:.1f}); {T} greedy "
+        f"decode_step ticks over {R} rows in {dec_s:.2f} s: "
+        f"{out['decode_tokens_per_s']:.1f} tok/s; finite, peak memory "
+        f"{peak:.2f} GB; 6 decode ticks: " + _prof_line(prof))
+    del params, cache
+    torch.cuda.empty_cache()
+
+    n = SEAMLESS["replay"]
+    cfg2 = dataclasses.replace(cfg, n_layers=2, enc_layers=2,
+                               dtype="float32")
+    m2 = build(cfg2)
+    p2, _ = _init(torch, m2, 1)
+    fr2, t2 = frames.float(), toks[:, :n]
+    full = m2.apply(p2, t2, enc_embeds=fr2)[0][..., :V]
+    cache = m2.prefill(p2, fr2, n)
+    errs = []
+    for t in range(n):
+        step, cache = m2.decode_step(p2, cache, t2[:, t:t + 1], t)
+        errs.append(_replay_check(
+            torch, step[:, 0, :V], full[:, t],
+            f"seamless 2 + 2 layers float32, decode step {t}",
+            rel=SEAMLESS_REPLAY_REL))
+    worst = max(e for e, _ in errs)
+    share = max(r for _, r in errs)
+    log(f"[seamless/f32] 2 + 2 layers, full width, float32: {n} teacher "
+        f"tokens through decode_step against apply, max |step - full| "
+        f"{worst:.3g}, at most {share:.3g} of (|logit| + the largest) "
+        f"(limit {SEAMLESS_REPLAY_REL:g}); by step: "
+        + ", ".join(f"{e:.2g}" for e, _ in errs[::8]))
+    out.update(replay_max_abs=worst, replay_share=share,
+               replay_by_step=[e for e, _ in errs])
+    return out
+
+
+def phase_hybrid_encdec(torch):
+    """Phase 14: (a)-(c) recurrentgemma-2b, (d) seamless-m4t-large-v2;
+    (e) every launch counter zeroed before (a) and read after (d): these
+    paths reach no kernel (in the JAX package neither)."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.kernels import ALL_KERNELS
+    from repro_torch.models import build
+    t0 = time.perf_counter()
+    for k in ALL_KERNELS:
+        k.launches = 0
+    cfg = configs.get_config("recurrentgemma-2b")
+    model = build(cfg)
+    params, init_s = _init(torch, model, 0)
+    weights_gb = sum(p.numel() * p.element_size() for k, v in params.items()
+                     if k != "embed" for p in _leaves(v)) / 1e9
+    log(f"[hybrid] {cfg.name}: {cfg.n_layers} layers, "
+        f"{model.n_params / 1e9:.3f} B params (layers {weights_gb:.2f} GB "
+        f"bf16, embedding {sum(p.numel() for p in _leaves(params['embed'])) * 4 / 1e9:.2f} GB f32), init {init_s:.1f} s")
+    out = dict(n_params=model.n_params, init_s=init_s,
+               weights_gb=weights_gb)
+    out["forward"] = _hybrid_forward(torch, model, params)
+    out["serve"] = _hybrid_serve(torch, model, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["f32"] = _hybrid_replay(torch)
+    out["seamless"] = _seamless(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k.name: k.launches for k in ALL_KERNELS}
+    check(not any(launches.values()), f"phase 14 launched a kernel: "
+          f"{launches}")
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[hybrid] no kernel launched in (a)-(d) ({launches}); phase wall "
+        f"{out['wall_s']:.1f} s")
+    return out
+
+
 # -- main --------------------------------------------------------------------
 
 def main():
@@ -3161,6 +3535,7 @@ def main():
         summary["ssd"] = ssd = phase_ssd(torch)
         summary["tune"] = phase_tune(torch, serve)
         summary["serve_flavours"] = flav = phase_serve_flavours(torch)
+        summary["hybrid_encdec"] = phase_hybrid_encdec(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

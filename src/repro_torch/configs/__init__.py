@@ -1,14 +1,15 @@
 """Architecture config registry of the port.
 
 ``get_config(name)`` / ``get_reduced(name)`` return ModelConfigs, as in
-the JAX package's ``repro.configs``.  The port carries the eight
-decoder-only architectures: the dense ``qwen3-1.7b``, ``codeqwen1.5-7b``
-(qkv bias), ``stablelm-3b`` (layernorm, partial rotary) and
-``gemma-7b`` (GeGLU, head_dim 256, scaled embedding), the VLM
-``chameleon-34b``, the MoE ``granite-moe-3b-a800m`` and
-``deepseek-v2-lite-16b`` (MLA) and the SSM ``mamba2-780m``; the hybrid
-``recurrentgemma-2b`` and the encoder-decoder ``seamless-m4t-large-v2``
-wait for the port of their model families (ROADMAP, port item A8).
+the JAX package's ``repro.configs``, for all ten of its architectures:
+the dense ``qwen3-1.7b``, ``codeqwen1.5-7b`` (qkv bias), ``stablelm-3b``
+(layernorm, partial rotary) and ``gemma-7b`` (GeGLU, head_dim 256,
+scaled embedding), the VLM ``chameleon-34b``, the MoE
+``granite-moe-3b-a800m`` and ``deepseek-v2-lite-16b`` (MLA), the SSM
+``mamba2-780m``, the hybrid ``recurrentgemma-2b`` (RG-LRU and
+sliding-window attention) and the encoder-decoder
+``seamless-m4t-large-v2``.  The JAX package's dry-run shapes
+(``configs/shapes.py``) are not ported (ROADMAP, port item A10).
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ _MODULES = {
     "gemma-7b": "gemma_7b",
     "chameleon-34b": "chameleon_34b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 
 ARCH_NAMES = tuple(_MODULES)
@@ -32,8 +35,7 @@ ARCH_NAMES = tuple(_MODULES)
 
 def _mod(name: str):
     if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; the port carries "
-                       f"{ARCH_NAMES} so far")
+        raise KeyError(f"unknown arch {name!r}; choose from {ARCH_NAMES}")
     return import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 

@@ -8,9 +8,12 @@ a CUDA card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
         --engine dense [--reduced] [--device cuda]
 
-``--arch`` takes every architecture of ``repro_torch.configs``:
-qwen3-1.7b, codeqwen1.5-7b, stablelm-3b, gemma-7b, chameleon-34b,
-granite-moe-3b-a800m, deepseek-v2-lite-16b and mamba2-780m.
+``--arch`` takes the decoder-only architectures of
+``repro_torch.configs``: qwen3-1.7b, codeqwen1.5-7b, stablelm-3b,
+gemma-7b, chameleon-34b, granite-moe-3b-a800m, deepseek-v2-lite-16b,
+mamba2-780m and recurrentgemma-2b.  The encoder-decoder
+seamless-m4t-large-v2 is refused: the engines prefill token prompts,
+and its prefill takes frame embeddings and returns a cache only.
 
 The port of the JAX package's ``launch/serve.py``.  It builds the model,
 initialises its weights from ``--seed`` with ``torch.Generator``s,
@@ -22,9 +25,11 @@ throughput and the engine's metrics snapshot.  ``--device cpu`` runs
 the kernels' plain versions on the CPU.  An MLA cache
 (deepseek-v2-lite-16b) holds a latent a position, with no heads axis:
 the paged engine serves it on its gather paths, as in the JAX package.
-The SSM family (mamba2-780m) has no KV cache to page: it serves through
-``--engine dense`` only, as in the JAX package, whose paged engine
-refuses it too.
+The SSM family (mamba2-780m) and the hybrid family (recurrentgemma-2b)
+have no growing KV cache to page: they serve through ``--engine dense``
+only, as in the JAX package, whose paged engine refuses them too, and
+decode from the zeroed state that their ``prefill`` returns, as there
+(ROADMAP section C).
 
 ``--dispatch-table FILE`` loads a fleet tuner's ``dispatch_table.json``
 (``python -m repro_torch.launch.tune`` writes one), prints its summary
@@ -93,11 +98,19 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))
-    if args.engine == "paged" and cfg.family == "ssm":
+    if cfg.family in ("encdec", "audio"):
         raise NotImplementedError(
-            f"--engine paged: {cfg.name} keeps an SSM state, not a KV cache "
+            f"{cfg.name}: the serving engines prefill token prompts, but an "
+            "encoder-decoder model prefills from the encoder's frame "
+            "embeddings and returns a cache only (EncDecLM.prefill); the "
+            "JAX package's engines fail on it too")
+    if args.engine == "paged" and cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"--engine paged: {cfg.name} keeps recurrent state (and, for "
+            "the hybrid family, fixed-size attention rings), not a KV cache "
             "to page, and the JAX package's paged engine refuses it as "
-            "well; use --engine dense (ROADMAP, port item A8)")
+            "well; use --engine dense, which decodes from the zeroed state "
+            "their prefill returns (ROADMAP section C)")
     model = build(cfg)
     params = model.init(args.seed, device=device)
     table = None

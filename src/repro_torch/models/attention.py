@@ -86,7 +86,8 @@ def mla_attention(p: Dict, x: torch.Tensor, c_kv: torch.Tensor,
     k_r = k_rope[:, None].expand(B, H, Skv, m.qk_rope_dim)
     k = torch.cat([k_nope, k_r.to(k_nope.dtype)], dim=-1)
     qk = torch.cat([q_nope, q_rope], dim=-1)
-    o = sdpa(qk, k, v, q_positions=positions, kv_positions=kv_positions,
+    o = sdpa(qk, k, v, causal=True, q_positions=positions,
+             kv_positions=kv_positions,
              scale=(m.qk_nope_dim + m.qk_rope_dim) ** -0.5)
     return attn_out(p, o)
 

@@ -3,8 +3,10 @@
 The port of the JAX package's ``models/components.py``, every flavour
 its configs use: RMS norm or layernorm (head norms stay RMS), full or
 partial rotary, tied or untied float32 embeddings with an optional
-sqrt(d_model) scale, SwiGLU, GeGLU or plain GELU FFNs, and GQA
-projections with or without qkv biases.  Pure functions over (params,
+sqrt(d_model) scale, SwiGLU, GeGLU or plain GELU FFNs, GQA
+projections with or without qkv biases, and ``sdpa``: causal or not,
+with or without a sliding window, on the direct path below 1,024 query
+tokens and on the KV-block scan at or above it.  Pure functions over (params,
 activations), with parameter shapes declared by matching ``*_specs``
 builders (see params.py).
 Tensor layouts match the JAX package: activations (B, S, D), q
@@ -26,7 +28,8 @@ NEG_INF = -1e30
 
 
 def dtype_of(name: str) -> torch.dtype:
-    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "int32": torch.int32}[name]
 
 
 # -- norms -------------------------------------------------------------------
@@ -137,15 +140,27 @@ def ffn_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict:
     return s
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximated GELU computed as the JAX package's
+    ``jax.nn.gelu(approximate=True)`` computes it: each step in x's own
+    type, its constants rounded to that type first.  In bfloat16 that
+    gives JAX's values bit for bit; ``F.gelu`` computes in float32 and
+    rounds once, which puts many bfloat16 outputs on the other
+    neighbour."""
+    c = lambda v: torch.tensor(v, dtype=x.dtype, device=x.device)
+    inner = c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * (x * x * x))
+    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
+
+
 def apply_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """SwiGLU, GeGLU or plain GELU (tanh-approximated GELU, as the JAX
-    package's ``approximate=True``)."""
+    package's ``approximate=True``: :func:`gelu_tanh`)."""
     if cfg.ffn_type == "swiglu":
         h = F.silu(x @ p["wg"]) * (x @ p["wu"])
     elif cfg.ffn_type == "geglu":
-        h = F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wu"])
+        h = gelu_tanh(x @ p["wg"]) * (x @ p["wu"])
     else:
-        h = F.gelu(x @ p["wu"], approximate="tanh")
+        h = gelu_tanh(x @ p["wu"])
     return h @ p["wd"]
 
 
@@ -203,32 +218,130 @@ def qkv_project(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     return q, k, v
 
 
-def sdpa(q, k, v, *, q_positions, kv_positions=None, scale=None):
-    """Causal masked attention with GQA broadcast — the direct path of the
-    JAX package's ``sdpa_xla``: one float32 score rectangle, masked to
-    -1e30 where a key's position exceeds the query's, plain softmax.
-    (The JAX ``sdpa`` moves to a KV-block scan at 1024+ query tokens; the
-    port keeps the direct path at every length.)
+def sdpa_direct(q, k, v, *, causal: bool, q_positions=None,
+                kv_positions=None, scale=None, window: int = 0):
+    """Masked attention with GQA broadcast over one float32 score
+    rectangle — the JAX package's ``sdpa_xla``.  A key is kept where
+    its position is at most the query's (``causal``) or is at least 0
+    (not causal), and, with ``window`` > 0, where the query is fewer than
+    ``window`` positions past it; the rest score -1e30, so a fully masked
+    row takes the mean of V, as in the JAX package.
 
     q: (B, Hq, Sq, D); k: (B, Hkv, Skv, D); v: (B, Hkv, Skv, Dv) (Dv
-    differs from D in MLA); q_positions (Sq,) or (B, Sq); kv_positions
-    (Skv,) (default ``arange(Skv)``); ``scale`` defaults to D^-0.5."""
+    differs from D in MLA); q_positions (Sq,) or (B, Sq) and kv_positions
+    (Skv,) or (B, Skv), each ``arange`` by default; ``scale`` defaults
+    to D^-0.5."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     g = Hq // Hkv
     scale = scale if scale is not None else D ** -0.5
     qg = q.reshape(B, Hkv, g, Sq, D)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg.to(F32), k.to(F32)) * scale
-    kpos = (kv_positions if kv_positions is not None
-            else torch.arange(Skv, device=q.device))
-    m = q_positions[..., :, None] >= kpos[None, :]     # (B|, Sq, Skv)
-    if m.ndim == 2:
-        m = m[None]
-    m = m[:, None, None, :, :]                         # (B|1,1,1,Sq,Skv)
+    m = _mask(q_positions, kv_positions, Sq, Skv, causal, window, q.device)
     s = torch.where(m, s, torch.tensor(NEG_INF, dtype=F32, device=q.device))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(F32))
     return out.reshape(B, Hq, Sq, v.shape[-1]).to(q.dtype)
+
+
+def _mask(q_positions, kv_positions, Sq, Skv, causal, window, device,
+          sentinel: bool = False):
+    """(B|1, 1, 1, Sq, Skv) keep-mask of the JAX package's ``sdpa``;
+    ``sentinel`` also drops the padding slots (position _PAD_SENTINEL)
+    of the KV-block scan."""
+    qpos = (q_positions if q_positions is not None
+            else torch.arange(Sq, device=device))
+    kpos = (kv_positions if kv_positions is not None
+            else torch.arange(Skv, device=device))
+    qp = qpos[..., :, None]                            # (..., Sq, 1)
+    kp = kpos[..., None, :]                            # (..., 1, Skv)
+    m = ((qp >= kp) if causal else (kp >= 0).expand(
+        torch.broadcast_shapes(qp.shape, kp.shape)))
+    if sentinel:
+        m = m & (kp < _PAD_SENTINEL)
+    if window:
+        m = m & (qp - kp < window)
+    if m.ndim == 2:                                    # (Sq, Skv)
+        m = m[None]
+    return m[:, None, None, :, :]
+
+
+# Query length at which ``sdpa`` leaves the direct path for the KV-block
+# scan, and the scan's block, as in the JAX package: no (Sq, Skv) score
+# tensor is built past it (at 4,096 tokens and 10 heads a float32
+# rectangle is 671 MB a batch row).
+FLASH_SDPA_THRESHOLD = 1024
+SDPA_KV_CHUNK = 512
+_PAD_SENTINEL = 1 << 30
+
+
+def sdpa_flash(q, k, v, *, causal: bool, q_positions=None,
+               kv_positions=None, scale=None, window: int = 0,
+               kv_chunk: int = SDPA_KV_CHUNK):
+    """Online-softmax attention over KV blocks of ``kv_chunk`` — the JAX
+    package's ``sdpa_flash_xla``, a Python loop over the blocks in place
+    of ``lax.scan``, carrying the running max, sum and accumulator in
+    float32.  Skv must be a multiple of ``kv_chunk`` (``sdpa`` pads).
+    As in the JAX package, the scores are float32 sums of the storage
+    type's exact products, p is rounded to V's type before P·V, and a
+    fully masked row gives zeros."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    g = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    if Skv % kv_chunk:
+        raise ValueError(f"Skv {Skv} is no multiple of {kv_chunk}")
+    qg = q.reshape(B, Hkv, g, Sq, D).to(F32)
+    qpos = (q_positions if q_positions is not None
+            else torch.arange(Sq, device=q.device))
+    kpos = (kv_positions if kv_positions is not None
+            else torch.arange(Skv, device=q.device))
+    neg = torch.tensor(NEG_INF, dtype=F32, device=q.device)
+    m = torch.full((B, Hkv, g, Sq, 1), NEG_INF, dtype=F32, device=q.device)
+    l = torch.zeros((B, Hkv, g, Sq, 1), dtype=F32, device=q.device)
+    acc = torch.zeros((B, Hkv, g, Sq, Dv), dtype=F32, device=q.device)
+    for c0 in range(0, Skv, kv_chunk):
+        kb = k[:, :, c0:c0 + kv_chunk].to(F32)
+        vb = v[:, :, c0:c0 + kv_chunk]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kb) * scale
+        mask = _mask(qpos, kpos[..., c0:c0 + kv_chunk], Sq, kv_chunk,
+                     causal, window, q.device, sentinel=True)
+        s = torch.where(mask, s, neg)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(mask, torch.exp(s - m_new), 0.0)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhgqk,bhkd->bhgqd", p.to(vb.dtype).to(F32), vb.to(F32))
+        m = m_new
+    l = torch.where(l == 0.0, 1.0, l)
+    return (acc / l).reshape(B, Hq, Sq, Dv).to(q.dtype)
+
+
+def sdpa(q, k, v, *, causal: bool, q_positions=None, kv_positions=None,
+         scale=None, window: int = 0):
+    """Scaled dot-product attention, dispatched as in the JAX package:
+    below FLASH_SDPA_THRESHOLD query tokens the direct path
+    (:func:`sdpa_direct`), at or above it the KV-block scan
+    (:func:`sdpa_flash`) over KV padded to a multiple of SDPA_KV_CHUNK
+    with sentinel positions that every mask rejects.  Arguments as
+    :func:`sdpa_direct`'s."""
+    Sq, Skv = q.shape[2], k.shape[2]
+    kw = dict(causal=causal, q_positions=q_positions, scale=scale,
+              window=window)
+    if Sq < FLASH_SDPA_THRESHOLD:
+        return sdpa_direct(q, k, v, kv_positions=kv_positions, **kw)
+    pad = (-Skv) % SDPA_KV_CHUNK
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+        kp = (kv_positions if kv_positions is not None
+              else torch.arange(Skv, device=q.device))
+        kv_positions = torch.cat(
+            [kp, torch.full(kp.shape[:-1] + (pad,), _PAD_SENTINEL,
+                            dtype=kp.dtype, device=kp.device)], dim=-1)
+    return sdpa_flash(q, k, v, kv_positions=kv_positions, **kw)
 
 
 def attn_out(p: Dict, o: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,6 @@
 
 A copy of the JAX package's ``models/config.py``: the dataclasses are
 field-for-field the same, so a config converts by ``dataclasses.asdict``.
-Slice 1 of the port builds only the dense family.
 """
 from __future__ import annotations
 

@@ -1,8 +1,10 @@
 """Model facade: ``build(cfg)`` returns the family's LM object — the port
 of the JAX package's ``models/model.py``.  The dense, MoE and VLM
 families are built as :class:`TransformerLM` (GQA or MLA attention),
-the SSM family as :class:`SSMLM`; the hybrid and encoder-decoder
-families are not ported yet."""
+the SSM family as :class:`SSMLM`, the hybrid family (RecurrentGemma) as
+:class:`~repro_torch.models.hybrid.HybridLM` and the encoder-decoder
+and audio families (seamless-m4t) as
+:class:`~repro_torch.models.encdec.EncDecLM`."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -14,16 +16,12 @@ from repro_torch.device import DeviceLike
 from .components import F32, apply_norm, dtype_of, embed, embed_specs, \
     norm_specs, unembed
 from .config import ModelConfig
+from .encdec import EncDecLM
+from .hybrid import HybridLM
 from .params import init_params, param_count
 from .ssm import apply_ssm_block, ssm_block_specs, ssm_cache_shape
 from .transformer import ShapeDtype, TransformerLM, layer_slice, \
     stack_specs, zero_cache
-
-_PENDING = {
-    "hybrid": "A8 (hybrid, recurrent and encoder-decoder families)",
-    "encdec": "A8",
-    "audio": "A8",
-}
 
 
 class SSMLM:
@@ -117,8 +115,8 @@ def build(cfg: ModelConfig):
         return TransformerLM(cfg)
     if cfg.family == "ssm":
         return SSMLM(cfg)
-    if cfg.family in _PENDING:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet: ROADMAP, port "
-            f"item {_PENDING[cfg.family]}")
+    if cfg.family == "hybrid":
+        return HybridLM(cfg)
+    if cfg.family in ("encdec", "audio"):
+        return EncDecLM(cfg)
     raise ValueError(f"unknown model family {cfg.family!r}")

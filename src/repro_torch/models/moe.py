@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.moe.moe import compute_dispatch
 
-from .components import F32, apply_ffn, dtype_of, ffn_specs
+from .components import F32, apply_ffn, dtype_of, ffn_specs, gelu_tanh
 from .config import ModelConfig
 from .params import ParamSpec
 
@@ -73,7 +73,7 @@ def load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
 
 def _act(hg: torch.Tensor, hu: torch.Tensor, cfg: ModelConfig):
     if cfg.ffn_type == "geglu":
-        return F.gelu(hg, approximate="tanh") * hu
+        return gelu_tanh(hg) * hu
     return F.silu(hg) * hu
 
 

@@ -82,11 +82,15 @@ def block_specs(cfg: ModelConfig, *, moe_layer: bool = False) -> Dict:
 
 def zero_cache(shapes: Dict, device: DeviceLike = "cuda") -> Dict:
     """A cache tree of zeros from a ``cache_shape`` tree of
-    :class:`ShapeDtype` leaves, on ``device``."""
+    :class:`ShapeDtype` leaves (nested dicts of any depth), on
+    ``device``."""
     dev = resolve_device(device)
-    return {g: {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
-                for k, s in leaves.items()}
-            for g, leaves in shapes.items()}
+
+    def zeros(node):
+        if isinstance(node, dict):
+            return {k: zeros(v) for k, v in node.items()}
+        return torch.zeros(node.shape, dtype=node.dtype, device=dev)
+    return zeros(shapes)
 
 
 def layer_slice(tree, i: int):
@@ -116,7 +120,8 @@ def _self_attention(p: Dict, x: torch.Tensor, positions, cfg: ModelConfig,
         kv_pos = torch.arange(k_all.shape[2], device=x.device)
     else:
         k_all, v_all, kv_pos = k, v, None
-    o = sdpa(q, k_all, v_all, q_positions=positions, kv_positions=kv_pos)
+    o = sdpa(q, k_all, v_all, causal=True, q_positions=positions,
+             kv_positions=kv_pos)
     return attn_out(p, o)
 
 

@@ -6,7 +6,11 @@ one request model and one metrics contract:
 :class:`ServingEngine` — the dense baseline.  A fixed decode batch of
 ``n_slots`` sequences, each reserving a dense ``max_len`` cache slab;
 free slots refill from the queue via single-sequence one-shot prefill.
-Kept as the oracle the paged engine must match token-for-token.
+Kept as the oracle the paged engine must match token-for-token.  It
+alone serves the SSM and hybrid families, whose caches (recurrent states
+and fixed-size attention rings) a page pool cannot hold, as in the JAX
+package.  Neither engine serves the encoder-decoder family: its prefill
+takes frame embeddings, not a token prompt.
 
 :class:`PagedServingEngine` — the production layout.  KV lives in a
 shared block-table page pool (:mod:`repro_torch.serve.pool`): admission
@@ -64,6 +68,7 @@ import torch
 from repro_torch import obs as _obs
 from repro_torch.core.tuning import dispatch as _dispatch
 from repro_torch.device import DeviceLike, device_of, resolve_device
+from repro_torch.models.params import leaf_paths
 
 from .metrics import ServingMetrics
 from .pool import KVPool, PageAllocator, PoolExhausted, pages_needed
@@ -99,6 +104,17 @@ def _engine_device(params, device: DeviceLike) -> torch.device:
     return dev
 
 
+def _refuse_encdec(model) -> None:
+    """The engines prefill token prompts; an encoder-decoder model
+    prefills from frame embeddings and returns a cache only, so neither
+    engine serves it (the JAX package's engines fail on it too)."""
+    if model.cfg.family in ("encdec", "audio"):
+        raise NotImplementedError(
+            f"{model.cfg.name}: the serving engines prefill token prompts, "
+            "but EncDecLM.prefill takes the encoder's frame embeddings and "
+            "returns a cache only, no logits")
+
+
 def _argmax_rows(logits: torch.Tensor) -> List[int]:
     """Greedy token of each row of (N, V) logits, first index on ties
     (as ``jnp.argmax``); one device-to-host copy."""
@@ -112,6 +128,7 @@ class ServingEngine:
                  max_len: int = 512, eos_id: int = 1,
                  dispatch_table=None, clock=None,
                  device: DeviceLike = "cuda"):
+        _refuse_encdec(model)
         self.model = model
         self.params = params
         self.device = _engine_device(params, device)
@@ -144,12 +161,13 @@ class ServingEngine:
 
     def _insert_cache(self, slot: int, src_cache: Dict) -> None:
         """Copy a batch-1 prefill cache into slot ``slot``.  The batch
-        axis position per leaf comes from the model's cache_axes()."""
-        for group, leaves in self.model.cache_axes().items():
-            for name, ax in leaves.items():
-                b = ax.index("batch")
-                self.cache[group][name].select(b, slot).copy_(
-                    src_cache[group][name].select(b, 0))
+        axis position per leaf comes from the model's cache_axes(), a
+        tree of any depth (the hybrid family's is three levels deep)."""
+        for (_, ax), (_, dst), (_, src) in zip(
+                leaf_paths(self.model.cache_axes()), leaf_paths(self.cache),
+                leaf_paths(src_cache)):
+            b = ax.index("batch")
+            dst.select(b, slot).copy_(src.select(b, 0))
 
     def _admit(self) -> Dict[str, int]:
         admitted = prefill_tokens = 0
@@ -271,6 +289,7 @@ class PagedServingEngine:
         if prefill_path not in ("gather", "kernel"):
             raise ValueError(f"prefill_path must be 'gather' or 'kernel', "
                              f"got {prefill_path!r}")
+        _refuse_encdec(model)
         self.model = model
         self.params = params
         self.device = _engine_device(params, device)

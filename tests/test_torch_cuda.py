@@ -221,6 +221,48 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b",
+                                  "seamless-m4t-large-v2"])
+def test_hybrid_and_encdec_on_the_card_match_the_cpu(card, arch):
+    """The reduced float32 models on the card and on the CPU, the same
+    weights: ``apply`` over 40 tokens (past recurrentgemma's window of
+    32; seamless over 30 seeded frame embeddings) and 12 ``decode_step``
+    tokens (recurrentgemma from the zeroed cache, seamless after
+    ``prefill``), logits within 1e-4 of each plus 1e-4 of the largest.
+    Neither family reaches a kernel: no launch counter moves."""
+    from repro_torch import configs
+    from repro_torch.kernels import ALL_KERNELS
+    from repro_torch.models import build
+    cfg = dataclasses.replace(configs.get_reduced(arch), dtype="float32")
+    model = build(cfg)
+    params = model.init(0, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    toks = torch.randint(2, cfg.vocab, (2, 40), generator=g)
+    enc = torch.randn(2, 30, cfg.d_model, generator=g)
+    before = [k.launches for k in ALL_KERNELS]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p, t = _to(params, dev), toks.to(dev)
+        if cfg.family == "hybrid":
+            full, _ = model.apply(p, t)
+            cache = model.init_cache(2, 64, device=dev)
+        else:
+            full, _ = model.apply(p, t, enc_embeds=enc.to(dev))
+            cache = model.prefill(p, enc.to(dev), 64)
+        steps = []
+        for i in range(12):
+            o, cache = model.decode_step(p, cache, t[:, i:i + 1], i)
+            steps.append(o[:, 0])
+        out[dev] = (full.cpu(), torch.stack(steps, 1).cpu())
+    assert [k.launches for k in ALL_KERNELS] == before
+    for got, want in zip(out["cuda"], out["cpu"]):
+        want = want[..., :cfg.vocab]
+        got = got[..., :cfg.vocab]
+        tol = 1e-4 * want.abs() + 1e-4 * want.abs().max()
+        assert bool(((got - want).abs() <= tol).all()), \
+            float((got - want).abs().max())
+
+
 # -- GEMM --------------------------------------------------------------------
 
 GEMM_CASES = [

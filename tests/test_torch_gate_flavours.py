@@ -122,9 +122,18 @@ def test_every_new_architecture_builds_as_in_jax(arch, reduced):
         (jm.n_params, jm.n_active_params)
 
 
-@pytest.mark.parametrize("family", ["encdec", "audio"])
-def test_the_families_still_to_port_raise_naming_the_roadmap(family):
-    cfg = dataclasses.replace(tconfigs.get_reduced("qwen3-1.7b"),
-                              family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP, port item A8"):
-        torch_build(cfg)
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b",
+                                  "seamless-m4t-large-v2"])
+def test_the_hybrid_and_encdec_architectures_build_as_in_jax(arch, reduced):
+    get = "get_reduced" if reduced else "get_config"
+    tcfg, jcfg = getattr(tconfigs, get)(arch), getattr(jconfigs, get)(arch)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    tm, jm = torch_build(tcfg), jax_build(jcfg)
+    assert type(tm).__name__ == type(jm).__name__
+    assert (tm.n_params, tm.n_active_params) == \
+        (jm.n_params, jm.n_active_params)
+
+
+def test_the_registry_carries_every_jax_architecture():
+    assert set(tconfigs.ARCH_NAMES) == set(jconfigs.ARCH_NAMES)

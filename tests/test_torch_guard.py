@@ -41,7 +41,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.configs.codeqwen1_5_7b, "
             "repro_torch.configs.stablelm_3b, repro_torch.configs.gemma_7b, "
             "repro_torch.configs.chameleon_34b, "
-            "repro_torch.configs.deepseek_v2_lite_16b\n"
+            "repro_torch.configs.deepseek_v2_lite_16b, "
+            "repro_torch.models.hybrid, repro_torch.models.encdec, "
+            "repro_torch.configs.recurrentgemma_2b, "
+            "repro_torch.configs.seamless_m4t_large_v2\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"

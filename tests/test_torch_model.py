@@ -242,10 +242,3 @@ def test_cache_layout_matches_jax(pair):
     assert tm.cache_axes() == jm.cache_axes()
     c = tm.init_cache(3, 16, device="cpu")
     assert c["blocks"]["k"].shape == tshape["blocks"]["k"].shape
-
-
-@pytest.mark.parametrize("change", [dict(family="hybrid")])
-def test_unported_families_and_flavours_raise_naming_the_roadmap(change):
-    cfg = dataclasses.replace(tconfigs.get_reduced(ARCH), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_build(cfg)
