@@ -213,7 +213,29 @@ is missing or any phase fails.  Phases:
    float32 64 teacher tokens through ``decode_step`` against ``apply``
    (phase (b)'s tolerance); (e) every launch counter zeroed before (a)
    and read after (d) must read 0;
-15. the kernels line (JSON, all eight kernels; paged_decode's and
+15. train — no kernel on this path, in the JAX package neither: (a)
+   qwen3-1.7b at full width and depth (28 layers, d_model 2048, vocab
+   151,936, bf16 layers, the float32 embedding table, seed-0 weights,
+   the synthetic data pipeline) trained with ``make_train_step`` (AdamW,
+   clipping, the cosine schedule, per-layer recomputation) over batches
+   of 8 x 1,024 tokens: 5 steps with grad_accum 1, then 2 with
+   grad_accum 2; each step's loss, gradient norm, rate, time between
+   CUDA events, tokens/s and peak memory, every metric finite; one more
+   step under the profiler (busy share, largest device items, device
+   time by kernel kind) and ``adamw_update`` alone on the full state;
+   (b) at depth 2 in float32, 2 x 128 tokens, on the same weights, the
+   card's step and the port's float32 CPU step each against the port's
+   CPU step in float64: the loss within 1e-5 of its value, each
+   gradient leaf within 1e-4 of its largest |value| (the card against
+   the float32 CPU step logged, and the card's step repeated); (c) at depth 2 in bf16
+   under ``torch.use_deterministic_algorithms``: 6 steps uninterrupted
+   against 3 steps, a checkpoint, a restore into fresh tensors and 3
+   more steps — losses, parameters and moments bit-identical; (d)
+   ``examples/quickstart_torch.py``'s run through ``launch.train``
+   (reduced qwen3, 200 steps of 8 x 128): the loss drops by more than
+   0.3; (e) every launch counter zeroed before (a) and read after (d)
+   must read 0;
+16. the kernels line (JSON, all eight kernels; paged_decode's and
    ragged_prefill's entries list phase 13a's instances with their
    launches in phase 13's runs), then the final line
    ``{"ok": true, "device": {...}}``.
@@ -229,8 +251,10 @@ A summary of every number also goes to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1072,11 +1096,14 @@ def _profile_window(torch, engine, n_steps):
     return out
 
 
-def _profile(torch, fn):
+def _profile(torch, fn, kinds=None):
     """Run ``fn`` under ``torch.profiler``; returns the window's wall
     time, device time by kernel (largest first) and the device's busy
     share (kernel time over wall time; kernels overlap little on one
-    stream, so the share is an upper bound)."""
+    stream, so the share is an upper bound).  ``kinds``: (label,
+    predicate on the kernel's name) pairs; each kernel's time is also
+    summed under the first label whose predicate holds
+    (``by_kind_ms``, "other" for none)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1103,11 +1130,18 @@ def _profile(torch, fn):
             name = k.split("::")[1].split("<")[0].split("(")[0]
             if name.endswith("_kernel"):
                 ours[name] = ours.get(name, 0.0) + v
-    return dict(wall_ms=wall * 1e3, device_ms=busy,
-                device_launches=launches,
-                busy_share=(busy / (wall * 1e3)) if kern else None,
-                top_kernels_ms=[[k[:90], v] for k, v in top],
-                port_kernels_ms=ours)
+    out = dict(wall_ms=wall * 1e3, device_ms=busy,
+               device_launches=launches,
+               busy_share=(busy / (wall * 1e3)) if kern else None,
+               top_kernels_ms=[[k[:90], v] for k, v in top],
+               port_kernels_ms=ours)
+    if kinds is not None:
+        by = {}
+        for k, v in kern.items():
+            label = next((lab for lab, pred in kinds if pred(k)), "other")
+            by[label] = by.get(label, 0.0) + v
+        out["by_kind_ms"] = dict(sorted(by.items(), key=lambda kv: -kv[1]))
+    return out
 
 
 def phase_profile(torch, model, params, pool_pages, s=SERVE):
@@ -3502,6 +3536,361 @@ def phase_hybrid_encdec(torch):
     return out
 
 
+# -- phase 15: train -----------------------------------------------------------
+
+# (a) qwen3-1.7b at full width and depth: batch x seq, steps with
+# grad_accum 1 then with grad_accum 2
+TRAIN = dict(arch="qwen3-1.7b", batch=8, seq=1024, steps=5, accum_steps=2,
+             seed=0, peak_lr=3e-4)
+# kernel kinds of a training step's profile, by name: cuBLAS's float32
+# GEMMs (the float32 unembed and sdpa's float32 score and P.V products,
+# TF32 off), its other GEMMs (the bf16 layers), then the rest
+TRAIN_KINDS = (
+    ("float32 GEMM", lambda k: "f32f32" in k or "sgemm" in k),
+    ("bf16 GEMM", lambda k: any(w in k for w in ("gemm", "nvjet", "xmma",
+                                                 "cutlass"))),
+    ("softmax", lambda k: "softmax" in k.lower()),
+    ("reduction", lambda k: "reduce" in k.lower()),
+    ("index and scatter", lambda k: any(w in k.lower() for w in (
+        "index", "scatter", "gather"))),
+    ("copy and cast", lambda k: "copy" in k.lower()),
+    ("elementwise", lambda k: "elementwise" in k.lower()),
+)
+# (b) the card's float32 step and the port's float32 CPU step, each held
+# to the port's CPU step computed in float64 on the same weights and batch
+# (full width, depth 2): the loss within 1e-5 of the reference's, each
+# gradient leaf within 1e-4 of the reference leaf's largest |value|.  Two
+# float32 evaluations that each keep that bound differ by at most twice
+# it; their difference is logged.  tools/train_hold_probe.py measures how
+# far float32 rounding alone moves these gradients.
+TRAIN_HOLD = dict(layers=2, batch=2, seq=128, loss_rel=1e-5, grad_rel=1e-4)
+# (c) resume at depth 2, bf16, deterministic algorithms: bit-identical
+TRAIN_RESUME = dict(layers=2, batch=2, seq=128, steps=6, split=3)
+# (d) examples/quickstart_torch.py's run: reduced qwen3, 200 steps, 8 x 128
+QUICKSTART = dict(steps=200, batch=8, seq=128, min_drop=0.3)
+
+
+def _train_batch(torch, ds):
+    return {k: torch.from_numpy(v).to("cuda") for k, v in next(ds).items()}
+
+
+def _train_full(torch):
+    """(a) qwen3-1.7b at full width and depth, seed-0 weights, the
+    synthetic data pipeline: ``TRAIN['steps']`` steps with grad_accum 1,
+    then ``TRAIN['accum_steps']`` with grad_accum 2; each step's loss,
+    gradient norm, rate, time between CUDA events, tokens/s and the peak
+    memory; then one more grad_accum-1 step under the profiler."""
+    import gc
+    import math
+    from repro_torch import configs
+    from repro_torch.data import make_dataset
+    from repro_torch.models import build
+    from repro_torch.optim import adamw_init, cosine_schedule
+    from repro_torch.train import make_train_step
+    t = TRAIN
+    cfg = configs.get_config(t["arch"])
+    model = build(cfg)
+    params, init_s = _init(torch, model, t["seed"])
+    opt = adamw_init(params)
+    ds = make_dataset(cfg, seq_len=t["seq"], global_batch=t["batch"],
+                      seed=t["seed"])
+    lr_fn = lambda s: cosine_schedule(s, peak_lr=t["peak_lr"], warmup=20,
+                                      total=100)
+    steps = {1: make_train_step(model, lr_fn=lr_fn),
+             2: make_train_step(model, lr_fn=lr_fn, grad_accum=2)}
+    tokens = t["batch"] * t["seq"]
+    rows = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(t["steps"] + t["accum_steps"]):
+        accum = 1 if i < t["steps"] else 2
+        batch = _train_batch(torch, ds)
+        (params, opt, met), wall, dev = _events_ms(
+            torch, lambda: steps[accum](params, opt, batch))
+        row = dict(step=i, grad_accum=accum, wall_ms=wall, device_ms=dev,
+                   tokens_per_s=tokens / (dev / 1e3),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   **{k: float(v) for k, v in met.items()})
+        check(all(math.isfinite(row[k]) for k in
+                  ("loss", "ce", "aux", "gnorm", "lr")),
+              f"train step {i}: a metric is not finite: {row}")
+        rows.append(row)
+        log(f"[train] {cfg.name} step {i} (grad_accum {accum}, "
+            f"{t['batch']} x {t['seq']}): loss {row['loss']:.4f} gnorm "
+            f"{row['gnorm']:.3f} lr {row['lr']:.3e}; {dev:.1f} ms between "
+            f"CUDA events ({wall:.1f} wall), {row['tokens_per_s']:.0f} "
+            f"tokens/s, peak {row['peak_gb']:.2f} GB")
+    batch = _train_batch(torch, ds)
+    box = {}
+
+    def profiled():
+        box["out"] = steps[1](params, opt, batch)
+    prof = _profile(torch, profiled, kinds=TRAIN_KINDS)
+    params, opt, _ = box.pop("out")
+    log(f"[train] one profiled step: " + _prof_line(prof) + "; by kind: "
+        + "; ".join(f"{k} {v:.1f}" for k, v in prof.get(
+            "by_kind_ms", {}).items()))
+    # the optimizer alone, on the full state (zero gradients)
+    from repro_torch.optim import adamw_update, tree_map
+    zeros = tree_map(torch.zeros_like, params)
+    _, _, adamw_ms = _events_ms(torch, lambda: adamw_update(
+        zeros, opt, params, lr=lr_fn(opt.step)))
+    del zeros
+    log(f"[train] adamw_update over {model.n_params / 1e9:.2f} B params: "
+        f"{adamw_ms:.1f} ms between CUDA events")
+    out = dict(arch=cfg.name, n_params=model.n_params, init_s=init_s,
+               batch=t["batch"], seq=t["seq"], steps=rows, profile=prof,
+               peak_gb=max(r["peak_gb"] for r in rows), adamw_ms=adamw_ms)
+    del params, opt, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaf_items(tree, prefix=""):
+    """(path, leaf) of nested dicts in ``tree_leaves``' sorted order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_items(tree[k], f"{prefix}/{k}" if prefix
+                                   else str(k))
+    else:
+        yield prefix, tree
+
+
+@contextlib.contextmanager
+def _float64_models(torch):
+    """The port's model code computes in float64 where it names float32
+    (``F32`` and ``dtype_of("float32")`` of every ``repro_torch.models``
+    module), for a reference of the float32 model's function."""
+    import importlib
+    import pkgutil
+    import repro_torch.models as pkg
+    saved = []
+    for info in pkgutil.iter_modules(pkg.__path__):
+        m = importlib.import_module(f"{pkg.__name__}.{info.name}")
+        if getattr(m, "F32", None) is torch.float32:
+            saved.append((m, "F32", m.F32))
+            m.F32 = torch.float64
+        if hasattr(m, "dtype_of"):
+            saved.append((m, "dtype_of", m.dtype_of))
+            m.dtype_of = (lambda name, f=m.dtype_of: torch.float64
+                          if name == "float32" else f(name))
+    try:
+        yield
+    finally:
+        for m, attr, v in saved:
+            setattr(m, attr, v)
+
+
+def _leaf_items(tree, prefix=""):
+    """(path, leaf) of nested dicts in ``tree_leaves``' sorted order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_items(tree[k], f"{prefix}/{k}" if prefix
+                                   else str(k))
+    else:
+        yield prefix, tree
+
+
+def _train_hold(torch):
+    """(b) the card's float32 loss and gradients, and the port's float32
+    CPU step's, against the port's CPU step in float64 on the same
+    weights (initialised on the CPU in float32, copied over) and the same
+    batch, full width at depth 2."""
+    from repro_torch import configs
+    from repro_torch.data import make_dataset
+    from repro_torch.models import build
+    from repro_torch.optim import tree_map
+    from repro_torch.train import value_and_grad
+    h = TRAIN_HOLD
+    cfg = dataclasses.replace(configs.get_config(TRAIN["arch"]),
+                              n_layers=h["layers"], dtype="float32")
+    model = build(cfg)
+    cpu = model.init(TRAIN["seed"], device="cpu")
+    b = next(make_dataset(cfg, seq_len=h["seq"], global_batch=h["batch"],
+                          seed=TRAIN["seed"]))
+
+    def step(params, device):
+        loss, _, g = value_and_grad(model, params, {
+            k: torch.from_numpy(v).to(device) for k, v in b.items()})
+        return float(loss), {k: v.detach().cpu().double()
+                             for k, v in _leaf_items(g)}
+    t0 = time.perf_counter()
+    runs = {"cpu": step(cpu, "cpu")}
+    cpu_s = time.perf_counter() - t0
+    with _float64_models(torch):
+        runs["float64"] = step(tree_map(lambda x: x.double(), cpu), "cpu")
+    for name in ("card", "card again"):
+        runs[name] = step(tree_map(lambda x: x.to("cuda"), cpu), "cuda")
+    ref_loss, ref = runs["float64"]
+    scale = {k: float(v.abs().max()) or 1.0 for k, v in ref.items()}
+
+    def off(a, b):
+        """(loss rel, {leaf: max |a - b| / the reference leaf's largest})"""
+        (la, ga), (lb, gb) = runs[a], runs[b]
+        return abs(la - lb) / abs(ref_loss), {
+            k: float((ga[k] - gb[k]).abs().max()) / scale[k] for k in ref}
+
+    def worst(errs, n=3):
+        top = sorted(errs.items(), key=lambda kv: -kv[1])[:n]
+        return ", ".join(f"{k} {v:.2e}" for k, v in top)
+    out = dict(cpu_s=cpu_s, n_leaves=len(ref), loss_float64=ref_loss,
+               loss_card=runs["card"][0], loss_cpu=runs["cpu"][0])
+    for a, b_ in (("card", "float64"), ("cpu", "float64"), ("card", "cpu")):
+        loss_rel, errs = off(a, b_)
+        out[f"{a} vs {b_}"] = dict(loss_rel=loss_rel, grad_rel=errs,
+                                   grad_worst_rel=max(errs.values()))
+        log(f"[train] hold, float32, {h['layers']} layers at full width, "
+            f"{h['batch']} x {h['seq']}, {a} against {b_}: loss rel "
+            f"{loss_rel:.2e}; gradient leaves off by, of their largest: "
+            f"{worst(errs)}")
+    again = all(torch.equal(runs["card"][1][k], runs["card again"][1][k])
+                for k in ref)
+    out["card_repeat_identical"] = again
+    log(f"[train] hold: loss float64 {ref_loss:.6f} card "
+        f"{runs['card'][0]:.6f} cpu {runs['cpu'][0]:.6f}; bounds "
+        f"{h['loss_rel']} (loss) and {h['grad_rel']} (gradients) against "
+        f"float64; the card's second step bit-identical: {again}; CPU step "
+        f"{cpu_s:.1f} s")
+    for a in ("card", "cpu"):
+        r = out[f"{a} vs float64"]
+        check(r["loss_rel"] <= h["loss_rel"],
+              f"train hold: the {a}'s loss off by {r['loss_rel']}")
+        check(r["grad_worst_rel"] <= h["grad_rel"],
+              f"train hold: the {a}'s gradient leaves off by, of their "
+              f"largest: {worst(r['grad_rel'])} (the card against the "
+              f"float32 CPU step: {worst(out['card vs cpu']['grad_rel'])})")
+    return out
+
+
+def _train_resume(torch, scratch):
+    """(c) at depth 2 in bf16 under deterministic algorithms: 6 steps
+    uninterrupted against 3 steps, a checkpoint (params, optimizer and
+    data state; the async writer), a restore into fresh tensors and 3
+    more steps.  The losses and every parameter and moment must be
+    bit-identical: the float32 scatter-add of the embedding's gradient
+    and the gather of the target logits take their deterministic
+    kernels."""
+    import shutil
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import make_dataset
+    from repro_torch.models import build
+    from repro_torch.optim import adamw_init, cosine_schedule, tree_leaves
+    from repro_torch.train import make_train_step
+    r = TRAIN_RESUME
+    cfg = dataclasses.replace(configs.get_config(TRAIN["arch"]),
+                              n_layers=r["layers"])
+    model = build(cfg)
+    step = make_train_step(model, lr_fn=lambda s: cosine_schedule(
+        s, peak_lr=1e-3, warmup=2, total=10))
+    fresh = lambda: model.init(TRAIN["seed"], device="cuda")
+    data = lambda: make_dataset(cfg, seq_len=r["seq"],
+                                global_batch=r["batch"], seed=1)
+    ck = scratch / "train_resume"
+    shutil.rmtree(ck, ignore_errors=True)
+    torch.use_deterministic_algorithms(True)
+    try:
+        p, ds = fresh(), data()
+        o = adamw_init(p)
+        whole = []
+        for _ in range(r["steps"]):
+            p, o, m = step(p, o, _train_batch(torch, ds))
+            whole.append(float(m["loss"]))
+        ref = (p, o)
+        p, ds = fresh(), data()
+        o = adamw_init(p)
+        part = []
+        for _ in range(r["split"]):
+            p, o, m = step(p, o, _train_batch(torch, ds))
+            part.append(float(m["loss"]))
+        mgr = CheckpointManager(ck, keep=2)
+        mgr.save(r["split"], {"params": p, "opt": o, "data": ds.state(),
+                              "meta": {"step": r["split"]}})
+        mgr.wait()
+        p2 = fresh()
+        state = mgr.restore({"params": p2, "opt": adamw_init(p2),
+                             "data": data().state()}, device="cuda")
+        p, o, ds = state["params"], state["opt"], data()
+        ds.restore({k: int(v) for k, v in state["data"].items()})
+        for _ in range(r["steps"] - r["split"]):
+            p, o, m = step(p, o, _train_batch(torch, ds))
+            part.append(float(m["loss"]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(p) + tree_leaves(o.mu) + tree_leaves(o.nu),
+        tree_leaves(ref[0]) + tree_leaves(ref[1].mu)
+        + tree_leaves(ref[1].nu)))
+    log(f"[train] resume, bf16, {r['layers']} layers at full width: "
+        f"uninterrupted losses {[round(x, 6) for x in whole]}, resumed "
+        f"{[round(x, 6) for x in part]}; params and moments identical: "
+        f"{same}")
+    check(part == whole, "train resume: losses differ")
+    check(same, "train resume: params or moments differ")
+    check(int(o.step) == r["steps"], f"train resume: step {int(o.step)}")
+    shutil.rmtree(ck, ignore_errors=True)
+    return dict(whole=whole, resumed=part, identical=same,
+                deterministic=True)
+
+
+def _train_quickstart(torch, scratch):
+    """(d) examples/quickstart_torch.py's run through the launcher: the
+    loss must drop by more than ``QUICKSTART['min_drop']``."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch.launch import train as train_mod
+    q = QUICKSTART
+    ck = scratch / "train_quickstart"
+    shutil.rmtree(ck, ignore_errors=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        losses = train_mod.main([
+            "--arch", TRAIN["arch"], "--reduced", "--steps", str(q["steps"]),
+            "--batch", str(q["batch"]), "--seq", str(q["seq"]),
+            "--ckpt-dir", str(ck), "--ckpt-every", "100",
+            "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    drop = losses[0] - losses[-1]
+    log(f"[train] quickstart (reduced {TRAIN['arch']}, {q['steps']} steps "
+        f"of {q['batch']} x {q['seq']}): loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (drop {drop:.3f}), {wall:.1f} s "
+        f"({wall / q['steps'] * 1e3:.1f} ms a step with the launcher's "
+        f"logging and two checkpoints); launcher: "
+        + buf.getvalue().strip().splitlines()[-1])
+    check(drop > q["min_drop"], f"quickstart: the loss dropped {drop}")
+    shutil.rmtree(ck, ignore_errors=True)
+    return dict(first=losses[0], last=losses[-1], drop=drop, wall_s=wall)
+
+
+def phase_train(torch):
+    """Phase 15: (a) qwen3-1.7b trained at full width and depth; (b) the
+    card's gradients held to the CPU step; (c) resume; (d) the
+    quickstart; (e) every launch counter zeroed before (a) and read after
+    (d): the training path reaches no kernel (in the JAX package
+    neither)."""
+    from repro_torch.kernels import ALL_KERNELS
+    # checkpoints go beside the built kernels (gitignored), and are
+    # removed when their check has passed
+    scratch = ROOT / "build" / "train"
+    scratch.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    for k in ALL_KERNELS:
+        k.launches = 0
+    out = dict(full=_train_full(torch))
+    out["hold"] = _train_hold(torch)
+    out["resume"] = _train_resume(torch, scratch)
+    out["quickstart"] = _train_quickstart(torch, scratch)
+    launches = {k.name: k.launches for k in ALL_KERNELS}
+    check(not any(launches.values()), f"phase 15 launched a kernel: "
+          f"{launches}")
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[train] no kernel launched in (a)-(d) ({launches}); phase wall "
+        f"{out['wall_s']:.1f} s")
+    return out
+
+
 # -- main --------------------------------------------------------------------
 
 def main():
@@ -3510,6 +3899,9 @@ def main():
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    # phase 15c runs under deterministic algorithms, whose cuBLAS check
+    # reads this; it is the H100's default workspace (4 MiB x 8) anyway
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3536,6 +3928,7 @@ def main():
         summary["tune"] = phase_tune(torch, serve)
         summary["serve_flavours"] = flav = phase_serve_flavours(torch)
         summary["hybrid_encdec"] = phase_hybrid_encdec(torch)
+        summary["train"] = phase_train(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

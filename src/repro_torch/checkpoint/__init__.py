@@ -1,0 +1,4 @@
+from .manager import CheckpointManager
+from .serial import load_pytree, save_pytree
+
+__all__ = ["CheckpointManager", "save_pytree", "load_pytree"]

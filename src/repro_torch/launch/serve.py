@@ -37,8 +37,11 @@ and hands it to the engine, which installs it: every validated kernel
 entry point then takes the table's config for its problem's shape
 bucket, verified at the exact problem, before its default.
 
-Not ported yet (it raises when given): ``--ckpt-dir`` (checkpoint
-restore, ROADMAP port item A9).
+``--ckpt-dir DIR`` (default ``checkpoints/<config name>``): when the
+directory holds a checkpoint, the latest one's params are served in place
+of the seeded init, as in the JAX package — one that
+``python -m repro_torch.launch.train`` or the JAX package's trainer
+wrote (the two share the format).
 
 Observability: ``--metrics-port N`` serves the live metrics snapshot in
 Prometheus text format at ``http://127.0.0.1:N/metrics`` (port 0 picks a
@@ -50,11 +53,13 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from repro_torch import configs, obs
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.device import resolve_device
 from repro_torch.models import build
 from repro_torch.serve import PagedServingEngine, Request, ServingEngine
@@ -66,7 +71,9 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="not ported yet: raises")
+                    help="restore the latest checkpoint's params from "
+                         "here (default checkpoints/<config name>, read "
+                         "when present)")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--engine", choices=("paged", "dense"),
                     default="paged")
@@ -91,10 +98,6 @@ def main(argv=None):
                     help="enable span tracing; dump the Perfetto trace "
                          "file here on shutdown")
     args = ap.parse_args(argv)
-    if args.ckpt_dir is not None:
-        raise NotImplementedError(
-            "--ckpt-dir: checkpoint restore is not ported yet "
-            "(ROADMAP, port item A9)")
     device = resolve_device(args.device)
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))
@@ -113,6 +116,13 @@ def main(argv=None):
             "their prefill returns (ROADMAP section C)")
     model = build(cfg)
     params = model.init(args.seed, device=device)
+    ckpt_dir = Path(args.ckpt_dir or f"checkpoints/{cfg.name}")
+    if ckpt_dir.is_dir():
+        mgr = CheckpointManager(ckpt_dir)
+        if mgr.latest_step() is not None:
+            state = mgr.restore({"params": params}, device=device)
+            params = state["params"]
+            print(f"restored step {state['meta']['step']} from {ckpt_dir}")
     table = None
     if args.dispatch_table:
         from repro_torch.core.tuning import load_dispatch_table

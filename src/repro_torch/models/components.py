@@ -152,16 +152,27 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted type of the two, as JAX's type promotion
+    computes a bf16 x float32 product in float32 (the encoder's float32
+    frame embeddings meeting bf16 weights); of one type, a plain
+    ``x @ w``."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def apply_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """SwiGLU, GeGLU or plain GELU (tanh-approximated GELU, as the JAX
     package's ``approximate=True``: :func:`gelu_tanh`)."""
     if cfg.ffn_type == "swiglu":
-        h = F.silu(x @ p["wg"]) * (x @ p["wu"])
+        h = F.silu(matmul(x, p["wg"])) * matmul(x, p["wu"])
     elif cfg.ffn_type == "geglu":
-        h = gelu_tanh(x @ p["wg"]) * (x @ p["wu"])
+        h = gelu_tanh(matmul(x, p["wg"])) * matmul(x, p["wu"])
     else:
-        h = gelu_tanh(x @ p["wu"])
-    return h @ p["wd"]
+        h = gelu_tanh(matmul(x, p["wu"]))
+    return matmul(h, p["wd"])
 
 
 # -- GQA attention -----------------------------------------------------------
@@ -195,7 +206,7 @@ def attention_specs(cfg: ModelConfig) -> Dict:
 def _heads_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (B, S, D) · w (D, H, e) -> (B, H, S, e) as one matmul."""
     D, H, e = w.shape
-    y = x @ w.reshape(D, H * e)                        # (B, S, H·e)
+    y = matmul(x, w.reshape(D, H * e))                 # (B, S, H·e)
     return y.reshape(x.shape[0], x.shape[1], H, e).transpose(1, 2)
 
 
@@ -348,4 +359,5 @@ def attn_out(p: Dict, o: torch.Tensor) -> torch.Tensor:
     """o: (B, H, S, hd) -> (B, S, D)."""
     B, H, S, e = o.shape
     wo = p["wo"]
-    return o.transpose(1, 2).reshape(B, S, H * e) @ wo.reshape(H * e, -1)
+    return matmul(o.transpose(1, 2).reshape(B, S, H * e),
+                  wo.reshape(H * e, -1))

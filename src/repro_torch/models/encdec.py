@@ -27,7 +27,8 @@ from .components import (F32, _heads_proj, apply_ffn, apply_norm,
                          sdpa, unembed)
 from .config import ModelConfig
 from .params import ParamSpec, init_params, param_count
-from .transformer import ShapeDtype, layer_slice, stack_specs, zero_cache
+from .transformer import ShapeDtype, layer_slice, remat_call, stack_specs, \
+    unstack, zero_cache
 
 
 def _xattn_specs(cfg: ModelConfig) -> Dict:
@@ -85,20 +86,27 @@ class EncDecLM:
             yield layer_slice(tree[name], i)
 
     # -- encoder ---------------------------------------------------------------
-    def encode(self, params: Dict, enc_embeds: torch.Tensor) -> torch.Tensor:
+    def _enc_layer(self, p: Dict, x: torch.Tensor, positions):
+        cfg = self.cfg
+        h = apply_norm(p["ln_attn"], x, cfg)
+        q, k, v = qkv_project(p["attn"], h, cfg, positions)
+        o = sdpa(q, k, v, causal=False)
+        x = x + attn_out(p["attn"], o)
+        h = apply_norm(p["ln_ffn"], x, cfg)
+        return x + apply_ffn(p["ffn"], h, cfg)
+
+    def encode(self, params: Dict, enc_embeds: torch.Tensor,
+               remat: bool = True) -> torch.Tensor:
         """Frame embeddings (B, S_enc, D) -> encoder output (B, S_enc, D):
-        non-causal self-attention layers, then ``ln_enc``."""
+        non-causal self-attention layers, then ``ln_enc``.  ``remat``:
+        each layer is recomputed in the backward pass
+        (``transformer.remat_call``)."""
         cfg = self.cfg
         positions = torch.arange(enc_embeds.shape[1],
                                  device=enc_embeds.device)
         x = enc_embeds
-        for p in self._stack(params, "enc", cfg.enc_layers):
-            h = apply_norm(p["ln_attn"], x, cfg)
-            q, k, v = qkv_project(p["attn"], h, cfg, positions)
-            o = sdpa(q, k, v, causal=False)
-            x = x + attn_out(p["attn"], o)
-            h = apply_norm(p["ln_ffn"], x, cfg)
-            x = x + apply_ffn(p["ffn"], h, cfg)
+        for p in unstack(params["enc"], cfg.enc_layers):
+            x = remat_call(remat, self._enc_layer, p, x, positions)
         return apply_norm(params["ln_enc"], x, cfg)
 
     # -- decoder ---------------------------------------------------------------
@@ -126,19 +134,27 @@ class EncDecLM:
         x = apply_norm(params["ln_f"], x, self.cfg)
         return unembed(params["embed"], x, self.cfg)
 
+    def _apply_dec_layer(self, p: Dict, x: torch.Tensor, positions,
+                         enc_out: torch.Tensor) -> torch.Tensor:
+        """A decoder layer of ``apply``, its cross K/V from ``enc_out``."""
+        ek, ev = _cross_kv(p["xattn"], enc_out)
+        return self._dec_layer(p, x, positions, ek, ev, None, 0)
+
     def apply(self, params: Dict, tokens: torch.Tensor, *,
-              enc_embeds: torch.Tensor, positions=None
+              enc_embeds: torch.Tensor, positions=None, remat: bool = True
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced decode over ``tokens`` given the encoder's
-        frame embeddings.  -> (logits (B,S,V) f32, a zero aux loss)."""
+        frame embeddings.  -> (logits (B,S,V) f32, a zero aux loss).
+        ``remat``: each encoder and decoder layer (the latter with its
+        cross K/V) is recomputed in the backward pass."""
         cfg = self.cfg
-        enc_out = self.encode(params, enc_embeds)
+        enc_out = self.encode(params, enc_embeds, remat)
         x = embed(params["embed"], tokens, cfg)
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)
-        for p in self._stack(params, "dec", cfg.n_layers):
-            ek, ev = _cross_kv(p["xattn"], enc_out)
-            x = self._dec_layer(p, x, positions, ek, ev, None, 0)
+        for p in unstack(params["dec"], cfg.n_layers):
+            x = remat_call(remat, self._apply_dec_layer, p, x, positions,
+                           enc_out)
         return self._head(params, x), \
             torch.zeros((), dtype=F32, device=x.device)
 
@@ -169,7 +185,7 @@ class EncDecLM:
         """Encode, and compute each decoder layer's cross K/V once: the
         cache (zeroed self-attention KV, the cross K/V in the model's
         type) and nothing else."""
-        enc_out = self.encode(params, enc_embeds)
+        enc_out = self.encode(params, enc_embeds, remat=False)
         B, S_enc = enc_embeds.shape[:2]
         cache = self.init_cache(B, max_len, S_enc,
                                 device=enc_embeds.device)

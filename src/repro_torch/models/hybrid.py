@@ -23,7 +23,8 @@ from .params import init_params, param_count
 from .recurrent import (apply_local_attn, apply_rglru_block,
                         local_attn_cache_shape, local_attn_specs,
                         rglru_block_specs, rglru_cache_shape)
-from .transformer import ShapeDtype, layer_slice, stack_specs, zero_cache
+from .transformer import ShapeDtype, layer_slice, remat_call, stack_specs, \
+    unstack, zero_cache
 
 
 def _layer_specs(cfg: ModelConfig, kind: str) -> Dict:
@@ -87,18 +88,26 @@ class HybridLM:
 
     def apply(self, params: Dict, tokens: Optional[torch.Tensor] = None, *,
               inputs_embeds: Optional[torch.Tensor] = None,
-              positions: Optional[torch.Tensor] = None,
+              positions: Optional[torch.Tensor] = None, remat: bool = True,
               last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (logits (B,S,V) f32 — (B,1,V) with ``last_only`` — and a
         zero aux loss).  ``inputs_embeds`` (B, S, D) stands in for the
-        embedded ``tokens``; ``positions`` (S,) default to ``arange(S)``."""
+        embedded ``tokens``; ``positions`` (S,) default to ``arange(S)``;
+        ``remat``: each layer is recomputed in the backward pass
+        (``transformer.remat_call``)."""
         cfg = self.cfg
         x = (embed(params["embed"], tokens, cfg)
              if inputs_embeds is None else inputs_embeds)
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)
-        for p, kind in self._layers(params):
-            x = _apply_layer(p, x, positions, cfg, kind, None, 0)
+        layers = [(gp[f"l{i}"], kind)
+                  for gp in unstack(params["groups"], self.n_groups)
+                  for i, kind in enumerate(self.pattern)]
+        layers += [(params[f"rem_{i}"], kind)
+                   for i, kind in enumerate(self.rem)]
+        for p, kind in layers:
+            x = remat_call(remat, _apply_layer, p, x, positions, cfg, kind,
+                           None, 0)
         if last_only:
             x = x[:, -1:]
         return self._head(params, x), \
@@ -163,7 +172,7 @@ class HybridLM:
         cache, as the JAX package's ``HybridLM.prefill`` returns: the
         prompt's states and ring are not carried into decode (a defect of
         the reference, kept so the two agree; ROADMAP section C)."""
-        logits, _ = self.apply(params, tokens, last_only=True)
+        logits, _ = self.apply(params, tokens, remat=False, last_only=True)
         return logits, self.init_cache(tokens.shape[0], max_len,
                                        device=tokens.device)
 

@@ -21,7 +21,7 @@ from .hybrid import HybridLM
 from .params import init_params, param_count
 from .ssm import apply_ssm_block, ssm_block_specs, ssm_cache_shape
 from .transformer import ShapeDtype, TransformerLM, layer_slice, \
-    stack_specs, zero_cache
+    remat_call, stack_specs, unstack, zero_cache
 
 
 class SSMLM:
@@ -47,16 +47,21 @@ class SSMLM:
         for i in range(self.cfg.n_layers):
             yield layer_slice(tree["blocks"], i)
 
+    def _layer(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
+        h = apply_norm(p["ln"], x, self.cfg)
+        o, _ = apply_ssm_block(p["ssm"], h, self.cfg)
+        return x + o
+
     def apply(self, params: Dict, tokens: torch.Tensor, *,
+              remat: bool = True,
               last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (logits (B,S,V) f32 — (B,1,V) with ``last_only`` — and a
-        zero aux loss)."""
+        zero aux loss).  ``remat``: each layer is recomputed in the
+        backward pass (``transformer.remat_call``)."""
         cfg = self.cfg
         x = embed(params["embed"], tokens, cfg)
-        for p in self._layers(params):
-            h = apply_norm(p["ln"], x, cfg)
-            o, _ = apply_ssm_block(p["ssm"], h, cfg)
-            x = x + o
+        for p in unstack(params["blocks"], cfg.n_layers):
+            x = remat_call(remat, self._layer, p, x)
         if last_only:
             x = x[:, -1:]
         x = apply_norm(params["ln_f"], x, cfg)
@@ -101,7 +106,7 @@ class SSMLM:
         cache, as the JAX package's ``SSMLM.prefill`` returns: the
         prompt's SSM and conv state is not carried into decode (a defect
         of the reference, kept so the two agree; ROADMAP section C)."""
-        logits, _ = self.apply(params, tokens, last_only=True)
+        logits, _ = self.apply(params, tokens, remat=False, last_only=True)
         return logits, self.init_cache(tokens.shape[0], max_len,
                                        device=tokens.device)
 
@@ -120,3 +125,41 @@ def build(cfg: ModelConfig):
     if cfg.family in ("encdec", "audio"):
         return EncDecLM(cfg)
     raise ValueError(f"unknown model family {cfg.family!r}")
+
+
+def lm_loss(model, params: Dict, batch: Dict, *, aux_weight: float = 0.01,
+            remat: bool = True) -> Tuple[torch.Tensor, Dict]:
+    """Next-token cross-entropy + MoE aux loss, as the JAX package's
+    ``lm_loss``.  batch: {"tokens": (B,S)} plus an optional "mask"
+    (B, S-1) over the targets and "enc_embeds" (encoder-decoder, audio)
+    or "inputs_embeds" (B, S, D) (VLM).  Returns (loss, {"ce", "aux"}).
+
+    The row max is held out of the gradient (``.detach()``, JAX's
+    ``stop_gradient``).  The target logit is gathered from the shifted
+    logits; JAX sums ``shifted * one_hot(tgt)`` over the vocabulary, a
+    sum with one non-zero term, so both give the same float32 value, and
+    the gather builds no (B, S, V) one-hot (5 GB for qwen3-1.7b at
+    8 x 1,024 tokens)."""
+    tokens = batch["tokens"]
+    inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    if "enc_embeds" in batch:
+        logits, aux = model.apply(params, inp, enc_embeds=batch["enc_embeds"],
+                                  remat=remat)
+    elif "inputs_embeds" in batch:
+        logits, aux = model.apply(
+            params, inputs_embeds=batch["inputs_embeds"][:, :-1],
+            remat=remat)
+    else:
+        logits, aux = model.apply(params, inp, remat=remat)
+    logits = logits.to(F32)
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    shifted = logits - m
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
+    tgt_logit = torch.gather(shifted, -1, tgt.long()[..., None])[..., 0]
+    ll = tgt_logit - lse
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(tgt.shape, dtype=F32, device=tgt.device)
+    mask = mask.to(F32)
+    loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}

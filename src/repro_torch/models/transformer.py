@@ -29,6 +29,7 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -100,6 +101,38 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
+def unstack(tree, n: int):
+    """The ``n`` layers of a layer-stacked tree, each leaf split once by
+    ``torch.unbind`` (views).  In a backward pass a stacked leaf's
+    gradient is then stacked once from its layers'; indexing layer by
+    layer (:func:`layer_slice`) would add a zero-filled copy of the
+    whole stack for every layer."""
+    if isinstance(tree, dict):
+        per_key = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return torch.unbind(tree, 0)
+
+
+def _needs_grad(node) -> bool:
+    if isinstance(node, torch.Tensor):
+        return node.requires_grad
+    if isinstance(node, dict):
+        return any(_needs_grad(v) for v in node.values())
+    return False
+
+
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``; under ``torch.utils.checkpoint`` when ``remat`` is
+    set, grad is enabled and a tensor of ``args`` requires it, as the JAX
+    package wraps its scanned block in ``jax.checkpoint``: the block's
+    activations are recomputed in the backward pass instead of kept.
+    Otherwise (serving, a forward without trainable tensors) it is a
+    plain call."""
+    if remat and torch.is_grad_enabled() and any(map(_needs_grad, args)):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _self_attention(p: Dict, x: torch.Tensor, positions, cfg: ModelConfig,
                     cache: Optional[Dict], pos0) -> torch.Tensor:
     """Attention output (B, S, D); ``cache`` is written in place."""
@@ -145,6 +178,17 @@ def apply_block(p: Dict, x: torch.Tensor, positions, cfg: ModelConfig, *,
     h = apply_norm(p["ln_attn"], x, cfg)
     x = x + _self_attention(p["attn"], h, positions, cfg, cache, pos0)
     return _ffn_residual(p, x, cfg, moe_layer)
+
+
+def _block_with_aux(p: Dict, x: torch.Tensor, positions, cfg: ModelConfig,
+                 moe_layer: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A block of the forward pass and its MoE load-balancing aux loss
+    (0 for a dense FFN), computed inside the block so that it passes
+    through a checkpointed call."""
+    x, routing = apply_block(p, x, positions, cfg, moe_layer=moe_layer)
+    if routing is None:
+        return x, torch.zeros((), dtype=F32, device=x.device)
+    return x, load_balance_loss(*routing, cfg.moe.n_experts)
 
 
 def _paged_self_attention(p: Dict, x: torch.Tensor, positions, cfg,
@@ -253,24 +297,27 @@ class TransformerLM:
     # -- forward -------------------------------------------------------------
     def apply(self, params: Dict, tokens: Optional[torch.Tensor] = None, *,
               inputs_embeds: Optional[torch.Tensor] = None,
-              positions: Optional[torch.Tensor] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              positions: Optional[torch.Tensor] = None,
+              remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (logits (B,S,V) f32, the MoE layers' summed aux loss (0 for
         the dense family)).  ``inputs_embeds`` (B, S, D) in the model's
         type stands in for the embedded ``tokens``; ``positions`` (S,)
-        or (B, S) default to ``arange(S)``."""
+        or (B, S) default to ``arange(S)``.  ``remat``: each layer is
+        recomputed in the backward pass (:func:`remat_call`)."""
         cfg = self.cfg
         x = (embed(params["embed"], tokens, cfg)
              if inputs_embeds is None else inputs_embeds)
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)
         aux_total = torch.zeros((), dtype=F32, device=x.device)
-        for p, moe_layer in self._layers(params):
-            x, routing = apply_block(p, x, positions, cfg,
-                                     moe_layer=moe_layer)
-            if routing is not None:
-                aux_total = aux_total + load_balance_loss(
-                    *routing, cfg.moe.n_experts)
+        layers = [(params[f"front_{i}"], False)
+                  for i in range(self.n_dense_front)]
+        layers += [(p, self.is_moe)
+                   for p in unstack(params["blocks"], self.n_scanned)]
+        for p, moe_layer in layers:
+            x, aux = remat_call(remat, _block_with_aux, p, x, positions, cfg,
+                                moe_layer)
+            aux_total = aux_total + aux
         return self._head(params, x), aux_total
 
     # -- serving -------------------------------------------------------------

@@ -44,7 +44,15 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.configs.deepseek_v2_lite_16b, "
             "repro_torch.models.hybrid, repro_torch.models.encdec, "
             "repro_torch.configs.recurrentgemma_2b, "
-            "repro_torch.configs.seamless_m4t_large_v2\n"
+            "repro_torch.configs.seamless_m4t_large_v2, "
+            "repro_torch.optim, repro_torch.optim.adamw, "
+            "repro_torch.optim.schedule, repro_torch.train, "
+            "repro_torch.train.step, repro_torch.data, "
+            "repro_torch.data.pipeline, repro_torch.checkpoint, "
+            "repro_torch.checkpoint.serial, "
+            "repro_torch.checkpoint.manager, repro_torch.ft, "
+            "repro_torch.ft.preemption, repro_torch.ft.straggler, "
+            "repro_torch.launch.train\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -113,9 +121,11 @@ def _entry_points():
     from repro_torch.core.families.gemm import GemmConfig, GemmProblem
     from repro_torch.core.harness import Validator
     from repro_torch.core.tuning import make_job, run_fleet
+    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.launch import serve as launch
-    from repro_torch.launch import tune
+    from repro_torch.launch import train, tune
     from repro_torch.models import build, from_jax_numpy
+    from repro_torch.optim import adamw_from_jax_numpy
     from repro_torch.serve import (KVPool, PagedServingEngine,
                                    ServingEngine)
     cfg = configs.get_reduced("qwen3-1.7b")
@@ -124,6 +134,10 @@ def _entry_points():
     tree = {"w": np.zeros((2, 2), np.float32)}
     job = make_job("gemm", GemmProblem(64, 64, 128, "f32"))
     out = str(Path(tempfile.gettempdir()) / "repro_torch_guard_fleet")
+    ckpt = Path(tempfile.gettempdir()) / "repro_torch_guard_ckpt"
+    mgr = CheckpointManager(ckpt, async_save=False)
+    mgr.save(1, {"params": tree, "meta": {}})
+    opt = (np.zeros((), np.int32), tree, tree)
     return {
         "resolve_device": lambda **kw: resolve_device(**kw),
         "init": lambda **kw: model.init(0, **kw),
@@ -163,6 +177,15 @@ def _entry_points():
             ["--arch", "qwen3-1.7b", "--reduced", "--requests", "1",
              "--max-new-tokens", "1", "--max-len", "32", "--page-size",
              "8"] + (["--device", kw["device"]] if kw else [])),
+        "adamw_from_jax_numpy": lambda **kw: adamw_from_jax_numpy(
+            opt, **kw),
+        "CheckpointManager.restore": lambda **kw: mgr.restore(
+            {"params": tree}, **kw),
+        "launch.train": lambda **kw: train.main(
+            ["--arch", "qwen3-1.7b", "--reduced", "--steps", "1",
+             "--batch", "2", "--seq", "16", "--ckpt-dir", str(ckpt / "t"),
+             "--ckpt-every", "100"]
+            + (["--device", kw["device"]] if kw else [])),
         "run_fleet": lambda **kw: run_fleet(
             [job], out_dir=out, base_budget=1, max_budget=1,
             run_kernels=True, fresh=True, **kw),
@@ -184,7 +207,10 @@ def _entry_points():
                                   "ssd_reference_check", "SSMLM.init",
                                   "SSMLM.init_cache", "SSM ServingEngine",
                                   "launch.serve", "launch.serve mamba2",
-                                  "run_fleet", "launch.tune"])
+                                  "run_fleet", "launch.tune",
+                                  "adamw_from_jax_numpy",
+                                  "CheckpointManager.restore",
+                                  "launch.train"])
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -194,14 +220,18 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(name):
     fn(device="cpu")
 
 
-def test_launcher_refuses_what_is_not_ported():
-    """``--ckpt-dir`` (checkpoint restore) is not ported and raises;
-    ``--dispatch-table`` is (``test_torch_tuning_fleet.py`` serves with
-    one), and a path that holds no table fails as a missing file."""
+def test_launcher_refuses_what_is_not_ported(tmp_path, capsys):
+    """Every flag of the serving launcher is ported now.  ``--ckpt-dir``
+    (checkpoint restore, ``test_torch_train_launch.py``) on a directory
+    that holds no checkpoint serves the seeded init and creates nothing;
+    ``--dispatch-table`` (``test_torch_tuning_fleet.py`` serves with one)
+    on a path that holds no table fails as a missing file."""
     from repro_torch.launch import serve as launch
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch.main(["--arch", "qwen3-1.7b", "--reduced", "--device",
-                     "cpu", "--ckpt-dir", "x"])
+    done = launch.main(["--arch", "qwen3-1.7b", "--reduced", "--device",
+                        "cpu", "--requests", "1", "--max-new-tokens", "1",
+                        "--ckpt-dir", str(tmp_path / "x")])
+    assert len(done) == 1 and not (tmp_path / "x").exists()
+    assert "restored" not in capsys.readouterr().out
     with pytest.raises(FileNotFoundError):
         launch.main(["--arch", "qwen3-1.7b", "--reduced", "--device",
                      "cpu", "--dispatch-table", "no/such/table.json"])
