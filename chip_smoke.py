@@ -235,7 +235,24 @@ is missing or any phase fails.  Phases:
    (reduced qwen3, 200 steps of 8 x 128): the loss drops by more than
    0.3; (e) every launch counter zeroed before (a) and read after (d)
    must read 0;
-16. the kernels line (JSON, all eight kernels; paged_decode's and
+16. dist — no kernel on these paths, in the JAX package neither, each
+   part in a process of its own: (a) ``repro_torch.launch.train`` under
+   ``torch.distributed.run`` at one rank (NCCL, mesh (1, 1)) on phase
+   15's model and batch (qwen3-1.7b at full width and depth, 8 x 1,024
+   tokens, 3 steps), against the same launcher run in one process:
+   losses and final parameters within phase 15(b)'s bounds (bit-identity
+   logged), each step's time and tokens/s beside the unsharded ones, the
+   peak memory, and one more step under the dry-run's counter (FLOPs,
+   collectives by kind); (b) ``launch.dryrun.run_cell`` at (a)'s
+   configuration on a fake (1, 1) mesh: its peak within 10% of (a)'s
+   ``max_memory_allocated``, its FLOPs equal to (a)'s counted step, its
+   roofline step time beside the measured one; (c) qwen3-1.7b's
+   train_4k, prefill_32k and decode_32k cells on both production meshes
+   over the fake backend (256 and 512 ranks): bound, the three terms,
+   collective bytes by kind, peak GiB a device against the card's 80 GB,
+   trace seconds (the other architectures' cells are the dry-run CLI's,
+   ``--all --mesh both``); (d) every launch counter of (a)-(c) reads 0;
+17. the kernels line (JSON, all eight kernels; paged_decode's and
    ragged_prefill's entries list phase 13a's instances with their
    launches in phase 13's runs), then the final line
    ``{"ok": true, "device": {...}}``.
@@ -3891,6 +3908,235 @@ def phase_train(torch):
     return out
 
 
+# -- phase 16: distribution and the dry-run -----------------------------------
+
+# (a) the launcher under torch.distributed.run at one rank (NCCL, mesh
+# (1, 1)) on phase 15's model and batch; the unsharded run is the same
+# launcher in one process.  Bounds: phase 15(b)'s (each loss within 1e-5
+# of the unsharded one, each parameter leaf within 1e-4 of its largest
+# |value|; bit-identical is expected).  (b) the dry-run's peak within 10%
+# of (a)'s max_memory_allocated, its FLOPs equal to (a)'s step counted by
+# the same counter.  (c) qwen3-1.7b's production-mesh cells.
+DIST = dict(arch="qwen3-1.7b", batch=8, seq=1024, steps=3, loss_rel=1e-5,
+            param_rel=1e-4, peak_rel=0.10)
+DIST_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+CARD_BYTES = 80e9
+
+
+def _dist_args(lt, ck):
+    d = DIST
+    return lt.parse_args(["--arch", d["arch"], "--batch", str(d["batch"]),
+                          "--seq", str(d["seq"]), "--steps",
+                          str(d["steps"]), "--log-every", "1",
+                          "--ckpt-every", str(10 ** 9), "--ckpt-dir", ck])
+
+
+def _launches():
+    from repro_torch.kernels import ALL_KERNELS
+    return {k.name: k.launches for k in ALL_KERNELS}
+
+
+def dist_train_child(out_path):
+    """Phase 16(a), one rank of ``torch.distributed.run``: the unsharded
+    launcher run (WORLD_SIZE hidden from it), then the distributed one,
+    then one more step of the distributed run under the dry-run's
+    counter."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ALL_KERNELS
+    from repro_torch.launch import trace_analysis, train as lt
+    from repro_torch.parallel import full_tensor
+    for k in ALL_KERNELS:
+        k.launches = 0
+    args = _dist_args(lt, str(ROOT / "build" / "dist" / "ck"))
+    hidden = os.environ.pop("WORLD_SIZE")
+    ref = lt.run(args)
+    os.environ["WORLD_SIZE"] = hidden
+    ref_params = {p: t.detach().cpu() for p, t in _leaf_items(ref.params)}
+    out = dict(ref_losses=ref.losses, ref_step_ms=ref.step_ms,
+               ref_peak_bytes=ref.peak_bytes)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = lt.run(args)
+    full = dict(_leaf_items(full_tensor(run.params)))
+    diffs = {}
+    for p, want in ref_params.items():
+        got = full[p].detach().cpu()
+        diffs[p] = dict(
+            max_abs=float((got.float() - want.float()).abs().max()),
+            scale=float(want.float().abs().max()),
+            identical=bool(torch.equal(got, want)))
+    del full
+    batch = run.put_batch({k: torch.from_numpy(v).to(run.device)
+                           for k, v in next(run.ds).items()})
+    counter = trace_analysis.TraceCounter()
+    counter.track([run.params, run.opt, batch])
+    torch.cuda.synchronize()
+    with counter:
+        stepped = run.step_fn(run.params, run.opt, batch)
+        torch.cuda.synchronize()
+    del stepped
+    out.update(
+        losses=run.losses, step_ms=run.step_ms, peak_bytes=run.peak_bytes,
+        mesh=list(run.mesh.shape), backend=dist.get_backend(),
+        param_diffs=diffs, counted=dict(
+            flops=counter.flops, hbm_bytes=counter.hbm_bytes,
+            coll_bytes_by_kind=counter.coll.bytes_by_kind,
+            coll_count_by_kind=counter.coll.count_by_kind,
+            n_ops=counter.n_ops),
+        launches=_launches())
+    Path(out_path).write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def dist_dryrun_child(out_path, what):
+    """Phase 16(b) or (c), in a process of its own (the fake process
+    group): (b) the dry-run at (a)'s configuration on a (1, 1) mesh; (c)
+    qwen3-1.7b's production-mesh cells."""
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import dryrun
+    d = DIST
+    if what == "b":
+        cell = ShapeCell(f"train_{d['batch']}x{d['seq']}", d["seq"],
+                         d["batch"], "train")
+        rec = dryrun.run_cell(d["arch"], cell, False, None,
+                              mesh_axes=((1, 1), ("data", "model")))
+        out = dict(rec=rec)
+    else:
+        out = dict(recs=[dryrun.run_cell(d["arch"], shape, multi, None)
+                         for shape in DIST_SHAPES
+                         for multi in (False, True)])
+    out["launches"] = _launches()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def _child(cmd, what, timeout):
+    """Run a child of phase 16; fails the phase on a non-zero exit."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    for line in res.stdout.splitlines():
+        log(f"[dist {what}] {line}")
+    check(res.returncode == 0, f"phase 16 {what} exited "
+          f"{res.returncode}: {res.stderr[-3000:]}")
+    return wall
+
+
+def _gib(b):
+    return b / 2 ** 30
+
+
+def phase_dist(torch):
+    """Phase 16: (a) the launcher's distributed path on the card, (b) the
+    dry-run's prediction of (a), (c) production-mesh cells, (d) no
+    kernel launched in any of them."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    scratch = ROOT / "build" / "dist"
+    scratch.mkdir(parents=True, exist_ok=True)
+    me = str(Path(__file__).resolve())
+    d = DIST
+    tokens = d["batch"] * d["seq"]
+
+    # (a)
+    a_path = scratch / "a.json"
+    wall_a = _child([sys.executable, "-m", "torch.distributed.run",
+                     "--standalone", "--nproc-per-node", "1", me,
+                     "--phase16-train", str(a_path)], "a", 900)
+    a = json.loads(a_path.read_text())
+    check(a["backend"] == "nccl" and a["mesh"] == [1, 1],
+          f"phase 16a ran on {a['backend']} {a['mesh']}")
+    for i, (x, y) in enumerate(zip(a["losses"], a["ref_losses"])):
+        check(abs(x - y) <= d["loss_rel"] * abs(y),
+              f"dist step {i}: loss {x} against the unsharded {y}")
+    bad = [p for p, v in a["param_diffs"].items()
+           if v["max_abs"] > d["param_rel"] * max(v["scale"], 1e-30)]
+    check(not bad, f"dist: parameters off the unsharded run: {bad}")
+    worst = max(a["param_diffs"].items(), key=lambda kv: kv[1]["max_abs"])
+    identical = all(v["identical"] for v in a["param_diffs"].values())
+    log(f"[dist] (a) {d['arch']} {d['batch']} x {d['seq']}, "
+        f"{d['steps']} steps, torch.distributed.run, 1 rank, nccl, mesh "
+        f"(1, 1): losses {a['losses']} against the unsharded "
+        f"{a['ref_losses']}; parameters bit-identical: {identical} "
+        f"(largest difference {worst[1]['max_abs']} in {worst[0]})")
+    for i, (ms, rms) in enumerate(zip(a["step_ms"], a["ref_step_ms"])):
+        log(f"[dist] (a) step {i}: DTensor {ms:.1f} ms "
+            f"({tokens / ms * 1e3:.0f} tokens/s), unsharded {rms:.1f} ms "
+            f"({tokens / rms * 1e3:.0f} tokens/s)")
+    c = a["counted"]
+    log(f"[dist] (a) one more step under the counter: {c['flops']:.6e} "
+        f"FLOPs, {c['hbm_bytes']:.6e} HBM bytes, {c['n_ops']} ops, "
+        f"collectives {c['coll_count_by_kind']} "
+        f"({c['coll_bytes_by_kind']} bytes); peak "
+        f"{a['peak_bytes'] / 1e9:.2f} GB (unsharded "
+        f"{a['ref_peak_bytes'] / 1e9:.2f} GB)")
+
+    # (b)
+    b_path = scratch / "b.json"
+    wall_b = _child([sys.executable, me, "--phase16-dryrun", str(b_path),
+                     "b"], "b", 600)
+    b = json.loads(b_path.read_text())["rec"]
+    pred_peak, meas_peak = b["memory"]["peak_bytes"], a["peak_bytes"]
+    err = abs(pred_peak - meas_peak) / meas_peak
+    check(err <= d["peak_rel"], f"dry-run peak {pred_peak} against the "
+          f"card's {meas_peak} ({err:.3f})")
+    check(b["roofline"]["flops"] == c["flops"], f"dry-run FLOPs "
+          f"{b['roofline']['flops']} against the card's step "
+          f"{c['flops']}")
+    step_s = max(b["roofline"][k] for k in ("compute_s", "memory_s",
+                                             "collective_s"))
+    meas_s = statistics.median(a["step_ms"]) / 1e3
+    log(f"[dist] (b) dry-run at (a)'s configuration, (1, 1) fake mesh: "
+        f"peak {pred_peak / 1e9:.3f} GB against {meas_peak / 1e9:.3f} GB "
+        f"on the card ({err * 100:.2f}% off); FLOPs "
+        f"{b['roofline']['flops']:.6e} = the card's count; roofline "
+        f"step {step_s:.4f} s ({b['roofline']['bound']}) against "
+        f"{meas_s:.4f} s measured (median): the card at "
+        f"{step_s / meas_s:.3f} of the roofline; trace {b['trace_s']} s")
+
+    # (c)
+    c_path = scratch / "c.json"
+    wall_c = _child([sys.executable, me, "--phase16-dryrun", str(c_path),
+                     "c"], "c", 1200)
+    cells = json.loads(c_path.read_text())
+    want = {(d["arch"], s, m) for s in DIST_SHAPES
+            for m in ("16x16", "2x16x16")}
+    got = {(r["arch"], r["shape"], r["mesh"]) for r in cells["recs"]}
+    check(want <= got, f"phase 16c traced {sorted(got)}")
+    for r in cells["recs"]:
+        rf = r["roofline"]
+        log(f"[dist] (c) {r['arch']} {r['shape']} {r['mesh']}: bound "
+            f"{rf['bound']}, compute {rf['compute_s']:.4f} s, memory "
+            f"{rf['memory_s']:.4f} s, collective {rf['collective_s']:.4f} "
+            f"s; collective bytes {r['collectives']['bytes_by_kind']}; "
+            f"peak {_gib(r['memory']['peak_bytes']):.2f} GiB a device "
+            f"(card {_gib(CARD_BYTES):.1f} GiB), argument "
+            f"{_gib(r['memory']['argument_bytes']):.2f} GiB; useful "
+            f"FLOPs {rf['useful_flops_frac']:.3f}; trace {r['trace_s']} s")
+
+    # (d)
+    launches = {}
+    for part in (a, json.loads(b_path.read_text()), cells):
+        for k, n in part["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    check(not any(launches.values()), f"phase 16 launched a kernel: "
+          f"{launches}")
+    wall = time.time() - t0
+    log(f"[dist] (d) no kernel launched in (a)-(c) ({launches}); phase "
+        f"wall {wall:.1f} s (a {wall_a:.1f}, b {wall_b:.1f}, c "
+        f"{wall_c:.1f})")
+    return dict(train=a, dryrun=b, cells=cells, launches=launches,
+                wall_s=wall, parts_s=dict(a=wall_a, b=wall_b, c=wall_c))
+
+
 # -- main --------------------------------------------------------------------
 
 def main():
@@ -3906,6 +4152,11 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # phase 16's children, each a process of its own
+    if len(sys.argv) > 2 and sys.argv[1] == "--phase16-train":
+        return dist_train_child(sys.argv[2])
+    if len(sys.argv) > 3 and sys.argv[1] == "--phase16-dryrun":
+        return dist_dryrun_child(sys.argv[2], sys.argv[3])
     summary = {}
     try:
         summary["card"] = phase_card(torch)
@@ -3929,6 +4180,7 @@ def main():
         summary["serve_flavours"] = flav = phase_serve_flavours(torch)
         summary["hybrid_encdec"] = phase_hybrid_encdec(torch)
         summary["train"] = phase_train(torch)
+        summary["dist"] = phase_dist(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -20,6 +20,9 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.api import embed_rows, per_shard_attention, \
+    reshape
+
 from .config import ModelConfig
 from .params import ParamSpec
 
@@ -107,7 +110,7 @@ def embed_specs(cfg: ModelConfig) -> Dict:
 
 
 def embed(p: Dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = p["tok"][tokens.long()].to(dtype_of(cfg.dtype))
+    x = embed_rows(p["tok"], tokens.long()).to(dtype_of(cfg.dtype))
     if cfg.scale_embed:
         # sqrt(d_model) rounded to x's type first, as the JAX package
         # multiplies by jnp.asarray(sqrt(d_model), x.dtype)
@@ -206,8 +209,11 @@ def attention_specs(cfg: ModelConfig) -> Dict:
 def _heads_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (B, S, D) · w (D, H, e) -> (B, H, S, e) as one matmul."""
     D, H, e = w.shape
-    y = matmul(x, w.reshape(D, H * e))                 # (B, S, H·e)
-    return y.reshape(x.shape[0], x.shape[1], H, e).transpose(1, 2)
+    B, S = x.shape[:2]
+    # the (B, S) rows flattened as matmul folds them, through
+    # parallel.api.reshape (a cache sharded on its sequence)
+    y = matmul(reshape(x, B * S, D), reshape(w, D, H * e))    # (B·S, H·e)
+    return reshape(y, B, S, H, e).transpose(1, 2)
 
 
 def qkv_project(p: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -246,24 +252,25 @@ def sdpa_direct(q, k, v, *, causal: bool, q_positions=None,
     Hkv, Skv = k.shape[1], k.shape[2]
     g = Hq // Hkv
     scale = scale if scale is not None else D ** -0.5
-    qg = q.reshape(B, Hkv, g, Sq, D)
+    qg = reshape(q, B, Hkv, g, Sq, D)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg.to(F32), k.to(F32)) * scale
-    m = _mask(q_positions, kv_positions, Sq, Skv, causal, window, q.device)
+    m = _mask(q_positions, kv_positions, Sq, Skv, causal, window, q)
     s = torch.where(m, s, torch.tensor(NEG_INF, dtype=F32, device=q.device))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(F32))
-    return out.reshape(B, Hq, Sq, v.shape[-1]).to(q.dtype)
+    return reshape(out, B, Hq, Sq, v.shape[-1]).to(q.dtype)
 
 
-def _mask(q_positions, kv_positions, Sq, Skv, causal, window, device,
+def _mask(q_positions, kv_positions, Sq, Skv, causal, window, q,
           sentinel: bool = False):
     """(B|1, 1, 1, Sq, Skv) keep-mask of the JAX package's ``sdpa``;
     ``sentinel`` also drops the padding slots (position _PAD_SENTINEL)
-    of the KV-block scan."""
+    of the KV-block scan.  Positions on ``q``'s device (replicated on
+    its mesh under DTensor)."""
     qpos = (q_positions if q_positions is not None
-            else torch.arange(Sq, device=device))
+            else torch.arange(Sq, device=q.device))
     kpos = (kv_positions if kv_positions is not None
-            else torch.arange(Skv, device=device))
+            else torch.arange(Skv, device=q.device))
     qp = qpos[..., :, None]                            # (..., Sq, 1)
     kp = kpos[..., None, :]                            # (..., 1, Skv)
     m = ((qp >= kp) if causal else (kp >= 0).expand(
@@ -303,21 +310,22 @@ def sdpa_flash(q, k, v, *, causal: bool, q_positions=None,
     scale = scale if scale is not None else D ** -0.5
     if Skv % kv_chunk:
         raise ValueError(f"Skv {Skv} is no multiple of {kv_chunk}")
-    qg = q.reshape(B, Hkv, g, Sq, D).to(F32)
+    qg = reshape(q, B, Hkv, g, Sq, D).to(F32)
     qpos = (q_positions if q_positions is not None
             else torch.arange(Sq, device=q.device))
     kpos = (kv_positions if kv_positions is not None
             else torch.arange(Skv, device=q.device))
     neg = torch.tensor(NEG_INF, dtype=F32, device=q.device)
-    m = torch.full((B, Hkv, g, Sq, 1), NEG_INF, dtype=F32, device=q.device)
-    l = torch.zeros((B, Hkv, g, Sq, 1), dtype=F32, device=q.device)
-    acc = torch.zeros((B, Hkv, g, Sq, Dv), dtype=F32, device=q.device)
+    # the running state takes the queries' placements under DTensor
+    m = torch.full_like(qg[..., :1], NEG_INF)
+    l = torch.zeros_like(qg[..., :1])
+    acc = l.expand(B, Hkv, g, Sq, Dv)
     for c0 in range(0, Skv, kv_chunk):
         kb = k[:, :, c0:c0 + kv_chunk].to(F32)
         vb = v[:, :, c0:c0 + kv_chunk]
         s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kb) * scale
         mask = _mask(qpos, kpos[..., c0:c0 + kv_chunk], Sq, kv_chunk,
-                     causal, window, q.device, sentinel=True)
+                     causal, window, q, sentinel=True)
         s = torch.where(mask, s, neg)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
@@ -327,7 +335,7 @@ def sdpa_flash(q, k, v, *, causal: bool, q_positions=None,
             "bhgqk,bhkd->bhgqd", p.to(vb.dtype).to(F32), vb.to(F32))
         m = m_new
     l = torch.where(l == 0.0, 1.0, l)
-    return (acc / l).reshape(B, Hq, Sq, Dv).to(q.dtype)
+    return reshape(acc / l, B, Hq, Sq, Dv).to(q.dtype)
 
 
 def sdpa(q, k, v, *, causal: bool, q_positions=None, kv_positions=None,
@@ -337,7 +345,16 @@ def sdpa(q, k, v, *, causal: bool, q_positions=None, kv_positions=None,
     (:func:`sdpa_direct`), at or above it the KV-block scan
     (:func:`sdpa_flash`) over KV padded to a multiple of SDPA_KV_CHUNK
     with sentinel positions that every mask rejects.  Arguments as
-    :func:`sdpa_direct`'s."""
+    :func:`sdpa_direct`'s.  Under DTensor each rank attends over its own
+    batch rows and heads (``parallel.api.per_shard_attention``)."""
+    return per_shard_attention(_sdpa, q, k, v, causal=causal,
+                               q_positions=q_positions,
+                               kv_positions=kv_positions, scale=scale,
+                               window=window)
+
+
+def _sdpa(q, k, v, *, causal: bool, q_positions=None, kv_positions=None,
+          scale=None, window: int = 0):
     Sq, Skv = q.shape[2], k.shape[2]
     kw = dict(causal=causal, q_positions=q_positions, scale=scale,
               window=window)
@@ -359,5 +376,5 @@ def attn_out(p: Dict, o: torch.Tensor) -> torch.Tensor:
     """o: (B, H, S, hd) -> (B, S, D)."""
     B, H, S, e = o.shape
     wo = p["wo"]
-    return matmul(o.transpose(1, 2).reshape(B, S, H * e),
-                  wo.reshape(H * e, -1))
+    return matmul(reshape(o.transpose(1, 2), B, S, H * e),
+                  reshape(wo, H * e, wo.shape[-1]))

@@ -19,6 +19,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.device import DeviceLike
+from repro_torch.parallel.api import constrain_activations
 
 from . import attention as attn_mod
 from .components import (F32, _heads_proj, apply_ffn, apply_norm,
@@ -26,7 +27,8 @@ from .components import (F32, _heads_proj, apply_ffn, apply_norm,
                          embed_specs, ffn_specs, norm_specs, qkv_project,
                          sdpa, unembed)
 from .config import ModelConfig
-from .params import ParamSpec, init_params, param_count
+from .params import (ParamSpec, abstract_params, axes_tree, init_params,
+                     param_count)
 from .transformer import ShapeDtype, layer_slice, remat_call, stack_specs, \
     unstack, zero_cache
 
@@ -91,9 +93,9 @@ class EncDecLM:
         h = apply_norm(p["ln_attn"], x, cfg)
         q, k, v = qkv_project(p["attn"], h, cfg, positions)
         o = sdpa(q, k, v, causal=False)
-        x = x + attn_out(p["attn"], o)
+        x = constrain_activations(x + attn_out(p["attn"], o))
         h = apply_norm(p["ln_ffn"], x, cfg)
-        return x + apply_ffn(p["ffn"], h, cfg)
+        return constrain_activations(x + apply_ffn(p["ffn"], h, cfg))
 
     def encode(self, params: Dict, enc_embeds: torch.Tensor,
                remat: bool = True) -> torch.Tensor:
@@ -106,6 +108,7 @@ class EncDecLM:
                                  device=enc_embeds.device)
         x = enc_embeds
         for p in unstack(params["enc"], cfg.enc_layers):
+            x = constrain_activations(x)
             x = remat_call(remat, self._enc_layer, p, x, positions)
         return apply_norm(params["ln_enc"], x, cfg)
 
@@ -124,11 +127,12 @@ class EncDecLM:
             kv_pos = None
         o = sdpa(q, k, v, causal=True, kv_positions=kv_pos,
                  q_positions=positions)
-        x = x + attn_out(p["self"], o)
+        x = constrain_activations(x + attn_out(p["self"], o))
         h = apply_norm(p["ln_x"], x, cfg)
-        x = x + _cross_attention(p["xattn"], h, enc_k, enc_v)
+        x = constrain_activations(
+            x + _cross_attention(p["xattn"], h, enc_k, enc_v))
         h = apply_norm(p["ln_ffn"], x, cfg)
-        return x + apply_ffn(p["ffn"], h, cfg)
+        return constrain_activations(x + apply_ffn(p["ffn"], h, cfg))
 
     def _head(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
         x = apply_norm(params["ln_f"], x, self.cfg)
@@ -153,6 +157,7 @@ class EncDecLM:
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)
         for p in unstack(params["dec"], cfg.n_layers):
+            x = constrain_activations(x)
             x = remat_call(remat, self._apply_dec_layer, p, x, positions,
                            enc_out)
         return self._head(params, x), \
@@ -177,8 +182,9 @@ class EncDecLM:
                 "cross": {"k": kv, "v": kv}}
 
     def init_cache(self, batch: int, max_len: int, enc_len: int = 0,
-                   device: DeviceLike = "cuda") -> Dict:
-        return zero_cache(self.cache_shape(batch, max_len, enc_len), device)
+                   device: DeviceLike = "cuda", like=None) -> Dict:
+        return zero_cache(self.cache_shape(batch, max_len, enc_len), device,
+                          self.cache_axes(), like)
 
     def prefill(self, params: Dict, enc_embeds: torch.Tensor,
                 max_len: int) -> Dict:
@@ -188,7 +194,7 @@ class EncDecLM:
         enc_out = self.encode(params, enc_embeds, remat=False)
         B, S_enc = enc_embeds.shape[:2]
         cache = self.init_cache(B, max_len, S_enc,
-                                device=enc_embeds.device)
+                                device=enc_embeds.device, like=enc_embeds)
         for i, p in enumerate(self._stack(params, "dec", self.cfg.n_layers)):
             xk, xv = _cross_kv(p["xattn"], enc_out)
             cache["cross"]["k"][i].copy_(xk)
@@ -202,9 +208,9 @@ class EncDecLM:
         in place)."""
         cfg = self.cfg
         x = embed(params["embed"], tokens, cfg)
-        pos = torch.as_tensor(pos, device=x.device)
-        positions = (pos[:, None] if pos.ndim == 1
-                     else pos.expand(x.shape[0], 1))
+        pos_t = torch.as_tensor(pos, device=x.device)
+        positions = (pos_t[:, None] if pos_t.ndim == 1
+                     else pos_t.expand(x.shape[0], 1))
         layers = zip(self._stack(params, "dec", cfg.n_layers),
                      self._stack(cache, "self", cfg.n_layers),
                      cache["cross"]["k"], cache["cross"]["v"])
@@ -215,3 +221,15 @@ class EncDecLM:
     def init(self, seed: int, device: DeviceLike = "cuda") -> Dict:
         """Fresh parameters from seeded ``torch.Generator``s."""
         return init_params(self.specs, seed, device)
+
+    def abstract(self) -> Dict:
+        """ShapeDtype stand-ins of the parameters (the dry-run's)."""
+        return abstract_params(self.specs)
+
+    def axes(self) -> Dict:
+        """The parameters' logical axes."""
+        return axes_tree(self.specs)
+
+    def scan_trips(self) -> int:
+        # the JAX encoder and decoder scans share one trip count
+        return max(self.cfg.n_layers, self.cfg.enc_layers)

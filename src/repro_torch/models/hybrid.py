@@ -15,11 +15,13 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.device import DeviceLike
+from repro_torch.parallel.api import constrain_activations
 
 from .components import (F32, apply_ffn, apply_norm, dtype_of, embed,
                          embed_specs, ffn_specs, norm_specs, unembed)
 from .config import ModelConfig
-from .params import init_params, param_count
+from .params import abstract_params, axes_tree, init_params, \
+    param_count
 from .recurrent import (apply_local_attn, apply_rglru_block,
                         local_attn_cache_shape, local_attn_specs,
                         rglru_block_specs, rglru_cache_shape)
@@ -49,9 +51,9 @@ def _apply_layer(p: Dict, x: torch.Tensor, positions, cfg: ModelConfig,
     else:
         o, _ = apply_local_attn(p["mix"], h, positions, cfg, cache=cache,
                                 pos0=pos0)
-    x = x + o
+    x = constrain_activations(x + o)
     h = apply_norm(p["ln_ffn"], x, cfg)
-    return x + apply_ffn(p["ffn"], h, cfg)
+    return constrain_activations(x + apply_ffn(p["ffn"], h, cfg))
 
 
 class HybridLM:
@@ -106,6 +108,7 @@ class HybridLM:
         layers += [(params[f"rem_{i}"], kind)
                    for i, kind in enumerate(self.rem)]
         for p, kind in layers:
+            x = constrain_activations(x)
             x = remat_call(remat, _apply_layer, p, x, positions, cfg, kind,
                            None, 0)
         if last_only:
@@ -149,8 +152,9 @@ class HybridLM:
         return out
 
     def init_cache(self, batch: int, max_len: int,
-                   device: DeviceLike = "cuda") -> Dict:
-        return zero_cache(self.cache_shape(batch, max_len), device)
+                   device: DeviceLike = "cuda", like=None) -> Dict:
+        return zero_cache(self.cache_shape(batch, max_len), device,
+                          self.cache_axes(), like)
 
     def decode_step(self, params: Dict, cache: Dict, tokens: torch.Tensor,
                     pos) -> Tuple[torch.Tensor, Dict]:
@@ -158,9 +162,9 @@ class HybridLM:
         Returns (logits (B,1,V), cache updated in place)."""
         cfg = self.cfg
         x = embed(params["embed"], tokens, cfg)
-        pos = torch.as_tensor(pos, device=x.device)
-        positions = (pos[:, None] if pos.ndim == 1
-                     else pos.expand(x.shape[0], 1))
+        pos_t = torch.as_tensor(pos, device=x.device)
+        positions = (pos_t[:, None] if pos_t.ndim == 1
+                     else pos_t.expand(x.shape[0], 1))
         for (p, kind), (c, _) in zip(self._layers(params),
                                      self._layers(cache)):
             x = _apply_layer(p, x, positions, cfg, kind, c, pos)
@@ -174,8 +178,19 @@ class HybridLM:
         the reference, kept so the two agree; ROADMAP section C)."""
         logits, _ = self.apply(params, tokens, remat=False, last_only=True)
         return logits, self.init_cache(tokens.shape[0], max_len,
-                                       device=tokens.device)
+                                       device=tokens.device, like=tokens)
 
     def init(self, seed: int, device: DeviceLike = "cuda") -> Dict:
         """Fresh parameters from seeded ``torch.Generator``s."""
         return init_params(self.specs, seed, device)
+
+    def abstract(self) -> Dict:
+        """ShapeDtype stand-ins of the parameters (the dry-run's)."""
+        return abstract_params(self.specs)
+
+    def axes(self) -> Dict:
+        """The parameters' logical axes."""
+        return axes_tree(self.specs)
+
+    def scan_trips(self) -> int:
+        return max(self.n_groups, 1)

@@ -12,13 +12,15 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.device import DeviceLike
+from repro_torch.parallel.api import constrain_activations, gather_last
 
 from .components import F32, apply_norm, dtype_of, embed, embed_specs, \
     norm_specs, unembed
 from .config import ModelConfig
 from .encdec import EncDecLM
 from .hybrid import HybridLM
-from .params import init_params, param_count
+from .params import abstract_params, axes_tree, init_params, \
+    param_count
 from .ssm import apply_ssm_block, ssm_block_specs, ssm_cache_shape
 from .transformer import ShapeDtype, TransformerLM, layer_slice, \
     remat_call, stack_specs, unstack, zero_cache
@@ -28,9 +30,8 @@ class SSMLM:
     """Pure Mamba-2 stack: x += mixer(norm(x)) per layer.  Parameters
     are the JAX package's tree (the blocks stacked along a leading
     "layers" axis); a Python loop over the layers takes the place of
-    ``lax.scan``.  The JAX package pins each layer's activations to its
-    mesh (``constrain_activations``); the port has no sharding yet
-    (ROADMAP item A10), so that step is left out."""
+    ``lax.scan``.  As in JAX, each layer's input activation is pinned
+    to the installed activation spec (``constrain_activations``)."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -50,7 +51,7 @@ class SSMLM:
     def _layer(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
         h = apply_norm(p["ln"], x, self.cfg)
         o, _ = apply_ssm_block(p["ssm"], h, self.cfg)
-        return x + o
+        return constrain_activations(x + o)
 
     def apply(self, params: Dict, tokens: torch.Tensor, *,
               remat: bool = True,
@@ -61,6 +62,7 @@ class SSMLM:
         cfg = self.cfg
         x = embed(params["embed"], tokens, cfg)
         for p in unstack(params["blocks"], cfg.n_layers):
+            x = constrain_activations(x)
             x = remat_call(remat, self._layer, p, x)
         if last_only:
             x = x[:, -1:]
@@ -82,8 +84,9 @@ class SSMLM:
         }}
 
     def init_cache(self, batch: int, max_len: int,
-                   device: DeviceLike = "cuda") -> Dict:
-        return zero_cache(self.cache_shape(batch, max_len), device)
+                   device: DeviceLike = "cuda", like=None) -> Dict:
+        return zero_cache(self.cache_shape(batch, max_len), device,
+                          self.cache_axes(), like)
 
     def decode_step(self, params: Dict, cache: Dict, tokens: torch.Tensor,
                     pos) -> Tuple[torch.Tensor, Dict]:
@@ -108,11 +111,22 @@ class SSMLM:
         of the reference, kept so the two agree; ROADMAP section C)."""
         logits, _ = self.apply(params, tokens, remat=False, last_only=True)
         return logits, self.init_cache(tokens.shape[0], max_len,
-                                       device=tokens.device)
+                                       device=tokens.device, like=tokens)
 
     def init(self, seed: int, device: DeviceLike = "cuda") -> Dict:
         """Fresh parameters from seeded ``torch.Generator``s."""
         return init_params(self.specs, seed, device)
+
+    def abstract(self) -> Dict:
+        """ShapeDtype stand-ins of the parameters (the dry-run's)."""
+        return abstract_params(self.specs)
+
+    def axes(self) -> Dict:
+        """The parameters' logical axes."""
+        return axes_tree(self.specs)
+
+    def scan_trips(self) -> int:
+        return self.cfg.n_layers
 
 
 def build(cfg: ModelConfig):
@@ -155,11 +169,11 @@ def lm_loss(model, params: Dict, batch: Dict, *, aux_weight: float = 0.01,
     m = logits.amax(dim=-1, keepdim=True).detach()
     shifted = logits - m
     lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
-    tgt_logit = torch.gather(shifted, -1, tgt.long()[..., None])[..., 0]
+    tgt_logit = gather_last(shifted, tgt.long()[..., None])[..., 0]
     ll = tgt_logit - lse
     mask = batch.get("mask")
     if mask is None:
-        mask = torch.ones(tgt.shape, dtype=F32, device=tgt.device)
+        mask = torch.ones_like(tgt, dtype=F32)
     mask = mask.to(F32)
     loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}

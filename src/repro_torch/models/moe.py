@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.moe.moe import compute_dispatch
+from repro_torch.parallel.api import constrain_rows, reshape
 
 from .components import F32, apply_ffn, dtype_of, ffn_specs, gelu_tanh
 from .config import ModelConfig
@@ -83,39 +84,55 @@ def routed_experts_grouped(p: Dict, x: torch.Tensor, gates: torch.Tensor,
     """GShard-style group-local capacity dispatch.  x: (G, S, D) with the
     group dim = batch rows: every gather/scatter stays inside a group.
     Each expert takes C rows of a group, in the working dtype; pairs
-    beyond an expert's capacity are dropped.  The JAX package scatters
-    every pair and lets ``mode="drop"`` discard the dropped ones; here
-    only the kept pairs are scattered."""
+    beyond an expert's capacity are dropped.  Static shapes, as in the
+    JAX package: every (token, expert) pair is scattered into its slot,
+    a dropped pair into one more slot past the E·C real ones, which is
+    thrown away (JAX's ``mode="drop"``), so the same code runs on every
+    device and under DTensor."""
     m = cfg.moe
     G, S, D = x.shape
     E, K = m.n_experts, m.top_k
     C = max(8, int(-(-S * K * m.capacity_factor // E) // 8 * 8))
     dest, keep = compute_dispatch(idx, E, C)                   # (G, S, K)
-    dest = dest.reshape(G, S * K).long()
+    flat_dest = torch.where(keep, dest, E * C).reshape(G, S * K).long()
     keep = keep.reshape(G, S * K)
-    tok_of_pair = torch.arange(S, device=x.device).repeat_interleave(K)
-
-    gi, pi = torch.nonzero(keep, as_tuple=True)
-    slot_tok = torch.zeros(G, E * C, dtype=torch.long, device=x.device)
-    slot_tok[gi, dest[gi, pi]] = tok_of_pair[pi]
-    slot_ok = torch.zeros(G, E * C, dtype=torch.bool, device=x.device)
-    slot_ok[gi, dest[gi, pi]] = True
+    # (G, S*K) tokens of the pairs, and zeros of (G, E*C + 1), each with
+    # the rows' placements under DTensor
+    tok_of_pair = (torch.zeros_like(flat_dest) + torch.arange(
+        S, device=x.device).repeat_interleave(K))
+    zeros = torch.zeros_like(flat_dest[:, :1]).expand(
+        G, E * C + 1).contiguous()
+    slot_tok = torch.scatter(zeros, 1, flat_dest, tok_of_pair)[:, :E * C]
+    slot_ok = torch.scatter(zeros, 1, flat_dest, 1)[:, :E * C] > 0
 
     xr = torch.gather(x, 1, slot_tok[..., None].expand(G, E * C, D))
     xr = xr * slot_ok[..., None].to(x.dtype)
-    xr = xr.reshape(G, E, C, D)
+    # under DTensor: the groups' slots stay with their batch rows, each
+    # expert's weights meet them there
+    xr = reshape(constrain_rows(xr), G, E, C, D)
     hg = torch.einsum("gecd,edf->gecf", xr, p["wg"])
     hu = torch.einsum("gecd,edf->gecf", xr, p["wu"])
     act = _act(hg, hu, cfg)
-    y = torch.einsum("gecf,efd->gecd", act, p["wd"]).reshape(G, E * C, D)
+    y = reshape(constrain_rows(torch.einsum("gecf,efd->gecd", act,
+                                            p["wd"])), G, E * C, D)
 
     # a dropped pair reads the last slot, as in the JAX package; its
     # weight below is 0
-    src = torch.where(keep, dest, E * C - 1)
+    src = torch.clamp(flat_dest, max=E * C - 1)
     pair = torch.gather(y, 1, src[..., None].expand(G, S * K, D))
     pair = pair * (keep[..., None]
                    * gates.reshape(G, S * K)[..., None]).to(pair.dtype)
-    return pair.reshape(G, S, K, D).sum(dim=2).to(x.dtype)
+    return reshape(pair, G, S, K, D).sum(dim=2).to(x.dtype)
+
+
+def _every_expert(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("td,edf->etf", x, w)`` as einsum computes it (one product
+    with the experts' columns side by side, bit for bit), its (E, F)
+    split through ``parallel.api.reshape`` so that DTensor can carry it."""
+    T, D = x.shape
+    E, _, Fd = w.shape
+    y = x @ reshape(w.permute(1, 0, 2), D, E * Fd)
+    return reshape(y, T, E, Fd).permute(1, 0, 2)
 
 
 def routed_experts_dense(p: Dict, x: torch.Tensor, gates: torch.Tensor,
@@ -126,10 +143,10 @@ def routed_experts_dense(p: Dict, x: torch.Tensor, gates: torch.Tensor,
     in the JAX package).  x: (T, D)."""
     m = cfg.moe
     xf = x.to(F32)
-    hg = torch.einsum("td,edf->etf", xf, p["wg"].to(F32))
-    hu = torch.einsum("td,edf->etf", xf, p["wu"].to(F32))
+    hg = _every_expert(xf, p["wg"].to(F32))
+    hu = _every_expert(xf, p["wu"].to(F32))
     act = _act(hg, hu, cfg)
-    y = torch.einsum("etf,efd->etd", act, p["wd"].to(F32))
+    y = torch.bmm(act, p["wd"].to(F32))                # "etf,efd->etd"
     onehot = (idx[..., None] == torch.arange(
         m.n_experts, device=x.device)).to(F32)
     w = (onehot * gates[..., None]).sum(dim=1)                  # (T, E)

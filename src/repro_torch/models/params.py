@@ -7,7 +7,11 @@ From one spec tree we derive:
 * concrete initialization (:func:`init_params`) from explicit
   ``torch.Generator``s — the same fan-in rule as the JAX package, but
   not the same numbers (the two generators differ);
-* the parameter count;
+* abstract parameters (:func:`abstract_params`): :class:`ShapeDtype`
+  stand-ins for the multi-pod dry-run (no allocation);
+* the tree of logical axes (:func:`axes_tree`), which the rules in
+  :mod:`repro_torch.parallel.sharding` bind to mesh axes;
+* the parameter count and bytes;
 * :func:`from_jax_numpy`, which carries a parameter tree that the JAX
   package initialised (converted leaf by leaf to numpy) across, so the
   port and the reference run the same weights.
@@ -16,12 +20,19 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+
+
+class ShapeDtype(NamedTuple):
+    """Shape and dtype of one leaf (``jax.ShapeDtypeStruct``'s
+    counterpart): cache shapes, abstract parameters, dry-run inputs."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 @dataclass(frozen=True)
@@ -94,8 +105,30 @@ def init_params(specs, seed: int, device: DeviceLike = "cuda") -> Dict:
     return out
 
 
+def abstract_params(specs) -> Dict:
+    """ShapeDtype tree for the dry-run (no allocation)."""
+    out: Dict = {}
+    for path, spec in leaf_paths(specs):
+        _set_path(out, path, ShapeDtype(tuple(spec.shape), spec.dtype))
+    return out
+
+
+def axes_tree(specs) -> Dict:
+    """Tree of logical-axis tuples congruent with the param tree; a leaf
+    declared without axes gets ``(None,) * rank``."""
+    out: Dict = {}
+    for path, spec in leaf_paths(specs):
+        _set_path(out, path, spec.axes or (None,) * len(spec.shape))
+    return out
+
+
 def param_count(specs) -> int:
     return sum(math.prod(s.shape) for _, s in leaf_paths(specs))
+
+
+def param_bytes(specs) -> int:
+    return sum(math.prod(s.shape) * s.dtype.itemsize
+               for _, s in leaf_paths(specs))
 
 
 def to_torch(arr, device: torch.device) -> torch.Tensor:

@@ -26,6 +26,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.api import on_replicated
+
 from . import attention as attn_mod
 from .components import (F32, attention_specs, attn_out, dtype_of,
                          gelu_tanh, qkv_project, sdpa)
@@ -60,11 +62,13 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     package: ``F.conv1d`` would run float32 through cuDNN in TF32."""
     cw = w.shape[0]
     if state is None:
-        pad = u.new_zeros((u.shape[0], cw - 1, u.shape[2]))
+        # zeros with u's placements under DTensor
+        pad = torch.zeros_like(u[:, :1]).expand(u.shape[0], cw - 1,
+                                                u.shape[2])
     else:
         pad = state.to(u.dtype)
     full = torch.cat([pad, u], dim=1)                  # (B, S+cw-1, W)
-    out = torch.zeros(u.shape, dtype=F32, device=u.device)
+    out = torch.zeros_like(u, dtype=F32)
     for i in range(cw):
         out = out + full[:, i:i + u.shape[1], :].to(F32) * w[i]
     out = out + b
@@ -125,7 +129,9 @@ def apply_rglru_block(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     uf = u.to(F32)
     r = torch.sigmoid((u @ p["w_a"]).to(F32))
     i = torch.sigmoid((u @ p["w_x"]).to(F32))
-    log_a_base = F.logsigmoid(p["lambda"])             # log σ(Λ)  (W,)
+    # log σ(Λ) (W,): DTensor has no rule for logsigmoid's backward, so
+    # it runs on the replicated parameter's local tensor
+    log_a_base = on_replicated(F.logsigmoid, p["lambda"])
     a = torch.exp(C_EXP * r * log_a_base)              # (B,S,W), ≤ 1
     bx = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * uf)
 

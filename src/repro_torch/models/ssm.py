@@ -18,6 +18,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.api import per_shard, reshape
+
 from .components import F32, dtype_of
 from .config import ModelConfig
 from .params import ParamSpec
@@ -63,7 +65,16 @@ def ssd_chunked(xh: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SSD core.  xh: (B,S,H,P); da: (B,S,H) log-decay (≤0);
     Bm, Cm: (B,S,H,N) (groups already broadcast).  Returns (y, final_state)
-    with y: (B,S,H,P), state: (B,H,N,P)."""
+    with y: (B,S,H,P), state: (B,H,N,P).  Independent per batch row and
+    head: under DTensor each rank runs it on its own blocks
+    (``parallel.api.per_shard``)."""
+    return per_shard(
+        lambda *a: _ssd_chunked(*a[:4], chunk, a[4]),
+        (xh, da, Bm, Cm, state0),
+        ((0, 2), (0, 2), (0, 2), (0, 2), (0, 1)), ((0, 2), (0, 1)))
+
+
+def _ssd_chunked(xh, da, Bm, Cm, chunk, state0):
     Bsz, S, H, P = xh.shape
     N = Bm.shape[-1]
     if S % chunk:
@@ -88,7 +99,7 @@ def ssd_chunked(xh: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
 
     # 3) inter-chunk sequential state pass
     chunk_decay = torch.exp(dacs[:, :, -1, :])            # (B,nc,H)
-    s = (torch.zeros(Bsz, H, N, P, dtype=F32, device=xh.device)
+    s = (torch.zeros_like(chunk_state[:, 0], dtype=F32)
          if state0 is None else state0.to(F32))
     s_prevs = []
     for c in range(nc):
@@ -173,33 +184,49 @@ def apply_ssm_block(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     z, xh, da, Bh, Ch, new_conv = ssd_operands(
         p, x, cfg, state["conv"] if state is not None else None)
 
+    # the SSD core is independent per batch row and head: under DTensor
+    # each rank runs it on its own blocks (parallel.api.per_shard)
     if state is None:
         q = min(cfg.ssm.chunk, S)
-        pad = (-S) % q
-        if pad:
-            # zero-pad to a chunk multiple: padded steps have x=0 (no state
-            # contribution) and da=0 (decay 1), so the state is unaffected
-            padf = lambda t: F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
-            y, _ = ssd_chunked(padf(xh), padf(da), padf(Bh), padf(Ch), q)
-            y = y[:, :S]
-        else:
-            y, _ = ssd_chunked(xh, da, Bh, Ch, q)
+        y = per_shard(lambda *a: _ssd_padded(*a, q), (xh, da, Bh, Ch),
+                      ((0, 2),) * 4, ((0, 2),))
         new_state = None
     else:
-        a_t = torch.exp(da)[:, 0]                           # (B,H)
-        s_new = (a_t[..., None, None] * state["ssm"].to(F32)
-                 + torch.einsum("bhn,bhp->bhnp", Bh[:, 0], xh[:, 0]))
-        y = torch.einsum("bhn,bhnp->bhp", Ch[:, 0], s_new)[:, None]
+        y, s_new = per_shard(
+            _ssd_step, (torch.exp(da)[:, 0], state["ssm"], Bh[:, 0],
+                        xh[:, 0], Ch[:, 0]), ((0, 1),) * 5,
+            ((0, 2), (0, 1)))
         new_state = {"ssm": s_new, "conv": new_conv}
 
     y = y + xh * p["d_skip"][:, None]                       # D skip
-    y = y.reshape(B_, S, d_inner)
+    y = reshape(y, B_, S, d_inner)
     # gated RMS norm (mamba2)
     zf = _silu(z.to(F32))
     yn = y * zf
     var = (yn * yn).mean(-1, keepdim=True)
     yn = yn * torch.rsqrt(var + cfg.norm_eps) * p["gate_norm"]["scale"]
     return yn.to(x.dtype) @ p["w_out"], new_state
+
+
+def _ssd_padded(xh, da, Bh, Ch, q):
+    """The SSD core's output over a sequence zero-padded to a chunk
+    multiple: padded steps have x=0 (no state contribution) and da=0
+    (decay 1), so the state is unaffected."""
+    S = xh.shape[1]
+    pad = (-S) % q
+    if not pad:
+        return _ssd_chunked(xh, da, Bh, Ch, q, None)[0]
+    padf = lambda t: F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+    y, _ = _ssd_chunked(padf(xh), padf(da), padf(Bh), padf(Ch), q, None)
+    return y[:, :S]
+
+
+def _ssd_step(a_t, ssm, B0, x0, C0):
+    """One decode step of the SSD state: (y (B,1,H,P), new state)."""
+    s_new = (a_t[..., None, None] * ssm.to(F32)
+             + torch.einsum("bhn,bhp->bhnp", B0, x0))
+    y = torch.einsum("bhn,bhnp->bhp", C0, s_new)[:, None]
+    return y, s_new
 
 
 def ssm_cache_shape(cfg: ModelConfig, batch: int):

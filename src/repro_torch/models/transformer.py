@@ -26,12 +26,13 @@ paths, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.parallel.api import constrain_activations, shard_state
 
 from . import attention as attn_mod
 from .components import (F32, apply_ffn, apply_norm, attention_specs,
@@ -39,14 +40,8 @@ from .components import (F32, apply_ffn, apply_norm, attention_specs,
                          norm_specs, qkv_project, sdpa, unembed)
 from .config import ModelConfig
 from .moe import load_balance_loss, moe_forward, moe_specs
-from .params import ParamSpec, init_params, param_count
-
-
-class ShapeDtype(NamedTuple):
-    """Shape and dtype of one cache leaf (``jax.ShapeDtypeStruct``'s
-    counterpart)."""
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
+from .params import (ParamSpec, ShapeDtype, abstract_params, axes_tree,
+                     init_params, param_count)
 
 
 def stack_specs(specs: Dict, n: int) -> Dict:
@@ -81,10 +76,17 @@ def block_specs(cfg: ModelConfig, *, moe_layer: bool = False) -> Dict:
     return s
 
 
-def zero_cache(shapes: Dict, device: DeviceLike = "cuda") -> Dict:
+def zero_cache(shapes: Dict, device: DeviceLike = "cuda", axes=None,
+               like=None) -> Dict:
     """A cache tree of zeros from a ``cache_shape`` tree of
     :class:`ShapeDtype` leaves (nested dicts of any depth), on
-    ``device``."""
+    ``device``.  When ``like`` (the input the cache is built for) is a
+    DTensor, the cache is placed on its mesh by the logical ``axes`` and
+    the installed rules (``parallel.api.shard_state``)."""
+    if axes is not None:
+        sharded = shard_state(shapes, axes, like)
+        if sharded is not None:
+            return sharded
     dev = resolve_device(device)
 
     def zeros(node):
@@ -167,8 +169,8 @@ def _ffn_residual(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     h = apply_norm(p["ln_ffn"], x, cfg)
     if moe_layer:
         f, probs, idx = moe_forward(p["moe"], h, cfg)
-        return x + f, (probs, idx)
-    return x + apply_ffn(p["ffn"], h, cfg), None
+        return constrain_activations(x + f), (probs, idx)
+    return constrain_activations(x + apply_ffn(p["ffn"], h, cfg)), None
 
 
 def apply_block(p: Dict, x: torch.Tensor, positions, cfg: ModelConfig, *,
@@ -176,7 +178,8 @@ def apply_block(p: Dict, x: torch.Tensor, positions, cfg: ModelConfig, *,
                 pos0=0) -> Tuple[torch.Tensor, Optional[Tuple]]:
     """-> (block output, an MoE layer's routing or None)."""
     h = apply_norm(p["ln_attn"], x, cfg)
-    x = x + _self_attention(p["attn"], h, positions, cfg, cache, pos0)
+    x = constrain_activations(
+        x + _self_attention(p["attn"], h, positions, cfg, cache, pos0))
     return _ffn_residual(p, x, cfg, moe_layer)
 
 
@@ -315,6 +318,7 @@ class TransformerLM:
         layers += [(p, self.is_moe)
                    for p in unstack(params["blocks"], self.n_scanned)]
         for p, moe_layer in layers:
+            x = constrain_activations(x)
             x, aux = remat_call(remat, _block_with_aux, p, x, positions, cfg,
                                 moe_layer)
             aux_total = aux_total + aux
@@ -346,8 +350,9 @@ class TransformerLM:
         return out
 
     def init_cache(self, batch: int, max_len: int,
-                   device: DeviceLike = "cuda") -> Dict:
-        return zero_cache(self.cache_shape(batch, max_len), device)
+                   device: DeviceLike = "cuda", like=None) -> Dict:
+        return zero_cache(self.cache_shape(batch, max_len), device,
+                          self.cache_axes(), like)
 
     def decode_step(self, params: Dict, cache: Dict, tokens: torch.Tensor,
                     pos: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
@@ -366,9 +371,10 @@ class TransformerLM:
         x = embed(params["embed"], tokens, cfg)
         B, S = tokens.shape
         offs = torch.arange(S, dtype=torch.int32, device=x.device)
-        pos = torch.as_tensor(pos, device=x.device)
-        positions = (pos[:, None] + offs if pos.ndim == 1
-                     else (pos + offs).expand(B, S))
+        pos_t = torch.as_tensor(pos, device=x.device)
+        positions = (pos_t[:, None] + offs if pos_t.ndim == 1
+                     else (pos_t + offs).expand(B, S))
+        # the write offset as given: an int stays one (cache_update)
         x = self._blocks(params, x, lambda p, x, moe_layer, c: apply_block(
             p, x, positions, cfg, moe_layer=moe_layer, cache=c,
             pos0=pos)[0], cache)
@@ -471,7 +477,8 @@ class TransformerLM:
         tokens: (B, S).  Returns (last-position logits (B, 1, V), cache)."""
         cfg = self.cfg
         B, S = tokens.shape
-        cache = self.init_cache(B, max_len, device=tokens.device)
+        cache = self.init_cache(B, max_len, device=tokens.device,
+                                like=tokens)
         x = embed(params["embed"], tokens, cfg)
         positions = torch.arange(S, device=x.device)
         x = self._blocks(params, x, lambda p, x, moe_layer, c: apply_block(
@@ -484,3 +491,17 @@ class TransformerLM:
     def init(self, seed: int, device: DeviceLike = "cuda") -> Dict:
         """Fresh parameters from seeded ``torch.Generator``s."""
         return init_params(self.specs, seed, device)
+
+    def abstract(self) -> Dict:
+        """ShapeDtype stand-ins of the parameters (the dry-run's)."""
+        return abstract_params(self.specs)
+
+    def axes(self) -> Dict:
+        """The parameters' logical axes."""
+        return axes_tree(self.specs)
+
+    def scan_trips(self) -> int:
+        """The JAX package's layer-scan trip count (the dry-run records
+        it; the port's eager loop runs every layer, so nothing is scaled
+        by it)."""
+        return max(self.n_scanned, 1)

@@ -7,8 +7,10 @@ keys (``opt/0``, ``opt/1/...``, ``opt/2/...``) match.  Updates build
 new tensors (the caller drops the old ones by reassignment, as the JAX
 launcher donates them).  The bias corrections ``b ** step`` and every
 other scalar are float32 tensors, as in JAX.  The JAX package's moments
-inherit its parameter sharding (ZeRO-1 over the data axis); the port
-has no sharding yet (ROADMAP item A10)."""
+take their parameter's placements on DTensor parameters as they take its
+sharding in JAX: with "embed" over "data" (``parallel.default_rules``,
+fsdp) the optimizer state is sharded over the data axis — ZeRO-1.  The
+global norm of :func:`clip_by_global_norm` then sums over every rank."""
 from __future__ import annotations
 
 from typing import Any, Callable, List, NamedTuple, Tuple
@@ -47,8 +49,8 @@ def tree_leaves(tree) -> List:
 
 def adamw_init(params) -> AdamWState:
     dev = device_of(params)
-    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
-                                           device=p.device), params)
+    # zeros_like keeps a DTensor parameter's placements
+    zeros = tree_map(lambda p: torch.zeros_like(p, dtype=F32), params)
     return AdamWState(torch.zeros((), dtype=torch.int32, device=dev), zeros,
                       tree_map(torch.clone, zeros))
 

@@ -1,5 +1,5 @@
-from .step import (make_prefill_step, make_serve_step, make_train_step,
-                   value_and_grad)
+from .step import (abstract_opt_state, make_prefill_step, make_serve_step,
+                   make_train_step, value_and_grad)
 
 __all__ = ["make_train_step", "make_serve_step", "make_prefill_step",
-           "value_and_grad"]
+           "value_and_grad", "abstract_opt_state"]

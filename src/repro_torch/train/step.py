@@ -13,20 +13,47 @@ new tensors.  Knobs, as in JAX:
     the optimizer math is float32;
   * ``remat`` — per-layer recomputation (``torch.utils.checkpoint``).
 
-The JAX package's ``abstract_opt_state`` (the dry-run's shapes) comes
-with the dry-run (ROADMAP item A10).
+On DTensor parameters (a distributed launch, the dry-run) the step runs
+unchanged: autograd gives each gradient the placements its computation
+left (a sum over the data axis still pending, ``Partial``), and the step
+moves every gradient to its parameter's placements before clipping.
+That is the data-parallel reduction, in the dtype JAX's step holds the
+gradient in there: the parameter's at ``grad_accum`` 1, ``acc_dtype``
+(bf16 under ``compress_grads="bf16"``) when accumulating.
+``abstract_opt_state`` gives the dry-run's optimizer shapes.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.model import lm_loss
-from repro_torch.optim import (adamw_update, clip_by_global_norm,
-                               tree_leaves, tree_map)
+from repro_torch.models.params import ShapeDtype
+from repro_torch.optim import (AdamWState, adamw_update,
+                               clip_by_global_norm, tree_leaves, tree_map)
 
 F32 = torch.float32
+
+
+def abstract_opt_state(abstract_params) -> AdamWState:
+    """ShapeDtype AdamW state congruent with abstract params (the
+    dry-run's: no allocation)."""
+    mu = tree_map(lambda p: ShapeDtype(tuple(p.shape), F32),
+                  abstract_params)
+    nu = tree_map(lambda p: ShapeDtype(tuple(p.shape), F32),
+                  abstract_params)
+    return AdamWState(ShapeDtype((), torch.int32), mu, nu)
+
+
+def _to_param_placements(g, p):
+    """``g`` redistributed to ``p``'s placements when both are DTensors
+    (the data-parallel reduction of a pending sum), else ``g``."""
+    if isinstance(p, DTensor) and tuple(g.placements) != \
+            tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def _split_microbatches(batch: Dict, n: int, i: int) -> Dict:
@@ -77,22 +104,25 @@ def make_train_step(model, *, lr_fn: Callable, grad_accum: int = 1,
         if grad_accum == 1:
             loss, metrics, grads = value_and_grad(model, params, batch, **kw)
         else:
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype,
-                                                   device=p.device), params)
-            loss_sum = torch.zeros((), dtype=F32,
-                                   device=batch["tokens"].device)
+            grads, loss_sum = None, None
             for i in range(grad_accum):
                 loss, _, g = value_and_grad(
                     model, params, _split_microbatches(batch, grad_accum, i),
                     **kw)
-                grads = tree_map(lambda a, gg: a + gg.to(acc_dtype), grads, g)
-                loss_sum = loss_sum + loss
+                # JAX adds each microbatch's gradient to zeros in
+                # acc_dtype: the first sum is the first gradient, cast
+                # (and stays a pending sum across ranks, as the others)
+                grads = (tree_map(lambda gg: gg.to(acc_dtype), g)
+                         if grads is None else
+                         tree_map(lambda a, gg: a + gg.to(acc_dtype),
+                                  grads, g))
+                loss_sum = loss if loss_sum is None else loss_sum + loss
                 del g
             grads = tree_map(lambda g: g / grad_accum, grads)
             loss = loss_sum / grad_accum
-            metrics = {"ce": loss,
-                       "aux": torch.zeros((), dtype=F32, device=loss.device)}
+            metrics = {"ce": loss, "aux": torch.zeros_like(loss)}
 
+        grads = tree_map(_to_param_placements, grads, params)
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
         lr = lr_fn(opt.step)
         params, opt = adamw_update(grads, opt, params, lr=lr)

@@ -52,7 +52,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.checkpoint.serial, "
             "repro_torch.checkpoint.manager, repro_torch.ft, "
             "repro_torch.ft.preemption, repro_torch.ft.straggler, "
-            "repro_torch.launch.train\n"
+            "repro_torch.launch.train, repro_torch.parallel, "
+            "repro_torch.parallel.api, repro_torch.parallel.sharding, "
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
+            "repro_torch.launch.trace_analysis, "
+            "repro_torch.configs.shapes\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
