@@ -19,7 +19,9 @@ is missing or any phase fails.  Phases:
    HGMMA and UTMALDG, quant_gemm an int8 wgmma instance, which must show
    IGMMA and UTMALDG, the bf16 decode kernels (flash_decode's, and
    paged_decode's tensor-core instance) HMMA and UTMALDG, and the SSD
-   chunk-state and chunk-scan kernels (f32 and bf16) HMMA (TF32);
+   chunk-state and chunk-scan kernels (f32 and bf16) HMMA (TF32); both
+   serving kernels must have a bf16 tensor-core instance at each
+   full-size head_dim (64, 80, 128, 256: ``SERVING_HEAD_DIMS``);
 3. kernels against their plain PyTorch versions at the serving path's
    shapes (qwen3-1.7b: 16 query heads, 8 KV heads, head_dim 128, page
    size 16), in bfloat16 and float32 (ragged prefill's bf16 case on its
@@ -183,11 +185,14 @@ is missing or any phase fails.  Phases:
    (32/32, head_dim 80), gemma-7b's (16/16, head_dim 256), codeqwen1.5-
    7b's (32/32, 128: group 1) and chameleon-34b's (64/8, 128: group 8),
    bf16 and float32, with phase 3's poisoned pages and zero-length row,
-   each case naming its instance, timed beside its bound and, for ragged
-   prefill, one SDPA call; (b) phase 4's trace and engine at full width
-   and depth on codeqwen1.5-7b, gemma-7b and stablelm-3b, every prefill
-   and decode tick through the two kernels, the launch counters zeroed
-   just before each run and read just after; (c) the same on
+   each case naming its instance (every bf16 case on the tensor-core /
+   wgmma instance, held to ``P_SPLIT_MISMATCH``), timed beside its bound
+   and, for ragged prefill, one SDPA call; (b) phase 4's trace and engine
+   at full width and depth on codeqwen1.5-7b, gemma-7b and stablelm-3b,
+   every prefill and decode tick through the two kernels, the launch
+   counters zeroed just before each run and read just after, and each
+   profiled window's device time of the two kernels by instance (only
+   the tensor-core ones may run); (c) the same on
    chameleon-34b at 16 of its 48 layers (all 48 do not fit one card
    beside the pool); (d) deepseek-v2-lite-16b at full width and depth,
    every tick on the gather paths (its MLA cache has no heads axis, as
@@ -431,6 +436,14 @@ def phase_build():
     check(any(i.startswith("paged_decode ") and "tensor cores" in i
               for i in sass), "paged_decode: no tensor-core instance in "
           "its SASS")
+    # the serving kernels' bf16 instances at every full-size head_dim
+    for D in SERVING_HEAD_DIMS:
+        for inst, ops in ((f"ragged_prefill bf16 wgmma D={D}", "HGMMA"),
+                          (f"paged_decode tensor cores bf16 D={D}", "HMMA")):
+            c = sass.get(inst)
+            check(c is not None and c[ops] > 0 and c["UTMALDG"] > 0,
+                  f"{inst}: missing, or no {ops} or no TMA load in its "
+                  f"SASS: {c}")
     for part in ("state", "scan"):
         check(sum(i.startswith(f"ssd_chunk_scan {part} ") for i in sass)
               == 2, f"ssd_chunk_scan: no f32 and bf16 {part} kernels in "
@@ -439,6 +452,9 @@ def phase_build():
 
 
 SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA", "UTMALDG", "UBLKCP")
+# the full-size head dims of the serving kernels' bf16 tensor-core
+# instances (granite 64, stablelm-3b 80, qwen3 128, gemma-7b 256)
+SERVING_HEAD_DIMS = (64, 80, 128, 256)
 # the libraries with instances on wgmma fed by TMA
 WGMMA_LIBS = ("gemm", "ragged_prefill", "flash_attention", "grouped_ffn",
               "quant_gemm")
@@ -3114,9 +3130,10 @@ def phase_tune(torch, serve):
 
 # -- phase 13 ----------------------------------------------------------------
 
-# (query heads, KV heads, head_dim) of the other GQA architectures: two new
-# head dims on the CUDA-core instances (stablelm-3b 80, gemma-7b 256) and
-# group sizes 1 and 8 at 128 on the existing ones (codeqwen1.5-7b,
+# (query heads, KV heads, head_dim) of the other GQA architectures: head
+# dims 80 (stablelm-3b: D = 128's tiles, zero-filled past 80) and 256
+# (gemma-7b: 64-key prefill tiles, 32-position decode tiles) on the bf16
+# tensor-core instances, and group sizes 1 and 8 at 128 (codeqwen1.5-7b,
 # chameleon-34b)
 FLAVOUR_HEADS = {"stablelm-3b": (32, 32, 80), "gemma-7b": (16, 16, 256),
                  "codeqwen1.5-7b": (32, 32, 128),
@@ -3165,6 +3182,37 @@ def phase_paths_dense(torch, s, moe=None):
     return dict(requests=len(want), tokens=n_tok, compared="dense vs paged")
 
 
+# the device kernels of each serving kernel's bf16 instances: the
+# tensor-core (wgmma) design, the CUDA-core one
+SERVING_INSTANCES = {
+    "ragged_prefill": ("ragged_wgmma_kernel", "ragged_prefill_kernel"),
+    "paged_decode": ("paged_decode_bf16_kernel", "paged_decode_f32_kernel")}
+
+
+def _window_instances(profile, tag):
+    """Each serving kernel's device time in a bf16 architecture's profiled
+    windows (phase 4's profile), by instance; fails if a tick ran a
+    CUDA-core instance or none at all (every bf16 head_dim of a full-size
+    architecture has a tensor-core one).  "not measured" where the
+    profiler recorded no device event."""
+    windows = {"ragged_prefill": profile["prefill_tick"],
+               "paged_decode": profile["decode_ticks_6"]}
+    out = {}
+    for name, w in windows.items():
+        ours = w["port_kernels_ms"]
+        if not ours:
+            out[name] = "not measured"
+            continue
+        tc, cc = SERVING_INSTANCES[name]
+        check(ours.get(tc, 0.0) > 0 and cc not in ours,
+              f"{tag}: {name}'s window ran {sorted(ours)}, not its "
+              f"tensor-core instance alone")
+        out[name] = {tc: ours[tc]}
+        log(f"[{tag}/profile] {name}: {tc} {ours[tc]:.3f} ms of device "
+            f"time in the window, no CUDA-core launch")
+    return out
+
+
 def phase_serve_flavours(torch):
     """(a) both serving kernels against their plain versions at each
     architecture's heads (FLAVOUR_HEADS), bf16 and float32, 16-token
@@ -3186,6 +3234,9 @@ def phase_serve_flavours(torch):
     for s in SERVE_FLAVOURS:
         out = phase_serve(torch, s)
         serve[s["arch"]] = out
+        if s["arch"] in FLAVOUR_HEADS and s.get("profile", True):
+            out["profile_instances"] = _window_instances(out["profile"],
+                                                         s["tag"])
         log(f"[{s['tag']}] {out['arch']} at {out['n_layers']} layers: "
             f"decode {out['decode_tokens_per_s']:.1f} tok/s, p50 tick "
             f"{out['p50_step_ms']:.1f} ms, {out['gate_verify_calls']} gate "

@@ -14,7 +14,8 @@ row's pages into spans of :func:`span_pages` pages, a number fixed by
 the shapes alone, one CTA per (span, KV head, row), and merges the
 spans' partials by log-sum-exp in a second kernel.  Each span walks its
 pages in tiles of :func:`tile_tokens` positions (16 KB of K and of V:
-64 positions in bf16 at head_dim 128, 128 at 64, 32 in f32 at 128), a
+64 positions in bf16 at head_dim 80 and 128, 128 at 64, 32 at 256, 32
+in f32 at 128), a
 tile holding :func:`pages_per_step` whole pages, or a page of 8 to 256
 tokens spanning several tiles; a span is a whole number of tiles, the
 last span shorter where that count does not divide the table width.
@@ -87,21 +88,30 @@ MAX_GROUP = 8                  # query heads per KV head the kernel serves
 # head dims the kernel is compiled for: every architecture's, reduced
 # and full (chameleon's reduced 8, stablelm's 80, gemma's 256)
 HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
-TC_HEAD_DIMS = (64, 128)       # bf16 head dims on the tensor-core instance
+# bf16 head dims on the tensor-core instance (8, 16 and 32, reduced
+# configurations only, stay on the CUDA cores)
+TC_HEAD_DIMS = (64, 80, 128, 256)
 PAGE_RANGE = (8, 256)          # page sizes (tokens) the kernel takes
 TILE_BYTES = 16384             # one K (or V) tile
 STAGES = 3                     # TMA ring depth of the tensor-core instance
 KERNEL_THREADS = 128           # the CUDA-core instance
-TC_THREADS = 160               # four consumer warps and a producer warp
+TC_THREADS = 160               # four consumer warps (two at 256), a producer
 # CTAs the span split aims for: four for each SM (two resident at a time)
 SPAN_TARGET_CTAS = 4 * N_SMS
 
 
 def tensor_cores(head_dim: int, itemsize: int) -> bool:
-    """The instance that runs: bf16 at head_dim 64 or 128 on the tensor
-    cores fed by TMA; float32, and bf16 at the other head dims, on
+    """The instance that runs: bf16 at head_dim 64, 80, 128 or 256 on
+    the tensor cores fed by TMA; float32, and bf16 at 8, 16 and 32, on
     CUDA-core FMAs."""
     return itemsize == 2 and head_dim in TC_HEAD_DIMS
+
+
+def tc_width(head_dim: int) -> int:
+    """Columns of a row in the tensor-core instance's tiles: head_dim 80
+    lands in 128 (TMA's zero fill supplies the rest), the others as they
+    are."""
+    return 128 if head_dim == 80 else head_dim
 
 
 def instance(head_dim: int, itemsize: int) -> str:
@@ -111,11 +121,11 @@ def instance(head_dim: int, itemsize: int) -> str:
 
 def tile_tokens(head_dim: int, itemsize: int) -> int:
     """Positions of K (and of V) in one tile of the walk: 16 KB on the
-    tensor cores; on the CUDA-core instance the largest power of two
-    that fits 16 KB, at most 64 (32 in float32 at head_dim 80, 16 at
-    256)."""
+    tensor cores (128 positions at head_dim 64, 64 at 80 and 128, 32 at
+    256); on the CUDA-core instance the largest power of two that fits
+    16 KB, at most 64 (32 in float32 at head_dim 80, 16 at 256)."""
     if tensor_cores(head_dim, itemsize):
-        return TILE_BYTES // (head_dim * itemsize)
+        return TILE_BYTES // (tc_width(head_dim) * itemsize)
     fit = min(64, TILE_BYTES // (head_dim * itemsize))
     return 1 << (fit.bit_length() - 1)
 

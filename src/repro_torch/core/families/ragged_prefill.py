@@ -11,12 +11,13 @@ carried-output stability.
 
 **Which decomposition is verified.**  The CUDA kernel
 (``repro_torch/kernels/ragged_prefill/csrc/ragged_prefill.cu``) runs, in
-bf16 at head_dim 64 and 128 (:func:`is_wgmma`), one CTA per (query head,
-128 packed queries) over 128-key tiles on ``wgmma``, and otherwise one
-CTA per (query head, 64 packed queries) over 32-key blocks on the CUDA
-cores, whatever the config's ``block_q`` / ``block_kv`` are.
-:func:`kernel_config` gives the program that step: ``128 x 128`` or
-``64 x 32`` wherever they tile the packed buffer.  The serving engine pads
+bf16 at head_dim 64, 80, 128 and 256 (:func:`is_wgmma`), one CTA per
+(query head, 128 packed queries) over 128-key tiles (64-key at 256) on
+``wgmma``, and otherwise one CTA per (query head, 64 packed queries)
+over 32-key blocks on the CUDA cores, whatever the config's ``block_q``
+/ ``block_kv`` are.  :func:`kernel_config` gives the program that step:
+``128 x 128``, ``128 x 64`` or ``64 x 32`` wherever they tile the packed
+buffer.  The serving engine pads
 both extents to 64 tokens, so the wgmma step is 128 on a buffer of a
 multiple of 128 tokens and 64 on the others.  On a buffer the kernel's
 blocks do not tile (the kernel then masks its last CTA's rows and its
@@ -82,9 +83,11 @@ KERNEL_THREADS = 256
 # and full (chameleon's reduced 8, stablelm's 80, gemma's 256); the
 # CUDA-core instance's 64 x 32 blocks stage 137 KB at 256
 HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
-WGMMA_HEAD_DIMS = (64, 128)    # bf16 head dims on the wgmma design
+# bf16 head dims on the wgmma design (8, 16 and 32, reduced configurations
+# only, stay on the CUDA cores)
+WGMMA_HEAD_DIMS = (64, 80, 128, 256)
 WGMMA_BQ = 128                 # packed queries per CTA: two warpgroups
-WGMMA_BK = 128                 # packed keys per TMA tile
+WGMMA_BK = 128                 # packed keys per TMA tile (64 at head_dim 256)
 WGMMA_STAGES = 2               # K/V ring depth
 WGMMA_THREADS = 384
 CONSUMER_REGS = 232            # setmaxnreg, consumer warpgroups
@@ -97,25 +100,35 @@ KERNEL_STATIC_SMEM = (2 * KERNEL_BQ + 2 * KERNEL_BK + 3) * 4 + KERNEL_THREADS
 
 
 def is_wgmma(prob: RaggedPrefillProblem) -> bool:
-    """The kernel runs ``prob`` on its wgmma design: bf16 at head_dim 64
-    or 128 (float32 and the small head dims stay on the CUDA cores)."""
+    """The kernel runs ``prob`` on its wgmma design: bf16 at head_dim 64,
+    80, 128 or 256 (float32 and the small head dims stay on the CUDA
+    cores)."""
     return prob.dtype == "bf16" and prob.head_dim in WGMMA_HEAD_DIMS
+
+
+def wgmma_width(head_dim: int) -> int:
+    """Columns of a row in the wgmma design's shared memory: head_dim 80
+    lands in 128 (TMA's zero fill supplies the rest), the others as they
+    are."""
+    return 128 if head_dim == 80 else head_dim
 
 
 def kernel_blocks(prob: RaggedPrefillProblem):
     """(packed queries per CTA, keys per step) of the design that runs
-    ``prob``."""
-    return (WGMMA_BQ, WGMMA_BK) if is_wgmma(prob) else (KERNEL_BQ,
-                                                        KERNEL_BK)
+    ``prob``: 128 x 128 on wgmma (128 x 64 at head_dim 256, where Q and a
+    two-stage ring of 128-key tiles would not fit), else 64 x 32."""
+    if not is_wgmma(prob):
+        return KERNEL_BQ, KERNEL_BK
+    return WGMMA_BQ, WGMMA_BK // 2 if prob.head_dim == 256 else WGMMA_BK
 
 
 def kernel_config(cfg: RaggedPrefillConfig,
                   prob: RaggedPrefillProblem) -> RaggedPrefillConfig:
     """The config whose program is the decomposition the kernel runs:
-    the kernel's blocks (:func:`kernel_blocks`: 128 x 128 on wgmma, else
-    64 x 32), or the largest power-of-two blocks below them that tile the
-    buffer.  Raises ``ValueError`` where the JAX program would: the
-    config's blocks must tile the buffer."""
+    the kernel's blocks (:func:`kernel_blocks`: 128 x 128 on wgmma, 128 x
+    64 at head_dim 256, else 64 x 32), or the largest power-of-two blocks
+    below them that tile the buffer.  Raises ``ValueError`` where the JAX
+    program would: the config's blocks must tile the buffer."""
     T = prob.total_tokens
     if T % cfg.block_q or T % cfg.block_kv:
         raise ValueError(
@@ -335,13 +348,16 @@ def build_ragged_prefill_program(cfg: RaggedPrefillConfig,
 def _smem_bytes(prob: RaggedPrefillProblem) -> int:
     """The kernel's shared memory for ``prob``, static arrays included:
     on wgmma 1024 bytes of alignment slack, the Q tile, a two-stage ring
-    of K and V tiles (128-byte swizzle), the mbarriers, and a flag byte
-    and a 2-byte list entry a key tile; otherwise Q, K, V and the weights
-    as float32, rows padded by one word."""
+    of K and V tiles (128-byte swizzle, rows of :func:`wgmma_width`), the
+    mbarriers, and a flag byte and a 2-byte list entry a key tile;
+    otherwise Q, K, V and the weights as float32, rows padded by one
+    word."""
     D = prob.head_dim
     if is_wgmma(prob):
-        n_tiles = cdiv(prob.total_tokens, WGMMA_BK)
-        return (1024 + WGMMA_BQ * D * 2 + 2 * WGMMA_STAGES * WGMMA_BK * D * 2
+        _, bk = kernel_blocks(prob)
+        W = wgmma_width(D)
+        n_tiles = cdiv(prob.total_tokens, bk)
+        return (1024 + WGMMA_BQ * W * 2 + 2 * WGMMA_STAGES * bk * W * 2
                 + 8 * (1 + 4 * WGMMA_STAGES) + 2 * cdiv(n_tiles, 2)
                 + 2 * n_tiles + WGMMA_STATIC_SMEM)
     return ((KERNEL_BQ + 2 * KERNEL_BK) * (D + 1)
@@ -377,8 +393,9 @@ def ragged_prefill_cost(cfg: RaggedPrefillConfig,
     block of packed queries) visits only the key tiles that share a
     segment with its rows and are not causally past them (about the
     segment's prefix, plus the query block's own span).  On wgmma
-    (:func:`is_wgmma`) it issues S = Q·Kᵀ and P·V twice (p split into two
-    bf16 terms) at the tensor cores' peak, one CTA an SM; otherwise
+    (:func:`is_wgmma`) it issues S = Q·Kᵀ over the real columns and P·V
+    twice over :func:`wgmma_width` (p split into two bf16 terms) at the
+    tensor cores' peak, one CTA an SM; otherwise
     float32 FMAs on the CUDA cores.  Q, K, V and O cross HBM once and the
     KV re-reads of the CTAs of one head hit L2.  The config's blocks
     change nothing the kernel does."""
@@ -397,7 +414,8 @@ def ragged_prefill_cost(cfg: RaggedPrefillConfig,
     n_ctas = H * nq
     hbm = q_bytes + kv_bytes + meta_bytes
     if is_wgmma(prob):
-        issued = 6.0 * H * T * walked * D             # S, then P·V twice
+        # S, then P·V twice
+        issued = 2.0 * H * T * walked * (D + 2 * wgmma_width(D))
         per_sm = ctas_per_sm(WGMMA_THREADS, CONSUMER_REGS, _smem_bytes(prob))
         compute_s = issued / (peak_flops("bf16") * wave_eff(n_ctas, per_sm))
     else:

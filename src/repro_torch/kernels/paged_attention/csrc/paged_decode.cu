@@ -29,19 +29,25 @@
 //     float32 partials o (B·Hq, ns, D), m and l (B·Hq, ns); a second
 //     kernel on the same stream merges them by log-sum-exp and writes the
 //     output in q's type, or zeros where the merged l is 0.
-//   * bf16 at head_dim 64 and 128 (paged_decode_bf16_kernel): a producer
-//     warp reads the span's table entries from device memory, 32 at a time
-//     into its lanes (the TPU kernel's scalar prefetch), and copies the
-//     page tiles by TMA into a three-stage ring of 16 KB K and V tiles
-//     (64 positions at D = 128, 128 at D = 64) with full/empty mbarriers.
-//     The pool is viewed as a 3-D tensor (D, PS, P·Hkv): a box of
-//     min(PS, tile) rows at (column, row in page, phys·Hkv + hk), so a
-//     page of 8 to 256 tokens that divides the tile, or is divided by it,
+//   * bf16 at head_dim 64, 80, 128 and 256 (paged_decode_bf16_kernel): a
+//     producer warp reads the span's table entries from device memory, 32
+//     at a time into its lanes (the TPU kernel's scalar prefetch), and
+//     copies the page tiles by TMA into a three-stage ring of 16 KB K and
+//     V tiles with full/empty mbarriers, two CTAs an SM: 64 positions at
+//     D = 128, 128 at D = 64, 32 at D = 256; at D = 80, D = 128's tiles
+//     with the maps declared at 80 columns, so that TMA's zero fill
+//     supplies columns 80..127, which no product reads (the HBM bytes
+//     stay those of 80).  The pool is viewed as a 3-D tensor (D, PS,
+//     P·Hkv): a box of min(PS, tile) rows at (column, row in page,
+//     phys·Hkv + hk), so a page of 8 to 256 tokens that divides the
+//     tile, or is divided by it,
 //     lands as one or several 1024-byte-aligned boxes of a 128-byte-
 //     swizzled tile.  Only pages holding a valid position are copied:
 //     pages wholly past the length, and so the null page and foreign
-//     pages, are never read.  Four consumer warps each take 16 (D = 128)
-//     or 32 (D = 64) positions of every tile: Sᵀ = K·Qᵀ with the G heads
+//     pages, are never read.  Four consumer warps (two at D = 256) each
+//     take 16 (D = 80, 128, 256) or 32 (D = 64) positions of every tile
+//     (64-position 32 KB tiles at one CTA an SM measured slower at D =
+//     256: PERF.md): Sᵀ = K·Qᵀ with the G heads
 //     as mma.sync's n = 8 (K by ldmatrix, Q in registers, zero past G),
 //     and Oᵀ = Vᵀ·Pᵀ with V by ldmatrix.trans.  p keeps the TPU kernel's
 //     float32 accuracy: it is split into p_hi = bf16(p) and p_lo =
@@ -51,13 +57,14 @@
 //     -1e30, their p is 0, and the V rows of a partial tile are zeroed
 //     before the product, so whatever the pool holds there (a poisoned
 //     page, a stale stage) never reaches the output.  The running max is
-//     updated once per warp's slice of a tile; the four warps' (m, l, o)
-//     merge in shared memory at the span's end.
-//   * float32 pools, and bf16 at head_dim 8, 16, 32, 80 and 256
-//     (paged_decode_f32_kernel): the same split walk on CUDA-core FMAs
-//     (TF32 stays off): a CTA of 128 threads stages each tile of up to 64
-//     positions (at most 16 KB, a power of two positions: 32 in float32
-//     at head_dim 80, 16 at 256) with 16-byte loads through the table,
+//     updated once per warp's slice of a tile; the warps' (m, l, o) merge
+//     in shared memory at the span's end.
+//   * float32 pools, and bf16 at head_dim 8, 16 and 32, which only
+//     reduced configurations reach (paged_decode_f32_kernel): the same
+//     split walk on CUDA-core FMAs (TF32 stays off): a CTA of 128
+//     threads stages each tile of up to 64 positions (at most 16 KB, a
+//     power of two positions: 32 in float32 at head_dim 80, 16 at 256)
+//     with 16-byte loads through the table,
 //     scores with each warp taking whole positions, the softmax one warp
 //     per head, P·V with each thread owning the output columns d ≡ tid
 //     (mod 128), p in float32.
@@ -120,15 +127,20 @@ __device__ __forceinline__ Span span_of(const int* lengths, int b, int s,
   return sp;
 }
 
-// -- bf16 at head_dim 64 / 128: tensor cores, TMA ring through the table ------
+// -- bf16 at head_dim 64, 80, 128, 256: tensor cores, TMA through the table --
 
 template <int D>
 struct Tc {
-  static constexpr int kR = 128 / D;               // 16-row slabs a warp
-  static constexpr int kConsumers = 4;             // consumer warps
+  // head_dim 80 lands in D = 128's tile: the maps are declared at 80
+  // columns, TMA's zero fill supplies 80..127, which no product reads
+  static constexpr int kDP = D == 80 ? 128 : D;    // columns in shared memory
+  static constexpr int kR = kDP < 128 ? 128 / kDP : 1;  // 16-row slabs a warp
+  // consumer warps: a 16 KB tile at head_dim 256 is 32 positions, two
+  // 16-row slabs
+  static constexpr int kConsumers = D == 256 ? 2 : 4;
   static constexpr int kT = 16 * kR * kConsumers;  // positions a tile
-  static constexpr int kPanels = D / 64;
-  static constexpr int kTile = kT * D * 2;         // bytes of K (or V)
+  static constexpr int kPanels = kDP / 64;
+  static constexpr int kTile = kT * kDP * 2;       // bytes of K (or V)
   static constexpr int kStages = 3;
   static constexpr int kThreads = 32 * (kConsumers + 1);
   static constexpr int kSmem = 1024 + kStages * 2 * kTile + 16 * kStages;
@@ -163,6 +175,20 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
   const Span sp = span_of(lengths, b, s, PS, NP, span_pages);
   const int n_tiles = sp.end > sp.begin ? (sp.end - sp.begin + T - 1) / T
                                         : 0;
+  if (n_tiles == 0) {
+    // a span wholly past its row's length writes the empty partial and
+    // exits before any barrier or load (most spans of a decode batch of
+    // mixed lengths)
+    for (int i = threadIdx.x; i < G * D; i += C::kThreads) {
+      const size_t row = ((size_t)b * Hq + hk * G + i / D) * ns + s;
+      o_part[row * D + i % D] = 0.f;
+      if (i % D == 0) {
+        m_part[row] = kNegInf;
+        l_part[row] = 0.f;
+      }
+    }
+    return;
+  }
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < NST; ++i) {
@@ -184,7 +210,9 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
       const int t0 = sp.begin + i * T;
       const int nb = min(T / box, (sp.end - t0 + box - 1) / box);
       mbar_wait(&empty[st], ph ^ 1);
-      if (lane == 0) mbar_expect_tx(&full[st], 2 * nb * box * D * 2);
+      // whole boxes, zero-filled columns included
+      if (lane == 0)
+        mbar_expect_tx(&full[st], 2 * nb * box * C::kPanels * 128);
       unsigned char* kd = ring + st * 2 * TB;
       for (int j = 0; j < nb; ++j) {
         const int pos = t0 + j * box, pg = pos / PS;
@@ -208,7 +236,8 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
     return;
   }
 
-  // consumer warp: rows [warp·16R, warp·16R + 16R) of every tile.
+  // consumer warp: rows [warp·16R, warp·16R + 16R) of every tile; the
+  // products take the D / 16 slabs of real columns.
   // Qᵀ as the B operand (8 heads, zero past G): element (d, head g)
   uint32_t qb[D / 16][2];
   {
@@ -374,7 +403,7 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
 }
 
-// -- float32 (and bf16 at head_dim 16 / 32): CUDA-core FMAs ------------------
+// -- float32 (and bf16 at head_dim 8 / 16 / 32): CUDA-core FMAs --------------
 
 // the largest power of two <= n (n >= 1)
 constexpr int floor_pow2(int n) { return n < 2 ? 1 : 2 * floor_pow2(n / 2); }
@@ -632,9 +661,9 @@ int launch_split(const Args& a, int D, int is_bf16, cudaStream_t st) {
       case 16: return launch_f32<__nv_bfloat16, 16>(a, st);
       case 32: return launch_f32<__nv_bfloat16, 32>(a, st);
       case 64: return launch_bf16<64>(a, st);
-      case 80: return launch_f32<__nv_bfloat16, 80>(a, st);
+      case 80: return launch_bf16<80>(a, st);
       case 128: return launch_bf16<128>(a, st);
-      case 256: return launch_f32<__nv_bfloat16, 256>(a, st);
+      case 256: return launch_bf16<256>(a, st);
     }
   } else {
     switch (D) {

@@ -22,23 +22,23 @@
 // 8x the admitted work.  Two designs, chosen by type and head_dim alone
 // (families/ragged_prefill.py `is_wgmma`):
 //
-//   * bf16 at head_dim 64 and 128 (ragged_wgmma_kernel): one CTA per
-//     (query head, 128 packed queries): two consumer warpgroups of 64 rows
+//   * bf16 at head_dim 64, 80, 128 and 256 (ragged_wgmma_kernel): one CTA
+//     per (query head, 128 packed queries): two consumer warpgroups of 64 rows
 //     and a producer warpgroup, as flash_attention.cu's wgmma kernel.  A
 //     CTA of one head serves every group size G without an instance per G,
 //     and the G heads' CTAs re-read a KV head's tiles from L2 (2.6 MB a KV
 //     head at qwen3's phase-3 shape).  Before it splits into roles the CTA
-//     summarises its rows' metadata and, one warp per 128-key tile, each
+//     summarises its rows' metadata and, one warp per key tile, each
 //     tile's (segment range, position range, padding), marks the live
 //     tiles and, for each warpgroup, the tiles that admit every pair of its
 //     64 rows (one segment, every key causally before every row), and
 //     compacts the live tiles into a list: the walk visits only those.
 //     The producer loads Q once and each live tile of K and V by TMA
 //     (128-byte swizzle, zero fill past TQ and TK) into a two-stage ring;
-//     each consumer computes S = Q·Kᵀ by wgmma m64n128k16 (bf16 products
+//     each consumer computes S = Q·Kᵀ by wgmma m64nBKk16 (bf16 products
 //     exact, float32 sums), masks from seg/pos staged in shared memory (a
 //     wholly admitted tile skips the mask), runs the online softmax in
-//     float32 (running max per 128-key tile, exp2 with log2(e) in the
+//     float32 (running max per key tile, exp2 with log2(e) in the
 //     scale), and computes P·V on wgmma with p kept at float32 accuracy:
 //     p = p_hi + p_lo with p_hi = bf16(p) and p_lo = bf16(p - p_hi), two
 //     register-A products into one float32 accumulator, V (exact in bf16)
@@ -46,10 +46,19 @@
 //     roundings of 2^-8) against the bf16 output's 2^-8, and l sums the
 //     float32 p.  TF32 would run at half the rate on V that is already
 //     exact in bf16, and p rounded to bf16 alone visibly perturbs logits
-//     (the TPU kernel's docstring).
-//   * float32, and bf16 at head_dim 8, 16, 32, 80 and 256
-//     (ragged_prefill_kernel): one CTA of 256 threads per (query head,
-//     block of 64 packed queries) loops over blocks of 32 packed keys,
+//     (the TPU kernel's docstring).  Key tiles (BK) are 128 keys, 64 at
+//     head_dim 256, where Q (64 KB) and a two-stage ring of 32 KB K and V
+//     tiles take 192 KB of the SM's 227: S on m64n64k16 over 16 k-steps,
+//     P·V on m64n256k16 into 128 float32 accumulators a thread (the
+//     consumers' 232 registers of setmaxnreg).  Head_dim 80 runs on D =
+//     128's tiles: the tensor maps are declared at 80 columns (160-byte
+//     rows), TMA's zero fill supplies columns 80..127 in shared memory, S
+//     takes the 5 k-steps that hold real columns, P·V runs at N = 128 and
+//     its columns 80..127 are not stored; HBM bytes stay those of 80.
+//   * float32, and bf16 at head_dim 8, 16 and 32, which only reduced
+//     configurations reach (ragged_prefill_kernel): one CTA of 256
+//     threads per (query head, block of 64 packed queries) loops over
+//     blocks of 32 packed keys,
 //     staging Q, K, V and the weights in shared memory as float32 (rows
 //     padded by one word against bank conflicts; 137 KB at head_dim 256);
 //     each thread holds a 4 x 2 tile of scores and a 4 x ceil(D/16) tile
@@ -297,6 +306,8 @@ int launch(const void* q, const void* k, const void* v, const void* sq,
   return (int)cudaGetLastError();
 }
 
+// the CUDA-core instances: float32 at every head_dim, bf16 at 8, 16 and 32
+// (the wgmma design takes bf16's other head dims)
 template <typename T>
 int launch_d(int D, const void* q, const void* k, const void* v,
              const void* sq, const void* pq, const void* sk, const void* pk,
@@ -306,18 +317,22 @@ int launch_d(int D, const void* q, const void* k, const void* v,
     case 8: return launch<T, 8>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
     case 16: return launch<T, 16>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
     case 32: return launch<T, 32>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
-    case 64: return launch<T, 64>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
-    case 80: return launch<T, 80>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
-    case 128: return launch<T, 128>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
-    case 256: return launch<T, 256>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
-    default: return (int)cudaErrorInvalidValue;
   }
+  if constexpr (sizeof(T) == 4) {
+    switch (D) {
+      case 64: return launch<T, 64>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
+      case 80: return launch<T, 80>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
+      case 128: return launch<T, 128>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
+      case 256: return launch<T, 256>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-// -- bf16, head_dim 64 and 128: wgmma fed by TMA ------------------------------
+// -- bf16, head_dim 64, 80, 128 and 256: wgmma fed by TMA --------------------
 
 constexpr int kWgQ = 128;        // packed queries per CTA
-constexpr int kWgK = 128;        // packed keys per TMA tile
+constexpr int kWgK = 128;        // packed keys per TMA tile, at most
 constexpr int kWgStages = 2;     // K/V ring depth
 constexpr int kWgWarps = 12;     // three warpgroups
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
@@ -325,9 +340,17 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct WgCfg {
-  static constexpr int kPanels = D / 64;           // 64-column TMA boxes
-  static constexpr int kQBytes = kWgQ * D * 2;
-  static constexpr int kTileBytes = kWgK * D * 2;  // one K (or V) tile
+  // head_dim 80 runs on D = 128's tiles: the tensor maps are declared at
+  // 80 columns (160-byte rows), so TMA's zero fill supplies columns
+  // 80..127; they add nothing to S and P·V's columns there are not stored
+  static constexpr int kDP = D == 80 ? 128 : D;    // columns in shared memory
+  // head_dim 256 halves the key tile: Q (64 KB) and a two-stage ring of
+  // 32 KB K and V tiles fit one SM's shared memory
+  static constexpr int kBK = D == 256 ? 64 : kWgK;  // packed keys per tile
+  static constexpr int kPanels = kDP / 64;          // 64-column TMA boxes
+  static constexpr int kSteps = D / 16;             // k-steps of S = Q·Kᵀ
+  static constexpr int kQBytes = kWgQ * kDP * 2;
+  static constexpr int kTileBytes = kBK * kDP * 2;  // one K (or V) tile
   // 1024 of alignment slack, Q, the ring and the mbarriers; then a flag
   // byte and a list entry (2 bytes) a key tile
   static constexpr int kFixed = 1024 + kQBytes + 2 * kWgStages * kTileBytes +
@@ -407,18 +430,18 @@ ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                     __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int TQ,
                     int TK, float scale) {
   using C = WgCfg<D>;
-  constexpr int S = kWgStages, TB = C::kTileBytes;
+  constexpr int S = kWgStages, TB = C::kTileBytes, BK = C::kBK, DP = C::kDP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* q_s = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* k_s = q_s + C::kQBytes;     // [stage][panel][kWgK][64]
-  unsigned char* v_s = k_s + S * TB;         // [stage][panel][kWgK][64]
+  unsigned char* k_s = q_s + C::kQBytes;     // [stage][panel][BK][64]
+  unsigned char* v_s = k_s + S * TB;         // [stage][panel][BK][64]
   uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + S * TB);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + S;
   uint64_t* k_empty = v_full + S;
   uint64_t* v_empty = k_empty + S;
-  const int n_tiles = (TK + kWgK - 1) / kWgK;
+  const int n_tiles = (TK + BK - 1) / BK;
   unsigned char* flags = reinterpret_cast<unsigned char*>(v_empty + S);
   uint16_t* live = reinterpret_cast<uint16_t*>(flags + 2 * ((n_tiles + 1) / 2));
   __shared__ Summary row_sum[4];   // the 32-row slices of the query tile
@@ -449,8 +472,8 @@ ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int t = warp; t < n_tiles; t += kWgWarps) {
     Summary a = summary_empty();
 #pragma unroll
-    for (int i = 0; i < kWgK / 32; ++i) {
-      const int key = t * kWgK + i * 32 + lane;
+    for (int i = 0; i < BK / 32; ++i) {
+      const int key = t * BK + i * 32 + lane;
       summary_add(a, key < TK ? seg_k[key] : -1, key < TK ? pos_k[key] : 0);
     }
     a = warp_summary(a);
@@ -508,18 +531,18 @@ ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             q_full);
       for (int it = 0; it < n_live; ++it) {
         const int st = it % S, ph = (it / S) & 1;
-        const int k0 = live[it] * kWgK;
+        const int k0 = live[it] * BK;
         hopper::mbar_wait(&k_empty[st], ph ^ 1);
         hopper::mbar_expect_tx(&k_full[st], TB);
 #pragma unroll
         for (int pn = 0; pn < C::kPanels; ++pn)
-          hopper::tma_load_3d(k_s + st * TB + pn * kWgK * 128, &tm_k, pn * 64,
+          hopper::tma_load_3d(k_s + st * TB + pn * BK * 128, &tm_k, pn * 64,
                               k0, hk, &k_full[st]);
         hopper::mbar_wait(&v_empty[st], ph ^ 1);
         hopper::mbar_expect_tx(&v_full[st], TB);
 #pragma unroll
         for (int pn = 0; pn < C::kPanels; ++pn)
-          hopper::tma_load_3d(v_s + st * TB + pn * kWgK * 128, &tm_v, pn * 64,
+          hopper::tma_load_3d(v_s + st * TB + pn * BK * 128, &tm_v, pn * 64,
                               k0, hk, &v_full[st]);
       }
     }
@@ -539,9 +562,9 @@ ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const unsigned char* q_wg = q_s + wg * 64 * 128;
   const int whole = 2 << wg;
 
-  float o[D / 2];
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   // running max in log2 units; l is this thread's share of its rows' sum
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
   const int n_walk = (wg == 0 ? wg_sum[0] : wg_sum[1]).smax >= 0 ? n_live : 0;
@@ -549,22 +572,28 @@ ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   for (int it = 0; it < n_walk; ++it) {
     const int st = it % S, ph = (it / S) & 1;
-    const int tile = live[it], k0 = tile * kWgK;
+    const int tile = live[it], k0 = tile * BK;
     const unsigned char* kt_s = k_s + st * TB;
     const unsigned char* vt_s = v_s + st * TB;
 
-    // S = Q Kᵀ, 64 rows x 128 keys
-    float s[kWgK / 2];
+    // S = Q Kᵀ, 64 rows x BK keys, over the D / 16 k-steps that hold
+    // real columns
+    float s[BK / 2];
 #pragma unroll
-    for (int i = 0; i < kWgK / 2; ++i) s[i] = 0.f;
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
     hopper::mbar_wait(&k_full[st], ph);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < C::kSteps; ++kk) {
       const int pn = kk / 4, off = (kk % 4) * 32;
-      hopper::wgmma_m64n128k16_ss(
-          s, hopper::desc_sw128(q_wg + pn * kWgQ * 128 + off, 16, 1024),
-          hopper::desc_sw128(kt_s + pn * kWgK * 128 + off, 16, 1024), 1);
+      const uint64_t dq =
+          hopper::desc_sw128(q_wg + pn * kWgQ * 128 + off, 16, 1024);
+      const uint64_t dk =
+          hopper::desc_sw128(kt_s + pn * BK * 128 + off, 16, 1024);
+      if constexpr (BK == 128)
+        hopper::wgmma_m64n128k16_ss(s, dq, dk, 1);
+      else
+        hopper::wgmma_m64n64k16_ss(s, dq, dk, 1);
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -576,7 +605,7 @@ ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     float al_a, al_b;
     if (flags[tile] & whole) {
 #pragma unroll
-      for (int j = 0; j < kWgK / 8; ++j) {
+      for (int j = 0; j < BK / 8; ++j) {
         mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
         mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
       }
@@ -587,7 +616,7 @@ ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       m_a = mn_a;
       m_b = mn_b;
 #pragma unroll
-      for (int j = 0; j < kWgK / 8; ++j) {
+      for (int j = 0; j < BK / 8; ++j) {
         s[4 * j] = exp2f(fmaf(s[4 * j], sl2, -mn_a));
         s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], sl2, -mn_a));
         s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], sl2, -mn_b));
@@ -601,11 +630,12 @@ ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       // previous masked tile
       int2* meta = key_meta[wg];
       wg_barrier(wg);
-      meta[ct] = k0 + ct < TK ? make_int2(seg_k[k0 + ct], pos_k[k0 + ct])
-                              : make_int2(-1, 0);
+      if (ct < BK)
+        meta[ct] = k0 + ct < TK ? make_int2(seg_k[k0 + ct], pos_k[k0 + ct])
+                                : make_int2(-1, 0);
       wg_barrier(wg);
 #pragma unroll
-      for (int j = 0; j < kWgK / 8; ++j) {
+      for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int2 km = meta[j * 8 + 2 * t4 + e];
@@ -626,7 +656,7 @@ ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       m_a = mn_a;
       m_b = mn_b;
 #pragma unroll
-      for (int j = 0; j < kWgK / 8; ++j) {
+      for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float x = s[4 * j + e];
@@ -641,7 +671,7 @@ ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     l_a = l_a * al_a + sum_a;
     l_b = l_b * al_b + sum_b;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DP / 8; ++j) {
       o[4 * j] *= al_a;
       o[4 * j + 1] *= al_a;
       o[4 * j + 2] *= al_b;
@@ -650,9 +680,9 @@ ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     // P split into two bf16 register A operands: k-step kk holds keys
     // [16kk, 16kk + 16)
-    uint32_t p_hi[kWgK / 16][4], p_lo[kWgK / 16][4];
+    uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kWgK / 16; ++kk)
+    for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
         hopper::split_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1],
@@ -662,9 +692,12 @@ ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     hopper::mbar_wait(&v_full[st], ph);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kWgK / 16; ++kk) {
-      const uint64_t dv = hopper::desc_sw128(vt_s + kk * 2048, kWgK * 128, 1024);
-      if constexpr (D == 128) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t dv = hopper::desc_sw128(vt_s + kk * 2048, BK * 128, 1024);
+      if constexpr (DP == 256) {
+        hopper::wgmma_m64n256k16_rs_tb(o, p_hi[kk], dv, 1);
+        hopper::wgmma_m64n256k16_rs_tb(o, p_lo[kk], dv, 1);
+      } else if constexpr (DP == 128) {
         hopper::wgmma_m64n128k16_rs_tb(o, p_hi[kk], dv, 1);
         hopper::wgmma_m64n128k16_rs_tb(o, p_lo[kk], dv, 1);
       } else {
@@ -683,7 +716,7 @@ ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);
   const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < D / 8; ++j) {   // the real columns only
     const int col = j * 8 + 2 * t4;
     if (qrow_a < TQ)
       *reinterpret_cast<uint32_t*>(out + ((size_t)h * TQ + qrow_a) * D + col) =
@@ -702,10 +735,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* sq,
   using C = WgCfg<D>;
   CUtensorMap tq, tk, tv;
   int e = hopper::encode_tensor_map_3d(&tq, q, D, TQ, Hq, kWgQ);
-  if (!e) e = hopper::encode_tensor_map_3d(&tk, k, D, TK, Hkv, kWgK);
-  if (!e) e = hopper::encode_tensor_map_3d(&tv, v, D, TK, Hkv, kWgK);
+  if (!e) e = hopper::encode_tensor_map_3d(&tk, k, D, TK, Hkv, C::kBK);
+  if (!e) e = hopper::encode_tensor_map_3d(&tv, v, D, TK, Hkv, C::kBK);
   if (e) return e;
-  const int n_tiles = (TK + kWgK - 1) / kWgK;
+  const int n_tiles = (TK + C::kBK - 1) / C::kBK;
   if (n_tiles > 65535) return (int)cudaErrorInvalidValue;
   const int smem = C::smem(n_tiles);
   auto kern = ragged_wgmma_kernel<D>;
@@ -725,9 +758,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* sq,
 // (TK,) int32, out (Hq, TQ, D); all contiguous on one device, q, k, v and
 // out of one type (is_bf16: bfloat16, else float32); D in {8, 16, 32, 64,
 // 80, 128, 256}.
-// bf16 at D 64 and 128 runs the wgmma design (q, k, v 16-byte aligned),
-// everything else the CUDA-core one.  Returns the CUDA error code of the
-// launch (0 on success).
+// bf16 at D 64, 80, 128 and 256 runs the wgmma design (q, k, v 16-byte
+// aligned), everything else the CUDA-core one.  Returns the CUDA error
+// code of the launch (0 on success).
 extern "C" int ragged_prefill_launch(const void* q, const void* k,
                                      const void* v, const void* seg_q,
                                      const void* pos_q, const void* seg_k,
@@ -737,12 +770,20 @@ extern "C" int ragged_prefill_launch(const void* q, const void* k,
   if (Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || TQ <= 0 || TK <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16 && D == 128)
-    return launch_wgmma<128>(q, k, v, seg_q, pos_q, seg_k, pos_k, out, Hq,
-                             Hkv, TQ, TK, scale, s);
-  if (is_bf16 && D == 64)
-    return launch_wgmma<64>(q, k, v, seg_q, pos_q, seg_k, pos_k, out, Hq,
-                            Hkv, TQ, TK, scale, s);
+  if (is_bf16) {
+    switch (D) {
+      case 64: return launch_wgmma<64>(q, k, v, seg_q, pos_q, seg_k, pos_k,
+                                       out, Hq, Hkv, TQ, TK, scale, s);
+      case 80: return launch_wgmma<80>(q, k, v, seg_q, pos_q, seg_k, pos_k,
+                                       out, Hq, Hkv, TQ, TK, scale, s);
+      case 128: return launch_wgmma<128>(q, k, v, seg_q, pos_q, seg_k,
+                                         pos_k, out, Hq, Hkv, TQ, TK, scale,
+                                         s);
+      case 256: return launch_wgmma<256>(q, k, v, seg_q, pos_q, seg_k,
+                                         pos_k, out, Hq, Hkv, TQ, TK, scale,
+                                         s);
+    }
+  }
   if (is_bf16)
     return launch_d<__nv_bfloat16>(D, q, k, v, seg_q, pos_q, seg_k, pos_k,
                                    out, Hq, Hkv, TQ, TK, scale, s);

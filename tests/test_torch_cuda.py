@@ -138,7 +138,8 @@ def _packed_case(Hq, Hkv, D, chunks, prefixes, dtype, seed):
     return q, k, v, sq, pq, sk, pk
 
 
-@pytest.mark.parametrize("Hq,Hkv,D", [(16, 8, 128), (24, 8, 64)])
+@pytest.mark.parametrize("Hq,Hkv,D", [(16, 8, 128), (24, 8, 64),
+                                      (32, 32, 80), (16, 16, 256)])
 @pytest.mark.parametrize("chunks,prefixes", [
     # the serving phase's tick: 8 chunks against prefixes up to 768
     ([256] * 7 + [200], [0, 256, 512, 768] * 2),
@@ -146,8 +147,10 @@ def _packed_case(Hq, Hkv, D, chunks, prefixes, dtype, seed):
     ([40, 64, 7, 100, 3, 130], [0, 30, 200, 64, 700, 5])])
 def test_ragged_prefill_wgmma_instance_matches_plain(card, Hq, Hkv, D,
                                                      chunks, prefixes):
-    """The bf16 wgmma instance at qwen3's and granite's head geometry:
-    within the tolerance, bit-identical to the plain version on all but
+    """The bf16 wgmma instance at qwen3's, granite's, stablelm-3b's
+    (head_dim 80: D = 128's tiles, zero-filled past 80) and gemma-7b's
+    (head_dim 256: 64-key tiles) head geometry: within the tolerance,
+    bit-identical to the plain version on all but
     ``P_SPLIT_MISMATCH`` of the outputs, padding rows zero, and a
     poisoned foreign segment leaves every other row bit-identical."""
     from repro_torch.core.families.ragged_prefill import (
@@ -443,6 +446,19 @@ PAGED_TC_CASES = [
     (3, 8, 8, 64, 8, 64, [512, 100, 7]),
     (3, 6, 2, 128, 64, 16, [1024, 65, 640]),
     (2, 4, 4, 64, 256, 4, [1024, 257]),
+    # stablelm-3b's 32/32 x 80 (D = 128's tiles, zero-filled past 80) and
+    # gemma-7b's 16/16 x 256 (16 KB tiles of 32 positions, two consumer
+    # warps): pages of 8 to 256 tokens (at 80, 64: one a tile; 128 and
+    # 256: a page of two to eight tiles), lengths 0 and 1, mid-page,
+    # mid-tile, a full table
+    (8, 32, 32, 80, 16, 128, [0, 1, 17, 256, 300, 777, 1040, 2048]),
+    (3, 32, 32, 80, 8, 64, [512, 100, 0]),
+    (3, 8, 2, 80, 64, 16, [1024, 65, 1]),
+    (2, 32, 32, 80, 256, 4, [1024, 257]),
+    (8, 16, 16, 256, 16, 128, [0, 1, 17, 256, 300, 777, 1040, 2048]),
+    (3, 16, 16, 256, 8, 64, [512, 100, 0]),
+    (3, 8, 1, 256, 128, 8, [1024, 129, 1]),
+    (2, 16, 16, 256, 256, 4, [1024, 257]),
 ]
 
 
@@ -520,8 +536,9 @@ def test_paged_decode_wrapper_refuses_what_the_kernel_does_not_take(card):
 # -- the serving kernels at the other architectures' head dims ------------------
 
 # (query heads, KV heads, head_dim): stablelm-3b's 32/32 x 80, gemma-7b's
-# 16/16 x 256 and chameleon-34b's reduced 8/2 x 8, all on the CUDA-core
-# instances of both kernels
+# 16/16 x 256 and chameleon-34b's reduced 8/2 x 8; bf16 at 80 and 256 on
+# the tensor-core / wgmma instances, float32 and head_dim 8 on the CUDA
+# cores
 WIDE_HEADS = [(32, 32, 80), (16, 16, 256), (8, 2, 8)]
 
 
@@ -541,7 +558,9 @@ def test_paged_decode_at_the_other_head_dims_matches_plain(card, heads,
     NP = 12
     lengths = [0, 1, PS + 3, 5 * PS, 7 * PS - 1, NP * PS]
     P = sum(-(-n // PS) for n in lengths) + 8
-    assert instance(D, dtype.itemsize) == "cuda cores"
+    assert instance(D, dtype.itemsize) == (
+        "tensor cores" if dtype == torch.bfloat16 and D != 8
+        else "cuda cores")
     q, kp, vp, table, lens = [t.to(card) for t in _decode_inputs(
         len(lengths), Hq, Hkv, D, PS, NP, P, lengths, dtype)]
     before = KERNEL.launches
@@ -572,9 +591,9 @@ def test_ragged_prefill_at_the_other_head_dims_matches_plain(card, heads,
     Hq, Hkv, D = heads
     q, k, v, sq, pq, sk, pk = [t.to(card) for t in _packed_case(
         Hq, Hkv, D, [40, 64, 7, 100], [0, 30, 200, 64], dtype, 3)]
-    assert not is_wgmma(RaggedPrefillProblem(
+    assert is_wgmma(RaggedPrefillProblem(
         4, k.shape[1], Hq, Hkv, D, "bf16" if dtype == torch.bfloat16
-        else "f32"))
+        else "f32")) == (dtype == torch.bfloat16 and D != 8)
     before = KERNEL.launches
     got = ragged_prefill(q, k, v, sq, pq, sk, pk)
     torch.cuda.synchronize()

@@ -242,6 +242,29 @@ def test_the_span_split_depends_on_the_shapes_alone():
         assert sp * prob.page_size % pa.tile_tokens(prob.head_dim, 2) == 0
 
 
+@pytest.mark.parametrize("D,itemsize,tc,tile,smem", [
+    (64, 2, True, 128, 1024 + 3 * (2 * 16384 + 16)),
+    (80, 2, True, 64, 1024 + 3 * (2 * 16384 + 16)),
+    (128, 2, True, 64, 1024 + 3 * (2 * 16384 + 16)),
+    (256, 2, True, 32, 1024 + 3 * (2 * 16384 + 16)),
+    (32, 2, False, 64, None), (80, 4, False, 32, None),
+    (256, 4, False, 16, None)])
+def test_paged_instances_and_their_tiles(D, itemsize, tc, tile, smem):
+    """bf16 at head_dim 64, 80, 128 and 256 runs on the tensor cores in
+    16 KB tiles (head_dim 80 in 128-column rows, TMA zero-filling past
+    80; 32 positions at 256, one 16-row slab for each of two consumer
+    warps), two CTAs an SM; float32 and bf16 at 8..32 on the CUDA cores.
+    Tiles stay a power of two, so 8- to 256-token pages divide them or
+    are divided by them."""
+    from repro_torch.core import kernelspec as ks
+    assert pa.tensor_cores(D, itemsize) == tc
+    assert pa.tile_tokens(D, itemsize) == tile
+    assert all(pa.pages_per_step(ps, D, itemsize)
+               for ps in (8, 16, 32, 64, 128, 256))
+    if tc:
+        assert pa._smem_bytes(D, itemsize) == smem <= ks.SMEM_PER_CTA // 2
+
+
 RP_BF16 = rp.RaggedPrefillProblem(8, 2048, 8, 1, 128, "bf16")
 
 
@@ -249,6 +272,10 @@ RP_BF16 = rp.RaggedPrefillProblem(8, 2048, 8, 1, 128, "bf16")
     # bf16 at head_dim 64 and 128: the wgmma design's 128 x 128 step
     ((128, 128), RP_BF16, (128, 128)), ((8, 8), RP_BF16, (128, 128)),
     ((256, 64), RP_BF16, (128, 128)),
+    # head_dim 80 on D = 128's tiles; 256 on 64-key tiles
+    ((128, 128), dataclasses.replace(RP_BF16, head_dim=80), (128, 128)),
+    ((128, 128), dataclasses.replace(RP_BF16, head_dim=256), (128, 64)),
+    ((8, 8), dataclasses.replace(RP_BF16, head_dim=256), (128, 64)),
     # 192 tokens (the engine pads to 64): the largest blocks that tile
     ((64, 64), rp.RaggedPrefillProblem(4, 192, 4, 4, 64, "bf16"), (64, 64)),
     # float32 and head_dim 16: the CUDA-core design's 64 x 32
@@ -265,21 +292,28 @@ def test_ragged_program_is_built_at_the_kernels_blocks(cfg, prob, want):
 
 @pytest.mark.parametrize("dtype,D,wgmma", [
     ("bf16", 128, True), ("bf16", 64, True), ("f32", 128, False),
-    ("f32", 64, False), ("bf16", 32, False), ("bf16", 16, False)])
+    ("f32", 64, False), ("bf16", 32, False), ("bf16", 16, False),
+    ("bf16", 80, True), ("bf16", 256, True), ("f32", 80, False),
+    ("f32", 256, False), ("bf16", 8, False)])
 def test_ragged_bf16_at_head_dim_64_and_128_runs_on_wgmma(dtype, D, wgmma):
     from repro_torch.core import kernelspec as ks
     prob = rp.RaggedPrefillProblem(8, 2048, 16, 8, D, dtype)
     assert rp.is_wgmma(prob) == wgmma
-    assert rp.kernel_blocks(prob) == ((128, 128) if wgmma else (64, 32))
+    # 64-key tiles at head_dim 256: Q and a two-stage ring of 128-key
+    # tiles would take 320 KB
+    bk = 64 if D == 256 else 128
+    assert rp.kernel_blocks(prob) == ((128, bk) if wgmma else (64, 32))
     assert rp.structural_ragged_prefill(rp.RaggedPrefillConfig(), prob) == []
-    # the wgmma instance holds Q, a two-stage K/V ring and a byte and a
+    # the wgmma instance holds Q, a two-stage K/V ring (rows of 128
+    # columns at head_dim 80: TMA zero-fills the rest) and a byte and a
     # list entry a key tile, beside 2,132 bytes of static arrays (the row
     # summaries, two tiles' (seg, pos) pairs, the live count); one CTA an SM
     smem = rp._smem_bytes(prob)
     assert smem <= ks.SMEM_PER_CTA
     if wgmma:
-        assert smem == (1024 + 128 * D * 2 + 4 * 128 * D * 2 + 72
-                        + 16 + 2 * 16 + 2132)
+        W, n = (128 if D == 80 else D), 2048 // bk
+        assert smem == (1024 + 128 * W * 2 + 4 * bk * W * 2 + 72
+                        + 2 * -(-n // 2) + 2 * n + 2132)
 
 
 # -- injected bugs ------------------------------------------------------------

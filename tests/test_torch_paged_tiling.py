@@ -10,13 +10,14 @@ points:
   shapes alone), a span walks its valid positions in tiles of
   ``tile_tokens``, and the spans' (m, l, o) partials merge by
   log-sum-exp, a row of no valid position giving zeros;
-* the bf16 tensor-core instance (head_dim 64 and 128): in each tile four
-  warps each take 16 (D = 128) or 32 (D = 64) positions with their own
+* the bf16 tensor-core instance (head_dim 64, 80, 128 and 256): in each
+  tile four warps (two at D = 256) each take 16 (D = 80, 128, 256) or 32
+  (D = 64) positions with their own
   running max (exp2 with log2(e) folded in), scores past the length are
   -1e30, p is float32 and P·V takes p_hi = bf16(p) and p_lo = bf16(p -
   p_hi), V exact in bf16, summed in float32 (held also against a
   control that takes p_hi alone); the warps merge at the span's end;
-* the CUDA-core instance (float32, and bf16 at 16 and 32): one running
+* the CUDA-core instance (float32, and bf16 at 8, 16 and 32): one running
   max a tile for each head, p float32 against V cast up.
 
 Tolerances: bfloat16 outputs within 1e-2 of the TPU kernel's
@@ -44,7 +45,12 @@ from repro_torch.kernels.paged_attention.ref import (P_SPLIT_MISMATCH,
 NEG = -1e30
 LOG2E = 1.4426950408889634
 TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
-CONSUMERS = 4
+
+
+def _consumers(D):
+    """Consumer warps of the tensor-core instance (``Tc<D>::kConsumers``):
+    four, two at head_dim 256, whose 16 KB tile is two 16-row slabs."""
+    return 2 if D == 256 else 4
 
 
 def _cdiv(a, b):
@@ -102,7 +108,7 @@ def emulate_paged(q, kp, vp, table, lengths, *, p_terms=2, round_out=True,
         parts = []
         for s in range(ns):
             begin, end = s * sp * PS, min((s + 1) * sp * PS, L)
-            slices = CONSUMERS if tc else 1
+            slices = _consumers(D) if tc else 1
             m = torch.full((slices, Hq, 1), NEG)
             l = torch.zeros(slices, Hq, 1)
             o = torch.zeros(slices, Hq, D)
@@ -175,6 +181,14 @@ CASES = [
     (4, 2, 128, 16, 12, [192, 100, 17, 0], torch.float32, None),
     (16, 8, 128, 128, 4, [512, 130], torch.float32, None),
     (4, 2, 32, 8, 16, [128, 5], torch.bfloat16, None),
+    # the tensor-core instance at stablelm-3b's head_dim 80 (64-position
+    # tiles) and gemma-7b's 256 (32 positions, two warps): pages of 8, 16
+    # and 64 tokens and of 128 (two and four tiles), G 1, 2 and 4, lengths
+    # 0, 1, mid-page, mid-tile
+    (8, 8, 80, 16, 16, [0, 1, 77, 256], torch.bfloat16, None),
+    (8, 2, 80, 64, 8, [512, 65, 1], torch.bfloat16, None),
+    (4, 4, 256, 8, 16, [128, 0, 1, 77], torch.bfloat16, None),
+    (2, 1, 256, 128, 4, [512, 129, 64], torch.bfloat16, None),
 ]
 
 

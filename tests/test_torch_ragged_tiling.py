@@ -7,9 +7,11 @@ the TPU kernels can.  The emulations follow their rounding points:
 
 * ragged prefill's bf16 wgmma instance (``ragged_prefill.cu``,
   ``ragged_wgmma_kernel``): a CTA of 128 packed queries of one head
-  walks only the 128-key tiles whose metadata summary may admit one of
-  its pairs (the kernel's live list, decided from each tile's segment
-  and position range), in order; S = Q·Kᵀ in float32 from bf16
+  walks only the key tiles (128 keys, 64 at head_dim 256) whose metadata
+  summary may admit one of its pairs (the kernel's live list, decided
+  from each tile's segment and position range), in order; at head_dim
+  80 on D = 128's tiles, columns 80..127 zero (TMA's fill) and not
+  stored; S = Q·Kᵀ in float32 from bf16
   products; the mask; the running max once a tile in log2 units; p in
   float32, l summing it; P·V as p_hi·V + p_lo·V with p_hi = bf16(p) and
   p_lo = bf16(p - p_hi), V exact in bf16, summed in float32, held also
@@ -87,18 +89,18 @@ def _summary(seg, pos):
             int(pos[real].min()), int(pos[real].max()))
 
 
-def live_tiles(seg_q, pos_q, seg_k, pos_k, q0, TQ):
-    """The key tiles the CTA of queries [q0, q0 + 128) walks: a tile
-    whose real segments overlap the rows' and whose first position is
-    not past the rows' last."""
+def live_tiles(seg_q, pos_q, seg_k, pos_k, q0, TQ, bk=fr.WGMMA_BK):
+    """The ``bk``-key tiles the CTA of queries [q0, q0 + 128) walks: a
+    tile whose real segments overlap the rows' and whose first position
+    is not past the rows' last."""
     rows = np.arange(q0, q0 + fr.WGMMA_BQ)
     sq = np.where(rows < TQ, seg_q[np.minimum(rows, TQ - 1)], -1)
     pq = np.where(rows < TQ, pos_q[np.minimum(rows, TQ - 1)], 0)
     _, c_smin, c_smax, _, c_pmax = _summary(sq, pq)
     TK = len(seg_k)
     out = []
-    for t in range(-(-TK // fr.WGMMA_BK)):
-        keys = np.arange(t * fr.WGMMA_BK, (t + 1) * fr.WGMMA_BK)
+    for t in range(-(-TK // bk)):
+        keys = np.arange(t * bk, (t + 1) * bk)
         sk = np.where(keys < TK, seg_k[np.minimum(keys, TK - 1)], -1)
         pk = np.where(keys < TK, pos_k[np.minimum(keys, TK - 1)], 0)
         _, smin, smax, pmin, _ = _summary(sk, pk)
@@ -117,20 +119,26 @@ def emulate_ragged_wgmma(q, k, v, seg_q, pos_q, seg_k, pos_k, *,
     Hq, TQ, D = q.shape
     Hkv, TK, _ = k.shape
     G = Hq // Hkv
-    kf = k.float().repeat_interleave(G, 0)
-    vf = v.float().repeat_interleave(G, 0)
+    _, bk = fr.kernel_blocks(fr.RaggedPrefillProblem(1, TK, Hq, Hkv, D,
+                                                     "bf16"))
+    # rows of the kernel's tiles: at head_dim 80 D = 128's, the columns
+    # past 80 TMA's zero fill
+    pad = lambda t: torch.nn.functional.pad(t.float(),
+                                            (0, fr.wgmma_width(D) - D))
+    kf = pad(k).repeat_interleave(G, 0)
+    vf = pad(v).repeat_interleave(G, 0)
     sl2 = D ** -0.5 * LOG2E
     sq, pq = torch.from_numpy(seg_q), torch.from_numpy(pos_q)
     sk, pk = torch.from_numpy(seg_k), torch.from_numpy(pos_k)
     out = torch.zeros(Hq, TQ, D)
     for q0 in range(0, TQ, fr.WGMMA_BQ):
         rows = slice(q0, min(q0 + fr.WGMMA_BQ, TQ))
-        qq = q[:, rows].float()
+        qq = pad(q[:, rows])
         m = torch.full(qq.shape[:-1] + (1,), NEG)
         l = torch.zeros_like(m)
-        o = torch.zeros(qq.shape[:-1] + (D,))
-        for t in live_tiles(seg_q, pos_q, seg_k, pos_k, q0, TQ):
-            keys = slice(t * fr.WGMMA_BK, min((t + 1) * fr.WGMMA_BK, TK))
+        o = torch.zeros(qq.shape)
+        for t in live_tiles(seg_q, pos_q, seg_k, pos_k, q0, TQ, bk):
+            keys = slice(t * bk, min((t + 1) * bk, TK))
             ok = ((sq[rows, None] == sk[None, keys]) & (sq[rows, None] >= 0)
                   & (pk[None, keys] <= pq[rows, None]))
             s = qq @ kf[:, keys].transpose(-1, -2)
@@ -145,7 +153,8 @@ def emulate_ragged_wgmma(q, k, v, seg_q, pos_q, seg_k, pos_k, *,
             if p_terms == 2:
                 o = o + p_lo @ vf[:, keys]
             m = m_new
-        out[:, rows] = o / torch.where(l == 0, torch.ones_like(l), l)
+        out[:, rows] = (o / torch.where(l == 0, torch.ones_like(l),
+                                        l))[..., :D]
     return out.bfloat16() if round_out else out
 
 
@@ -170,6 +179,10 @@ RAGGED = [
     (4, 4, 64, [130, 5, 60], [300, 700, 0], 256),
     (6, 2, 128, [3, 125, 64], [0, 100, 600], 0),
     (8, 1, 64, [64, 64], [768, 128], 128),
+    # stablelm-3b's head_dim 80 (D = 128's tiles, zero-filled past 80)
+    # and gemma-7b's 256 (64-key tiles), G = 1 and 2
+    (4, 4, 80, [130, 5, 60], [300, 700, 0], 256),
+    (2, 1, 256, [40, 64, 7, 100], [0, 30, 200, 64], 64),
 ]
 
 
@@ -238,6 +251,25 @@ def test_the_walk_skips_what_admits_nothing_and_keeps_every_admitted_pair():
         walked += len(tiles)
     n_tiles = -(-TK // fr.WGMMA_BK)
     assert walked < 0.2 * n_tiles * (TQ // fr.WGMMA_BQ)
+
+
+def test_the_walk_at_head_dim_256_takes_64_key_tiles():
+    """At head_dim 256 the kernel's key tiles are 64 keys: the live list
+    over them is exact too, and at the serving tick's packing it walks
+    no more keys than the 128-key list does."""
+    chunks, prefixes = [256] * 7 + [200], [0, 256, 512, 768] * 2
+    _, _, _, sq, pq, sk, pk = _packed(0, chunks, prefixes, 1, 1, 8)
+    prob = fr.RaggedPrefillProblem(8, len(sk), 16, 16, 256, "bf16")
+    assert fr.kernel_blocks(prob) == (128, 64)
+    TQ = len(sq)
+    for q0 in range(0, TQ, fr.WGMMA_BQ):
+        t64 = live_tiles(sq, pq, sk, pk, q0, TQ, 64)
+        t128 = live_tiles(sq, pq, sk, pk, q0, TQ)
+        rows = np.arange(q0, min(q0 + fr.WGMMA_BQ, TQ))
+        ok = ((sq[rows, None] == sk[None, :]) & (sq[rows, None] >= 0)
+              & (pk[None, :] <= pq[rows, None]))
+        assert set(np.nonzero(ok.any(0))[0] // 64) <= set(t64)
+        assert 64 * len(t64) <= 128 * len(t128)
 
 
 def test_p_split_in_two_bf16_terms_keeps_float32_accuracy():

@@ -36,6 +36,13 @@ events with the L2 flushed before each (``chip_smoke.time_ms``):
   8/1 heads x 8192 positions in 128-token pages,
   ``chip_smoke.decode_production_case``): ``paged_production_ms`` and
   ``_device_ms``, null where the tree's wrapper refuses 128-token pages;
+* ``flavours`` — both serving kernels in bf16 at stablelm-3b's heads
+  (32/32 x 80) and gemma-7b's (16/16 x 256), at the shapes of
+  ``ragged`` and ``paged`` (``chip_smoke.FLAVOUR_HEADS``):
+  ``ragged_{stablelm,gemma}_ms``, ``paged_{stablelm,gemma}_ms`` (the
+  whole call) with ``_split_ms`` and ``_combine_ms`` (each launch's
+  device time from ``torch.profiler``), and ``_err`` and ``_share`` as
+  for ``ragged``;
 * ``moe`` — ``grouped_ffn`` at the MoE family's production problem
   (16,384 tokens, top-8 of 32 experts, 7168 x 2048, bf16, the capacity
   rows of ``chip_smoke._moe_inputs``) with ``moe[128x512]+fusedgate``
@@ -245,9 +252,50 @@ def ssd(torch, args) -> dict:
     return out
 
 
+def flavours(torch, args) -> dict:
+    from chip_smoke import (FLAVOUR_HEADS, _decode_case, _prefill_case,
+                            decode_parts_ms, time_ms)
+    from repro_torch.kernels.paged_attention import paged_decode_ref
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        paged_decode
+    from repro_torch.kernels.ragged_prefill import (default_config,
+                                                    ragged_prefill_ref)
+    from repro_torch.kernels.ragged_prefill.ragged_prefill import \
+        ragged_prefill
+    out = {}
+    for name, arch in (("stablelm", "stablelm-3b"), ("gemma", "gemma-7b")):
+        heads = FLAVOUR_HEADS[arch]
+        (q, k, v, sq, pq, sk, pk), _ = _prefill_case(torch, "bfloat16",
+                                                     heads=heads)
+        cfg = default_config(q.shape[1], k.shape[1])
+        call = lambda: ragged_prefill(q, k, v, sq, pq, sk, pk, cfg=cfg)
+        got, want = call(), ragged_prefill_ref(q, k, v, sq, pq, sk, pk)
+        real = sq >= 0
+        out[f"ragged_{name}_err"] = float(
+            (got.float() - want.float()).abs().max())
+        out[f"ragged_{name}_share"] = float(
+            (got[:, real] != want[:, real]).float().mean())
+        out[f"ragged_{name}_ms"] = time_ms(torch, call)
+        del q, k, v, got, want
+        (q, kp, vp, table, lens), _, _, _ = _decode_case(
+            torch, "bfloat16", heads=heads)
+        call = lambda: paged_decode(q, kp, vp, table, lens)
+        got, want = call(), paged_decode_ref(q, kp, vp, table, lens)
+        live = lens > 0
+        out[f"paged_{name}_err"] = float(
+            (got.float() - want.float()).abs().max())
+        out[f"paged_{name}_share"] = float(
+            (got[live] != want[live]).float().mean())
+        out[f"paged_{name}_ms"] = time_ms(torch, call)
+        split, combine = decode_parts_ms(torch, call)
+        out[f"paged_{name}_split_ms"] = split
+        out[f"paged_{name}_combine_ms"] = combine
+    return out
+
+
 MEASUREMENTS = {"decode_split": decode_split, "gemm": gemm,
-                "ragged": ragged, "paged": paged, "moe": moe,
-                "quant": quant, "ssd": ssd}
+                "ragged": ragged, "paged": paged, "flavours": flavours,
+                "moe": moe, "quant": quant, "ssd": ssd}
 
 
 def measure(tree: Path, args) -> dict:
