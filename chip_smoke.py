@@ -11,7 +11,8 @@ is missing or any phase fails.  Phases:
 1. card — name and power limit as ``nvidia-smi`` reports them;
 2. build — the eight CUDA kernels from the repository's sources, one
    ``nvcc`` per source, started together; ptxas's registers, shared
-   memory and spills for each instance, and for the gemm, ragged-prefill,
+   memory and spills for each instance (a spill fails the run), and for
+   the gemm, ragged-prefill,
    grouped-FFN, paged-decode and two flash libraries the HGMMA (wgmma),
    HMMA (mma.sync), UTMALDG (TMA) and UBLKCP (bulk copy) instructions of
    each instance in ``cuobjdump -sass``: gemm, ragged_prefill,
@@ -19,9 +20,12 @@ is missing or any phase fails.  Phases:
    HGMMA and UTMALDG, quant_gemm an int8 wgmma instance, which must show
    IGMMA and UTMALDG, the bf16 decode kernels (flash_decode's, and
    paged_decode's tensor-core instance) HMMA and UTMALDG, and the SSD
-   chunk-state and chunk-scan kernels (f32 and bf16) HMMA (TF32); both
-   serving kernels must have a bf16 tensor-core instance at each
-   full-size head_dim (64, 80, 128, 256: ``SERVING_HEAD_DIMS``);
+   chunk-state and chunk-scan kernels (f32 and bf16) HMMA (TF32); the
+   four attention kernels must have a bf16 tensor-core instance at each
+   tile width (64, 128, 256 columns: ``kernelspec.TILE_WIDTHS``; a
+   head_dim runs in the least width at or above it) showing HGMMA
+   (ragged_prefill, flash_attention's 128-row tile) or HMMA
+   (paged_decode, flash_decode) and UTMALDG;
 3. kernels against their plain PyTorch versions at the serving path's
    shapes (qwen3-1.7b: 16 query heads, 8 KV heads, head_dim 128, page
    size 16), in bfloat16 and float32 (ragged prefill's bf16 case on its
@@ -257,9 +261,24 @@ is missing or any phase fails.  Phases:
    collective bytes by kind, peak GiB a device against the card's 80 GB,
    trace seconds (the other architectures' cells are the dry-run CLI's,
    ``--all --mesh both``); (d) every launch counter of (a)-(c) reads 0;
-17. the kernels line (JSON, all eight kernels; paged_decode's and
+17. geometries — the four attention kernels at the heads of widely
+   served public decoders (``PUBLIC_HEADS``: phi-3-mini 32/32 x 96,
+   starcoder2-15b 48/4 x 128, glm-4-9b 32/2 x 128, falcon-7b 71/1 x 64),
+   bf16 and float32, at phase 3's shapes (``_decode_case``,
+   ``_prefill_case``; flash_attention causal over 2,048 tokens, its
+   default config; flash_decode 8 rows x 8,192 positions, kv_len 8,000,
+   8 splits), paged_decode also at 2-, 24- and 512-token pages and in
+   bf16 at head_dim 8, 16 and 32: each held to its plain version (TOL,
+   or ``flash_error``) with its poisoned positions and a zero length,
+   timed (CUDA events, L2 flushed; the decode kernels' split and
+   combine on the device) beside the bound of its inputs, the family's
+   ``*_sol``, the plain version and a library call where one computes
+   the function, naming the instance that ran; then each wrapper must
+   refuse head_dim 100 and 320 with ValueError and no launch;
+18. the kernels line (JSON, all eight kernels; paged_decode's and
    ragged_prefill's entries list phase 13a's instances with their
-   launches in phase 13's runs), then the final line
+   launches in phase 13's runs, and the four attention kernels phase
+   17's cases under ``geometries``), then the final line
    ``{"ok": true, "device": {...}}``.
 
 Phases 4 and 9 also report the ARGUS gate's verify calls on the serving
@@ -394,12 +413,15 @@ def phase_build():
     instances, the tensor-core and copy instructions of each instance in
     the SASS: HGMMA (wgmma), IGMMA (int8 wgmma), HMMA (mma.sync, TF32
     included), IMMA (int8 mma.sync), UTMALDG (TMA tensor loads), UBLKCP
-    (bulk copies)."""
+    (bulk copies).  A spill in any instance fails the run."""
+    import re
+    from repro_torch.core.kernelspec import TILE_WIDTHS
     from repro_torch.kernels import ALL_KERNELS, build_all
     t0 = time.perf_counter()
     logs = build_all(ALL_KERNELS)
     secs = time.perf_counter() - t0
     log(f"[build] {len(ALL_KERNELS)} kernels in {secs:.1f} s")
+    spills = []
     for name, text in logs.items():
         entry = ""
         for ln in text.splitlines():
@@ -407,6 +429,11 @@ def phase_build():
                 entry = _instance(ln)
             elif "registers" in ln or "spill" in ln or "bytes smem" in ln:
                 log(f"[build] {name}{entry}: {ln.strip()}")
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", ln)
+                if m and (int(m.group(1)) or int(m.group(2))):
+                    spills.append(f"{name}{entry}")
+    check(not spills, f"ptxas spilled registers in {spills}")
     sass = {}
     for k in ALL_KERNELS:
         if k.name not in WGMMA_LIBS + ("flash_decode", "paged_decode",
@@ -436,10 +463,14 @@ def phase_build():
     check(any(i.startswith("paged_decode ") and "tensor cores" in i
               for i in sass), "paged_decode: no tensor-core instance in "
           "its SASS")
-    # the serving kernels' bf16 instances at every full-size head_dim
-    for D in SERVING_HEAD_DIMS:
-        for inst, ops in ((f"ragged_prefill bf16 wgmma D={D}", "HGMMA"),
-                          (f"paged_decode tensor cores bf16 D={D}", "HMMA")):
+    # the bf16 tensor-core instances of the four attention kernels at
+    # each tile width (every head_dim runs in one of them)
+    for W in TILE_WIDTHS:
+        for inst, ops in ((f"ragged_prefill bf16 wgmma W={W}", "HGMMA"),
+                          (f"paged_decode tensor cores bf16 W={W}", "HMMA"),
+                          (f"flash_decode decode bf16 W={W}", "HMMA"),
+                          (f"flash_attention bf16 wgmma W={W} tile=128",
+                           "HGMMA")):
             c = sass.get(inst)
             check(c is not None and c[ops] > 0 and c["UTMALDG"] > 0,
                   f"{inst}: missing, or no {ops} or no TMA load in its "
@@ -452,9 +483,6 @@ def phase_build():
 
 
 SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA", "UTMALDG", "UBLKCP")
-# the full-size head dims of the serving kernels' bf16 tensor-core
-# instances (granite 64, stablelm-3b 80, qwen3 128, gemma-7b 256)
-SERVING_HEAD_DIMS = (64, 80, 128, 256)
 # the libraries with instances on wgmma fed by TMA
 WGMMA_LIBS = ("gemm", "ragged_prefill", "flash_attention", "grouped_ffn",
               "quant_gemm")
@@ -485,38 +513,40 @@ def _sass_counts(lib):
 
 def _instance(ptxas_line):
     """' <type> <template arguments>' for a template instance of the
-    GEMM or flash kernels (from its mangled name), else ''."""
+    GEMM or flash kernels (from its mangled name), else ''.  An attention
+    kernel's instance compiled for head_dim = W ends in " D=W"."""
     import re
+    full = lambda m: " D=W" if m.group(m.lastindex) == "1" else ""
     m = re.search(r"gemm_wgmma_kernelILi(\d+)E", ptxas_line)
     if m:
         return f" bf16 wgmma 128x{m.group(1)}"
-    m = re.search(r"ragged_wgmma_kernelILi(\d+)E", ptxas_line)
+    m = re.search(r"ragged_wgmma_kernelILi(\d+)ELb([01])E", ptxas_line)
     if m:
-        return f" bf16 wgmma D={m.group(1)}"
-    m = re.search(r"ragged_prefill_kernelI(13__nv_bfloat16|f)Li(\d+)E",
-                  ptxas_line)
+        return f" bf16 wgmma W={m.group(1)}{full(m)}"
+    m = re.search(r"ragged_prefill_kernelILi(\d+)ELb([01])E", ptxas_line)
     if m:
-        return f" {'bf16' if m.group(1) != 'f' else 'f32'} D={m.group(2)}"
+        return f" f32 W={m.group(1)}{full(m)}"
     m = re.search(r"gemm_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E",
                   ptxas_line)
     if m:
         dtype = "bf16" if m.group(1) != "f" else "f32"
         return f" {dtype} {m.group(2)}x{m.group(3)}"
-    m = re.search(r"fa_(bf16|f32)_kernelILi(\d+)ELi(\d+)E", ptxas_line)
-    if m:
-        rows = int(m.group(3)) * (16 if m.group(1) == "bf16" else 1)
-        return f" {m.group(1)} D={m.group(2)} tile={rows}"
-    m = re.search(r"fa_wgmma_kernelILi(\d+)ELi(\d+)E", ptxas_line)
-    if m:
-        return f" bf16 wgmma D={m.group(1)} tile={64 * int(m.group(2))}"
-    m = re.search(r"paged_decode_bf16_kernelILi(\d+)E", ptxas_line)
-    if m:
-        return f" tensor cores bf16 D={m.group(1)}"
-    m = re.search(r"paged_decode_f32_kernelI(13__nv_bfloat16|f)Li(\d+)E",
+    m = re.search(r"fa_(bf16|f32)_kernelILi(\d+)ELi(\d+)ELb([01])E",
                   ptxas_line)
     if m:
-        dtype = "bf16" if m.group(1) != "f" else "f32"
-        return f" cuda cores {dtype} D={m.group(2)}"
+        rows = int(m.group(3)) * (16 if m.group(1) == "bf16" else 1)
+        return f" {m.group(1)} W={m.group(2)} tile={rows}{full(m)}"
+    m = re.search(r"fa_wgmma_kernelILi(\d+)ELi(\d+)ELb([01])E", ptxas_line)
+    if m:
+        return (f" bf16 wgmma W={m.group(1)} tile={64 * int(m.group(2))}"
+                f"{full(m)}")
+    m = re.search(r"paged_decode_bf16_kernelILi(\d+)ELb([01])E",
+                  ptxas_line)
+    if m:
+        return f" tensor cores bf16 W={m.group(1)}{full(m)}"
+    m = re.search(r"paged_decode_f32_kernelILi(\d+)ELb([01])E", ptxas_line)
+    if m:
+        return f" cuda cores f32 W={m.group(1)}{full(m)}"
     m = re.search(r"paged_combine_kernelI(13__nv_bfloat16|f)E", ptxas_line)
     if m:
         return f" combine {'bf16' if m.group(1) != 'f' else 'f32'}"
@@ -524,9 +554,11 @@ def _instance(ptxas_line):
     if m:
         launch = "gate/up" if m.group(2) == "1" else "down"
         return f" bf16 wgmma {launch} BM={m.group(1)}"
-    m = re.search(r"decode_(bf16|f32)_kernelI(?:f)?Li(\d+)E", ptxas_line)
+    m = re.search(r"decode_(bf16|f32)_kernelILi(\d+)E(?:Lb([01])E)?",
+                  ptxas_line)
     if m:
-        return f" decode {m.group(1)} D={m.group(2)}"
+        return f" decode {m.group(1)} W={m.group(2)}" + (
+            full(m) if m.group(3) else "")
     m = re.search(r"combine_kernelI(13__nv_bfloat16|f)E", ptxas_line)
     if m:
         return f" combine {'bf16' if m.group(1) != 'f' else 'f32'}"
@@ -558,13 +590,17 @@ QWEN_HEADS = (16, 8, 128)       # (query heads, KV heads, head_dim)
 GRANITE_HEADS = (24, 8, 64)
 
 
-def _decode_case(torch, dtype, seed=0, NP=128,
+def _decode_case(torch, dtype, seed=0, NP=None,
                  lengths=(0, 1, 17, 256, 300, 777, 1040, 2048),
-                 heads=QWEN_HEADS):
+                 heads=QWEN_HEADS, PS=16):
     """Main-path decode shapes: batch 8, 16/8 heads, head_dim 128 (or
-    ``heads``), 16-token pages, 128 pages per sequence (max_len 2048), a
-    768-page pool."""
-    (Hq, Hkv, D), B, PS, P = heads, 8, 16, 768
+    ``heads``), 16-token pages (or ``PS``), 128 pages per sequence
+    (max_len 2048; at other page sizes as many as 2048 tokens take), a
+    768-page pool (at other page sizes the same bytes, or the pages the
+    rows map and 64 more)."""
+    (Hq, Hkv, D), B = heads, 8
+    NP = NP or -(-2048 // PS)
+    P = max(sum(-(-n // PS) for n in lengths) + 64, 768 * 16 // PS)
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
     q = torch.randn(B, Hq, 1, D, generator=g, device="cuda").to(dt)
@@ -595,16 +631,18 @@ def _decode_case(torch, dtype, seed=0, NP=128,
     return (q, kp, vp, table, lens), (kp2, vp2), lengths, (Hq, Hkv, D)
 
 
-def phase_decode_kernel(torch, dtype, heads=QWEN_HEADS):
-    from repro_torch.core.families.paged_attention import instance
+def phase_decode_kernel(torch, dtype, heads=QWEN_HEADS, PS=16):
+    from repro_torch.core.families.paged_attention import (
+        PagedAttentionProblem, instance_name, paged_attention_sol,
+        tensor_cores)
     from repro_torch.kernels.paged_attention import paged_decode_ref
     from repro_torch.kernels.paged_attention.paged_attention import \
         paged_decode
     from repro_torch.kernels.paged_attention.ref import (P_SPLIT_MISMATCH,
                                                          mismatch_share)
     (q, kp, vp, table, lens), (kp2, vp2), lengths, (Hq, Hkv, D) = \
-        _decode_case(torch, dtype, heads=heads)
-    inst = instance(D, q.element_size())
+        _decode_case(torch, dtype, heads=heads, PS=PS)
+    tc = tensor_cores(D, q.element_size())
     got = paged_decode(q, kp, vp, table, lens)
     torch.cuda.synchronize()
     want = paged_decode_ref(q, kp, vp, table, lens)
@@ -613,7 +651,7 @@ def phase_decode_kernel(torch, dtype, heads=QWEN_HEADS):
     check(err <= TOL[dtype], f"paged_decode {dtype}: max |kernel - plain| "
           f"{err} > {TOL[dtype]}")
     share = None
-    if inst == "tensor cores":
+    if tc:
         # p at float32 accuracy (p_hi + p_lo): the bf16 output is the
         # plain version's almost everywhere
         share = mismatch_share(got, want, lens)
@@ -627,27 +665,35 @@ def phase_decode_kernel(torch, dtype, heads=QWEN_HEADS):
     check(torch.equal(got, poisoned), f"paged_decode {dtype}: poisoned "
           "foreign/null/tail pages moved the output")
     call = lambda: paged_decode(q, kp, vp, table, lens)
-    ms = time_ms(torch, call)
-    split_ms, combine_ms = decode_parts_ms(torch, call)
-    plain = time_ms(torch, lambda: paged_decode_ref(q, kp, vp, table, lens))
     elt = q.element_size()
     tokens = sum(lengths)
-    n_bytes = (tokens * Hkv * D * 2 * elt + 2 * q.numel() * elt
+    kv_bytes = tokens * Hkv * D * 2 * elt
+    ms = time_ms(torch, call)
+    split_ms, combine_ms = decode_parts_ms(torch, call, kv_bytes=kv_bytes)
+    plain = time_ms(torch, lambda: paged_decode_ref(q, kp, vp, table, lens))
+    n_bytes = (kv_bytes + 2 * q.numel() * elt
                + table.numel() * 4 + lens.numel() * 4)
     flops = 4 * Hq * D * tokens
     bms, by = bound_ms(n_bytes, flops, dtype)
-    log(f"[kernels] paged_decode {dtype} {Hq}/{Hkv}x{D} on its {inst} "
-        f"instance: max_abs_err {err:.3g} (tol {TOL[dtype]}), outputs "
+    B, NP, P = q.shape[0], table.shape[1], kp.shape[0]
+    sol = paged_attention_sol(PagedAttentionProblem(
+        B, Hq, Hkv, NP * PS, PS, P, D, SHORT[dtype])).time_s * 1e3
+    log(f"[kernels] paged_decode {dtype} {Hq}/{Hkv}x{D}, {PS}-token pages, "
+        f"on its {instance_name(D, elt)} instance: max_abs_err {err:.3g} "
+        f"(tol {TOL[dtype]}), outputs "
         f"differing from the plain version {share} (limit "
         f"{P_SPLIT_MISMATCH} on tensor cores), poisoned run bit-identical; "
         f"{ms:.4f} ms a call (device: split {_ms_or(split_ms)}, combine "
         f"{_ms_or(combine_ms)}), plain {plain:.4f} ms, bound {bms:.4f} ms "
-        f"({by}), library: none")
+        f"({by}; the family's paged_attention_sol over every page of the "
+        f"table {sol:.4f} ms), library: none")
     out = dict(max_abs_err=err, mismatch_share=share, ms=ms,
                decode_parts_ms=dict(split=split_ms, combine=combine_ms),
                plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
-               bytes=n_bytes, flops=flops, heads=list(heads), instance=inst)
-    if heads == QWEN_HEADS:
+               sol_ms=sol, bytes=n_bytes, flops=flops, heads=list(heads),
+               page_size=PS,
+               instance_name=instance_name(D, elt))
+    if heads == QWEN_HEADS and PS == 16:
         out["width_125"] = _decode_width_125(torch, dtype)
         if dtype == "bfloat16":
             out["production"] = _decode_production(torch)
@@ -693,7 +739,7 @@ def _decode_width_125(torch, dtype):
         check(err <= TOL[dtype], f"paged_decode {dtype} at 125 pages, "
               f"{name}: max |kernel - plain| {err} > {TOL[dtype]}")
         res[name] = dict(max_abs_err=err, ms=time_ms(torch, fn))
-    sp = span_pages(B, Hkv, NP, PS, D, elt)
+    sp = span_pages(B, Hkv, NP, PS, D, elt, Hq // Hkv)
     log(f"[kernels] paged_decode {dtype} at 125 pages: {step}-page tiles "
         f"(the last shorter), spans of {sp} pages "
         f"{res['spans']['ms']:.4f} ms, the whole row in one span "
@@ -732,7 +778,7 @@ def _decode_production(torch):
     config, 8 spans) on the same positions gathered into a dense cache:
     the same bytes, read without a table."""
     from repro_torch.core.families.flash_decode import FlashDecodeConfig
-    from repro_torch.core.families.paged_attention import (instance,
+    from repro_torch.core.families.paged_attention import (instance_name,
                                                            n_spans)
     from repro_torch.kernels.flash_attention import mha_decode
     from repro_torch.kernels.paged_attention import (gather_cache,
@@ -753,8 +799,9 @@ def _decode_production(torch):
     share = mismatch_share(got, want, lens)
     check(share <= P_SPLIT_MISMATCH, f"paged_decode at the production "
           f"problem: {share} of the outputs differ from the plain version")
+    kv_bytes = 2 * B * Hkv * S * D * 2
     ms = time_ms(torch, call)
-    split_ms, combine_ms = decode_parts_ms(torch, call)
+    split_ms, combine_ms = decode_parts_ms(torch, call, kv_bytes=kv_bytes)
     plain = time_ms(torch, lambda: paged_decode_ref(q, kp, vp, table, lens),
                     iters=5, warmup=1)
     kd, vd = gather_cache(kp, table), gather_cache(vp, table)
@@ -762,15 +809,16 @@ def _decode_production(torch):
     dense = lambda: mha_decode(q, kd, vd, kv_len,
                                cfg=FlashDecodeConfig(kv_splits=8))
     dense_ms = time_ms(torch, dense)
-    dense_split, dense_combine = decode_parts_ms(torch, dense)
-    n_bytes = (2 * B * Hkv * S * D * 2 + 2 * q.numel() * 2
+    dense_split, dense_combine = decode_parts_ms(torch, dense,
+                                                 kv_bytes=kv_bytes)
+    n_bytes = (kv_bytes + 2 * q.numel() * 2
                + table.numel() * 4 + lens.numel() * 4)
     flops = 4 * Hq * D * S * B
     bms, by = bound_ms(n_bytes, flops, "bfloat16")
     ns = n_spans(prob)
     log(f"[kernels] paged_decode at the family's production problem ({B} "
         f"x {Hq}/{Hkv} x {S}, {PS}-token pages, pool {P}, bf16) on its "
-        f"{instance(D, 2)} instance, {ns} spans a row: max_abs_err "
+        f"{instance_name(D, 2)} instance, {ns} spans a row: max_abs_err "
         f"{err:.3g}, outputs differing from the plain version {share:.4f}; "
         f"{ms:.4f} ms a call (device: split {_ms_or(split_ms)}, combine "
         f"{_ms_or(combine_ms)}), plain {plain:.4f} ms, bound {bms:.4f} ms "
@@ -830,14 +878,14 @@ def phase_prefill_kernel(torch, dtype, heads=QWEN_HEADS):
                                                         admit_mask,
                                                         mismatch_share)
     from repro_torch.core.families.ragged_prefill import (
-        RaggedPrefillProblem, is_wgmma)
+        RaggedPrefillProblem, instance_name, is_wgmma, ragged_prefill_sol)
     (q, k, v, sq, pq, sk, pk), pairs = _prefill_case(torch, dtype,
                                                      heads=heads)
     Hq, TQ, D = q.shape
     Hkv, TK, _ = k.shape
     cfg = default_config(TQ, TK)
-    inst = ("wgmma" if is_wgmma(RaggedPrefillProblem(
-        8, TK, Hq, Hkv, D, SHORT[dtype])) else "cuda cores")
+    prob = RaggedPrefillProblem(8, TK, Hq, Hkv, D, SHORT[dtype])
+    wg = is_wgmma(prob)
     got = ragged_prefill(q, k, v, sq, pq, sk, pk, cfg=cfg)
     torch.cuda.synchronize()
     want = ragged_prefill_ref(q, k, v, sq, pq, sk, pk)
@@ -846,7 +894,7 @@ def phase_prefill_kernel(torch, dtype, heads=QWEN_HEADS):
     check(err <= TOL[dtype], f"ragged_prefill {dtype}: max |kernel - "
           f"plain| {err} > {TOL[dtype]}")
     share = None
-    if inst == "wgmma":
+    if wg:
         # p at float32 accuracy (p_hi + p_lo): the bf16 output is the
         # plain version's almost everywhere; p rounded alone moves ~37%
         share = mismatch_share(got, want, sq)
@@ -881,19 +929,22 @@ def phase_prefill_kernel(torch, dtype, heads=QWEN_HEADS):
                + 4 * 2 * (TQ + TK))
     flops = 4 * Hq * D * pairs
     bms, by = bound_ms(n_bytes, flops, dtype)
-    log(f"[kernels] ragged_prefill {dtype} {Hq}/{Hkv}x{D} on its {inst} "
-        f"instance: TQ {TQ}, TK {TK}, {pairs} "
+    sol = ragged_prefill_sol(prob).time_s * 1e3
+    log(f"[kernels] ragged_prefill {dtype} {Hq}/{Hkv}x{D} on its "
+        f"{instance_name(prob)} instance: TQ {TQ}, TK {TK}, {pairs} "
         f"admitted pairs per head; max_abs_err {err:.3g} (tol "
         f"{TOL[dtype]}), outputs differing from the plain version "
         f"{share} (limit {P_SPLIT_MISMATCH} on wgmma), poisoned segment "
         f"bit-identical; {ms:.4f} ms "
         f"(back to back {dev:.4f}), plain {plain:.4f} ms, bound {bms:.4f} "
-        f"ms ({by}), library (sdpa, masked, enable_gqa) {lib:.4f} ms (back "
-        f"to back {lib_dev:.4f})")
+        f"ms ({by}; the family's ragged_prefill_sol {sol:.4f} ms), library "
+        f"(sdpa, masked, enable_gqa) {lib:.4f} ms (back to back "
+        f"{lib_dev:.4f})")
     return dict(max_abs_err=err, mismatch_share=share, ms=ms,
-                plain_ms=plain, bound_ms=bms,
+                plain_ms=plain, bound_ms=bms, sol_ms=sol,
                 bound_by=by, library_ms=lib, bytes=n_bytes, flops=flops,
-                TQ=TQ, TK=TK, pairs=pairs, heads=list(heads), instance=inst,
+                TQ=TQ, TK=TK, pairs=pairs, heads=list(heads),
+                instance_name=instance_name(prob),
                 back_to_back_ms=dev, library_back_to_back_ms=lib_dev)
 
 
@@ -1738,7 +1789,8 @@ def phase_flash_time(torch, family, best_cfg):
                          warmup=1 if slow else 3)
             parts = ""
             if family == "flash_decode":
-                k_ms, c_ms = decode_parts_ms(torch, run(cfg))
+                k_ms, c_ms = decode_parts_ms(
+                    torch, run(cfg), kv_bytes=(k.numel() + v.numel()) * elt)
                 parts = (f" (device: split kernel {_ms_or(k_ms)}, combine "
                          f"{_ms_or(c_ms)}; the rest host time)")
             est = fam.cost(cfg, prob).time_s * 1e3
@@ -1767,15 +1819,28 @@ def phase_flash_time(torch, family, best_cfg):
     return rows
 
 
-def device_parts_ms(torch, call, part_of, n=20, per_launch=False):
+# the kernel of the L2 flush before each call of a flushed profiled window
+# (a fill of bytes, which no kernel under test launches)
+FLUSH_KERNEL = "FillFunctor<unsigned char>"
+# a decode split read faster than HBM's peak by more than this share, with
+# the L2 flushed before each call, was mismeasured
+SPLIT_NOISE = 0.1
+
+
+def device_parts_ms(torch, call, part_of, n=20, per_launch=False,
+                    flush=False):
     """Device time per call of ``call``, from ``torch.profiler`` over
     ``n`` calls, summed by ``part_of(kernel name)`` (a part's name, or
-    None to leave the kernel out).  No L2 flush between the calls.  With
-    ``per_launch`` (each part one kernel launched once a call) a part's
-    time is its mean over the launches the profiler recorded: in a
-    process that has profiled many windows the profiler can drop
-    events, which would shrink a sum over ``n``."""
+    None to leave the kernel out).  With ``per_launch`` (each kernel
+    launched once a call) a part's time is the sum over its kernels of
+    each one's mean over the launches the profiler recorded: in a process
+    that has profiled many windows the profiler can drop events, which
+    would shrink a sum over ``n``.  With ``flush`` the L2 is flushed
+    before each call, as ``time_ms`` does (the flush's kernel left out);
+    else nothing is flushed between the calls."""
     from torch.profiler import ProfilerActivity, profile
+    buf = (torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+           if flush else None)
     call()
     torch.cuda.synchronize()
     # a profiled window now and then comes back without device events;
@@ -1784,46 +1849,61 @@ def device_parts_ms(torch, call, part_of, n=20, per_launch=False):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
+                if flush:
+                    buf.zero_()
                 call()
             torch.cuda.synchronize()
-        parts, counts = {}, {}
+        parts, flushes = {}, 0
         for e in prof.key_averages():
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = getattr(e, "self_cuda_time_total", 0)
-            part = part_of(e.key)
-            if not us or part is None or "cuda" not in str(
+            if not us or "cuda" not in str(
                     getattr(e, "device_type", "")).lower():
                 continue
-            parts[part] = parts.get(part, 0.0) + us / 1e3
-            counts[part] = counts.get(part, 0) + e.count
+            if flush and FLUSH_KERNEL in e.key:
+                flushes += e.count
+                continue
+            part = part_of(e.key)
+            if part is None:
+                continue
+            parts[part] = parts.get(part, 0.0) + us / 1e3 / (
+                e.count if per_launch else n)
         if parts:
-            break
-    else:
-        # the profiler can stop recording device events for the rest of a
-        # long process: the call's time (CUDA events) stands, its
-        # breakdown is not measured
-        log("[profiler] three windows without device events: the "
-            "breakdown by kernel is not measured")
-        return {}
-    return {k: v / (counts[k] if per_launch else n)
-            for k, v in parts.items()}
+            check(not flush or flushes, "the profiler saw no L2 flush "
+                  f"kernel ({FLUSH_KERNEL}) in a flushed window")
+            return parts
+    # the profiler can stop recording device events for the rest of a
+    # long process: the call's time (CUDA events) stands, its breakdown
+    # is not measured
+    log("[profiler] three windows without device events: the breakdown "
+        "by kernel is not measured")
+    return {}
 
 
-def decode_parts_ms(torch, call, n=20):
+def decode_parts_ms(torch, call, n=20, kv_bytes=None):
     """Device time per call of a split decode (``mha_decode`` or
-    ``paged_decode``, ``call``): the split kernel (the kernels whose name
-    holds ``decode_``) and the merge of the spans' partials (every other
-    kernel: the combine kernel, or the tensor ops that an older wrapper
-    ran after its kernel).  The cache they stream (134 MB at the
-    families' production problems) is larger than the L2.  (None, None)
-    where the profiler recorded no device event."""
+    ``paged_decode``, ``call``), the L2 flushed before each call: the
+    split kernel (the kernel whose name holds ``decode_``) and the merge
+    of the spans' partials (every other kernel: the combine kernel, or
+    the tensor ops that an older wrapper ran after its kernel), each
+    kernel's mean over its launches (each launches once a call).  With
+    ``kv_bytes`` (the K and V bytes the split must read) a split faster
+    than HBM's peak allows for them, beyond ``SPLIT_NOISE``, fails the
+    run.  (None, None) where the profiler recorded no device event."""
     parts = device_parts_ms(
-        torch, call, lambda k: "split" if "decode_" in k else "merge", n)
+        torch, call, lambda k: "split" if "decode_" in k else "merge", n,
+        per_launch=True, flush=True)
     if not parts:
         return None, None
     check(parts.get("split", 0.0) > 0,
           "the profiler saw no decode kernel on the card")
+    if kv_bytes:
+        floor = kv_bytes / HBM_BYTES_PER_S * 1e3
+        check(parts["split"] >= (1 - SPLIT_NOISE) * floor,
+              f"a decode split read {kv_bytes} bytes in "
+              f"{parts['split']:.4f} ms, faster than HBM's peak allows "
+              f"({floor:.4f} ms) with the L2 flushed: mismeasured")
     return parts["split"], parts.get("merge", 0.0)
 
 
@@ -4190,6 +4270,238 @@ def phase_dist(torch):
 
 # -- main --------------------------------------------------------------------
 
+# -- phase 17 ----------------------------------------------------------------
+
+# the query and KV heads x head_dim of widely served public decoders that
+# the attention kernels take since they read head_dim and the group at
+# run time: head_dim 96, and groups 12, 16 and 71 (multi-query)
+PUBLIC_HEADS = {"phi-3-mini": (32, 32, 96), "starcoder2-15b": (48, 4, 128),
+                "glm-4-9b": (32, 2, 128), "falcon-7b": (71, 1, 64)}
+# paged decode also at pages of 2, 24 and 512 tokens (qwen3's heads), and
+# bf16 at head_dim 8, 16 and 32 (the reduced configurations' widths)
+PAGE_SIZES = (2, 24, 512)
+SMALL_HEAD_DIMS = (8, 16, 32)
+# the head dims every wrapper refuses: rows off the 16-byte grain in bf16,
+# and above 256
+REFUSED_HEAD_DIMS = (100, 320)
+FA_GEOMETRY = dict(B=1, S=2048)            # causal prefill, Sq = Skv
+FD_GEOMETRY = dict(B=8, S=8192, kv_len=8000, kv_splits=8)
+
+
+def _flash_prefill_geometry(torch, dtype, heads):
+    """flash_attention at ``heads`` over FA_GEOMETRY, causal, its default
+    config: held to the plain version within ``flash_error``, the rows
+    before a poisoned second half of the keys bit-identical, timed beside
+    the bound, the family's sol, the plain version and one SDPA call."""
+    import torch.nn.functional as F
+    from repro_torch.core.families.flash_attention import (
+        FlashAttentionProblem, cta_tile, flash_attention_sol, instance_name)
+    from repro_torch.kernels.flash_attention import (KERNEL, default_config,
+                                                     flash_error, mha,
+                                                     mha_ref)
+    Hq, Hkv, D = heads
+    B, S = FA_GEOMETRY["B"], FA_GEOMETRY["S"]
+    q, k, v = _fa_inputs(torch, B, Hq, Hkv, S, S, D, dtype, 17)
+    prob = FlashAttentionProblem(B, Hq, Hkv, S, S, D, True, SHORT[dtype])
+    cfg = default_config(S, S, D)
+    n0 = KERNEL.launches
+    got = mha(q, k, v, cfg=cfg, causal=True)
+    torch.cuda.synchronize()
+    check(KERNEL.launches == n0 + 1, f"flash_attention {heads}: no launch")
+    want = mha_ref(q, k, v, causal=True)
+    err, row, ok = flash_error(got, want)
+    check(ok, f"flash_attention {dtype} {heads}: max |kernel - plain| "
+          f"{err}, worst row {row}: beyond the tolerance")
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, S // 2:] = POISON
+    v2[:, :, S // 2:] = POISON
+    poisoned = mha(q, k2, v2, cfg=cfg, causal=True)
+    torch.cuda.synchronize()
+    check(torch.equal(got[:, :, :S // 2], poisoned[:, :, :S // 2]),
+          f"flash_attention {dtype} {heads}: keys after the rows moved them")
+    ms = time_ms(torch, lambda: mha(q, k, v, cfg=cfg, causal=True))
+    plain = time_ms(torch, lambda: mha_ref(q, k, v, causal=True), iters=3,
+                    warmup=1)
+    # one SDPA call, on whichever backend PyTorch picks (no fused one
+    # takes float32 with grouped heads)
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), iters=10)
+    elt = q.element_size()
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * elt
+    flops = 4.0 * B * Hq * _causal_pairs(S, S, True) * D
+    bms, by = bound_ms(n_bytes, flops, dtype)
+    sol = flash_attention_sol(prob).time_s * 1e3
+    inst = instance_name(cta_tile(min(cfg.block_q, S)), D, SHORT[dtype])
+    return dict(max_abs_err=err, row_err=row, ms=ms, plain_ms=plain,
+                bound_ms=bms, bound_by=by, sol_ms=sol, library_ms=lib,
+                instance_name=inst, cfg=cfg.name(),
+                launches=KERNEL.launches - n0)
+
+
+def _flash_decode_geometry(torch, dtype, heads):
+    """flash_decode at ``heads`` over FD_GEOMETRY: held to the plain
+    version, zeros at kv_len 0, positions past kv_len poisoned leave it
+    bit-identical, timed beside the bound, the family's sol, the plain
+    version and one SDPA call on the valid positions."""
+    import torch.nn.functional as F
+    from repro_torch.core.families.flash_decode import (
+        FlashDecodeConfig, FlashDecodeProblem, flash_decode_sol,
+        instance_name)
+    from repro_torch.kernels.flash_attention import (DECODE_KERNEL,
+                                                     flash_error, mha_decode,
+                                                     mha_ref)
+    Hq, Hkv, D = heads
+    B, S, L = FD_GEOMETRY["B"], FD_GEOMETRY["S"], FD_GEOMETRY["kv_len"]
+    q, k, v = _fa_inputs(torch, B, Hq, Hkv, 1, S, D, dtype, 18)
+    cfg = FlashDecodeConfig(FD_GEOMETRY["kv_splits"])
+    kl = torch.tensor(L, dtype=torch.int32, device="cuda")
+    n0 = DECODE_KERNEL.launches
+    call = lambda: mha_decode(q, k, v, kl, cfg=cfg)
+    got = call()
+    torch.cuda.synchronize()
+    want = mha_ref(q, k, v, causal=False, kv_len=L)
+    err, row, ok = flash_error(got, want)
+    check(ok, f"flash_decode {dtype} {heads}: max |kernel - plain| {err}, "
+          f"worst row {row}: beyond the tolerance")
+    zero = mha_decode(q, k, v, torch.zeros_like(kl), cfg=cfg)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, L:] = POISON
+    v2[:, :, L:] = POISON
+    poisoned = mha_decode(q, k2, v2, kl, cfg=cfg)
+    torch.cuda.synchronize()
+    check(not zero.any(), f"flash_decode {dtype} {heads}: kv_len 0 must "
+          "give zeros")
+    check(torch.equal(got, poisoned), f"flash_decode {dtype} {heads}: "
+          "positions past kv_len moved the output")
+    launches = DECODE_KERNEL.launches - n0
+    elt = q.element_size()
+    kv_bytes = 2 * B * Hkv * L * D * elt
+    ms = time_ms(torch, call)
+    split_ms, combine_ms = decode_parts_ms(torch, call, kv_bytes=kv_bytes)
+    plain = time_ms(torch, lambda: mha_ref(q, k, v, causal=False,
+                                           kv_len=L), iters=5, warmup=1)
+    kv, vv = k[:, :, :L], v[:, :, :L]
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, kv, vv, enable_gqa=True), iters=10)
+    n_bytes = kv_bytes + 2 * q.numel() * elt
+    bms, by = bound_ms(n_bytes, 4.0 * B * Hq * L * D, dtype)
+    sol = flash_decode_sol(FlashDecodeProblem(
+        B, Hq, Hkv, S, D, SHORT[dtype])).time_s * 1e3
+    return dict(max_abs_err=err, row_err=row, ms=ms, plain_ms=plain,
+                decode_parts_ms=dict(split=split_ms, combine=combine_ms),
+                bound_ms=bms, bound_by=by, sol_ms=sol, library_ms=lib,
+                instance_name=instance_name(D, elt), cfg=cfg.name(),
+                launches=launches)
+
+
+def _refusals(torch):
+    """Each of the four wrappers refuses head_dim 100 and 320 on the card
+    with ValueError, none of their launch counters moving."""
+    from repro_torch.kernels.flash_attention import DECODE_KERNEL
+    from repro_torch.kernels.flash_attention import KERNEL as FA
+    from repro_torch.kernels.flash_attention.decode import flash_decode
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    from repro_torch.kernels.paged_attention import KERNEL as PD
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        paged_decode
+    from repro_torch.kernels.ragged_prefill import KERNEL as RP
+    from repro_torch.kernels.ragged_prefill.ragged_prefill import \
+        ragged_prefill
+    kernels = (PD, RP, FA, DECODE_KERNEL)
+    before = [k.launches for k in kernels]
+    refused = []
+    for D in REFUSED_HEAD_DIMS:
+        z = lambda *shape: torch.zeros(*shape, device="cuda",
+                                       dtype=torch.bfloat16)
+        i32 = lambda *shape: torch.zeros(*shape, device="cuda",
+                                         dtype=torch.int32)
+        calls = {
+            "paged_decode": lambda: paged_decode(
+                z(2, 8, 1, D), z(4, 2, 16, D), z(4, 2, 16, D), i32(2, 2),
+                i32(2)),
+            "ragged_prefill": lambda: ragged_prefill(
+                z(8, 128, D), z(2, 128, D), z(2, 128, D), i32(128),
+                i32(128), i32(128), i32(128)),
+            "flash_attention": lambda: flash_attention(
+                z(1, 8, 64, D), z(1, 2, 64, D), z(1, 2, 64, D)),
+            "flash_decode": lambda: flash_decode(
+                z(1, 8, 1, D), z(1, 2, 64, D), z(1, 2, 64, D), 64)}
+        for name, fn in calls.items():
+            try:
+                fn()
+            except ValueError as e:
+                check("head_dim" in str(e), f"{name} at head_dim {D}: {e}")
+                refused.append((name, D))
+                continue
+            check(False, f"{name} took head_dim {D}")
+    check([k.launches for k in kernels] == before,
+          "a refused head_dim launched a kernel")
+    log(f"[geometries] every wrapper refuses head_dim "
+        f"{', '.join(map(str, REFUSED_HEAD_DIMS))} with no launch")
+    return [f"{n} D={d}" for n, d in refused]
+
+
+def phase_geometries(torch):
+    """The four attention kernels at the public geometries
+    (PUBLIC_HEADS), bf16 and float32, each held to its plain version
+    within TOL (the flash pair within ``flash_error``) with its poisoned
+    positions and its zero-length row, timed (CUDA events, L2 flushed)
+    beside the bound of this run's inputs, the family's ``*_sol`` and a
+    library call where one computes the function, naming the instance
+    that ran; paged decode also at 2-, 24- and 512-token pages and in
+    bf16 at head_dim 8, 16 and 32; then each wrapper's refusal of
+    head_dim 100 and 320."""
+    from repro_torch.kernels.flash_attention import DECODE_KERNEL
+    from repro_torch.kernels.flash_attention import KERNEL as FA
+    from repro_torch.kernels.paged_attention import KERNEL as PD
+    from repro_torch.kernels.ragged_prefill import KERNEL as RP
+    out = {n: [] for n in ("paged_decode", "ragged_prefill",
+                           "flash_attention", "flash_decode")}
+
+    def add(name, counter, tag, dtype, heads, fn, **kw):
+        n0 = counter.launches
+        r = fn()
+        r.update(kw, arch=tag, dtype=dtype, heads=list(heads),
+                 launches=counter.launches - n0)
+        out[name].append(r)
+        log(f"[geometries] {name} {tag} {SHORT[dtype]} "
+            f"{heads[0]}/{heads[1]}x{heads[2]}"
+            + (f" ps{kw['page_size']}" if "page_size" in kw else "")
+            + f" on {r['instance_name']}: err {r['max_abs_err']:.3g}, "
+            f"{r['ms']:.4f} ms"
+            + (f" (device: split {_ms_or(r['decode_parts_ms']['split'])}, "
+               f"combine {_ms_or(r['decode_parts_ms']['combine'])})"
+               if "decode_parts_ms" in r else "")
+            + f", bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), sol {r['sol_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library "
+            + (f"{r['library_ms']:.4f} ms" if r["library_ms"] else "none"))
+
+    for tag, heads in PUBLIC_HEADS.items():
+        for dtype in ("bfloat16", "float32"):
+            add("paged_decode", PD, tag, dtype, heads,
+                lambda: phase_decode_kernel(torch, dtype, heads=heads),
+                page_size=16)
+            add("ragged_prefill", RP, tag, dtype, heads,
+                lambda: phase_prefill_kernel(torch, dtype, heads=heads))
+            add("flash_attention", FA, tag, dtype, heads,
+                lambda: _flash_prefill_geometry(torch, dtype, heads))
+            add("flash_decode", DECODE_KERNEL, tag, dtype, heads,
+                lambda: _flash_decode_geometry(torch, dtype, heads))
+    for PS in PAGE_SIZES:
+        for dtype in ("bfloat16", "float32"):
+            add("paged_decode", PD, "qwen3-1.7b", dtype, QWEN_HEADS,
+                lambda: phase_decode_kernel(torch, dtype, PS=PS),
+                page_size=PS)
+    for D in SMALL_HEAD_DIMS:
+        heads = (QWEN_HEADS[0], QWEN_HEADS[1], D)
+        add("paged_decode", PD, "qwen3-1.7b", "bfloat16", heads,
+            lambda: phase_decode_kernel(torch, "bfloat16", heads=heads),
+            page_size=16)
+    return dict(cases=out, refused=_refusals(torch))
+
+
 def main():
     if not (SRC / "repro_torch" / "__init__.py").exists():
         print("chip_smoke: src/repro_torch not found beside this script; "
@@ -4232,6 +4544,7 @@ def main():
         summary["hybrid_encdec"] = phase_hybrid_encdec(torch)
         summary["train"] = phase_train(torch)
         summary["dist"] = phase_dist(torch)
+        summary["geometries"] = geo = phase_geometries(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4252,12 +4565,12 @@ def main():
             launches=serve["launches"][name], max_abs_err=k["max_abs_err"],
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"],
-            ported=True, dtype="bfloat16", instance=k.get("instance")))
+            ported=True, dtype="bfloat16", instance=k["instance_name"]))
         # the other architectures' instances (phase 13a), and the
         # kernel's launches in each of their serving runs (13b-c)
         line[-1]["instances"] = [dict(
             arch=arch, dtype=dtype, heads=v["heads"],
-            instance=v["instance"], max_abs_err=v["max_abs_err"],
+            instance=v["instance_name"], max_abs_err=v["max_abs_err"],
             ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
             bound_by=v["bound_by"], library_ms=v["library_ms"],
             launches=flav["serve"][arch]["launches"][name])
@@ -4366,6 +4679,19 @@ def main():
             bound_ms=ssd["mamba2"]["layer"]["bound_ms"],
             max_abs_err=ssd["mamba2"]["layer"]["max_abs_err"])))
     check(len(line) == 8, f"the kernels line lists {len(line)} kernels")
+    # the attention kernels' instances at the public geometries, the page
+    # sizes and the small head dims (phase 17), each case's launches its
+    # own (no serving run reaches these geometries); the family's sol, a
+    # cost model's figure, stays in the log
+    keys = ("arch", "dtype", "heads", "page_size", "instance_name",
+            "max_abs_err", "ms", "decode_parts_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "launches")
+    for entry in line:
+        if entry["name"] in geo["cases"]:
+            entry["geometries"] = [{k: c[k] for k in keys if k in c}
+                                   for c in geo["cases"][entry["name"]]]
+            entry["refused"] = [r for r in geo["refused"]
+                                if r.startswith(entry["name"] + " ")]
     summary["kernels_line"] = line
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

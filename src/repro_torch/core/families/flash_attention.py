@@ -34,9 +34,10 @@ from typing import Optional
 from .. import dsl
 from ..costs import (CostEstimate, HBM_BW, L2_BW, MMA_SYNC_DERATE,
                      peak_flops, sol_estimate, wave_eff)
-from ..kernelspec import (DTYPE_BYTES, StructuralIssue, cdiv,
+from ..kernelspec import (DTYPE_BYTES, MAX_HEAD_DIM, StructuralIssue, cdiv,
                           check_cta_split, check_smem,
-                          check_vector_alignment, ctas_per_sm)
+                          check_vector_alignment, ctas_per_sm, head_dim_ok,
+                          tile_width)
 from ..tags import make_tag
 from .base import (BugSignature, KernelFamily, Skill, generic_skill,
                    reference_setup, register)
@@ -184,7 +185,6 @@ def build_flash_attention_program(cfg: FlashAttentionConfig,
 # -- the CUDA kernel's decomposition -----------------------------------------
 
 CTA_TILES = (128, 64, 32, 16)  # query rows per CTA (compiled instances)
-HEAD_DIMS = (64, 128)          # head dims the kernel is compiled for
 WGMMA_TILES = (128, 64)        # bf16 tiles on wgmma: 64 rows a warpgroup
 KEY_TILE = 128                 # keys per TMA tile of the wgmma instances
 STAGES = 2                     # K/V ring depth of the wgmma instances
@@ -203,25 +203,39 @@ def is_wgmma(tile: int, dtype: str) -> bool:
     return dtype != "f32" and tile in WGMMA_TILES
 
 
-def key_tile(tile: int, dtype: str) -> int:
-    """Keys per step of a CTA's walk (its running max's unit)."""
-    return KEY_TILE if is_wgmma(tile, dtype) else CHUNK.get(dtype, 64)
+def instance_name(tile: int, head_dim: int, dtype: str) -> str:
+    """The instance that runs: its design, CTA rows and width, e.g.
+    "wgmma 128 rows W=128", "mma.sync 16 rows W=64", "fma 64 rows W=256"."""
+    kind = ("fma" if dtype == "f32" else
+            "wgmma" if is_wgmma(tile, dtype) else "mma.sync")
+    return f"{kind} {tile} rows W={tile_width(head_dim)}"
+
+
+def key_tile(tile: int, dtype: str, head_dim: int = 128) -> int:
+    """Keys per step of a CTA's walk (its running max's unit): 128 on the
+    wgmma tiles (64 at width 256), else the chunk."""
+    if is_wgmma(tile, dtype):
+        return KEY_TILE // 2 if tile_width(head_dim) == 256 else KEY_TILE
+    return CHUNK.get(dtype, 64)
 
 
 def smem_bytes(tile: int, head_dim: int, dtype: str) -> int:
     """Shared memory of one CTA (the kernel's layout): bf16 wgmma — 1024
-    bytes of alignment slack, the Q tile and a two-stage ring of 128-key
-    K and V tiles (128-byte swizzle, no padding) and the mbarriers; bf16
-    mma.sync — the Q tile and two buffers each of a 64-key K and V chunk,
-    rows padded by 16 bytes; f32 — Q, one 32-key K and V chunk and the
-    weights, rows padded by one word."""
+    bytes of alignment slack, the Q tile and a two-stage ring of K and V
+    tiles (128-byte swizzle, rows of the width, no padding) and the
+    mbarriers; bf16 mma.sync — the Q tile and two buffers each of a
+    64-key K and V chunk, rows of the width padded by 16 bytes; f32 — Q,
+    one 32-key K and V chunk and the weights, rows of the width padded by
+    one word."""
+    w = tile_width(head_dim)
     if dtype == "f32":
         kc = CHUNK["f32"]
-        return ((tile + 2 * kc) * (head_dim + 1) + tile * (kc + 1)) * 4
+        return ((tile + 2 * kc) * (w + 1) + tile * (kc + 1)) * 4
     if is_wgmma(tile, dtype):
-        return (1024 + tile * head_dim * 2
-                + 2 * STAGES * KEY_TILE * head_dim * 2 + 8 * (1 + 4 * STAGES))
-    return (tile + 4 * CHUNK["bf16"]) * (head_dim + 8) * 2
+        kt = key_tile(tile, dtype, head_dim)
+        return (1024 + tile * w * 2 + 2 * STAGES * kt * w * 2
+                + 8 * (1 + 4 * STAGES))
+    return (tile + 4 * CHUNK["bf16"]) * (w + 8) * 2
 
 
 def threads(tile: int, dtype: str) -> int:
@@ -238,30 +252,32 @@ def threads(tile: int, dtype: str) -> int:
 def _regs(tile: int, head_dim: int, dtype: str) -> int:
     """Registers per thread (model): wgmma — the CTA's mean after
     setmaxnreg (consumers 232, the producer warpgroup 40); otherwise the
-    accumulator, the score chunk and Q's fragments (bf16), plus 40 beside
-    them."""
+    accumulator at the width and the score chunk (bf16; Q's fragments
+    are read from shared memory at each k-step), plus 40 beside them."""
+    w = tile_width(head_dim)
     if dtype == "f32":
-        return 4 * head_dim // 16 + 8 + 40
+        return 4 * w // 16 + 8 + 40
     if is_wgmma(tile, dtype):
         n_c = tile // 64
         return (n_c * CONSUMER_REGS + PRODUCER_REGS) // (n_c + 1)
-    return head_dim // 2 + CHUNK["bf16"] // 2 + head_dim // 4 + 40
+    return w // 2 + CHUNK["bf16"] // 2 + 40
 
 
 def structural_flash_attention(cfg: FlashAttentionConfig,
                                prob: FlashAttentionProblem):
-    """Hopper model of ``flash_attention.cu``: a head_dim it is not
-    compiled for, its shared memory per CTA, a block_q off the CTA tile
+    """Hopper model of ``flash_attention.cu``: a head_dim it does not
+    take, its shared memory per CTA, a block_q off the CTA tile
     (masked rows) or beyond it (several CTAs), rows that are not 16-byte
     aligned for the copies, and the two semantic masking checks of the
     JAX family."""
     D = prob.head_dim
     tile = cta_tile(cfg.block_q)
     issues = []
-    if D not in HEAD_DIMS:
+    if not head_dim_ok(D, DTYPE_BYTES.get(prob.dtype, 2)):
         issues.append(StructuralIssue(
-            "unsupported", f"the kernel takes head_dim in {HEAD_DIMS}, "
-                           f"not {D}"))
+            "unsupported", f"the kernel takes head_dim up to {MAX_HEAD_DIM} "
+                           f"in rows of whole 16-byte vectors, not {D} in "
+                           f"{prob.dtype}"))
     issues += check_smem("CTA", smem_bytes(tile, D, prob.dtype))
     if cfg.block_q % tile:
         issues.append(StructuralIssue(

@@ -27,10 +27,11 @@ from dataclasses import dataclass
 from typing import Optional
 
 from .. import dsl
-from ..costs import (CostEstimate, HBM_BW, PEAK_FLOPS, sol_estimate,
+from ..costs import (CostEstimate, HBM_BW, L2_BW, PEAK_FLOPS, sol_estimate,
                      stream_eff, wave_eff)
-from ..kernelspec import (DTYPE_BYTES, N_SMS, StructuralIssue, cdiv,
-                          check_vector_alignment, ctas_per_sm)
+from ..kernelspec import (DTYPE_BYTES, GROUP_BLOCK, MAX_HEAD_DIM, N_SMS,
+                          StructuralIssue, cdiv, check_vector_alignment,
+                          ctas_per_sm, head_blocks, head_dim_ok, tile_width)
 from ..tags import Expr, make_tag
 from .base import (BugSignature, KernelFamily, generic_skill,
                    reference_setup, register)
@@ -135,51 +136,58 @@ def build_flash_decode_program(cfg: FlashDecodeConfig,
 
 # -- the CUDA kernel's decomposition -----------------------------------------
 
-MAX_GROUP = 8            # query heads per KV head one CTA serves
-HEAD_DIMS = (64, 128)    # head dims the kernel is compiled for
 TILE_BYTES = 16384       # one K (or V) tile
 STAGES = {"bf16": 3, "f32": 1}        # K/V tiles of a CTA in flight
-KERNEL_THREADS = {"bf16": 160, "f32": 128}   # bf16: 4 consumer warps and
-#                                              a producer warp
+KERNEL_THREADS = {"bf16": 160, "f32": 128}   # bf16: 4 consumer warps (two
+#                                              at width 256) and a producer
+
+
+def instance_name(head_dim: int, itemsize: int) -> str:
+    """The instance that runs: "tensor cores W=128" (bf16 at head_dim
+    65..128), "cuda cores W=64" (float32 up to 64)."""
+    kind = "tensor cores" if itemsize == 2 else "cuda cores"
+    return f"{kind} W={tile_width(head_dim)}"
 
 
 def tile_tokens(head_dim: int, itemsize: int) -> int:
-    """Positions of K (and of V) one step stages: 16 KB, at most 64 in
-    f32; in bf16 16 KB exactly (64 positions at head_dim 128, 128 at
-    64: 16 or 32 for each of the four consumer warps)."""
+    """Positions of K (and of V) one step stages: 16 KB of the instance's
+    width, at most 64 in f32; in bf16 16 KB exactly (128 positions at
+    width 64, 64 at 128, 32 at 256: 32 or 16 for each of the four
+    consumer warps, 16 for each of two at 256)."""
+    w = tile_width(head_dim)
     if itemsize == 2:
-        return TILE_BYTES // (head_dim * 2)
-    return min(64, TILE_BYTES // (head_dim * itemsize))
+        return TILE_BYTES // (w * 2)
+    return min(64, TILE_BYTES // (w * itemsize))
 
 
 def smem_bytes(head_dim: int, dtype: str) -> int:
     """Shared memory of one CTA: bf16 — 1024 bytes of alignment slack,
-    the ring of K and V tiles and its mbarriers; f32 — one K and V tile,
-    Q and the weights in float32."""
+    the ring of K and V tiles and its mbarriers; f32 — one K and V tile
+    at the width, Q and the weights of a head block in float32."""
     sz = DTYPE_BYTES.get(dtype, 2)
-    tt = tile_tokens(head_dim, sz)
+    tt, w = tile_tokens(head_dim, sz), tile_width(head_dim)
     if dtype == "f32":
-        return 2 * tt * head_dim * sz + MAX_GROUP * (head_dim + tt) * 4
+        return 2 * tt * w * sz + GROUP_BLOCK * (w + tt + 3) * 4
     return 1024 + STAGES["bf16"] * 2 * TILE_BYTES + 16 * STAGES["bf16"]
 
 
 def structural_flash_decode(cfg: FlashDecodeConfig,
                             prob: FlashDecodeProblem):
     """Hopper model of ``flash_decode.cu``: splits that do not tile the
-    cache, a geometry it is not compiled for, rows that are not 16-byte
-    aligned (it copies the cache in 16-byte units)."""
+    cache, a head_dim it does not take, rows that are not 16-byte aligned
+    (it copies the cache in 16-byte units)."""
     span = cdiv(prob.seq_kv, cfg.kv_splits)
     issues = []
     if span * cfg.kv_splits != prob.seq_kv:
         issues.append(StructuralIssue(
             "masking", f"kv_splits {cfg.kv_splits} does not tile the "
                        f"cache ({prob.seq_kv}) — tail span must be masked"))
-    if prob.head_dim not in HEAD_DIMS or prob.group > MAX_GROUP:
+    sz = DTYPE_BYTES.get(prob.dtype, 2)
+    if not head_dim_ok(prob.head_dim, sz):
         issues.append(StructuralIssue(
-            "unsupported", f"the kernel takes head_dim in {HEAD_DIMS} and "
-                           f"at most {MAX_GROUP} query heads per KV head; "
-                           f"got head_dim {prob.head_dim}, group "
-                           f"{prob.group}"))
+            "unsupported", f"the kernel takes head_dim up to {MAX_HEAD_DIM} "
+                           f"in rows of whole 16-byte vectors; got "
+                           f"head_dim {prob.head_dim} in {prob.dtype}"))
     issues += check_vector_alignment("K/V rows",
                                      (("head_dim", prob.head_dim),),
                                      prob.dtype)
@@ -189,22 +197,25 @@ def structural_flash_decode(cfg: FlashDecodeConfig,
 def flash_decode_cost(cfg: FlashDecodeConfig,
                       prob: FlashDecodeProblem) -> CostEstimate:
     """H100 model of ``flash_decode.cu``: memory-bound cache streaming,
-    one CTA per (span, KV head, row) keeping its ring's K and V tiles in
-    flight per round trip, the bandwidth shared by the SMs that hold a
-    CTA, so splits buy bandwidth (more CTAs, on more SMs) at the cost of
-    the partials, which the split kernel writes and the
+    one CTA per (span, KV head, head block, row) keeping its ring's K and
+    V tiles in flight per round trip, the bandwidth shared by the SMs
+    that hold a CTA, so splits buy bandwidth (more CTAs, on more SMs) at
+    the cost of the partials, which the split kernel writes and the
     combine kernel reads before writing the output — the kv_splits knob
-    the harness tunes.  The products run on the tensor cores in bf16
-    (the G heads padded to 8) and on the CUDA cores in f32."""
+    the harness tunes.  A group above 8 reads the cache once from HBM
+    and again from L2 for each further head block.  The products run on
+    the tensor cores in bf16 (8 heads a tile per head block) and on the
+    CUDA cores in f32."""
     sz = DTYPE_BYTES.get(prob.dtype, 2)
     B, H, HK = prob.batch, prob.q_heads, prob.kv_heads
     S, D = prob.seq_kv, prob.head_dim
     ns = cfg.kv_splits
+    nhb = head_blocks(prob.group)
     flops = 4.0 * B * H * S * D
     kv_bytes = 2 * B * HK * S * D * sz
     # partials written and read once, the output written once
     part_bytes = B * H * ns * (D + 2) * 4 * 2 + B * H * D * sz
-    n_ctas = B * HK * ns
+    n_ctas = B * HK * nhb * ns
     dt = "f32" if prob.dtype == "f32" else "bf16"
     per_sm = ctas_per_sm(KERNEL_THREADS[dt], 64, smem_bytes(D, prob.dtype))
     in_flight = STAGES[dt] * 2 * TILE_BYTES
@@ -212,12 +223,13 @@ def flash_decode_cost(cfg: FlashDecodeConfig,
         * min(1.0, n_ctas / N_SMS)
     if dt == "f32":
         compute_s = flops / (PEAK_FLOPS["f32"] * wave_eff(n_ctas, per_sm))
-    else:   # tensor cores, 8 heads a tile whatever G is
-        compute_s = (flops * MAX_GROUP / prob.group
+    else:   # tensor cores, 8 heads a tile per head block
+        compute_s = (4.0 * B * HK * nhb * GROUP_BLOCK * S * cdiv(D, 16) * 16
                      / (PEAK_FLOPS["bf16"] * wave_eff(n_ctas, per_sm)))
     return CostEstimate(
         compute_s=compute_s,
-        memory_s=(kv_bytes + part_bytes) / (HBM_BW * eff),
+        memory_s=(kv_bytes + part_bytes) / (HBM_BW * eff)
+        + (nhb - 1) * kv_bytes / L2_BW,
         flops=flops, hbm_bytes=kv_bytes + part_bytes)
 
 

@@ -11,14 +11,15 @@ position honesty, length-gate conformity and carried-output stability.
 **Which decomposition is verified.**  The CUDA kernel
 (``repro_torch/kernels/paged_attention/csrc/paged_decode.cu``) cuts each
 row's pages into spans of :func:`span_pages` pages, a number fixed by
-the shapes alone, one CTA per (span, KV head, row), and merges the
-spans' partials by log-sum-exp in a second kernel.  Each span walks its
-pages in tiles of :func:`tile_tokens` positions (16 KB of K and of V:
-64 positions in bf16 at head_dim 80 and 128, 128 at 64, 32 at 256, 32
-in f32 at 128), a
-tile holding :func:`pages_per_step` whole pages, or a page of 8 to 256
-tokens spanning several tiles; a span is a whole number of tiles, the
-last span shorter where that count does not divide the table width.
+the shapes alone, one CTA per (span, KV head, block of up to 8 query
+heads, row), and merges the spans' partials by log-sum-exp in a second
+kernel.  Each span walks its pages in tiles of :func:`tile_tokens` rows
+(16 KB of K and of V at the instance's ``tile_width``: 128 rows in bf16
+at width 64, 64 at 128, 32 at 256; 64, 32 or 16 in f32), a tile holding
+:func:`pages_per_step` whole pages (each in a slot of
+:func:`page_slot` rows, the rest of the tile masked), or a chunk of one
+page longer than a tile; a span is a whole number of tiles, the last
+span shorter where that count does not divide the table width.
 :func:`build_paged_attention_program` builds the JAX program at
 ``block_pages = gcd(step, width)`` (:func:`kernel_config`): every kernel
 tile, the short last one included, is a whole run of consecutive
@@ -28,9 +29,9 @@ page spans several tiles, and every span is a run of whole program
 steps, so the program each span walks is the JAX program over the
 span's pages.  ``block_pages`` stays the precondition it is in the JAX
 family: it must divide the table width.  A geometry the kernel cannot
-run (a page size outside 8..256 or neither dividing nor divided by the
-tile, a head_dim that is not compiled) is a build error.  Verdicts,
-findings and counterexamples are the JAX gate's at that step.
+run (a head_dim that is not whole 16-byte vectors or is above 256, a
+page of one token) is a build error.  Verdicts, findings and
+counterexamples are the JAX gate's at that step.
 
 The structural and cost hooks are a Hopper model of that kernel
 (:mod:`repro_torch.core.kernelspec`, :mod:`repro_torch.core.costs`); the
@@ -44,10 +45,12 @@ from dataclasses import dataclass, replace
 from typing import Optional
 
 from .. import dsl
-from ..costs import (CostEstimate, HBM_BW, MMA_SYNC_DERATE, PEAK_FLOPS,
-                     sol_estimate, stream_eff, wave_eff)
-from ..kernelspec import (DTYPE_BYTES, N_SMS, StructuralIssue, cdiv,
-                          check_vector_alignment, ctas_per_sm)
+from ..costs import (CostEstimate, HBM_BW, L2_BW, MMA_SYNC_DERATE,
+                     PEAK_FLOPS, sol_estimate, stream_eff, wave_eff)
+from ..kernelspec import (DTYPE_BYTES, GROUP_BLOCK, MAX_HEAD_DIM, N_SMS,
+                          VECTOR_BYTES, StructuralIssue, cdiv,
+                          check_vector_alignment, ctas_per_sm, head_blocks,
+                          head_dim_ok, tile_width)
 from ..tags import Expr, app, make_tag
 from .base import (BugSignature, KernelFamily, generic_skill,
                    reference_setup, register)
@@ -84,14 +87,7 @@ class PagedAttentionConfig:
 
 # -- the CUDA kernel's decomposition -----------------------------------------
 
-MAX_GROUP = 8                  # query heads per KV head the kernel serves
-# head dims the kernel is compiled for: every architecture's, reduced
-# and full (chameleon's reduced 8, stablelm's 80, gemma's 256)
-HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
-# bf16 head dims on the tensor-core instance (8, 16 and 32, reduced
-# configurations only, stay on the CUDA cores)
-TC_HEAD_DIMS = (64, 80, 128, 256)
-PAGE_RANGE = (8, 256)          # page sizes (tokens) the kernel takes
+MIN_PAGE = 2                   # page sizes (tokens) the kernel takes: >= 2
 TILE_BYTES = 16384             # one K (or V) tile
 STAGES = 3                     # TMA ring depth of the tensor-core instance
 KERNEL_THREADS = 128           # the CUDA-core instance
@@ -101,69 +97,86 @@ SPAN_TARGET_CTAS = 4 * N_SMS
 
 
 def tensor_cores(head_dim: int, itemsize: int) -> bool:
-    """The instance that runs: bf16 at head_dim 64, 80, 128 or 256 on
-    the tensor cores fed by TMA; float32, and bf16 at 8, 16 and 32, on
-    CUDA-core FMAs."""
-    return itemsize == 2 and head_dim in TC_HEAD_DIMS
+    """The instance that runs: bf16 on the tensor cores fed by TMA at
+    every head_dim it takes; float32 on CUDA-core FMAs."""
+    return itemsize == 2 and head_dim_ok(head_dim, itemsize)
 
 
-def tc_width(head_dim: int) -> int:
-    """Columns of a row in the tensor-core instance's tiles: head_dim 80
-    lands in 128 (TMA's zero fill supplies the rest), the others as they
-    are."""
-    return 128 if head_dim == 80 else head_dim
-
-
-def instance(head_dim: int, itemsize: int) -> str:
-    return ("tensor cores" if tensor_cores(head_dim, itemsize)
+def instance_name(head_dim: int, itemsize: int) -> str:
+    """The instance that runs, with its tile width (``tile_width``):
+    "tensor cores W=128" (bf16 at head_dim 65..128), "cuda cores W=64"
+    (float32 up to 64)."""
+    kind = ("tensor cores" if tensor_cores(head_dim, itemsize)
             else "cuda cores")
+    return f"{kind} W={tile_width(head_dim)}"
 
 
 def tile_tokens(head_dim: int, itemsize: int) -> int:
-    """Positions of K (and of V) in one tile of the walk: 16 KB on the
-    tensor cores (128 positions at head_dim 64, 64 at 80 and 128, 32 at
-    256); on the CUDA-core instance the largest power of two that fits
-    16 KB, at most 64 (32 in float32 at head_dim 80, 16 at 256)."""
+    """Rows of K (and of V) in one tile of the walk: 16 KB on the tensor
+    cores (128 positions at width 64, 64 at 128, 32 at 256); on the
+    CUDA-core instance the largest power of two that fits 16 KB at its
+    width, at most 64 (64 at width 64, 32 at 128, 16 at 256)."""
+    w = tile_width(head_dim)
     if tensor_cores(head_dim, itemsize):
-        return TILE_BYTES // (tc_width(head_dim) * itemsize)
-    fit = min(64, TILE_BYTES // (head_dim * itemsize))
+        return TILE_BYTES // (w * itemsize)
+    fit = min(64, TILE_BYTES // (w * itemsize))
     return 1 << (fit.bit_length() - 1)
 
 
+def page_slot(page_size: int, head_dim: int, itemsize: int) -> int:
+    """Rows a page of at most one tile takes in it: on the tensor cores
+    the page size rounded up to 8 (each TMA box starts 1024-byte aligned
+    in the 128-byte-swizzled tile), on the CUDA cores the page size."""
+    if tensor_cores(head_dim, itemsize):
+        return -(-page_size // 8) * 8
+    return page_size
+
+
 def pages_per_step(page_size: int, head_dim: int, itemsize: int) -> int:
-    """Whole pages one tile holds (1 where a page spans several tiles);
-    0 where the kernel cannot run the geometry: head_dim not compiled, a
-    page size outside 8..256 tokens or one that neither divides the tile
-    nor is divided by it."""
-    lo, hi = PAGE_RANGE
-    if head_dim not in HEAD_DIMS or not lo <= page_size <= hi:
+    """Pages one tile of the walk holds: the whole pages that fit it
+    (tile // page slot), or 1 where a page is longer than a tile and is
+    walked in tile-sized chunks (its last one short where the tile does
+    not divide it); 0 where the kernel cannot run the geometry: a
+    head_dim that is not whole 16-byte vectors or is above 256, or a page
+    of fewer than 2 tokens."""
+    if not head_dim_ok(head_dim, itemsize) or page_size < MIN_PAGE:
         return 0
     tile = tile_tokens(head_dim, itemsize)
-    if tile % page_size == 0:
-        return tile // page_size
-    return 1 if page_size % tile == 0 else 0
+    if page_size <= tile:
+        return tile // page_slot(page_size, head_dim, itemsize)
+    return 1
 
 
 def span_pages(batch: int, kv_heads: int, pages_per_seq: int,
-               page_size: int, head_dim: int, itemsize: int) -> int:
+               page_size: int, head_dim: int, itemsize: int,
+               group: int = 1) -> int:
     """Pages of one span of a row's walk, from the shapes alone (never
     the lengths, so the grid is fixed for a decode geometry): whole
     tiles (whole pages where a page spans tiles), as few as give
-    ``batch x kv_heads x spans`` about ``SPAN_TARGET_CTAS`` CTAs."""
+    ``batch x kv_heads x head_blocks(group) x spans`` about
+    ``SPAN_TARGET_CTAS`` CTAs."""
     step = pages_per_step(page_size, head_dim, itemsize)
     if not step:
         raise ValueError(f"the CUDA kernel cannot walk {page_size}-token "
                          f"pages at head_dim {head_dim}")
     units = cdiv(pages_per_seq, step)
-    want = cdiv(SPAN_TARGET_CTAS, max(batch * kv_heads, 1))
+    want = cdiv(SPAN_TARGET_CTAS,
+                max(batch * kv_heads * head_blocks(group), 1))
     return cdiv(units, min(units, want)) * step
 
 
 def n_spans(prob: PagedAttentionProblem) -> int:
     sz = DTYPE_BYTES.get(prob.dtype, 2)
     sp = span_pages(prob.batch, prob.kv_heads, prob.pages_per_seq,
-                    prob.page_size, prob.head_dim, sz)
+                    prob.page_size, prob.head_dim, sz, prob.group)
     return cdiv(prob.pages_per_seq, sp)
+
+
+def _refusal(prob: PagedAttentionProblem) -> str:
+    return (f"the CUDA kernel takes head_dim up to {MAX_HEAD_DIM} in rows "
+            f"of whole {VECTOR_BYTES}-byte vectors and pages of at least "
+            f"{MIN_PAGE} tokens; got head_dim {prob.head_dim} in "
+            f"{prob.dtype}, page_size {prob.page_size}")
 
 
 def kernel_config(cfg: PagedAttentionConfig,
@@ -183,11 +196,7 @@ def kernel_config(cfg: PagedAttentionConfig,
     sz = DTYPE_BYTES.get(prob.dtype, 2)
     step = pages_per_step(prob.page_size, prob.head_dim, sz)
     if not step:
-        raise ValueError(
-            f"the CUDA kernel takes head_dim in {HEAD_DIMS} and pages of "
-            f"{PAGE_RANGE[0]}..{PAGE_RANGE[1]} tokens that divide its "
-            f"tile or are divided by it; got head_dim {prob.head_dim}, "
-            f"page_size {prob.page_size}")
+        raise ValueError(_refusal(prob))
     return PagedAttentionConfig(block_pages=math.gcd(step, NP))
 
 
@@ -374,7 +383,7 @@ def build_paged_attention_program(cfg: PagedAttentionConfig,
 def structural_paged_attention(cfg: PagedAttentionConfig,
                                prob: PagedAttentionProblem):
     """Hopper model of ``paged_decode.cu``: a tail page, a pool too small
-    for the batch, a geometry the kernel is not compiled for, rows that
+    for the batch, a geometry the kernel does not take, rows that
     are not 16-byte aligned (the kernel copies rows in 16-byte vectors
     or TMA boxes)."""
     issues = []
@@ -388,15 +397,8 @@ def structural_paged_attention(cfg: PagedAttentionConfig,
             "capacity", f"pool of {prob.pool_pages} pages cannot back "
                         f"{prob.batch} sequences × {prob.pages_per_seq} "
                         f"pages"))
-    if prob.group > MAX_GROUP or not pages_per_step(
-            prob.page_size, prob.head_dim, sz):
-        issues.append(StructuralIssue(
-            "unsupported", f"the kernel takes at most {MAX_GROUP} query "
-                           f"heads per KV head, head_dim in {HEAD_DIMS} "
-                           f"and pages of {PAGE_RANGE[0]}..{PAGE_RANGE[1]} "
-                           f"tokens that divide its tile or are divided "
-                           f"by it; got group {prob.group}, head_dim "
-                           f"{prob.head_dim}, page_size {prob.page_size}"))
+    if not pages_per_step(prob.page_size, prob.head_dim, sz):
+        issues.append(StructuralIssue("unsupported", _refusal(prob)))
     issues += check_vector_alignment("KP rows",
                                      (("head_dim", prob.head_dim),),
                                      prob.dtype)
@@ -406,38 +408,44 @@ def structural_paged_attention(cfg: PagedAttentionConfig,
 def _smem_bytes(head_dim: int, itemsize: int) -> int:
     """Shared memory of one CTA: on the tensor-core instance 1024 bytes of
     alignment slack, the ring of K and V tiles and two mbarriers a stage;
-    on the CUDA-core one a K and a V tile, the heads' queries and weights."""
+    on the CUDA-core one a K and a V tile at its width, the block's
+    queries and weights and the tile's page numbers."""
     if tensor_cores(head_dim, itemsize):
         return 1024 + STAGES * (2 * TILE_BYTES + 16)
-    tt = tile_tokens(head_dim, itemsize)
-    return 2 * tt * head_dim * itemsize + MAX_GROUP * (head_dim + tt) * 4
+    tt, w = tile_tokens(head_dim, itemsize), tile_width(head_dim)
+    return (2 * tt * w * itemsize + GROUP_BLOCK * (w + tt + 3) * 4
+            + tt // MIN_PAGE * 4)
 
 
 def paged_attention_cost(cfg: PagedAttentionConfig,
                          prob: PagedAttentionProblem) -> CostEstimate:
     """H100 model of ``paged_decode.cu``: one CTA per (span, KV head,
-    row) streams its span's live pages once, each resident CTA keeping
-    its ring (tensor-core instance) or one tile of K and V (CUDA-core
-    instance) in flight per round trip; the spans' float32 partials are
-    written and read back by the combine.  The products run on mma.sync
-    (the P·V product twice, for the split p, on an 8-head n-tile of
-    which G heads are used) or as FMAs.  ``block_pages`` changes nothing
-    the kernel does, so the model does not read it."""
+    head block, row) streams its span's live pages, each resident CTA
+    keeping its ring (tensor-core instance) or one tile of K and V
+    (CUDA-core instance) in flight per round trip; the K and V of a
+    (span, KV head) cross HBM once and are read again from L2 by the
+    other head blocks of a group above 8; the spans' float32 partials
+    are written and read back by the combine.  The products run on
+    mma.sync (the P·V product twice, for the split p, on an 8-head
+    n-tile per head block, over the 16-column steps that hold real
+    columns) or as FMAs.  ``block_pages`` changes nothing the kernel
+    does, so the model does not read it."""
     sz = DTYPE_BYTES.get(prob.dtype, 2)
     B, H, HK = prob.batch, prob.q_heads, prob.kv_heads
     S, D = prob.seq_kv, prob.head_dim
+    nhb = head_blocks(prob.group)
     flops = 4.0 * B * H * S * D
     kv_bytes = 2 * B * HK * S * D * sz
     table_bytes = B * prob.pages_per_seq * 4
     # a geometry the kernel refuses is priced as one span a row
     ns = n_spans(prob) if pages_per_step(prob.page_size, D, sz) else 1
     part_bytes = 2 * B * H * ns * (D + 2) * 4 + B * H * D * sz
-    n_ctas = B * HK * ns
-    tile = tile_tokens(D, sz) * D * sz
+    n_ctas = B * HK * nhb * ns
+    tile = tile_tokens(D, sz) * tile_width(D) * sz
     if tensor_cores(D, sz):
         per_sm = ctas_per_sm(TC_THREADS, 64, _smem_bytes(D, sz))
         in_flight = STAGES * 2 * tile
-        issued = 1.5 * flops * MAX_GROUP / max(min(prob.group, MAX_GROUP), 1)
+        issued = 1.5 * 4.0 * B * HK * nhb * GROUP_BLOCK * S * cdiv(D, 16) * 16
         compute_s = issued / (PEAK_FLOPS["bf16"] * MMA_SYNC_DERATE
                               * wave_eff(n_ctas, per_sm))
     else:
@@ -446,7 +454,9 @@ def paged_attention_cost(cfg: PagedAttentionConfig,
         compute_s = flops / (PEAK_FLOPS["f32"] * wave_eff(n_ctas, per_sm))
     eff = stream_eff(min(n_ctas, N_SMS * per_sm), in_flight)
     hbm = kv_bytes + table_bytes + part_bytes
-    return CostEstimate(compute_s=compute_s, memory_s=hbm / (HBM_BW * eff),
+    return CostEstimate(compute_s=compute_s,
+                        memory_s=hbm / (HBM_BW * eff)
+                        + (nhb - 1) * kv_bytes / L2_BW,
                         flops=flops, hbm_bytes=hbm)
 
 

@@ -11,13 +11,13 @@ carried-output stability.
 
 **Which decomposition is verified.**  The CUDA kernel
 (``repro_torch/kernels/ragged_prefill/csrc/ragged_prefill.cu``) runs, in
-bf16 at head_dim 64, 80, 128 and 256 (:func:`is_wgmma`), one CTA per
-(query head, 128 packed queries) over 128-key tiles (64-key at 256) on
-``wgmma``, and otherwise one CTA per (query head, 64 packed queries)
-over 32-key blocks on the CUDA cores, whatever the config's ``block_q``
-/ ``block_kv`` are.  :func:`kernel_config` gives the program that step:
-``128 x 128``, ``128 x 64`` or ``64 x 32`` wherever they tile the packed
-buffer.  The serving engine pads
+bf16 (:func:`is_wgmma`), one CTA per (query head, 128 packed queries)
+over 128-key tiles (64-key at a head_dim above 128) on ``wgmma``, and in
+float32 one CTA per (query head, 64 packed queries) over 32-key blocks
+on the CUDA cores, whatever the config's ``block_q`` / ``block_kv`` are.
+:func:`kernel_config` gives the program that step: ``128 x 128``,
+``128 x 64`` or ``64 x 32`` wherever they tile the packed buffer.  The
+serving engine pads
 both extents to 64 tokens, so the wgmma step is 128 on a buffer of a
 multiple of 128 tokens and 64 on the others.  On a buffer the kernel's
 blocks do not tile (the kernel then masks its last CTA's rows and its
@@ -25,7 +25,8 @@ last tile's keys) the program takes the largest power-of-two blocks below
 them that do — the same rows and keys, each read once.  The
 config's blocks stay the precondition they are in the JAX family: they
 must tile the buffer.  Verdicts, findings and counterexamples are the
-JAX gate's at those blocks.
+JAX gate's at those blocks.  A head_dim whose rows are not whole 16-byte
+vectors, or above 256, the kernel does not run (``unsupported``).
 
 The structural and cost hooks are a Hopper model of that kernel; the
 oracle (``reference_check``) runs the port's ``ragged_prefill_attend``
@@ -39,8 +40,8 @@ from typing import Optional
 from .. import dsl
 from ..costs import (CostEstimate, HBM_BW, L2_BW, PEAK_FLOPS, peak_flops,
                      sol_estimate, wave_eff)
-from ..kernelspec import (DTYPE_BYTES, StructuralIssue, cdiv, check_smem,
-                          ctas_per_sm)
+from ..kernelspec import (DTYPE_BYTES, MAX_HEAD_DIM, StructuralIssue, cdiv,
+                          check_smem, ctas_per_sm, head_dim_ok, tile_width)
 from ..tags import Expr, app, make_tag
 from .base import (BugSignature, KernelFamily, generic_skill,
                    reference_setup, register)
@@ -79,13 +80,6 @@ class RaggedPrefillConfig:
 KERNEL_BQ = 64                 # packed queries per CTA (CUDA cores)
 KERNEL_BK = 32                 # packed keys per block (CUDA cores)
 KERNEL_THREADS = 256
-# head dims the kernel is compiled for: every architecture's, reduced
-# and full (chameleon's reduced 8, stablelm's 80, gemma's 256); the
-# CUDA-core instance's 64 x 32 blocks stage 137 KB at 256
-HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
-# bf16 head dims on the wgmma design (8, 16 and 32, reduced configurations
-# only, stay on the CUDA cores)
-WGMMA_HEAD_DIMS = (64, 80, 128, 256)
 WGMMA_BQ = 128                 # packed queries per CTA: two warpgroups
 WGMMA_BK = 128                 # packed keys per TMA tile (64 at head_dim 256)
 WGMMA_STAGES = 2               # K/V ring depth
@@ -100,33 +94,34 @@ KERNEL_STATIC_SMEM = (2 * KERNEL_BQ + 2 * KERNEL_BK + 3) * 4 + KERNEL_THREADS
 
 
 def is_wgmma(prob: RaggedPrefillProblem) -> bool:
-    """The kernel runs ``prob`` on its wgmma design: bf16 at head_dim 64,
-    80, 128 or 256 (float32 and the small head dims stay on the CUDA
-    cores)."""
-    return prob.dtype == "bf16" and prob.head_dim in WGMMA_HEAD_DIMS
+    """The kernel runs ``prob`` on its wgmma design: bf16 at every
+    head_dim it takes (float32 stays on the CUDA cores)."""
+    return prob.dtype == "bf16" and head_dim_ok(prob.head_dim, 2)
 
 
-def wgmma_width(head_dim: int) -> int:
-    """Columns of a row in the wgmma design's shared memory: head_dim 80
-    lands in 128 (TMA's zero fill supplies the rest), the others as they
-    are."""
-    return 128 if head_dim == 80 else head_dim
+def instance_name(prob: RaggedPrefillProblem) -> str:
+    """The instance that runs ``prob``: "wgmma W=128" (bf16 at head_dim
+    65..128), "cuda cores" (float32)."""
+    if is_wgmma(prob):
+        return f"wgmma W={tile_width(prob.head_dim)}"
+    return "cuda cores"
 
 
 def kernel_blocks(prob: RaggedPrefillProblem):
     """(packed queries per CTA, keys per step) of the design that runs
-    ``prob``: 128 x 128 on wgmma (128 x 64 at head_dim 256, where Q and a
+    ``prob``: 128 x 128 on wgmma (128 x 64 at width 256, where Q and a
     two-stage ring of 128-key tiles would not fit), else 64 x 32."""
     if not is_wgmma(prob):
         return KERNEL_BQ, KERNEL_BK
-    return WGMMA_BQ, WGMMA_BK // 2 if prob.head_dim == 256 else WGMMA_BK
+    wide = tile_width(prob.head_dim) == 256
+    return WGMMA_BQ, WGMMA_BK // 2 if wide else WGMMA_BK
 
 
 def kernel_config(cfg: RaggedPrefillConfig,
                   prob: RaggedPrefillProblem) -> RaggedPrefillConfig:
     """The config whose program is the decomposition the kernel runs:
     the kernel's blocks (:func:`kernel_blocks`: 128 x 128 on wgmma, 128 x
-    64 at head_dim 256, else 64 x 32), or the largest power-of-two blocks
+    64 at width 256, else 64 x 32), or the largest power-of-two blocks
     below them that tile the buffer.  Raises ``ValueError`` where the JAX
     program would: the config's blocks must tile the buffer."""
     T = prob.total_tokens
@@ -348,27 +343,28 @@ def build_ragged_prefill_program(cfg: RaggedPrefillConfig,
 def _smem_bytes(prob: RaggedPrefillProblem) -> int:
     """The kernel's shared memory for ``prob``, static arrays included:
     on wgmma 1024 bytes of alignment slack, the Q tile, a two-stage ring
-    of K and V tiles (128-byte swizzle, rows of :func:`wgmma_width`), the
+    of K and V tiles (128-byte swizzle, rows of ``tile_width``), the
     mbarriers, and a flag byte and a 2-byte list entry a key tile;
-    otherwise Q, K, V and the weights as float32, rows padded by one
-    word."""
+    otherwise Q, K, V and the weights as float32, rows of the same width
+    padded by one word."""
     D = prob.head_dim
     if is_wgmma(prob):
         _, bk = kernel_blocks(prob)
-        W = wgmma_width(D)
+        W = tile_width(D)
         n_tiles = cdiv(prob.total_tokens, bk)
         return (1024 + WGMMA_BQ * W * 2 + 2 * WGMMA_STAGES * bk * W * 2
                 + 8 * (1 + 4 * WGMMA_STAGES) + 2 * cdiv(n_tiles, 2)
                 + 2 * n_tiles + WGMMA_STATIC_SMEM)
-    return ((KERNEL_BQ + 2 * KERNEL_BK) * (D + 1)
+    # the CUDA-core kernel stages rows at the same widths, zero past D
+    return ((KERNEL_BQ + 2 * KERNEL_BK) * (tile_width(D) + 1)
             + KERNEL_BQ * (KERNEL_BK + 1)) * 4 + KERNEL_STATIC_SMEM
 
 
 def structural_ragged_prefill(cfg: RaggedPrefillConfig,
                               prob: RaggedPrefillProblem):
     """Hopper model of ``ragged_prefill.cu``: blocks that do not tile the
-    buffer, more segments than tokens, a head_dim the kernel is not
-    compiled for, and its shared memory per CTA."""
+    buffer, more segments than tokens, a head_dim the kernel does not
+    take, and its shared memory per CTA."""
     issues = []
     if prob.total_tokens % cfg.block_q or prob.total_tokens % cfg.block_kv:
         issues.append(StructuralIssue(
@@ -379,10 +375,11 @@ def structural_ragged_prefill(cfg: RaggedPrefillConfig,
         issues.append(StructuralIssue(
             "capacity", f"{prob.n_seqs} segments cannot pack into "
                         f"{prob.total_tokens} tokens"))
-    if prob.head_dim not in HEAD_DIMS:
+    if not head_dim_ok(prob.head_dim, DTYPE_BYTES.get(prob.dtype, 2)):
         issues.append(StructuralIssue(
-            "unsupported", f"the kernel takes head_dim in {HEAD_DIMS}, "
-                           f"not {prob.head_dim}"))
+            "unsupported", f"the kernel takes head_dim up to {MAX_HEAD_DIM} "
+                           f"in rows of whole 16-byte vectors, not "
+                           f"{prob.head_dim} in {prob.dtype}"))
     issues += check_smem("CTA", _smem_bytes(prob))
     return issues
 
@@ -393,8 +390,9 @@ def ragged_prefill_cost(cfg: RaggedPrefillConfig,
     block of packed queries) visits only the key tiles that share a
     segment with its rows and are not causally past them (about the
     segment's prefix, plus the query block's own span).  On wgmma
-    (:func:`is_wgmma`) it issues S = Q·Kᵀ over the real columns and P·V
-    twice over :func:`wgmma_width` (p split into two bf16 terms) at the
+    (:func:`is_wgmma`) it issues S = Q·Kᵀ over the 16-column k-steps that
+    hold real columns and P·V twice over ``tile_width`` (p split into
+    two bf16 terms) at the
     tensor cores' peak, one CTA an SM; otherwise
     float32 FMAs on the CUDA cores.  Q, K, V and O cross HBM once and the
     KV re-reads of the CTAs of one head hit L2.  The config's blocks
@@ -415,7 +413,8 @@ def ragged_prefill_cost(cfg: RaggedPrefillConfig,
     hbm = q_bytes + kv_bytes + meta_bytes
     if is_wgmma(prob):
         # S, then P·V twice
-        issued = 2.0 * H * T * walked * (D + 2 * wgmma_width(D))
+        issued = 2.0 * H * T * walked * (cdiv(D, 16) * 16
+                                         + 2 * tile_width(D))
         per_sm = ctas_per_sm(WGMMA_THREADS, CONSUMER_REGS, _smem_bytes(prob))
         compute_s = issued / (peak_flops("bf16") * wave_eff(n_ctas, per_sm))
     else:

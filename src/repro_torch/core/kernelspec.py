@@ -51,8 +51,37 @@ REG_OVERHEAD = 40             # registers beside the accumulator (model)
 DTYPE_BYTES = {"f32": 4, "bf16": 2, "i8": 1, "fp8": 1, "i32": 4}
 
 
+# The attention kernels' geometry (paged_decode, ragged_prefill,
+# flash_attention, flash_decode): a head_dim of whole 16-byte rows up to
+# MAX_HEAD_DIM, read at run time in tiles of the least of TILE_WIDTHS
+# columns at or above it; above GROUP_BLOCK query heads a KV head, one CTA
+# for each block of them (mma.sync's n = 8 in the decode kernels)
+MAX_HEAD_DIM = 256
+TILE_WIDTHS = (64, 128, 256)
+GROUP_BLOCK = 8
+
+
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def head_dim_ok(head_dim: int, itemsize: int) -> bool:
+    """A head_dim the attention kernels take: rows of whole 16-byte
+    vectors (a multiple of 8 in bf16, of 4 in float32), at most 256."""
+    return (0 < head_dim <= MAX_HEAD_DIM
+            and (head_dim * itemsize) % VECTOR_BYTES == 0)
+
+
+def tile_width(head_dim: int) -> int:
+    """Columns of a row in the attention kernels' tiles: the least of
+    64, 128 and 256 at or above head_dim (zeros past it)."""
+    return next((w for w in TILE_WIDTHS if head_dim <= w), TILE_WIDTHS[-1])
+
+
+def head_blocks(group: int) -> int:
+    """CTAs of a decode kernel for one (span, KV head, row): one per block
+    of up to GROUP_BLOCK query heads, each reading the span's K and V."""
+    return cdiv(max(group, 1), GROUP_BLOCK)
 
 
 @dataclass

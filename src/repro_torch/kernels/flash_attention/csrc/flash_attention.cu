@@ -72,8 +72,21 @@
 //     a 4 x D/16 tile of the accumulator; Q and each 32-key chunk of K and
 //     V are staged in shared memory as float32.
 //
-// head_dim 64 and 128 are compiled; the wrapper raises ValueError for any
-// other before a launch.
+// head_dim: every width whose rows are whole 16-byte vectors (a multiple
+// of 8 in bf16, of 4 in f32) up to 256, as the TPU kernel takes.  Each
+// design is compiled at three widths W = 64, 128 and 256 columns, and D
+// runs in the least W >= D; HBM bytes stay those of D and only columns
+// below D are stored.  The wgmma tiles declare their TMA maps at D
+// columns (TMA's zero fill supplies columns D..W-1 in shared memory); the
+// mma.sync and f32 tiles stage rows of W columns whose columns past D are
+// zero.  Every design skips the k-steps of S wholly past D and the
+// columns of P·V wholly past it.  Each is compiled twice a width: with D
+// read at run time, and with D = W known at compile time (kFull), where
+// the guards and strides of D fold away; the launch takes the second
+// where D is the width (64, 128, 256).  At W = 256 the wgmma tiles take
+// 64 keys (Q and a two-stage ring of 128-key tiles would not fit), S on
+// m64n64k16 and P·V on m64n256k16.  The wrapper raises ValueError for any
+// other head_dim before a launch.
 //
 // What bounds it on the H100.  At the family's production problem
 // (16 x 8 query heads over 1 KV head, 8192 x 8192, D = 128, causal, bf16)
@@ -100,7 +113,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
-  int Hq, Hkv, Sq, Skv;
+  int Hq, Hkv, Sq, Skv, D;
   int bq;    // the config's block_q
   int cps;   // CTAs per config block
   int causal, skip;
@@ -164,21 +177,22 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <int D, int NW>
+template <int W, int NW>
 struct Bf16Cfg {
   static constexpr int kThreads = 32 * NW;
   static constexpr int kTile = 16 * NW;
   static constexpr int KC = kChunkBf16;
-  static constexpr int LDS = D + 8;     // padded row, in elements
+  static constexpr int LDS = W + 8;     // padded row, in elements
   static constexpr int kSmem = (kTile + 4 * KC) * LDS * 2;  // bytes
 };
 
-template <int D, int NW>
+template <int W, int NW, bool kFull>
 __global__ void __launch_bounds__(32 * NW)
 fa_bf16_kernel(Params p) {
-  using C = Bf16Cfg<D, NW>;
+  using C = Bf16Cfg<W, NW>;
   constexpr int KC = C::KC, LDS = C::LDS, NT = C::kThreads;
   constexpr int VEC = 8;  // bf16 per 16 bytes
+  const int D = kFull ? W : p.D, DV = D / VEC;
   Work w;
   if (!cta_work(p, C::kTile, KC, w)) return;
 
@@ -195,22 +209,27 @@ fa_bf16_kernel(Params p) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
 
+  // rows of W columns: the 16-byte chunks past D are copied as zeros (a
+  // copy of 0 source bytes), so the last k-step, where D is not a
+  // multiple of 16, adds nothing past D
+  constexpr int CW = W / VEC;           // 16-byte chunks of a padded row
   // Q tile (rows past the CTA's end are zero-filled and never stored)
-  for (int i = tid; i < C::kTile * (D / VEC); i += NT) {
-    const int r = i / (D / VEC), c = i % (D / VEC);
+  for (int i = tid; i < C::kTile * CW; i += NT) {
+    const int r = i / CW, c = i % CW;
     const int row = w.r0 + r;
-    const bool ok = row < w.rend;
+    const bool ok = row < w.rend && c < DV;
     cp_async16(q_s + r * LDS + c * VEC,
-               q + (w.q_base + (ok ? row : w.r0)) * D + c * VEC, ok ? 16 : 0);
+               q + (w.q_base + (ok ? row : w.r0)) * D + (ok ? c * VEC : 0),
+               ok ? 16 : 0);
   }
   auto load_kv = [&](int chunk, int buf) {
     __nv_bfloat16* kd = k_s + buf * KC * LDS;
     __nv_bfloat16* vd = v_s + buf * KC * LDS;
-    for (int i = tid; i < KC * (D / VEC); i += NT) {
-      const int r = i / (D / VEC), c = i % (D / VEC);
+    for (int i = tid; i < KC * CW; i += NT) {
+      const int r = i / CW, c = i % CW;
       const int key = chunk * KC + r;
-      const bool ok = key < p.Skv;
-      const size_t src = (w.kv_base + (ok ? key : 0)) * D + c * VEC;
+      const bool ok = key < p.Skv && c < DV;
+      const size_t src = (w.kv_base + (ok ? key : 0)) * D + (ok ? c * VEC : 0);
       cp_async16(kd + r * LDS + c * VEC, k + src, ok ? 16 : 0);
       cp_async16(vd + r * LDS + c * VEC, v + src, ok ? 16 : 0);
     }
@@ -218,13 +237,19 @@ fa_bf16_kernel(Params p) {
   load_kv(0, 0);
   cp_async_commit();
 
-  uint32_t qa[D / 16][4];
-  float acc[D / 8][4];
+  // Q's fragments stay in registers up to width 128; at 256 they are read
+  // from shared memory at each k-step (the accumulator takes 128
+  // registers there)
+  constexpr int QF = W <= 128 ? W / 16 : 1;
+  uint32_t qa[QF][4];
+  float acc[W / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < W / 8; ++j)
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
   const int qrow_a = w.r0 + warp * 16 + g, qrow_b = qrow_a + 8;
+  const int mi = lane >> 3;
+  const int qr = warp * 16 + (mi & 1) * 8 + (lane & 7);
 
   for (int ch = 0; ch < w.n_chunks; ++ch) {
     if (ch + 1 < w.n_chunks) {
@@ -235,12 +260,14 @@ fa_bf16_kernel(Params p) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (ch == 0) {
+    if constexpr (W <= 128) {
+      if (ch == 0) {
 #pragma unroll
-      for (int kt = 0; kt < D / 16; ++kt) {
-        const int mi = lane >> 3;
-        const int row = warp * 16 + (mi & 1) * 8 + (lane & 7);
-        ldmatrix_x4(qa[kt], smem_u32(q_s + row * LDS + kt * 16 + (mi >> 1) * 8));
+        for (int kt = 0; kt < W / 16; ++kt) {
+          if (kt * 16 >= D) break;
+          ldmatrix_x4(qa[kt],
+                      smem_u32(q_s + qr * LDS + kt * 16 + (mi >> 1) * 8));
+        }
       }
     }
     const __nv_bfloat16* kb = k_s + (ch & 1) * KC * LDS;
@@ -251,15 +278,18 @@ fa_bf16_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < KC / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-    for (int kt = 0; kt < D / 16; ++kt) {
+    for (int kt = 0; kt < W / 16; ++kt) {
+      if (kt * 16 >= D) break;       // k-steps wholly past D
+      if constexpr (W > 128)
+        ldmatrix_x4(qa[0], smem_u32(q_s + qr * LDS + kt * 16 + (mi >> 1) * 8));
+      constexpr int one = W > 128 ? 0 : 1;   // qa[kt], or qa[0] reloaded
 #pragma unroll
       for (int np = 0; np < KC / 16; ++np) {
-        const int mi = lane >> 3;
         const int key = np * 16 + (mi >> 1) * 8 + (lane & 7);
         uint32_t b[4];
         ldmatrix_x4(b, smem_u32(kb + key * LDS + kt * 16 + (mi & 1) * 8));
-        mma_bf16(s[2 * np], qa[kt], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qa[kt], b[2], b[3]);
+        mma_bf16(s[2 * np], qa[kt * one], b[0], b[1]);
+        mma_bf16(s[2 * np + 1], qa[kt * one], b[2], b[3]);
       }
     }
 
@@ -298,7 +328,7 @@ fa_bf16_kernel(Params p) {
     m_a = mn_a;
     m_b = mn_b;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < W / 8; ++j) {
       acc[j][0] *= al_a;
       acc[j][1] *= al_a;
       acc[j][2] *= al_b;
@@ -314,8 +344,8 @@ fa_bf16_kernel(Params p) {
       a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        const int mi = lane >> 3;
+      for (int dp = 0; dp < W / 16; ++dp) {
+        if (dp * 16 >= D) break;     // columns wholly past D
         const int key = kk * 16 + (mi & 1) * 8 + (lane & 7);
         uint32_t b[4];
         ldmatrix_x4_trans(b, smem_u32(vb + key * LDS + dp * 16 + (mi >> 1) * 8));
@@ -329,7 +359,8 @@ fa_bf16_kernel(Params p) {
   const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);
   const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < W / 8; ++j) {
+    if (j * 8 >= D) break;            // the real columns only
     const int col = j * 8 + 2 * t;
     if (qrow_a < w.rend)
       *reinterpret_cast<uint32_t*>(o + (w.q_base + qrow_a) * D + col) =
@@ -342,38 +373,41 @@ fa_bf16_kernel(Params p) {
 
 // -- bf16, 128- and 64-row tiles: wgmma fed by TMA ----------------------------
 
-constexpr int kBN = 128;          // keys per K/V tile
 constexpr int kStages = 2;        // K/V ring depth
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 
-template <int D, int NCW>
+template <int W, int NCW>
 struct WgCfg {
   static constexpr int BM = 64 * NCW;              // query rows per CTA
-  static constexpr int kPanels = D / 64;           // 64-column TMA boxes
+  // keys per K/V tile: 128, 64 at width 256 (Q and a two-stage ring of
+  // 128-key tiles would not fit)
+  static constexpr int BN = W == 256 ? 64 : 128;
+  static constexpr int kPanels = W / 64;           // 64-column TMA boxes
   static constexpr int kThreads = 128 * (NCW + 1);
-  static constexpr int kQBytes = BM * D * 2;
-  static constexpr int kTileBytes = kBN * D * 2;   // one K (or V) tile
+  static constexpr int kQBytes = BM * W * 2;
+  static constexpr int kTileBytes = BN * W * 2;    // one K (or V) tile
   // 1024 of alignment slack (the swizzled tiles need 1024-byte bases),
   // Q, the ring, and the mbarriers
   static constexpr int kSmem =
       1024 + kQBytes + 2 * kStages * kTileBytes + 8 * (1 + 4 * kStages);
 };
 
-template <int D, int NCW>
+template <int W, int NCW, bool kFull>
 __global__ void __launch_bounds__(128 * (NCW + 1), 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, Params p) {
-  using C = WgCfg<D, NCW>;
-  constexpr int BM = C::BM, TB = C::kTileBytes;
+  using C = WgCfg<W, NCW>;
+  constexpr int BM = C::BM, BN = C::BN, TB = C::kTileBytes;
+  const int D = kFull ? W : p.D;
   Work w;
-  if (!cta_work(p, BM, kBN, w)) return;
+  if (!cta_work(p, BM, BN, w)) return;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* q_s = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* k_s = q_s + C::kQBytes;        // [stage][panel][kBN][64]
-  unsigned char* v_s = k_s + kStages * TB;      // [stage][panel][kBN][64]
+  unsigned char* k_s = q_s + C::kQBytes;        // [stage][panel][BN][64]
+  unsigned char* v_s = k_s + kStages * TB;      // [stage][panel][BN][64]
   // K and V of a stage fill and drain apart: K is free once S has been
   // computed, V once P·V has
   uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + kStages * TB);
@@ -412,14 +446,14 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_expect_tx(&k_full[st], TB);
 #pragma unroll
         for (int pn = 0; pn < C::kPanels; ++pn)
-          tma_load_3d(k_s + st * TB + pn * kBN * 128, &tm_k, pn * 64,
-                      it * kBN, bkv, &k_full[st]);
+          tma_load_3d(k_s + st * TB + pn * BN * 128, &tm_k, pn * 64,
+                      it * BN, bkv, &k_full[st]);
         mbar_wait(&v_empty[st], ph ^ 1);
         mbar_expect_tx(&v_full[st], TB);
 #pragma unroll
         for (int pn = 0; pn < C::kPanels; ++pn)
-          tma_load_3d(v_s + st * TB + pn * kBN * 128, &tm_v, pn * 64,
-                      it * kBN, bkv, &v_full[st]);
+          tma_load_3d(v_s + st * TB + pn * BN * 128, &tm_v, pn * 64,
+                      it * BN, bkv, &v_full[st]);
       }
     }
     return;
@@ -434,9 +468,9 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float sl2 = p.scale * kLog2e;
   const unsigned char* q_wg = q_s + wg * 64 * 128;
 
-  float o[D / 2];
+  float o[W / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) o[i] = 0.f;
   // running max in log2 units; l is this thread's share of its rows' sum
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
   mbar_wait(q_full, 0);
@@ -446,18 +480,23 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const unsigned char* kt_s = k_s + st * TB;
     const unsigned char* vt_s = v_s + st * TB;
 
-    // S = Q Kᵀ, 64 rows x 128 keys
-    float s[kBN / 2];
+    // S = Q Kᵀ, 64 rows x BN keys, over the 16-column k-steps that hold
+    // real columns (zeros past D)
+    float s[BN / 2];
 #pragma unroll
-    for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
+    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
     mbar_wait(&k_full[st], ph);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < W / 16; ++kk) {
+      if (kk * 16 >= D) break;
       const int pn = kk / 4, off = (kk % 4) * 32;
-      wgmma_m64n128k16_ss(
-          s, desc_sw128(q_wg + pn * BM * 128 + off, 16, 1024),
-          desc_sw128(kt_s + pn * kBN * 128 + off, 16, 1024), 1);
+      const uint64_t dq = desc_sw128(q_wg + pn * BM * 128 + off, 16, 1024);
+      const uint64_t dk = desc_sw128(kt_s + pn * BN * 128 + off, 16, 1024);
+      if constexpr (BN == 128)
+        wgmma_m64n128k16_ss(s, dq, dk, 1);
+      else
+        wgmma_m64n64k16_ss(s, dq, dk, 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -468,14 +507,14 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // against this tile's running max).  A tile that crosses the causal
     // diagonal or the Skv edge is masked element by element; any other
     // takes its max on the raw scores and one FFMA and one exp2 a score.
-    const int k0 = it * kBN;
+    const int k0 = it * BN;
     const bool masked =
-        k0 + kBN > p.Skv || (p.causal && k0 + kBN - 1 > wg_row0);
+        k0 + BN > p.Skv || (p.causal && k0 + BN - 1 > wg_row0);
     float mx_a = kNegInf, mx_b = kNegInf, sum_a = 0.f, sum_b = 0.f;
     float al_a, al_b;
     if (!masked) {
 #pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
+      for (int j = 0; j < BN / 8; ++j) {
         mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
         mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
       }
@@ -486,7 +525,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       m_a = mn_a;
       m_b = mn_b;
 #pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
+      for (int j = 0; j < BN / 8; ++j) {
         s[4 * j] = exp2f(fmaf(s[4 * j], sl2, -mn_a));
         s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], sl2, -mn_a));
         s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], sl2, -mn_b));
@@ -496,7 +535,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     } else {
 #pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
+      for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float x = s[4 * j + e] * sl2;
@@ -514,7 +553,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       m_a = mn_a;
       m_b = mn_b;
 #pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
+      for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float x = s[4 * j + e];
@@ -529,7 +568,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     l_a = l_a * al_a + sum_a;
     l_b = l_b * al_b + sum_b;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < W / 8; ++j) {
       o[4 * j] *= al_a;
       o[4 * j + 1] *= al_a;
       o[4 * j + 2] *= al_b;
@@ -538,9 +577,9 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     // P rounded to bf16 (the TPU kernel's p.astype(v.dtype)), as the
     // register A operand: k-step kk holds keys [16kk, 16kk + 16)
-    uint32_t pa[kBN / 16][4];
+    uint32_t pa[BN / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
+    for (int kk = 0; kk < BN / 16; ++kk) {
       pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
       pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
       pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -551,9 +590,11 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(&v_full[st], ph);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      const uint64_t dv = desc_sw128(vt_s + kk * 2048, kBN * 128, 1024);
-      if constexpr (D == 128)
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint64_t dv = desc_sw128(vt_s + kk * 2048, BN * 128, 1024);
+      if constexpr (W == 256)
+        wgmma_m64n256k16_rs_tb(o, pa[kk], dv, 1);
+      else if constexpr (W == 128)
         wgmma_m64n128k16_rs_tb(o, pa[kk], dv, 1);
       else
         wgmma_m64n64k16_rs_tb(o, pa[kk], dv, 1);
@@ -570,7 +611,8 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < W / 8; ++j) {
+    if (j * 8 >= D) break;            // the real columns only
     const int col = j * 8 + 2 * t;
     if (qrow_a < w.rend)
       *reinterpret_cast<uint32_t*>(out + (w.q_base + qrow_a) * D + col) =
@@ -595,21 +637,22 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-template <int D, int TM>
+template <int W, int TM>
 struct F32Cfg {
   static constexpr int kThreads = 4 * TM;  // 16 per group of 4 rows
   static constexpr int KC = kChunkF32;
-  static constexpr int LD = D + 1;
+  static constexpr int LD = W + 1;         // rows of W, zero past D
   static constexpr int LP = KC + 1;
   static constexpr int kSmem = ((TM + 2 * KC) * LD + TM * LP) * 4;  // bytes
 };
 
-template <int D, int TM>
+template <int W, int TM, bool kFull>
 __global__ void __launch_bounds__(4 * TM)
 fa_f32_kernel(Params p) {
-  using C = F32Cfg<D, TM>;
+  using C = F32Cfg<W, TM>;
   constexpr int KC = C::KC, LD = C::LD, LP = C::LP, NT = C::kThreads;
-  constexpr int DC = D / 16;  // accumulator columns per thread
+  constexpr int DC = W / 16;  // accumulator columns per thread
+  const int D = kFull ? W : p.D;
   Work w;
   if (!cta_work(p, TM, KC, w)) return;
 
@@ -625,9 +668,11 @@ fa_f32_kernel(Params p) {
   float* o = static_cast<float*>(p.o);
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
 
-  for (int i = tid; i < TM * D; i += NT) {
-    const int r = i / D, c = i % D, row = w.r0 + r;
-    q_s[r * LD + c] = row < w.rend ? q[(w.q_base + row) * D + c] : 0.f;
+  // rows staged at the width W, zeros past D (they add nothing)
+  for (int i = tid; i < TM * W; i += NT) {
+    const int r = i / W, c = i % W, row = w.r0 + r;
+    q_s[r * LD + c] =
+        row < w.rend && c < D ? q[(w.q_base + row) * D + c] : 0.f;
   }
 
   float m_r[4], l_r[4], acc[4][DC];
@@ -642,10 +687,10 @@ fa_f32_kernel(Params p) {
   for (int ch = 0; ch < w.n_chunks; ++ch) {
     const int k0 = ch * KC;
     __syncthreads();  // q_s written / the previous chunk's readers done
-    for (int i = tid; i < KC * D; i += NT) {
-      const int r = i / D, c = i % D, key = k0 + r;
-      const bool ok = key < p.Skv;
-      const size_t src = (w.kv_base + (ok ? key : 0)) * D + c;
+    for (int i = tid; i < KC * W; i += NT) {
+      const int r = i / W, c = i % W, key = k0 + r;
+      const bool ok = key < p.Skv && c < D;
+      const size_t src = (w.kv_base + (ok ? key : 0)) * D + (ok ? c : 0);
       k_s[r * LD + c] = ok ? k[src] : 0.f;
       v_s[r * LD + c] = ok ? v[src] : 0.f;
     }
@@ -698,6 +743,7 @@ fa_f32_kernel(Params p) {
       for (int i = 0; i < 4; ++i) pv[i] = p_s[(ty * 4 + i) * LP + tk];
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
+        if (16 * c >= D) break;      // columns wholly past D
         const float vv = v_s[tk * LD + tx + 16 * c];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
@@ -712,7 +758,8 @@ fa_f32_kernel(Params p) {
       const float l = l_r[i] == 0.f ? 1.f : l_r[i];
 #pragma unroll
       for (int c = 0; c < DC; ++c)
-        o[(w.q_base + row) * D + tx + 16 * c] = acc[i][c] / l;
+        if (tx + 16 * c < D)
+          o[(w.q_base + row) * D + tx + 16 * c] = acc[i][c] / l;
     }
   }
 }
@@ -729,46 +776,55 @@ int launch_kernel(Kern kern, int smem, int threads, dim3 grid,
   return (int)cudaGetLastError();
 }
 
-template <int D, int NCW>
+template <int W, int NCW, bool kFull>
 int launch_wgmma(int B, dim3 grid, const Params& p, cudaStream_t s) {
-  using C = WgCfg<D, NCW>;
+  using C = WgCfg<W, NCW>;
   CUtensorMap tq, tk, tv;
-  int e = encode_tensor_map_3d(&tq, p.q, D, p.Sq, (uint64_t)B * p.Hq, C::BM);
-  if (!e) e = encode_tensor_map_3d(&tk, p.k, D, p.Skv, (uint64_t)B * p.Hkv, kBN);
-  if (!e) e = encode_tensor_map_3d(&tv, p.v, D, p.Skv, (uint64_t)B * p.Hkv, kBN);
+  int e = encode_tensor_map_3d(&tq, p.q, p.D, p.Sq, (uint64_t)B * p.Hq, C::BM);
+  if (!e) e = encode_tensor_map_3d(&tk, p.k, p.D, p.Skv, (uint64_t)B * p.Hkv, C::BN);
+  if (!e) e = encode_tensor_map_3d(&tv, p.v, p.D, p.Skv, (uint64_t)B * p.Hkv, C::BN);
   if (e) return e;
-  return launch_kernel(fa_wgmma_kernel<D, NCW>, C::kSmem, C::kThreads, grid,
-                       s, tq, tk, tv, p);
+  return launch_kernel(fa_wgmma_kernel<W, NCW, kFull>, C::kSmem, C::kThreads,
+                       grid, s, tq, tk, tv, p);
 }
 
-template <int D>
-int launch_d(int tile, int is_bf16, int B, dim3 grid, const Params& p,
-             cudaStream_t s) {
+template <int W, bool kFull>
+int launch_tile(int tile, int is_bf16, int B, dim3 grid, const Params& p,
+                cudaStream_t s) {
   if (is_bf16) {
     switch (tile) {
-      case 16: return launch_kernel(fa_bf16_kernel<D, 1>, Bf16Cfg<D, 1>::kSmem, 32, grid, s, p);
-      case 32: return launch_kernel(fa_bf16_kernel<D, 2>, Bf16Cfg<D, 2>::kSmem, 64, grid, s, p);
-      case 64: return launch_wgmma<D, 1>(B, grid, p, s);
-      case 128: return launch_wgmma<D, 2>(B, grid, p, s);
+      case 16: return launch_kernel(fa_bf16_kernel<W, 1, kFull>, Bf16Cfg<W, 1>::kSmem, 32, grid, s, p);
+      case 32: return launch_kernel(fa_bf16_kernel<W, 2, kFull>, Bf16Cfg<W, 2>::kSmem, 64, grid, s, p);
+      case 64: return launch_wgmma<W, 1, kFull>(B, grid, p, s);
+      case 128: return launch_wgmma<W, 2, kFull>(B, grid, p, s);
     }
   } else {
     switch (tile) {
-      case 16: return launch_kernel(fa_f32_kernel<D, 16>, F32Cfg<D, 16>::kSmem, 64, grid, s, p);
-      case 32: return launch_kernel(fa_f32_kernel<D, 32>, F32Cfg<D, 32>::kSmem, 128, grid, s, p);
-      case 64: return launch_kernel(fa_f32_kernel<D, 64>, F32Cfg<D, 64>::kSmem, 256, grid, s, p);
-      case 128: return launch_kernel(fa_f32_kernel<D, 128>, F32Cfg<D, 128>::kSmem, 512, grid, s, p);
+      case 16: return launch_kernel(fa_f32_kernel<W, 16, kFull>, F32Cfg<W, 16>::kSmem, 64, grid, s, p);
+      case 32: return launch_kernel(fa_f32_kernel<W, 32, kFull>, F32Cfg<W, 32>::kSmem, 128, grid, s, p);
+      case 64: return launch_kernel(fa_f32_kernel<W, 64, kFull>, F32Cfg<W, 64>::kSmem, 256, grid, s, p);
+      case 128: return launch_kernel(fa_f32_kernel<W, 128, kFull>, F32Cfg<W, 128>::kSmem, 512, grid, s, p);
     }
   }
   return (int)cudaErrorInvalidValue;
 }
 
+// the compile-time instance where head_dim is the width itself
+template <int W>
+int launch_w(int tile, int is_bf16, int B, dim3 grid, const Params& p,
+             cudaStream_t s) {
+  return p.D == W ? launch_tile<W, true>(tile, is_bf16, B, grid, p, s)
+                  : launch_tile<W, false>(tile, is_bf16, B, grid, p, s);
+}
+
 }  // namespace
 
 // q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D), o (B, Hq, Sq, D); contiguous, on
-// one device, 16-byte aligned, all bf16 (is_bf16) or all f32; D in {64,
-// 128}; tile in {16, 32, 64, 128} query rows per CTA; block_q the config's
-// query block (a multiple of tile, or smaller than it).  Returns the CUDA
-// error code of the launch (0 on success).
+// one device, 16-byte aligned, all bf16 (is_bf16) or all f32; D up to 256,
+// a multiple of 8 in bf16 and of 4 in f32; tile in {16, 32, 64, 128} query
+// rows per CTA; block_q the config's query block (a multiple of tile, or
+// smaller than it).  Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Hq,
                                       int Hkv, int Sq, int Skv, int D,
@@ -776,7 +832,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int skip, float scale, int is_bf16,
                                       void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0 ||
-      block_q <= 0 || tile <= 0)
+      block_q <= 0 || tile <= 0 || D <= 0 || D > 256 ||
+      D % (is_bf16 ? 8 : 4))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -787,6 +844,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   p.Hkv = Hkv;
   p.Sq = Sq;
   p.Skv = Skv;
+  p.D = D;
   p.bq = block_q;
   p.cps = (block_q + tile - 1) / tile;
   p.causal = causal;
@@ -796,9 +854,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (nq * p.cps > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid(B * Hq, (unsigned)(nq * p.cps));
   cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-    case 64: return launch_d<64>(tile, is_bf16, B, grid, p, s);
-    case 128: return launch_d<128>(tile, is_bf16, B, grid, p, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (D <= 64) return launch_w<64>(tile, is_bf16, B, grid, p, s);
+  if (D <= 128) return launch_w<128>(tile, is_bf16, B, grid, p, s);
+  return launch_w<256>(tile, is_bf16, B, grid, p, s);
 }

@@ -17,9 +17,9 @@ from pathlib import Path
 
 import torch
 
-from ...core.families.flash_attention import (HEAD_DIMS,
-                                              FlashAttentionConfig,
+from ...core.families.flash_attention import (FlashAttentionConfig,
                                               cta_tile)
+from ...core.kernelspec import MAX_HEAD_DIM, head_dim_ok
 from ...core.kernelspec import cdiv
 from .._build import CudaKernel, ptr, stream_handle
 from .ref import mha_ref
@@ -56,9 +56,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes bf16 or f32 q, k, v "
                         f"of one type, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {D}")
+    if not head_dim_ok(D, q.element_size()):
+        raise ValueError(f"flash_attention kernel takes head_dim up to "
+                         f"{MAX_HEAD_DIM} in rows of whole 16-byte vectors, "
+                         f"got {D} in {q.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k, v must be on one device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):

@@ -7,86 +7,98 @@
 // masked by each row's length, with a float32 (m, l, acc) carry; its
 // weights p stay float32 and V is cast up (paged_attention.py:74-76: a
 // p -> bf16 downcast visibly perturbs decode logits).  A row of length 0
-// gives zeros.
+// gives zeros.  Like the TPU kernel it takes any head_dim whose rows are
+// whole 16-byte vectors (a multiple of 8 in bf16, of 4 in float32) up to
+// 256, any group G = Hq / Hkv and any page of 2 tokens or more.
 //
 // What bounds it on the H100: memory.  A row reads the K and V of the
 // positions its length covers, sum_b len_b * Hkv * D * 2 * sizeof(T) bytes
 // (134 MB at the family's production problem, 32 rows x 8192 tokens in
 // 128-token pages: 0.040 ms at 3.35 TB/s), and does 4 * G * D operations
 // per position, far below the card's ~295 operations per byte.  So the
-// design reads each K/V element once, keeps many copies in flight on every
-// SM, and keeps the products off the critical path.
+// design reads each K/V element once (ceil(G / 8) times for G > 8, the
+// repeats mostly from L2), keeps many copies in flight on every SM, and
+// keeps the products off the critical path.
 //
 // Design: a split page walk.
 //   * Each row's positions are cut into `ns` spans of span_pages pages,
-//     a number the wrapper derives from the shapes (B, Hkv, NP, PS) alone
-//     (core/families/paged_attention.py `span_pages`), never from the
-//     lengths, so the grid is fixed for a decode geometry; the host never
-//     reads the lengths.  One CTA per (span, KV head, row) serves the
-//     G = Hq / Hkv <= 8 query heads of its KV head, so each K/V element is
-//     read once.  A span that starts at or past its row's length writes an
+//     a number the wrapper derives from the shapes (B, Hkv, G, NP, PS)
+//     alone (core/families/paged_attention.py `span_pages`), never from
+//     the lengths, so the grid is fixed for a decode geometry; the host
+//     never reads the lengths.  One CTA per (span, KV head, head block,
+//     row) serves up to 8 query heads of its KV head (the head block:
+//     heads [8j, 8j + 8) of the G), so for G <= 8 each K/V element is read
+//     once.  A span that starts at or past its row's length writes an
 //     empty partial (m = -1e30, l = 0, o = 0) and exits.  Each span writes
 //     float32 partials o (B·Hq, ns, D), m and l (B·Hq, ns); a second
 //     kernel on the same stream merges them by log-sum-exp and writes the
 //     output in q's type, or zeros where the merged l is 0.
-//   * bf16 at head_dim 64, 80, 128 and 256 (paged_decode_bf16_kernel): a
-//     producer warp reads the span's table entries from device memory, 32
-//     at a time into its lanes (the TPU kernel's scalar prefetch), and
+//   * A span walks its pages in tiles of T rows: a tile holds the whole
+//     pages that fit it (a page of PS <= T tokens), or a T-row chunk of
+//     one page (PS > T; a page's last chunk is short where T does not
+//     divide PS).  Rows that hold no valid position (past the length, in
+//     a short chunk, or in a page slot's tail) are masked.
+//   * bf16 (paged_decode_bf16_kernel): tensor cores fed by TMA at three
+//     tile widths W = 64, 128 and 256 columns; head_dim D runs in the
+//     least width W >= D, with the tensor maps declared at D columns, so
+//     that TMA's zero fill supplies columns D..W-1 (the HBM bytes stay
+//     those of D) and the products skip the 16-column steps wholly past
+//     D.
+//     A producer warp reads the span's table entries from device memory,
+//     32 at a time into its lanes (the TPU kernel's scalar prefetch), and
 //     copies the page tiles by TMA into a three-stage ring of 16 KB K and
-//     V tiles with full/empty mbarriers, two CTAs an SM: 64 positions at
-//     D = 128, 128 at D = 64, 32 at D = 256; at D = 80, D = 128's tiles
-//     with the maps declared at 80 columns, so that TMA's zero fill
-//     supplies columns 80..127, which no product reads (the HBM bytes
-//     stay those of 80).  The pool is viewed as a 3-D tensor (D, PS,
-//     P·Hkv): a box of min(PS, tile) rows at (column, row in page,
-//     phys·Hkv + hk), so a page of 8 to 256 tokens that divides the
-//     tile, or is divided by it,
-//     lands as one or several 1024-byte-aligned boxes of a 128-byte-
-//     swizzled tile.  Only pages holding a valid position are copied:
-//     pages wholly past the length, and so the null page and foreign
-//     pages, are never read.  Four consumer warps (two at D = 256) each
-//     take 16 (D = 80, 128, 256) or 32 (D = 64) positions of every tile
+//     V tiles with full/empty mbarriers, two CTAs an SM: 128 positions at
+//     W = 64, 64 at 128, 32 at 256.  The pool is viewed as a 3-D tensor
+//     (D, PS, P·Hkv): a box of min(PS, T) rows at (column, row in page,
+//     phys·Hkv + hk).  A page of PS <= T tokens lands in a slot of PS
+//     rounded up to 8 rows, so every box starts 1024-byte aligned in the
+//     128-byte-swizzled tile (a 24-token page: two 24-row slots, rows
+//     48..63 masked; a 2-token page: eight 8-row slots); a longer page is
+//     walked in T-row boxes at rows 0, T, 2T, ... of the page, TMA
+//     zero-filling rows past its end (a 512-token page: eight 64-row
+//     boxes at W = 128).  Only pages holding a valid position are
+//     copied: pages wholly past the length, and so the null page and
+//     foreign pages, are never read.  Four consumer warps (two at W =
+//     256) each take 16 (W = 128, 256) or 32 (W = 64) rows of every tile
 //     (64-position 32 KB tiles at one CTA an SM measured slower at D =
-//     256: PERF.md): Sᵀ = K·Qᵀ with the G heads
-//     as mma.sync's n = 8 (K by ldmatrix, Q in registers, zero past G),
-//     and Oᵀ = Vᵀ·Pᵀ with V by ldmatrix.trans.  p keeps the TPU kernel's
-//     float32 accuracy: it is split into p_hi = bf16(p) and p_lo =
-//     bf16(p - p_hi), two products into one float32 accumulator (p_hi
-//     alone would move ~39% of the bf16 outputs by a step).  Positions past
-//     the length contribute exactly nothing: their scores are selected to
-//     -1e30, their p is 0, and the V rows of a partial tile are zeroed
-//     before the product, so whatever the pool holds there (a poisoned
-//     page, a stale stage) never reaches the output.  The running max is
-//     updated once per warp's slice of a tile; the warps' (m, l, o) merge
-//     in shared memory at the span's end.
-//   * float32 pools, and bf16 at head_dim 8, 16 and 32, which only
-//     reduced configurations reach (paged_decode_f32_kernel): the same
-//     split walk on CUDA-core FMAs (TF32 stays off): a CTA of 128
-//     threads stages each tile of up to 64 positions (at most 16 KB, a
-//     power of two positions: 32 in float32 at head_dim 80, 16 at 256)
-//     with 16-byte loads through the table,
-//     scores with each warp taking whole positions, the softmax one warp
-//     per head, P·V with each thread owning the output columns d ≡ tid
-//     (mod 128), p in float32.
+//     256: PERF.md): Sᵀ = K·Qᵀ with the head block's heads as mma.sync's
+//     n = 8 (K by ldmatrix, Q in registers, zero past the block and past
+//     D), and Oᵀ = Vᵀ·Pᵀ with V by ldmatrix.trans.  p keeps the TPU
+//     kernel's float32 accuracy: it is split into p_hi = bf16(p) and p_lo
+//     = bf16(p - p_hi), two products into one float32 accumulator (p_hi
+//     alone would move ~39% of the bf16 outputs by a step).  Rows that
+//     hold no valid position contribute exactly nothing: their scores are
+//     selected to -1e30, their p is 0, and their V rows are zeroed before
+//     the product, so whatever shared memory holds there (a poisoned
+//     page's tail, a stale stage, an unwritten slot tail) never reaches
+//     the output.  The running max is updated once per warp's slice of a
+//     tile; the warps' (m, l, o) merge in shared memory at the span's end,
+//     and only columns below D are stored.
+//   * float32 pools (paged_decode_f32_kernel): the same split walk on
+//     CUDA-core FMAs (TF32 stays off) at three widths (64, 128, 256
+//     columns, D at run time below them, or D = W at compile time as
+//     kFull): a CTA of 128 threads stages each tile of up to 64
+//     positions (at most 16 KB: 64 positions at width 64, 32 at 128, 16
+//     at 256; pages packed without slots) with 16-byte loads through the
+//     table (rows of W columns, zero past D), scores with each warp
+//     taking whole positions, the softmax one warp per head, P·V with
+//     each thread owning the output columns d ≡ tid (mod 128), p in
+//     float32.
 #include "hopper.cuh"
 
 namespace {
 
 using namespace hopper;
 
-constexpr int kMaxG = 8;           // query heads per KV head
+constexpr int kGB = 8;             // query heads a CTA serves (mma's n)
 constexpr int kTileBytes = 16384;  // one K (or V) tile
 constexpr int kMaxStep = 64;       // positions a tile, CUDA-core kernel
 constexpr int kThreads = 128;      // CUDA-core kernel
 constexpr int kWarps = kThreads / 32;
-constexpr int kMinPage = 8, kMaxPage = 256;
+constexpr int kMinPage = 2;
+constexpr int kMaxD = 256;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -113,42 +125,83 @@ __device__ __forceinline__ float col_sum(float v) {
   return v;
 }
 
-// The valid positions [begin, end) of span s of row b: the span's pages,
-// cut at the row's length (clamped to the table).
-struct Span {
-  int begin, end;
+// The walk of span s of row b: its valid positions [begin, end) (the
+// span's pages, cut at the row's length, clamped to the table) in tiles of
+// T rows.  A page of PS <= T tokens takes a slot of `slot` rows (PS, or PS
+// rounded up to 8 where TMA boxes need 1024-byte-aligned starts) and a
+// tile holds pp = T / slot pages; a longer page is tpp = ceil(PS / T)
+// chunks of T rows, one a tile.
+struct Walk {
+  int begin, end, PS, T, slot, pp, tpp;
+  // every row r of a tile holds position start + r, up to the span's end
+  // (whole pages fill the tile without slot tails, or chunks fill pages)
+  bool dense;
+
+  __device__ __forceinline__ Walk(const int* lengths, int b, int s, int PS_,
+                                  int NP, int span_pages, int T_,
+                                  int slot_) {
+    const int len = max(0, min(lengths[b], NP * PS_));
+    PS = PS_;
+    T = T_;
+    begin = s * span_pages * PS;
+    end = min(begin + span_pages * PS, len);
+    if (PS <= T) {
+      slot = slot_;
+      pp = T / slot;
+      tpp = 1;
+    } else {
+      slot = T;
+      pp = 1;
+      tpp = (PS + T - 1) / T;
+    }
+    dense = PS <= T ? slot == PS && pp * PS == T : PS % T == 0;
+  }
+  __device__ __forceinline__ int n_tiles() const {
+    const int n = end - begin;   // > 0: empty spans exit before the walk
+    if (PS <= T) return (n + pp * PS - 1) / (pp * PS);
+    return (n / PS) * tpp + (n % PS + T - 1) / T;
+  }
+  // tile i: the position of its row 0 and the rows of each slot that hold
+  // a page's positions
+  __device__ __forceinline__ int start(int i) const {
+    if (PS <= T) return begin + i * pp * PS;
+    return begin + (i / tpp) * PS + (i % tpp) * T;
+  }
+  __device__ __forceinline__ int rows(int i) const {
+    return PS <= T ? PS : min(T, PS - (i % tpp) * T);
+  }
+  // the position row r of tile i holds, or -1 where it holds none
+  __device__ __forceinline__ int pos(int t0, int lim, int r) const {
+    const int j = r / slot, o = r - j * slot;
+    const int p = t0 + j * PS + o;
+    return (o < lim && j < pp && p < end) ? p : -1;
+  }
 };
-__device__ __forceinline__ Span span_of(const int* lengths, int b, int s,
-                                        int PS, int NP, int span_pages) {
-  const int len = max(0, min(lengths[b], NP * PS));
-  Span sp;
-  sp.begin = s * span_pages * PS;
-  sp.end = min(sp.begin + span_pages * PS, len);
-  return sp;
-}
 
-// -- bf16 at head_dim 64, 80, 128, 256: tensor cores, TMA through the table --
+// -- bf16: tensor cores, TMA through the table, tiles of W columns -----------
 
-template <int D>
+template <int W>
 struct Tc {
-  // head_dim 80 lands in D = 128's tile: the maps are declared at 80
-  // columns, TMA's zero fill supplies 80..127, which no product reads
-  static constexpr int kDP = D == 80 ? 128 : D;    // columns in shared memory
-  static constexpr int kR = kDP < 128 ? 128 / kDP : 1;  // 16-row slabs a warp
-  // consumer warps: a 16 KB tile at head_dim 256 is 32 positions, two
-  // 16-row slabs
-  static constexpr int kConsumers = D == 256 ? 2 : 4;
+  static constexpr int kR = W < 128 ? 128 / W : 1;  // 16-row slabs a warp
+  // consumer warps: a 16 KB tile at width 256 is 32 positions, two 16-row
+  // slabs
+  static constexpr int kConsumers = W == 256 ? 2 : 4;
   static constexpr int kT = 16 * kR * kConsumers;  // positions a tile
-  static constexpr int kPanels = kDP / 64;
-  static constexpr int kTile = kT * kDP * 2;       // bytes of K (or V)
+  static constexpr int kPanels = W / 64;
+  static constexpr int kTile = kT * W * 2;         // bytes of K (or V)
   static constexpr int kStages = 3;
   static constexpr int kThreads = 32 * (kConsumers + 1);
   static constexpr int kSmem = 1024 + kStages * 2 * kTile + 16 * kStages;
   static_assert(kTile == kTileBytes, "16 KB tiles");
+  static_assert(kConsumers * kGB * W * 4 + 2 * kConsumers * kGB * 4 <=
+                    kStages * 2 * kTile,
+                "the warps' partials fit the idle ring");
 };
 
-template <int D>
-__global__ void __launch_bounds__(Tc<D>::kThreads, 2)
+// kFull: head_dim is the width itself (64, 128, 256), known at compile
+// time, so the head_dim guards and strides fold away
+template <int W, bool kFull>
+__global__ void __launch_bounds__(Tc<W>::kThreads, 2)
 paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v,
                          const __nv_bfloat16* __restrict__ q,  // (B, Hq, D)
@@ -157,12 +210,16 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
                          float* __restrict__ o_part,  // (B·Hq, ns, D)
                          float* __restrict__ m_part,  // (B·Hq, ns)
                          float* __restrict__ l_part,  // (B·Hq, ns)
-                         int Hq, int Hkv, int PS, int NP, int span_pages,
-                         int ns, float scale) {
-  using C = Tc<D>;
+                         int Hq, int Hkv, int D_, int PS, int NP,
+                         int span_pages, int ns, int nhb, float scale) {
+  using C = Tc<W>;
+  const int D = kFull ? W : D_;
   constexpr int T = C::kT, R = C::kR, TB = C::kTile, NST = C::kStages;
-  const int s = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int s = blockIdx.x, b = blockIdx.z;
+  const int hk = blockIdx.y / nhb, hb = blockIdx.y % nhb;
   const int G = Hq / Hkv;
+  const int h0 = hk * G + hb * kGB;           // first query head served
+  const int GB = min(kGB, G - hb * kGB);      // heads served
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
 
@@ -172,15 +229,12 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + NST * 2 * TB);
   uint64_t* empty = full + NST;
 
-  const Span sp = span_of(lengths, b, s, PS, NP, span_pages);
-  const int n_tiles = sp.end > sp.begin ? (sp.end - sp.begin + T - 1) / T
-                                        : 0;
-  if (n_tiles == 0) {
+  if (s * span_pages * PS >= min(lengths[b], NP * PS)) {
     // a span wholly past its row's length writes the empty partial and
     // exits before any barrier or load (most spans of a decode batch of
     // mixed lengths)
-    for (int i = threadIdx.x; i < G * D; i += C::kThreads) {
-      const size_t row = ((size_t)b * Hq + hk * G + i / D) * ns + s;
+    for (int i = threadIdx.x; i < GB * D; i += C::kThreads) {
+      const size_t row = ((size_t)b * Hq + h0 + i / D) * ns + s;
       o_part[row * D + i % D] = 0.f;
       if (i % D == 0) {
         m_part[row] = kNegInf;
@@ -189,6 +243,8 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
     }
     return;
   }
+  const Walk wk(lengths, b, s, PS, NP, span_pages, T, (PS + 7) & ~7);
+  const int n_tiles = wk.n_tiles();
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < NST; ++i) {
@@ -201,21 +257,22 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
 
   if (warp == C::kConsumers) {
     // producer warp: the span's table entries, 32 at a time in its lanes;
-    // lane 0 copies each tile's pages that hold a valid position
+    // lane 0 copies each tile's boxes that hold a valid position
     const int box = min(PS, T);        // rows of one TMA box
     const int* trow = table + (size_t)b * NP;
     int base = -32, mine = 0;
     for (int i = 0; i < n_tiles; ++i) {
       const int st = i % NST, ph = (i / NST) & 1;
-      const int t0 = sp.begin + i * T;
-      const int nb = min(T / box, (sp.end - t0 + box - 1) / box);
+      const int t0 = wk.start(i);
+      // whole pages (PS <= T) or one chunk of a page
+      const int nb = PS <= T ? min(wk.pp, (wk.end - t0 + PS - 1) / PS) : 1;
       mbar_wait(&empty[st], ph ^ 1);
-      // whole boxes, zero-filled columns included
+      // whole boxes, zero-filled columns and rows included
       if (lane == 0)
         mbar_expect_tx(&full[st], 2 * nb * box * C::kPanels * 128);
       unsigned char* kd = ring + st * 2 * TB;
       for (int j = 0; j < nb; ++j) {
-        const int pos = t0 + j * box, pg = pos / PS;
+        const int pos = t0 + j * PS, pg = pos / PS;
         if (pg < base || pg >= base + 32) {          // uniform in the warp
           base = pg;
           mine = pg + lane < NP ? trow[pg + lane] : 0;
@@ -224,7 +281,7 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
         if (lane == 0) {
 #pragma unroll
           for (int pn = 0; pn < C::kPanels; ++pn) {
-            const int off = pn * T * 128 + j * box * 128;
+            const int off = pn * T * 128 + j * wk.slot * 128;
             tma_load_3d(kd + off, &tm_k, pn * 64, pos % PS, phys * Hkv + hk,
                         &full[st]);
             tma_load_3d(kd + TB + off, &tm_v, pn * 64, pos % PS,
@@ -237,22 +294,23 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
 
   // consumer warp: rows [warp·16R, warp·16R + 16R) of every tile; the
-  // products take the D / 16 slabs of real columns.
-  // Qᵀ as the B operand (8 heads, zero past G): element (d, head g)
-  uint32_t qb[D / 16][2];
+  // products take the 16-column steps that hold real columns.
+  // Qᵀ as the B operand (the block's heads, zero past them and past D):
+  // element (d, head g)
+  uint32_t qb[W / 16][2];
   {
     const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
-        q + ((size_t)b * Hq + hk * G + min(g, G - 1)) * D);
+        q + ((size_t)b * Hq + h0 + min(g, GB - 1)) * D);
 #pragma unroll
-    for (int kt = 0; kt < D / 16; ++kt) {
-      qb[kt][0] = g < G ? qrow[kt * 8 + t] : 0u;
-      qb[kt][1] = g < G ? qrow[kt * 8 + 4 + t] : 0u;
+    for (int kt = 0; kt < W / 16; ++kt) {
+      qb[kt][0] = g < GB && kt * 16 < D ? qrow[kt * 8 + t] : 0u;
+      qb[kt][1] = g < GB && kt * 16 + 8 < D ? qrow[kt * 8 + 4 + t] : 0u;
     }
   }
   // Oᵀ accumulator: m-tile mt holds d in [16mt, 16mt + 16), heads 2t, 2t+1
-  float acc[D / 16][4];
+  float acc[W / 16][4];
 #pragma unroll
-  for (int mt = 0; mt < D / 16; ++mt)
+  for (int mt = 0; mt < W / 16; ++mt)
     acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.f;
   float m0 = kNegInf, m1 = kNegInf;   // heads 2t and 2t + 1
   float l0 = 0.f, l1 = 0.f;           // this lane's share of their sums
@@ -261,18 +319,29 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
 
   for (int i = 0; i < n_tiles; ++i) {
     const int st = i % NST, ph = (i / NST) & 1;
-    const int nt = min(T, sp.end - sp.begin - i * T);   // valid rows
+    const int t0 = wk.start(i), lim = wk.rows(i);
     unsigned char* kt_s = ring + st * 2 * TB;
     unsigned char* vt_s = kt_s + TB;
+    // does every row of this warp (16R <= 32 of them) hold a valid
+    // position?  (In a dense walk row r holds t0 + r below the end.)
+    const int nt = wk.end - t0;
+    const bool whole =
+        wk.dense ? row0 + 16 * R <= nt
+                 : __all_sync(0xffffffffu, lane >= 16 * R ||
+                                               wk.pos(t0, lim, row0 + lane) >= 0);
+    const auto valid = [&](int row) {
+      return wk.dense ? row < nt : wk.pos(t0, lim, row) >= 0;
+    };
     mbar_wait(&full[st], ph);
-    if (nt < T) {
-      // rows past the valid positions hold a page's tail or a stale
-      // stage: zero this warp's V rows there, so that p = 0 meets zero
+    if (!whole) {
+      // rows that hold no valid position hold a page's tail, a stale
+      // stage or an unwritten slot tail: zero this warp's V rows there,
+      // so that p = 0 meets zero
       bool wrote = false;
       for (int c = lane; c < 16 * R * C::kPanels * 8; c += 32) {
         const int row = row0 + c / (C::kPanels * 8);
         const int pn = (c / 8) % C::kPanels;
-        if (row >= nt) {
+        if (!valid(row)) {
           *reinterpret_cast<uint4*>(vt_s + pn * T * 128 + row * 128 +
                                     (c % 8) * 16) = make_uint4(0, 0, 0, 0);
           wrote = true;
@@ -289,23 +358,27 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
       sc[r][0] = sc[r][1] = sc[r][2] = sc[r][3] = 0.f;
       const int row = row0 + 16 * r + (mi & 1) * 8 + r8;
 #pragma unroll
-      for (int kt = 0; kt < D / 16; ++kt) {
-        uint32_t a[4];
-        ldmatrix_x4(a, smem_u32(kt_s + (kt / 4) * T * 128 +
-                                swz_offset(row, (kt % 4) * 2 + (mi >> 1))));
-        mma_bf16(sc[r], a, qb[kt][0], qb[kt][1]);
+      for (int kt = 0; kt < W / 16; ++kt) {
+        if (kt * 16 < D) {
+          uint32_t a[4];
+          ldmatrix_x4(a, smem_u32(kt_s + (kt / 4) * T * 128 +
+                                  swz_offset(row, (kt % 4) * 2 + (mi >> 1))));
+          mma_bf16(sc[r], a, qb[kt][0], qb[kt][1]);
+        }
       }
     }
 
-    // scores past the valid positions selected to -1e30; online softmax
-    // (natural-log max, exp2f with log2(e) folded in)
+    // scores of rows without a valid position selected to -1e30; online
+    // softmax (natural-log max, exp2f with log2(e) folded in)
     float mx0 = kNegInf, mx1 = kNegInf;
+    bool ok[R][2];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = row0 + 16 * r + g + (e >> 1) * 8;
-        const float x = row < nt ? sc[r][e] * scale : kNegInf;
+        if (!(e & 1)) ok[r][e >> 1] = whole || valid(row);
+        const float x = ok[r][e >> 1] ? sc[r][e] * scale : kNegInf;
         sc[r][e] = x;
         if (e & 1) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
       }
@@ -322,9 +395,9 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
       float pe[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int row = row0 + 16 * r + g + (e >> 1) * 8;
-        pe[e] = row < nt ? exp2f((sc[r][e] - ((e & 1) ? mn1 : mn0)) * kLog2e)
-                         : 0.f;
+        pe[e] = ok[r][e >> 1]
+                    ? exp2f((sc[r][e] - ((e & 1) ? mn1 : mn0)) * kLog2e)
+                    : 0.f;
         if (e & 1) sum1 += pe[e]; else sum0 += pe[e];
       }
       // p = p_hi + p_lo in bf16, each transposed into the B operand:
@@ -342,19 +415,21 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
 
     // Oᵀ = Oᵀ·alpha + Vᵀ P_hiᵀ + Vᵀ P_loᵀ
 #pragma unroll
-    for (int mt = 0; mt < D / 16; ++mt) {
-      acc[mt][0] *= al0;
-      acc[mt][1] *= al1;
-      acc[mt][2] *= al0;
-      acc[mt][3] *= al1;
+    for (int mt = 0; mt < W / 16; ++mt) {
+      if (mt * 16 < D) {
+        acc[mt][0] *= al0;
+        acc[mt][1] *= al1;
+        acc[mt][2] *= al0;
+        acc[mt][3] *= al1;
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        uint32_t a[4];
-        const int row = row0 + 16 * r + (mi >> 1) * 8 + r8;
-        ldmatrix_x4_trans(a, smem_u32(vt_s + (mt / 4) * T * 128 +
-                                      swz_offset(row, (mt % 4) * 2 + (mi & 1))));
-        mma_bf16(acc[mt], a, ph_b[r][0], ph_b[r][1]);
-        mma_bf16(acc[mt], a, pl_b[r][0], pl_b[r][1]);
+        for (int r = 0; r < R; ++r) {
+          uint32_t a[4];
+          const int row = row0 + 16 * r + (mi >> 1) * 8 + r8;
+          ldmatrix_x4_trans(a, smem_u32(vt_s + (mt / 4) * T * 128 +
+                                        swz_offset(row, (mt % 4) * 2 + (mi & 1))));
+          mma_bf16(acc[mt], a, ph_b[r][0], ph_b[r][1]);
+          mma_bf16(acc[mt], a, pl_b[r][0], pl_b[r][1]);
+        }
       }
     }
     __syncwarp();
@@ -363,38 +438,39 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
   l0 = col_sum(l0);
   l1 = col_sum(l1);
 
-  // merge the four warps' (m, l, o) in shared memory (the ring is idle:
-  // every tile issued has been consumed)
+  // merge the warps' (m, l, o) in shared memory (the ring is idle: every
+  // tile issued has been consumed); columns at or past D are not kept
   asm volatile("bar.sync 1, %0;\n" :: "n"(32 * C::kConsumers));
   float* o_w = reinterpret_cast<float*>(ring);          // [warp][8][D]
-  float* m_w = o_w + C::kConsumers * kMaxG * D;         // [warp][8]
-  float* l_w = m_w + C::kConsumers * kMaxG;             // [warp][8]
+  float* m_w = o_w + C::kConsumers * kGB * D;           // [warp][8]
+  float* l_w = m_w + C::kConsumers * kGB;               // [warp][8]
 #pragma unroll
-  for (int mt = 0; mt < D / 16; ++mt)
+  for (int mt = 0; mt < W / 16; ++mt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      o_w[(warp * kMaxG + 2 * t + (e & 1)) * D + mt * 16 + g + (e >> 1) * 8] =
-          acc[mt][e];
+    for (int e = 0; e < 4; ++e) {
+      const int d = mt * 16 + g + (e >> 1) * 8;
+      if (d < D) o_w[(warp * kGB + 2 * t + (e & 1)) * D + d] = acc[mt][e];
+    }
   if (g == 0) {
-    m_w[warp * kMaxG + 2 * t] = m0;
-    m_w[warp * kMaxG + 2 * t + 1] = m1;
-    l_w[warp * kMaxG + 2 * t] = l0;
-    l_w[warp * kMaxG + 2 * t + 1] = l1;
+    m_w[warp * kGB + 2 * t] = m0;
+    m_w[warp * kGB + 2 * t + 1] = m1;
+    l_w[warp * kGB + 2 * t] = l0;
+    l_w[warp * kGB + 2 * t + 1] = l1;
   }
   asm volatile("bar.sync 1, %0;\n" :: "n"(32 * C::kConsumers));
-  for (int i = threadIdx.x; i < G * D; i += 32 * C::kConsumers) {
+  for (int i = threadIdx.x; i < GB * D; i += 32 * C::kConsumers) {
     const int h = i / D, d = i % D;
     float m = kNegInf;
 #pragma unroll
-    for (int w = 0; w < C::kConsumers; ++w) m = fmaxf(m, m_w[w * kMaxG + h]);
+    for (int w = 0; w < C::kConsumers; ++w) m = fmaxf(m, m_w[w * kGB + h]);
     float o = 0.f, l = 0.f;
 #pragma unroll
     for (int w = 0; w < C::kConsumers; ++w) {
-      const float f = expf(m_w[w * kMaxG + h] - m);
-      o += o_w[(w * kMaxG + h) * D + d] * f;
-      l += l_w[w * kMaxG + h] * f;
+      const float f = expf(m_w[w * kGB + h] - m);
+      o += o_w[(w * kGB + h) * D + d] * f;
+      l += l_w[w * kGB + h] * f;
     }
-    const size_t row = ((size_t)b * Hq + hk * G + h) * ns + s;
+    const size_t row = ((size_t)b * Hq + h0 + h) * ns + s;
     o_part[row * D + d] = o;
     if (d == 0) {
       m_part[row] = m;
@@ -403,75 +479,87 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
 }
 
-// -- float32 (and bf16 at head_dim 8 / 16 / 32): CUDA-core FMAs --------------
+// -- float32: CUDA-core FMAs, rows of W columns -------------------------------
 
 // the largest power of two <= n (n >= 1)
 constexpr int floor_pow2(int n) { return n < 2 ? 1 : 2 * floor_pow2(n / 2); }
 
-template <typename T, int D>
+template <int W>
 struct Tile {
-  // positions a tile: a power of two, so that a page of 8..256 tokens
-  // divides it or is divided by it
+  // positions a tile: 16 KB of K at width W, at most 64
   static constexpr int kTokens = floor_pow2(
-      kTileBytes / (D * (int)sizeof(T)) < kMaxStep
-          ? kTileBytes / (D * (int)sizeof(T))
-          : kMaxStep);
-  static constexpr int kVec = 16 / (int)sizeof(T);    // elements per 16 B
-  static constexpr int kChunksPerRow = D / kVec;
+      kTileBytes / (W * 4) < kMaxStep ? kTileBytes / (W * 4) : kMaxStep);
+  static constexpr int kVec = 4;                        // floats per 16 B
+  static constexpr int kChunksPerRow = W / kVec;  // rows of W, zero past D
   static constexpr int kChunks = kTokens * kChunksPerRow;
   static constexpr int kPerThread = (kChunks + kThreads - 1) / kThreads;
   static constexpr int kPages = kTokens / kMinPage;   // pages a tile, at most
-  static constexpr int kCols = (D + kThreads - 1) / kThreads;  // P·V columns
-  static_assert(D % kVec == 0, "rows of whole 16-byte vectors");
+  static constexpr int kCols = (W + kThreads - 1) / kThreads;  // P·V columns
 };
 
-template <typename T, int D>
+template <int W, bool kFull>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_f32_kernel(const T* __restrict__ q,         // (B, Hq, D)
-                        const T* __restrict__ k_pages,   // (P, Hkv, PS, D)
-                        const T* __restrict__ v_pages,   // (P, Hkv, PS, D)
-                        const int* __restrict__ table,   // (B, NP)
-                        const int* __restrict__ lengths,  // (B,)
-                        float* __restrict__ o_part,      // (B·Hq, ns, D)
-                        float* __restrict__ m_part,      // (B·Hq, ns)
-                        float* __restrict__ l_part,      // (B·Hq, ns)
-                        int Hq, int Hkv, int PS, int NP, int span_pages,
-                        int ns, float scale) {
-  using TL = Tile<T, D>;
+paged_decode_f32_kernel(const float* __restrict__ q,       // (B, Hq, D)
+                        const float* __restrict__ k_pages,  // (P, Hkv, PS, D)
+                        const float* __restrict__ v_pages,  // (P, Hkv, PS, D)
+                        const int* __restrict__ table,      // (B, NP)
+                        const int* __restrict__ lengths,    // (B,)
+                        float* __restrict__ o_part,         // (B·Hq, ns, D)
+                        float* __restrict__ m_part,         // (B·Hq, ns)
+                        float* __restrict__ l_part,         // (B·Hq, ns)
+                        int Hq, int Hkv, int D_, int PS, int NP,
+                        int span_pages, int ns, int nhb, float scale) {
+  using TL = Tile<W>;
   constexpr int TT = TL::kTokens;
-  const int s = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int D = kFull ? W : D_;
+  const int s = blockIdx.x, b = blockIdx.z;
+  const int hk = blockIdx.y / nhb, hb = blockIdx.y % nhb;
   const int G = Hq / Hkv;
+  const int h0 = hk * G + hb * kGB;
+  const int GB = min(kGB, G - hb * kGB);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int CPR = TL::kChunksPerRow;
+  const int dv = D / TL::kVec;             // 16-byte chunks below D
 
-  __shared__ __align__(16) T k_s[TT * D];
-  __shared__ __align__(16) T v_s[TT * D];
-  __shared__ float q_s[kMaxG][D];
-  __shared__ float w_s[kMaxG][TT];  // scores, then weights
-  __shared__ float m_s[kMaxG], l_s[kMaxG], alpha_s[kMaxG];
+  __shared__ __align__(16) float k_s[TT * W];
+  __shared__ __align__(16) float v_s[TT * W];
+  __shared__ float q_s[kGB][W];
+  __shared__ float w_s[kGB][TT];  // scores, then weights
+  __shared__ float m_s[kGB], l_s[kGB], alpha_s[kGB];
   __shared__ int phys_s[TL::kPages];
 
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D, d = i % D;
-    q_s[g][d] = to_f32(q[((size_t)b * Hq + hk * G + g) * D + d]);
+  // rows of W columns, zero past D (they add nothing)
+  for (int i = tid; i < kGB * W; i += kThreads) {
+    const int g = i / W, d = i % W;
+    q_s[g][d] = g < GB && d < D ? q[((size_t)b * Hq + h0 + g) * D + d] : 0.f;
   }
-  if (tid < G) {
+  for (int c = tid; dv < CPR && c < TL::kChunks; c += kThreads)
+    if (c % CPR >= dv) {
+      reinterpret_cast<float4*>(k_s)[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+      reinterpret_cast<float4*>(v_s)[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  if (tid < GB) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
   }
-  const Span sp = span_of(lengths, b, s, PS, NP, span_pages);
+  // pages packed without slots: tile rows are consecutive positions
+  const Walk wk(lengths, b, s, PS, NP, span_pages, TT, PS);
+  const int n_tiles = wk.end > wk.begin ? wk.n_tiles() : 0;
   const size_t page_stride = (size_t)Hkv * PS * D;
-  const T* k_head = k_pages + (size_t)hk * PS * D;
-  const T* v_head = v_pages + (size_t)hk * PS * D;
+  const float* k_head = k_pages + (size_t)hk * PS * D;
+  const float* v_head = v_pages + (size_t)hk * PS * D;
   const int* trow = table + (size_t)b * NP;
 
-  float acc[TL::kCols][kMaxG];   // columns tid + 128 c of every head
+  float acc[TL::kCols][kGB];   // columns tid + 128 c of every head
 #pragma unroll
   for (int c = 0; c < TL::kCols; ++c)
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) acc[c][g] = 0.f;
+    for (int g = 0; g < kGB; ++g) acc[c][g] = 0.f;
 
-  for (int pos0 = sp.begin; pos0 < sp.end; pos0 += TT) {
-    const int nt = min(TT, sp.end - pos0);   // valid positions this tile
+  for (int it = 0; it < n_tiles; ++it) {
+    const int pos0 = wk.start(it);
+    // valid positions this tile: whole pages, or a chunk of one
+    const int nt = min(PS <= TT ? wk.pp * PS : wk.rows(it), wk.end - pos0);
     const int fp = pos0 / PS;                // its first page
     const int np_t = (pos0 + nt - 1) / PS - fp + 1;
     __syncthreads();  // the previous tile's readers are done
@@ -479,44 +567,44 @@ paged_decode_f32_kernel(const T* __restrict__ q,         // (B, Hq, D)
     __syncthreads();
 
     // stage K and V: every load of this thread in flight before any store
-    uint4 kb[TL::kPerThread], vb[TL::kPerThread];
+    float4 kb[TL::kPerThread], vb[TL::kPerThread];
 #pragma unroll
     for (int i = 0; i < TL::kPerThread; ++i) {
       const int c = tid + i * kThreads;
-      const int row = c / TL::kChunksPerRow;
-      if (c < TL::kChunks && row < nt) {
+      const int row = c / CPR;
+      if (row < nt && c % CPR < dv) {
         const int pos = pos0 + row;
         const size_t off = (size_t)phys_s[pos / PS - fp] * page_stride +
-                           (size_t)(pos % PS) * D +
-                           (c % TL::kChunksPerRow) * TL::kVec;
-        kb[i] = *reinterpret_cast<const uint4*>(k_head + off);
-        vb[i] = *reinterpret_cast<const uint4*>(v_head + off);
+                           (size_t)(pos % PS) * D + (c % CPR) * TL::kVec;
+        kb[i] = *reinterpret_cast<const float4*>(k_head + off);
+        vb[i] = *reinterpret_cast<const float4*>(v_head + off);
       }
     }
 #pragma unroll
     for (int i = 0; i < TL::kPerThread; ++i) {
       const int c = tid + i * kThreads;
-      if (c < TL::kChunks && c / TL::kChunksPerRow < nt) {
-        reinterpret_cast<uint4*>(k_s)[c] = kb[i];
-        reinterpret_cast<uint4*>(v_s)[c] = vb[i];
+      if (c / CPR < nt && c % CPR < dv) {
+        reinterpret_cast<float4*>(k_s)[c] = kb[i];
+        reinterpret_cast<float4*>(v_s)[c] = vb[i];
       }
     }
     __syncthreads();
 
     // scores s[g][t] = (q_g . k_t) * scale (every staged position is valid)
     for (int t = warp; t < nt; t += kWarps) {
-      float part[kMaxG];
+      float part[kGB];
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) part[g] = 0.f;
-      for (int d = lane; d < D; d += 32) {
-        const float kv = to_f32(k_s[t * D + d]);
+      for (int g = 0; g < kGB; ++g) part[g] = 0.f;
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g)
-          if (g < G) part[g] = fmaf(q_s[g][d], kv, part[g]);
+      for (int d = lane; d < W; d += 32) {
+        const float kv = k_s[t * W + d];
+#pragma unroll
+        for (int g = 0; g < kGB; ++g)
+          if (g < GB) part[g] = fmaf(q_s[g][d], kv, part[g]);
       }
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
+      for (int g = 0; g < kGB; ++g) {
+        if (g < GB) {
           const float sc = warp_sum(part[g]);
           if (lane == 0) w_s[g][t] = sc * scale;
         }
@@ -525,7 +613,7 @@ paged_decode_f32_kernel(const T* __restrict__ q,         // (B, Hq, D)
     __syncthreads();
 
     // online softmax over the tile, one warp per query head
-    for (int g = warp; g < G; g += kWarps) {
+    for (int g = warp; g < GB; g += kWarps) {
       const int t0 = lane, t1 = lane + 32;
       const float s0 = t0 < nt ? w_s[g][t0] : kNegInf;
       const float s1 = t1 < nt ? w_s[g][t1] : kNegInf;
@@ -550,24 +638,24 @@ paged_decode_f32_kernel(const T* __restrict__ q,         // (B, Hq, D)
 #pragma unroll
     for (int c = 0; c < TL::kCols; ++c) {
       const int d = tid + c * kThreads;
-      if (d < D) {
+      if (d < W) {
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g)
-          if (g < G) acc[c][g] *= alpha_s[g];
+        for (int g = 0; g < kGB; ++g)
+          if (g < GB) acc[c][g] *= alpha_s[g];
         for (int t = 0; t < nt; ++t) {
-          const float vv = to_f32(v_s[t * D + d]);
+          const float vv = v_s[t * W + d];
 #pragma unroll
-          for (int g = 0; g < kMaxG; ++g)
-            if (g < G) acc[c][g] = fmaf(w_s[g][t], vv, acc[c][g]);
+          for (int g = 0; g < kGB; ++g)
+            if (g < GB) acc[c][g] = fmaf(w_s[g][t], vv, acc[c][g]);
         }
       }
     }
   }
   __syncthreads();
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g < G) {
-      const size_t row = ((size_t)b * Hq + hk * G + g) * ns + s;
+  for (int g = 0; g < kGB; ++g) {
+    if (g < GB) {
+      const size_t row = ((size_t)b * Hq + h0 + g) * ns + s;
 #pragma unroll
       for (int c = 0; c < TL::kCols; ++c) {
         const int d = tid + c * kThreads;
@@ -615,68 +703,66 @@ __global__ void paged_combine_kernel(const float* __restrict__ o_part,
 struct Args {
   const void *q, *k, *v, *table, *lengths;
   void *o, *m, *l;
-  int B, Hq, Hkv, P, PS, NP, span_pages, ns;
+  int B, Hq, Hkv, P, D, PS, NP, span_pages, ns, nhb;
   float scale;
 };
 
-template <int D>
-int launch_bf16(const Args& a, cudaStream_t st) {
-  using C = Tc<D>;
-  if ((C::kT % a.PS && a.PS % C::kT) || (a.span_pages * a.PS) % C::kT)
-    return (int)cudaErrorInvalidValue;
+// a span is whole tiles: whole page groups where a page fits the tile
+bool span_ok(const Args& a, int T, int slot) {
+  return a.PS > T || a.span_pages % (T / slot) == 0;
+}
+
+template <int W, bool kFull>
+int launch_tc(const Args& a, cudaStream_t st) {
+  using C = Tc<W>;
+  if (!span_ok(a, C::kT, (a.PS + 7) & ~7)) return (int)cudaErrorInvalidValue;
   const uint32_t box = a.PS < C::kT ? a.PS : C::kT;
   const uint64_t slices = (uint64_t)a.P * a.Hkv;
   CUtensorMap tk, tv;
-  int e = encode_tensor_map_3d(&tk, a.k, D, a.PS, slices, box);
-  if (!e) e = encode_tensor_map_3d(&tv, a.v, D, a.PS, slices, box);
+  int e = encode_tensor_map_3d(&tk, a.k, a.D, a.PS, slices, box);
+  if (!e) e = encode_tensor_map_3d(&tv, a.v, a.D, a.PS, slices, box);
   if (e) return e;
   cudaError_t ce = cudaFuncSetAttribute(
-      paged_decode_bf16_kernel<D>,
+      paged_decode_bf16_kernel<W, kFull>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (ce != cudaSuccess) return (int)ce;
-  paged_decode_bf16_kernel<D>
-      <<<dim3(a.ns, a.Hkv, a.B), C::kThreads, C::kSmem, st>>>(
+  paged_decode_bf16_kernel<W, kFull>
+      <<<dim3(a.ns, a.Hkv * a.nhb, a.B), C::kThreads, C::kSmem, st>>>(
           tk, tv, (const __nv_bfloat16*)a.q, (const int*)a.table,
           (const int*)a.lengths, (float*)a.o, (float*)a.m, (float*)a.l,
-          a.Hq, a.Hkv, a.PS, a.NP, a.span_pages, a.ns, a.scale);
+          a.Hq, a.Hkv, a.D, a.PS, a.NP, a.span_pages, a.ns, a.nhb, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int W>
+int launch_bf16(const Args& a, cudaStream_t st) {
+  return a.D == W ? launch_tc<W, true>(a, st) : launch_tc<W, false>(a, st);
+}
+
+template <int W>
 int launch_f32(const Args& a, cudaStream_t st) {
-  constexpr int TT = Tile<T, D>::kTokens;
-  if ((TT % a.PS && a.PS % TT) || (a.span_pages * a.PS) % TT)
-    return (int)cudaErrorInvalidValue;
-  paged_decode_f32_kernel<T, D><<<dim3(a.ns, a.Hkv, a.B), kThreads, 0, st>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.table,
-      (const int*)a.lengths, (float*)a.o, (float*)a.m, (float*)a.l, a.Hq,
-      a.Hkv, a.PS, a.NP, a.span_pages, a.ns, a.scale);
+  if (!span_ok(a, Tile<W>::kTokens, a.PS)) return (int)cudaErrorInvalidValue;
+  auto kern = a.D == W ? paged_decode_f32_kernel<W, true>
+                       : paged_decode_f32_kernel<W, false>;
+  kern<<<dim3(a.ns, a.Hkv * a.nhb, a.B), kThreads, 0, st>>>(
+          (const float*)a.q, (const float*)a.k, (const float*)a.v,
+          (const int*)a.table, (const int*)a.lengths, (float*)a.o,
+          (float*)a.m, (float*)a.l, a.Hq, a.Hkv, a.D, a.PS, a.NP,
+          a.span_pages, a.ns, a.nhb, a.scale);
   return (int)cudaGetLastError();
 }
 
-int launch_split(const Args& a, int D, int is_bf16, cudaStream_t st) {
+int launch_split(const Args& a, int is_bf16, cudaStream_t st) {
   if (is_bf16) {
-    switch (D) {
-      case 8: return launch_f32<__nv_bfloat16, 8>(a, st);
-      case 16: return launch_f32<__nv_bfloat16, 16>(a, st);
-      case 32: return launch_f32<__nv_bfloat16, 32>(a, st);
-      case 64: return launch_bf16<64>(a, st);
-      case 80: return launch_bf16<80>(a, st);
-      case 128: return launch_bf16<128>(a, st);
-      case 256: return launch_bf16<256>(a, st);
-    }
-  } else {
-    switch (D) {
-      case 8: return launch_f32<float, 8>(a, st);
-      case 16: return launch_f32<float, 16>(a, st);
-      case 32: return launch_f32<float, 32>(a, st);
-      case 64: return launch_f32<float, 64>(a, st);
-      case 80: return launch_f32<float, 80>(a, st);
-      case 128: return launch_f32<float, 128>(a, st);
-      case 256: return launch_f32<float, 256>(a, st);
-    }
+    if (a.D % 8) return (int)cudaErrorInvalidValue;
+    if (a.D <= 64) return launch_bf16<64>(a, st);
+    if (a.D <= 128) return launch_bf16<128>(a, st);
+    return launch_bf16<256>(a, st);
   }
-  return (int)cudaErrorInvalidValue;
+  if (a.D % 4) return (int)cudaErrorInvalidValue;
+  if (a.D <= 64) return launch_f32<64>(a, st);
+  if (a.D <= 128) return launch_f32<128>(a, st);
+  return launch_f32<256>(a, st);
 }
 
 }  // namespace
@@ -684,13 +770,13 @@ int launch_split(const Args& a, int D, int is_bf16, cudaStream_t st) {
 // q (B, Hq, 1, D), k/v pools (P, Hkv, PS, D), table (B, NP) int32, lengths
 // (B,) int32, out (B, Hq, 1, D); all contiguous on one device and 16-byte
 // aligned, q, pools and out of one type (is_bf16: bfloat16, else float32);
-// D in {8, 16, 32, 64, 80, 128, 256}; Hq / Hkv <= 8; PS in [8, 256], dividing the
-// instance's tile or divided by it, and span_pages · PS a multiple of the
-// tile (core/families/paged_attention.py `tile_tokens`, `span_pages`).
-// o_part (B·Hq, ns, D), m_part and l_part (B·Hq, ns), ns = ceil(NP /
-// span_pages), are float32 scratch for the spans' partials.  Enqueues the
-// split walk, then the combine; returns the CUDA error code of the
-// launches (0 on success).
+// D up to 256, a multiple of 8 in bf16 and of 4 in float32; any Hq / Hkv;
+// PS >= 2; span_pages a whole number of tiles (a multiple of the pages a
+// tile holds where a page fits the tile; core/families/paged_attention.py
+// `pages_per_step`, `span_pages`).  o_part (B·Hq, ns, D), m_part and
+// l_part (B·Hq, ns), ns = ceil(NP / span_pages), are float32 scratch for
+// the spans' partials.  Enqueues the split walk, then the combine; returns
+// the CUDA error code of the launches (0 on success).
 extern "C" int paged_decode_launch(const void* q, const void* k_pages,
                                    const void* v_pages, const void* table,
                                    const void* lengths, void* o_part,
@@ -698,9 +784,9 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
                                    int B, int Hq, int Hkv, int P, int D,
                                    int PS, int NP, int span_pages,
                                    float scale, int is_bf16, void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxG || P <= 0 ||
-      PS < kMinPage || PS > kMaxPage || NP <= 0 || span_pages <= 0 ||
-      B > 65535 || Hkv > 65535)
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq < Hkv || P <= 0 ||
+      D <= 0 || D > kMaxD || PS < kMinPage || NP <= 0 || span_pages <= 0 ||
+      B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   Args a;
@@ -716,12 +802,15 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
   a.Hq = Hq;
   a.Hkv = Hkv;
   a.P = P;
+  a.D = D;
   a.PS = PS;
   a.NP = NP;
   a.span_pages = span_pages;
   a.ns = (NP + span_pages - 1) / span_pages;
+  a.nhb = (Hq / Hkv + kGB - 1) / kGB;
   a.scale = scale;
-  const int e = launch_split(a, D, is_bf16, st);
+  if ((long long)Hkv * a.nhb > 65535) return (int)cudaErrorInvalidValue;
+  const int e = launch_split(a, is_bf16, st);
   if (e) return e;
   const unsigned rows = (unsigned)B * (unsigned)Hq;
   if (is_bf16)

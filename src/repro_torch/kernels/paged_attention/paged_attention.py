@@ -21,11 +21,11 @@ from pathlib import Path
 
 import torch
 
-from ...core.families.paged_attention import (HEAD_DIMS, MAX_GROUP,
-                                              PAGE_RANGE,
+from ...core.families.paged_attention import (MIN_PAGE,
                                               PagedAttentionConfig,
                                               pages_per_step, span_pages,
                                               tile_tokens)
+from ...core.kernelspec import MAX_HEAD_DIM
 from .._build import CudaKernel, ptr, stream_handle
 from .ref import paged_decode_ref
 
@@ -38,7 +38,7 @@ KERNEL = CudaKernel(
     [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _P])
 
 __all__ = ["KERNEL", "PagedAttentionConfig", "paged_decode", "tile_tokens",
-           "pages_per_step", "span_pages", "HEAD_DIMS", "MAX_GROUP"]
+           "pages_per_step", "span_pages"]
 
 
 def _check(q, k_pages, v_pages, table, lengths, cfg):
@@ -81,13 +81,11 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
                         f"of one type, got {q.dtype}, {k_pages.dtype}, "
                         f"{v_pages.dtype}")
     sz = q.element_size()
-    if Hq // Hkv > MAX_GROUP or not pages_per_step(PS, D, sz):
-        tile = tile_tokens(D, sz) if D in HEAD_DIMS else 0
-        raise ValueError(f"paged_decode kernel takes G <= {MAX_GROUP}, "
-                         f"D in {HEAD_DIMS} and pages of {PAGE_RANGE[0]}.."
-                         f"{PAGE_RANGE[1]} tokens that divide the {tile}-"
-                         f"token tile or are divided by it; got "
-                         f"G={Hq // Hkv}, D={D}, PS={PS}")
+    if not pages_per_step(PS, D, sz):
+        raise ValueError(f"paged_decode kernel takes head_dim up to "
+                         f"{MAX_HEAD_DIM} in rows of whole 16-byte vectors "
+                         f"and pages of at least {MIN_PAGE} tokens; got "
+                         f"D={D} in {q.dtype}, PS={PS}")
     if lengths is None:
         lengths = torch.full((B,), NP * PS, dtype=torch.int32,
                              device=q.device)
@@ -105,7 +103,7 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out
-    sp = span_pages(B, Hkv, NP, PS, D, sz)
+    sp = span_pages(B, Hkv, NP, PS, D, sz, Hq // Hkv)
     ns = -(-NP // sp)
     o_part = torch.empty(B * Hq, ns, D, dtype=torch.float32,
                          device=q.device)

@@ -19,15 +19,17 @@
 // or whose every key lies causally after every query of the tile: such a
 // tile contributes alpha = 1, p = 0, so the skip is exact.  Packing is
 // contiguous by segment, so without it a tick of 8 chunks would do about
-// 8x the admitted work.  Two designs, chosen by type and head_dim alone
+// 8x the admitted work.  Like the TPU kernel it takes any head_dim whose
+// rows are whole 16-byte vectors (a multiple of 8 in bf16, of 4 in
+// float32) up to 256, and any group.  Two designs, chosen by type alone
 // (families/ragged_prefill.py `is_wgmma`):
 //
-//   * bf16 at head_dim 64, 80, 128 and 256 (ragged_wgmma_kernel): one CTA
-//     per (query head, 128 packed queries): two consumer warpgroups of 64 rows
-//     and a producer warpgroup, as flash_attention.cu's wgmma kernel.  A
-//     CTA of one head serves every group size G without an instance per G,
-//     and the G heads' CTAs re-read a KV head's tiles from L2 (2.6 MB a KV
-//     head at qwen3's phase-3 shape).  Before it splits into roles the CTA
+//   * bf16 (ragged_wgmma_kernel): one CTA per (query head, 128 packed
+//     queries): two consumer warpgroups of 64 rows and a producer
+//     warpgroup, as flash_attention.cu's wgmma kernel.  A CTA of one head
+//     serves every group size G without an instance per G, and the G
+//     heads' CTAs re-read a KV head's tiles from L2 (2.6 MB a KV head at
+//     qwen3's phase-3 shape).  Before it splits into roles the CTA
 //     summarises its rows' metadata and, one warp per key tile, each
 //     tile's (segment range, position range, padding), marks the live
 //     tiles and, for each warpgroup, the tiles that admit every pair of its
@@ -46,25 +48,34 @@
 //     roundings of 2^-8) against the bf16 output's 2^-8, and l sums the
 //     float32 p.  TF32 would run at half the rate on V that is already
 //     exact in bf16, and p rounded to bf16 alone visibly perturbs logits
-//     (the TPU kernel's docstring).  Key tiles (BK) are 128 keys, 64 at
-//     head_dim 256, where Q (64 KB) and a two-stage ring of 32 KB K and V
-//     tiles take 192 KB of the SM's 227: S on m64n64k16 over 16 k-steps,
-//     P·V on m64n256k16 into 128 float32 accumulators a thread (the
-//     consumers' 232 registers of setmaxnreg).  Head_dim 80 runs on D =
-//     128's tiles: the tensor maps are declared at 80 columns (160-byte
-//     rows), TMA's zero fill supplies columns 80..127 in shared memory, S
-//     takes the 5 k-steps that hold real columns, P·V runs at N = 128 and
-//     its columns 80..127 are not stored; HBM bytes stay those of 80.
-//   * float32, and bf16 at head_dim 8, 16 and 32, which only reduced
-//     configurations reach (ragged_prefill_kernel): one CTA of 256
-//     threads per (query head, block of 64 packed queries) loops over
-//     blocks of 32 packed keys,
-//     staging Q, K, V and the weights in shared memory as float32 (rows
-//     padded by one word against bank conflicts; 137 KB at head_dim 256);
-//     each thread holds a 4 x 2 tile of scores and a 4 x ceil(D/16) tile
-//     of the accumulator (columns tx + 16 c below D) in registers; the skip is decided from each block's
-//     [seg min, seg max] and pos min, one block per thread, before any K/V
-//     is loaded; products are float32 FMAs on the CUDA cores (67 TFLOP/s).
+//     (the TPU kernel's docstring).  The tiles come in three widths, W =
+//     64, 128 and 256 columns: head_dim D runs in the least W >= D, with
+//     the tensor maps declared at D columns (rows of 2D bytes), so that
+//     TMA's zero fill supplies columns D..W-1 in shared memory and the
+//     HBM bytes stay those of D; S takes the 16-column k-steps that hold
+//     real columns (at D = 8, 24, 40, ... the last of them half zeros),
+//     P·V runs at N = W and its columns past D are not stored.  Key tiles
+//     (BK) are 128 keys, 64 at W = 256, where Q (64 KB) and a two-stage
+//     ring of 32 KB K and V tiles take 192 KB of the SM's 227: S on
+//     m64n64k16, P·V on m64n256k16 into 128 float32 accumulators a
+//     thread (the consumers' 232 registers of setmaxnreg).
+//   * float32 (ragged_prefill_kernel): one CTA of 256 threads per (query
+//     head, block of 64 packed queries) loops over blocks of 32 packed
+//     keys, staging Q, K, V and the weights in shared memory (rows of W
+//     columns, zero past D, padded by one word against bank conflicts;
+//     137 KB at W = 256); each thread holds a 4 x 2 tile of scores and a
+//     4 x W/16 tile of the accumulator (columns tx + 16 c, stored below D)
+//     in registers, at three widths W = 64, 128, 256; S runs over the D
+//     real columns and P·V over the accumulator columns that hold any;
+//     the skip is decided from each block's [seg min, seg max] and pos
+//     min, one block per thread, before any K/V is loaded; products are
+//     float32 FMAs on the CUDA cores (67 TFLOP/s).
+//
+// Both designs are compiled twice a width: with D read at run time, and
+// with D = W known at compile time (kFull), where the guards and strides
+// of D fold away; the launch takes the second where D is the width.  The
+// float32 design has no D = W instance at W = 64: ptxas trims it to 64
+// registers with a spill, and the run-time instance serves D = 64.
 #include <climits>
 
 #include "hopper.cuh"
@@ -76,19 +87,6 @@ constexpr int kBK = 32;     // packed keys per step
 constexpr int kThreads = 256;
 constexpr int kLP = kBK + 1;
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // reductions over the 16 lanes that share one row group (xor < 16 stays in
 // the half-warp)
@@ -104,24 +102,27 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-template <int D>
+template <int W>
 constexpr int smem_floats() {
-  return (kBQ + 2 * kBK) * (D + 1) + kBQ * kLP;
+  return (kBQ + 2 * kBK) * (W + 1) + kBQ * kLP;
 }
 
-template <typename T, int D>
+template <int W, bool kFull>
 __global__ void __launch_bounds__(kThreads)
-ragged_prefill_kernel(const T* __restrict__ q,  // (Hq, TQ, D)
-                      const T* __restrict__ k,  // (Hkv, TK, D)
-                      const T* __restrict__ v,  // (Hkv, TK, D)
+ragged_prefill_kernel(const float* __restrict__ q,  // (Hq, TQ, D)
+                      const float* __restrict__ k,  // (Hkv, TK, D)
+                      const float* __restrict__ v,  // (Hkv, TK, D)
                       const int* __restrict__ seg_q,
                       const int* __restrict__ pos_q,
                       const int* __restrict__ seg_k,
                       const int* __restrict__ pos_k,
-                      T* __restrict__ out,      // (Hq, TQ, D)
-                      int Hq, int Hkv, int TQ, int TK, float scale) {
-  constexpr int LD = D + 1;
-  constexpr int DC = (D + 15) / 16;  // accumulator columns per thread
+                      float* __restrict__ out,      // (Hq, TQ, D)
+                      int Hq, int Hkv, int TQ, int TK, int D_,
+                      float scale) {
+  const int D = kFull ? W : D_;
+  // rows of W columns, zero past D (they add nothing), padded by a word
+  constexpr int LD = W + 1;
+  constexpr int DC = W / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
   float* q_s = smem;               // kBQ x LD
   float* k_s = q_s + kBQ * LD;     // kBK x LD
@@ -135,10 +136,10 @@ ragged_prefill_kernel(const T* __restrict__ q,  // (Hq, TQ, D)
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, c = i % D, row = q0 + r;
+  for (int i = tid; i < kBQ * W; i += kThreads) {
+    const int r = i / W, c = i % W, row = q0 + r;
     q_s[r * LD + c] =
-        row < TQ ? to_f32(q[((size_t)h * TQ + row) * D + c]) : 0.f;
+        row < TQ && c < D ? q[((size_t)h * TQ + row) * D + c] : 0.f;
   }
   if (tid < kBQ) {
     const int row = q0 + tid;
@@ -204,11 +205,12 @@ ragged_prefill_kernel(const T* __restrict__ q,  // (Hq, TQ, D)
     for (int j = 0; j < kThreads && g0 + j < nkb; ++j) {
       if (!active_s[j]) continue;
       const int k0 = (g0 + j) * kBK;
-      for (int i = tid; i < kBK * D; i += kThreads) {
-        const int r = i / D, c = i % D, col = k0 + r;
+      for (int i = tid; i < kBK * W; i += kThreads) {
+        const int r = i / W, c = i % W, col = k0 + r;
+        const bool ok = col < TK && c < D;
         const size_t src = ((size_t)hk * TK + col) * D + c;
-        k_s[r * LD + c] = col < TK ? to_f32(k[src]) : 0.f;
-        v_s[r * LD + c] = col < TK ? to_f32(v[src]) : 0.f;
+        k_s[r * LD + c] = ok ? k[src] : 0.f;
+        v_s[r * LD + c] = ok ? v[src] : 0.f;
       }
       if (tid < kBK) {
         const int col = k0 + tid;
@@ -266,7 +268,7 @@ ragged_prefill_kernel(const T* __restrict__ q,  // (Hq, TQ, D)
         for (int i = 0; i < 4; ++i) p[i] = p_s[(ty * 4 + i) * kLP + t];
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
-          if (D % 16 && tx + 16 * c >= D) break;   // head_dim 8
+          if (16 * c >= D) break;    // columns wholly past D
           const float vv = v_s[t * LD + tx + 16 * c];
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
@@ -284,52 +286,31 @@ ragged_prefill_kernel(const T* __restrict__ q,  // (Hq, TQ, D)
 #pragma unroll
       for (int c = 0; c < DC; ++c)
         if (tx + 16 * c < D)
-          out[((size_t)h * TQ + row) * D + tx + 16 * c] =
-              from_f32<T>(acc[i][c] / l);
+          out[((size_t)h * TQ + row) * D + tx + 16 * c] = acc[i][c] / l;
     }
   }
 }
 
-template <typename T, int D>
+template <int W>
 int launch(const void* q, const void* k, const void* v, const void* sq,
            const void* pq, const void* sk, const void* pk, void* out, int Hq,
-           int Hkv, int TQ, int TK, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_floats<D>() * sizeof(float);
-  auto kern = ragged_prefill_kernel<T, D>;
+           int Hkv, int TQ, int TK, int D, float scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_floats<W>() * sizeof(float);
+  auto kern = ragged_prefill_kernel<W, false>;
+  if constexpr (W > 64)   // no D = W instance at 64 (the file's header)
+    if (D == W) kern = ragged_prefill_kernel<W, true>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(Hq, (TQ + kBQ - 1) / kBQ);
   kern<<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)sq, (const int*)pq,
-      (const int*)sk, (const int*)pk, (T*)out, Hq, Hkv, TQ, TK, scale);
+      (const float*)q, (const float*)k, (const float*)v, (const int*)sq,
+      (const int*)pq, (const int*)sk, (const int*)pk, (float*)out, Hq, Hkv,
+      TQ, TK, D, scale);
   return (int)cudaGetLastError();
 }
 
-// the CUDA-core instances: float32 at every head_dim, bf16 at 8, 16 and 32
-// (the wgmma design takes bf16's other head dims)
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v,
-             const void* sq, const void* pq, const void* sk, const void* pk,
-             void* out, int Hq, int Hkv, int TQ, int TK, float scale,
-             cudaStream_t s) {
-  switch (D) {
-    case 8: return launch<T, 8>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
-    case 16: return launch<T, 16>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
-    case 32: return launch<T, 32>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
-  }
-  if constexpr (sizeof(T) == 4) {
-    switch (D) {
-      case 64: return launch<T, 64>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
-      case 80: return launch<T, 80>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
-      case 128: return launch<T, 128>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
-      case 256: return launch<T, 256>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, scale, s);
-    }
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// -- bf16, head_dim 64, 80, 128 and 256: wgmma fed by TMA --------------------
+// -- bf16: wgmma fed by TMA, tiles of W columns ------------------------------
 
 constexpr int kWgQ = 128;        // packed queries per CTA
 constexpr int kWgK = 128;        // packed keys per TMA tile, at most
@@ -338,19 +319,14 @@ constexpr int kWgWarps = 12;     // three warpgroups
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+template <int W>
 struct WgCfg {
-  // head_dim 80 runs on D = 128's tiles: the tensor maps are declared at
-  // 80 columns (160-byte rows), so TMA's zero fill supplies columns
-  // 80..127; they add nothing to S and P·V's columns there are not stored
-  static constexpr int kDP = D == 80 ? 128 : D;    // columns in shared memory
-  // head_dim 256 halves the key tile: Q (64 KB) and a two-stage ring of
-  // 32 KB K and V tiles fit one SM's shared memory
-  static constexpr int kBK = D == 256 ? 64 : kWgK;  // packed keys per tile
-  static constexpr int kPanels = kDP / 64;          // 64-column TMA boxes
-  static constexpr int kSteps = D / 16;             // k-steps of S = Q·Kᵀ
-  static constexpr int kQBytes = kWgQ * kDP * 2;
-  static constexpr int kTileBytes = kBK * kDP * 2;  // one K (or V) tile
+  // W = 256 halves the key tile: Q (64 KB) and a two-stage ring of 32 KB
+  // K and V tiles fit one SM's shared memory
+  static constexpr int kBK = W == 256 ? 64 : kWgK;  // packed keys per tile
+  static constexpr int kPanels = W / 64;            // 64-column TMA boxes
+  static constexpr int kQBytes = kWgQ * W * 2;
+  static constexpr int kTileBytes = kBK * W * 2;    // one K (or V) tile
   // 1024 of alignment slack, Q, the ring and the mbarriers; then a flag
   // byte and a list entry (2 bytes) a key tile
   static constexpr int kFixed = 1024 + kQBytes + 2 * kWgStages * kTileBytes +
@@ -418,7 +394,7 @@ __device__ __forceinline__ void wg_barrier(int wg) {
   asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
 }
 
-template <int D>
+template <int W, bool kFull>
 __global__ void __launch_bounds__(384, 1)
 ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -428,9 +404,10 @@ ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const int* __restrict__ seg_k,
                     const int* __restrict__ pos_k,
                     __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int TQ,
-                    int TK, float scale) {
-  using C = WgCfg<D>;
-  constexpr int S = kWgStages, TB = C::kTileBytes, BK = C::kBK, DP = C::kDP;
+                    int TK, int D_, float scale) {
+  using C = WgCfg<W>;
+  const int D = kFull ? W : D_;
+  constexpr int S = kWgStages, TB = C::kTileBytes, BK = C::kBK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* q_s = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -562,9 +539,9 @@ ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const unsigned char* q_wg = q_s + wg * 64 * 128;
   const int whole = 2 << wg;
 
-  float o[DP / 2];
+  float o[W / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) o[i] = 0.f;
   // running max in log2 units; l is this thread's share of its rows' sum
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
   const int n_walk = (wg == 0 ? wg_sum[0] : wg_sum[1]).smax >= 0 ? n_live : 0;
@@ -576,15 +553,16 @@ ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const unsigned char* kt_s = k_s + st * TB;
     const unsigned char* vt_s = v_s + st * TB;
 
-    // S = Q Kᵀ, 64 rows x BK keys, over the D / 16 k-steps that hold
-    // real columns
+    // S = Q Kᵀ, 64 rows x BK keys, over the 16-column k-steps that hold
+    // real columns (zeros past D)
     float s[BK / 2];
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
     hopper::mbar_wait(&k_full[st], ph);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < C::kSteps; ++kk) {
+    for (int kk = 0; kk < W / 16; ++kk) {
+      if (kk * 16 >= D) break;
       const int pn = kk / 4, off = (kk % 4) * 32;
       const uint64_t dq =
           hopper::desc_sw128(q_wg + pn * kWgQ * 128 + off, 16, 1024);
@@ -671,7 +649,7 @@ ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     l_a = l_a * al_a + sum_a;
     l_b = l_b * al_b + sum_b;
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
+    for (int j = 0; j < W / 8; ++j) {
       o[4 * j] *= al_a;
       o[4 * j + 1] *= al_a;
       o[4 * j + 2] *= al_b;
@@ -694,10 +672,10 @@ ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint64_t dv = hopper::desc_sw128(vt_s + kk * 2048, BK * 128, 1024);
-      if constexpr (DP == 256) {
+      if constexpr (W == 256) {
         hopper::wgmma_m64n256k16_rs_tb(o, p_hi[kk], dv, 1);
         hopper::wgmma_m64n256k16_rs_tb(o, p_lo[kk], dv, 1);
-      } else if constexpr (DP == 128) {
+      } else if constexpr (W == 128) {
         hopper::wgmma_m64n128k16_rs_tb(o, p_hi[kk], dv, 1);
         hopper::wgmma_m64n128k16_rs_tb(o, p_lo[kk], dv, 1);
       } else {
@@ -716,7 +694,8 @@ ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);
   const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {   // the real columns only
+  for (int j = 0; j < W / 8; ++j) {
+    if (j * 8 >= D) break;            // the real columns only
     const int col = j * 8 + 2 * t4;
     if (qrow_a < TQ)
       *reinterpret_cast<uint32_t*>(out + ((size_t)h * TQ + qrow_a) * D + col) =
@@ -727,12 +706,12 @@ ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int D>
+template <int W>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* sq,
                  const void* pq, const void* sk, const void* pk, void* out,
-                 int Hq, int Hkv, int TQ, int TK, float scale,
+                 int Hq, int Hkv, int TQ, int TK, int D, float scale,
                  cudaStream_t stream) {
-  using C = WgCfg<D>;
+  using C = WgCfg<W>;
   CUtensorMap tq, tk, tv;
   int e = hopper::encode_tensor_map_3d(&tq, q, D, TQ, Hq, kWgQ);
   if (!e) e = hopper::encode_tensor_map_3d(&tk, k, D, TK, Hkv, C::kBK);
@@ -741,14 +720,15 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* sq,
   const int n_tiles = (TK + C::kBK - 1) / C::kBK;
   if (n_tiles > 65535) return (int)cudaErrorInvalidValue;
   const int smem = C::smem(n_tiles);
-  auto kern = ragged_wgmma_kernel<D>;
+  auto kern = D == W ? ragged_wgmma_kernel<W, true>
+                     : ragged_wgmma_kernel<W, false>;
   cudaError_t r = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (r != cudaSuccess) return (int)r;
   const dim3 grid(Hq, (TQ + kWgQ - 1) / kWgQ);
   kern<<<grid, 384, smem, stream>>>(
       tq, tk, tv, (const int*)sq, (const int*)pq, (const int*)sk,
-      (const int*)pk, (__nv_bfloat16*)out, Hq, Hkv, TQ, TK, scale);
+      (const int*)pk, (__nv_bfloat16*)out, Hq, Hkv, TQ, TK, D, scale);
   return (int)cudaGetLastError();
 }
 
@@ -756,37 +736,36 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* sq,
 
 // q (Hq, TQ, D), k/v (Hkv, TK, D), seg_q/pos_q (TQ,) int32, seg_k/pos_k
 // (TK,) int32, out (Hq, TQ, D); all contiguous on one device, q, k, v and
-// out of one type (is_bf16: bfloat16, else float32); D in {8, 16, 32, 64,
-// 80, 128, 256}.
-// bf16 at D 64, 80, 128 and 256 runs the wgmma design (q, k, v 16-byte
-// aligned), everything else the CUDA-core one.  Returns the CUDA error
-// code of the launch (0 on success).
+// out of one type (is_bf16: bfloat16, else float32); D up to 256, a
+// multiple of 8 in bf16 (the wgmma design; q, k, v 16-byte aligned) and of
+// 4 in float32 (the CUDA-core one).  Returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int ragged_prefill_launch(const void* q, const void* k,
                                      const void* v, const void* seg_q,
                                      const void* pos_q, const void* seg_k,
                                      const void* pos_k, void* out, int Hq,
                                      int Hkv, int TQ, int TK, int D,
                                      float scale, int is_bf16, void* stream) {
-  if (Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || TQ <= 0 || TK <= 0)
+  if (Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || TQ <= 0 || TK <= 0 || D <= 0 ||
+      D > 256 || D % (is_bf16 ? 8 : 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
-    switch (D) {
-      case 64: return launch_wgmma<64>(q, k, v, seg_q, pos_q, seg_k, pos_k,
-                                       out, Hq, Hkv, TQ, TK, scale, s);
-      case 80: return launch_wgmma<80>(q, k, v, seg_q, pos_q, seg_k, pos_k,
-                                       out, Hq, Hkv, TQ, TK, scale, s);
-      case 128: return launch_wgmma<128>(q, k, v, seg_q, pos_q, seg_k,
-                                         pos_k, out, Hq, Hkv, TQ, TK, scale,
-                                         s);
-      case 256: return launch_wgmma<256>(q, k, v, seg_q, pos_q, seg_k,
-                                         pos_k, out, Hq, Hkv, TQ, TK, scale,
-                                         s);
-    }
+    if (D <= 64)
+      return launch_wgmma<64>(q, k, v, seg_q, pos_q, seg_k, pos_k, out, Hq,
+                              Hkv, TQ, TK, D, scale, s);
+    if (D <= 128)
+      return launch_wgmma<128>(q, k, v, seg_q, pos_q, seg_k, pos_k, out, Hq,
+                               Hkv, TQ, TK, D, scale, s);
+    return launch_wgmma<256>(q, k, v, seg_q, pos_q, seg_k, pos_k, out, Hq,
+                             Hkv, TQ, TK, D, scale, s);
   }
-  if (is_bf16)
-    return launch_d<__nv_bfloat16>(D, q, k, v, seg_q, pos_q, seg_k, pos_k,
-                                   out, Hq, Hkv, TQ, TK, scale, s);
-  return launch_d<float>(D, q, k, v, seg_q, pos_q, seg_k, pos_k, out, Hq,
-                         Hkv, TQ, TK, scale, s);
+  if (D <= 64)
+    return launch<64>(q, k, v, seg_q, pos_q, seg_k, pos_k, out, Hq, Hkv, TQ,
+                      TK, D, scale, s);
+  if (D <= 128)
+    return launch<128>(q, k, v, seg_q, pos_q, seg_k, pos_k, out, Hq, Hkv,
+                       TQ, TK, D, scale, s);
+  return launch<256>(q, k, v, seg_q, pos_q, seg_k, pos_k, out, Hq, Hkv, TQ,
+                     TK, D, scale, s);
 }

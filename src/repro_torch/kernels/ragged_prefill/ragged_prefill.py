@@ -15,8 +15,9 @@ from pathlib import Path
 
 import torch
 
-from ...core.families.ragged_prefill import (HEAD_DIMS, RaggedPrefillConfig,
+from ...core.families.ragged_prefill import (RaggedPrefillConfig,
                                              RaggedPrefillProblem, is_wgmma)
+from ...core.kernelspec import MAX_HEAD_DIM, head_dim_ok
 from .._build import CudaKernel, dtype_name, ptr, stream_handle
 from .ref import ragged_prefill_ref
 
@@ -29,7 +30,7 @@ KERNEL = CudaKernel(
     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float,
      _I, _P])
 
-__all__ = ["KERNEL", "RaggedPrefillConfig", "ragged_prefill", "HEAD_DIMS"]
+__all__ = ["KERNEL", "RaggedPrefillConfig", "ragged_prefill"]
 
 
 def ragged_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -57,9 +58,10 @@ def ragged_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"ragged_prefill kernel takes bf16 or f32 q, k, v "
                         f"of one type, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"ragged_prefill kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {D}")
+    if not head_dim_ok(D, q.element_size()):
+        raise ValueError(f"ragged_prefill kernel takes head_dim up to "
+                         f"{MAX_HEAD_DIM} in rows of whole 16-byte vectors, "
+                         f"got {D} in {q.dtype}")
     meta = (seg_q, pos_q, seg_k, pos_k)
     if tuple(seg_q.shape) != (TQ,) or tuple(pos_q.shape) != (TQ,) \
             or tuple(seg_k.shape) != (TK,) or tuple(pos_k.shape) != (TK,):

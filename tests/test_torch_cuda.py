@@ -486,14 +486,14 @@ def test_paged_decode_tensor_core_instance_matches_plain(card, case):
     version, at most P_SPLIT_MISMATCH of its outputs off the plain
     version's bf16 value, zeros for a row of length 0, and poisoned
     foreign, null and tail pages leave it bit-identical."""
-    from repro_torch.core.families.paged_attention import instance
+    from repro_torch.core.families.paged_attention import tensor_cores
     from repro_torch.kernels.paged_attention import KERNEL, paged_decode_ref
     from repro_torch.kernels.paged_attention.paged_attention import \
         paged_decode
     from repro_torch.kernels.paged_attention.ref import (P_SPLIT_MISMATCH,
                                                          mismatch_share)
     B, Hq, Hkv, D, PS, NP, lengths = case
-    assert instance(D, 2) == "tensor cores"
+    assert tensor_cores(D, 2)
     P = sum(-(-n // PS) for n in lengths) + 8
     q, kp, vp, table, lens = [t.to(card) for t in _decode_inputs(
         B, Hq, Hkv, D, PS, NP, P, lengths, torch.bfloat16)]
@@ -518,8 +518,9 @@ def test_paged_decode_wrapper_refuses_what_the_kernel_does_not_take(card):
     from repro_torch.kernels.paged_attention.paged_attention import \
         paged_decode
     before = KERNEL.launches
-    for Hq, Hkv, D, PS in ((8, 2, 128, 24), (8, 2, 128, 512),
-                           (32, 2, 128, 16), (8, 2, 96, 16)):
+    # head_dim off the 16-byte grain and above 256, a 1-token page
+    for Hq, Hkv, D, PS in ((8, 2, 100, 16), (8, 2, 320, 16),
+                           (8, 2, 128, 1)):
         q, kp, vp, table, lens = [t.to(card) for t in _decode_inputs(
             2, Hq, Hkv, D, PS, 2, 8, [PS, 1], torch.bfloat16)]
         with pytest.raises(ValueError, match="paged_decode kernel takes"):
@@ -533,12 +534,136 @@ def test_paged_decode_wrapper_refuses_what_the_kernel_does_not_take(card):
     assert KERNEL.launches == before
 
 
+# -- every head_dim, group and page size the JAX kernels take ------------------
+
+PAGED_GEOMETRY_CASES = [
+    # (dtype, B, Hq, Hkv, D, PS, NP, lengths): bf16 at head_dim 8, 16, 24,
+    # 32 and 48 (64-column tiles), 96 and 112 (128), 136 (256); groups 12
+    # (starcoder2-15b), 16 (glm-4-9b) and 71 (falcon-7b, nine head
+    # blocks); pages of 2 (eight 8-row slots), 24 (two 24-row slots, the
+    # tile's tail masked), 100 (two chunks, the second short) and 512
+    # tokens (eight chunks a page); float32 at 4, 48, 96 and G 71
+    (torch.bfloat16, 3, 8, 2, 8, 16, 12, [0, 1, 190]),
+    (torch.bfloat16, 3, 8, 2, 16, 8, 16, [128, 77, 1]),
+    (torch.bfloat16, 3, 4, 4, 24, 16, 12, [191, 0, 33]),
+    (torch.bfloat16, 3, 8, 8, 32, 16, 12, [192, 65, 1]),
+    (torch.bfloat16, 3, 8, 2, 48, 16, 12, [0, 100, 192]),
+    (torch.bfloat16, 4, 32, 32, 96, 16, 24, [384, 0, 1, 217]),
+    (torch.bfloat16, 3, 8, 4, 112, 16, 12, [192, 17, 64]),
+    (torch.bfloat16, 3, 8, 2, 136, 16, 12, [192, 17, 0]),
+    (torch.bfloat16, 4, 48, 4, 128, 16, 24, [384, 0, 1, 217]),
+    (torch.bfloat16, 4, 32, 2, 128, 16, 24, [384, 0, 1, 217]),
+    (torch.bfloat16, 4, 71, 1, 64, 16, 24, [384, 0, 1, 217]),
+    (torch.bfloat16, 3, 8, 2, 128, 2, 64, [128, 3, 0]),
+    (torch.bfloat16, 3, 8, 2, 128, 24, 10, [240, 49, 23]),
+    (torch.bfloat16, 3, 8, 2, 64, 24, 10, [240, 0, 121]),
+    (torch.bfloat16, 3, 16, 16, 256, 24, 10, [240, 49, 1]),
+    (torch.bfloat16, 3, 8, 2, 128, 100, 4, [400, 150, 64]),
+    (torch.bfloat16, 3, 8, 2, 128, 512, 4, [1536, 700, 1]),
+    (torch.bfloat16, 2, 16, 16, 256, 512, 2, [1024, 513]),
+    (torch.float32, 3, 8, 2, 4, 16, 12, [0, 100, 192]),
+    (torch.float32, 3, 8, 2, 48, 24, 10, [240, 49, 0]),
+    (torch.float32, 4, 32, 32, 96, 2, 64, [128, 0, 1, 77]),
+    (torch.float32, 4, 71, 1, 64, 512, 2, [1024, 0, 1, 600]),
+]
+
+
+@pytest.mark.parametrize("case", PAGED_GEOMETRY_CASES, ids=lambda c: (
+    f"{'bf16' if c[0] == torch.bfloat16 else 'f32'}-{c[2]}-{c[3]}x{c[4]}"
+    f"-ps{c[5]}"))
+def test_paged_decode_at_every_geometry_matches_plain(card, case):
+    """Within TOL of the plain version (bf16 also at most
+    P_SPLIT_MISMATCH of the outputs off its bf16 value), zeros for a row
+    of length 0, and poisoned foreign, null and tail pages leave the
+    output bit-identical."""
+    from repro_torch.core.families.paged_attention import tensor_cores
+    from repro_torch.kernels.paged_attention import KERNEL, paged_decode_ref
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        paged_decode
+    from repro_torch.kernels.paged_attention.ref import (P_SPLIT_MISMATCH,
+                                                         mismatch_share)
+    dtype, B, Hq, Hkv, D, PS, NP, lengths = case
+    assert tensor_cores(D, dtype.itemsize) == (dtype == torch.bfloat16)
+    P = sum(-(-n // PS) for n in lengths) + 4
+    q, kp, vp, table, lens = [t.to(card) for t in _decode_inputs(
+        B, Hq, Hkv, D, PS, NP, P, lengths, dtype)]
+    before = KERNEL.launches
+    got = paged_decode(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    want = paged_decode_ref(q, kp, vp, table, lens)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= TOL[dtype], err
+    if dtype == torch.bfloat16:
+        share = mismatch_share(got, want, lens)
+        assert share <= P_SPLIT_MISMATCH, share
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert not got[b].any()
+    kp2, vp2 = _poisoned(kp, vp, table.cpu(), lengths, PS)
+    assert torch.equal(got, paged_decode(q, kp2, vp2, table, lens))
+
+
+RAGGED_GEOMETRY_CASES = [
+    # (dtype, Hq, Hkv, D): bf16 at 8, 24, 48 (64-column tiles, 8 and 24
+    # with a half-zero last k step), 96, 112 (128), 136 (256); groups 12,
+    # 16 and 71; float32 at 4, 48, 96 and 136
+    (torch.bfloat16, 8, 2, 8), (torch.bfloat16, 4, 4, 24),
+    (torch.bfloat16, 8, 2, 48), (torch.bfloat16, 32, 32, 96),
+    (torch.bfloat16, 8, 4, 112), (torch.bfloat16, 8, 2, 136),
+    (torch.bfloat16, 48, 4, 128), (torch.bfloat16, 32, 2, 128),
+    (torch.bfloat16, 71, 1, 64),
+    (torch.float32, 8, 2, 4), (torch.float32, 8, 2, 48),
+    (torch.float32, 32, 32, 96), (torch.float32, 8, 2, 136),
+]
+
+
+@pytest.mark.parametrize("case", RAGGED_GEOMETRY_CASES, ids=lambda c: (
+    f"{'bf16' if c[0] == torch.bfloat16 else 'f32'}-{c[1]}-{c[2]}x{c[3]}"))
+def test_ragged_prefill_at_every_geometry_matches_plain(card, case):
+    """Within TOL of the plain version on an engine-style packing (bf16
+    also at most P_SPLIT_MISMATCH of the outputs off its bf16 value),
+    zeros on padding queries, and a poisoned foreign segment and padding
+    keys leave the other segments bit-identical."""
+    from repro_torch.core.families.ragged_prefill import (
+        RaggedPrefillProblem, is_wgmma)
+    from repro_torch.kernels.ragged_prefill import (KERNEL,
+                                                    ragged_prefill_ref)
+    from repro_torch.kernels.ragged_prefill.ragged_prefill import \
+        ragged_prefill
+    from repro_torch.kernels.ragged_prefill.ref import (P_SPLIT_MISMATCH,
+                                                        mismatch_share)
+    dtype, Hq, Hkv, D = case
+    q, k, v, sq, pq, sk, pk = [t.to(card) for t in _packed_case(
+        Hq, Hkv, D, [40, 64, 7, 100, 130], [0, 30, 200, 64, 5], dtype, 3)]
+    bf = dtype == torch.bfloat16
+    assert is_wgmma(RaggedPrefillProblem(
+        5, k.shape[1], Hq, Hkv, D, "bf16" if bf else "f32")) == bf
+    before = KERNEL.launches
+    got = ragged_prefill(q, k, v, sq, pq, sk, pk)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    want = ragged_prefill_ref(q, k, v, sq, pq, sk, pk)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= TOL[dtype], err
+    if bf:
+        share = mismatch_share(got, want, sq)
+        assert share <= P_SPLIT_MISMATCH, share
+    assert not got[:, sq < 0].any()
+    k2, v2 = k.clone(), v.clone()
+    foreign = (sk == 2) | (sk < 0)
+    k2[:, foreign] = 1e6
+    v2[:, foreign] = 1e6
+    keep = sq != 2
+    assert torch.equal(got[:, keep],
+                       ragged_prefill(q, k2, v2, sq, pq, sk, pk)[:, keep])
+
+
 # -- the serving kernels at the other architectures' head dims ------------------
 
 # (query heads, KV heads, head_dim): stablelm-3b's 32/32 x 80, gemma-7b's
-# 16/16 x 256 and chameleon-34b's reduced 8/2 x 8; bf16 at 80 and 256 on
-# the tensor-core / wgmma instances, float32 and head_dim 8 on the CUDA
-# cores
+# 16/16 x 256 and chameleon-34b's reduced 8/2 x 8; bf16 on the
+# tensor-core / wgmma instances, float32 on the CUDA cores
 WIDE_HEADS = [(32, 32, 80), (16, 16, 256), (8, 2, 8)]
 
 
@@ -549,7 +674,7 @@ def test_paged_decode_at_the_other_head_dims_matches_plain(card, heads,
     """Within TOL of the plain version in 16-token pages (8-token ones at
     head_dim 8), zeros for a row of length 0, and poisoned foreign, null
     and tail pages leave the output bit-identical."""
-    from repro_torch.core.families.paged_attention import instance
+    from repro_torch.core.families.paged_attention import tensor_cores
     from repro_torch.kernels.paged_attention import KERNEL, paged_decode_ref
     from repro_torch.kernels.paged_attention.paged_attention import \
         paged_decode
@@ -558,9 +683,7 @@ def test_paged_decode_at_the_other_head_dims_matches_plain(card, heads,
     NP = 12
     lengths = [0, 1, PS + 3, 5 * PS, 7 * PS - 1, NP * PS]
     P = sum(-(-n // PS) for n in lengths) + 8
-    assert instance(D, dtype.itemsize) == (
-        "tensor cores" if dtype == torch.bfloat16 and D != 8
-        else "cuda cores")
+    assert tensor_cores(D, dtype.itemsize) == (dtype == torch.bfloat16)
     q, kp, vp, table, lens = [t.to(card) for t in _decode_inputs(
         len(lengths), Hq, Hkv, D, PS, NP, P, lengths, dtype)]
     before = KERNEL.launches
@@ -593,7 +716,7 @@ def test_ragged_prefill_at_the_other_head_dims_matches_plain(card, heads,
         Hq, Hkv, D, [40, 64, 7, 100], [0, 30, 200, 64], dtype, 3)]
     assert is_wgmma(RaggedPrefillProblem(
         4, k.shape[1], Hq, Hkv, D, "bf16" if dtype == torch.bfloat16
-        else "f32")) == (dtype == torch.bfloat16 and D != 8)
+        else "f32")) == (dtype == torch.bfloat16)
     before = KERNEL.launches
     got = ragged_prefill(q, k, v, sq, pq, sk, pk)
     torch.cuda.synchronize()
@@ -612,8 +735,15 @@ def test_ragged_prefill_at_the_other_head_dims_matches_plain(card, heads,
 
 
 def test_serving_wrappers_raise_at_a_head_dim_no_instance_has(card):
-    """head_dim 96: no instance of either kernel; both wrappers raise on
-    the card (never the plain version in their place), no launch."""
+    """head_dim 100 (bf16 rows of 200 bytes, off the 16-byte grain) and
+    320 (above 256): no instance of the four attention kernels takes
+    them; each wrapper raises on the card (never the plain version in
+    its place), no launch."""
+    from repro_torch.kernels.flash_attention import DECODE_KERNEL
+    from repro_torch.kernels.flash_attention import KERNEL as FA
+    from repro_torch.kernels.flash_attention.decode import flash_decode
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
     from repro_torch.kernels.paged_attention import KERNEL as PD
     from repro_torch.kernels.paged_attention.paged_attention import \
         paged_decode
@@ -621,18 +751,25 @@ def test_serving_wrappers_raise_at_a_head_dim_no_instance_has(card):
     from repro_torch.kernels.ragged_prefill import default_config
     from repro_torch.kernels.ragged_prefill.ragged_prefill import \
         ragged_prefill
-    before = (PD.launches, RP.launches)
-    for dtype in (torch.float32, torch.bfloat16):
+    kernels = (PD, RP, FA, DECODE_KERNEL)
+    before = [k.launches for k in kernels]
+    for D in (100, 320):
         q, kp, vp, table, lens = [t.to(card) for t in _decode_inputs(
-            2, 8, 2, 96, 16, 2, 8, [16, 1], dtype)]
+            2, 8, 2, D, 16, 2, 8, [16, 1], torch.bfloat16)]
         with pytest.raises(ValueError, match="paged_decode kernel takes"):
             paged_decode(q, kp, vp, table, lens)
-        case = [t.to(card) for t in _packed_case(8, 2, 96, [40, 7],
-                                                 [0, 30], dtype, 4)]
+        case = [t.to(card) for t in _packed_case(8, 2, D, [40, 7],
+                                                 [0, 30], torch.bfloat16, 4)]
         cfg = default_config(case[0].shape[1], case[1].shape[1])
         with pytest.raises(ValueError, match="ragged_prefill kernel takes"):
             ragged_prefill(*case, cfg=cfg)
-    assert (PD.launches, RP.launches) == before
+        x = torch.zeros(1, 8, 64, D, device=card, dtype=torch.bfloat16)
+        kv = torch.zeros(1, 2, 64, D, device=card, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="flash_attention kernel takes"):
+            flash_attention(x, kv, kv)
+        with pytest.raises(ValueError, match="flash_decode kernel takes"):
+            flash_decode(x[:, :, :1].contiguous(), kv, kv, 64)
+    assert [k.launches for k in kernels] == before
 
 
 # -- flash attention -----------------------------------------------------------
@@ -729,6 +866,74 @@ def test_flash_decode_kernel_matches_plain(card, case, dtype):
     _flash_check(got, want)
 
 
+FA_GEOMETRY_CASES = [
+    # (B, Hq, Hkv, Sq, Skv, D, causal, block_q): head_dim 8, 24 and 48
+    # (64-column tiles; 8 and 24 with a half-zero last k step), 96 and
+    # 112 (128), 136 and 256 (256: 64-key wgmma tiles), on every CTA
+    # tile (block_q 128 and 64 on wgmma, 32 and 16 on mma.sync); groups
+    # 12, 16 and 71
+    (1, 4, 2, 300, 200, 8, True, 128), (1, 4, 2, 300, 200, 24, True, 16),
+    (1, 4, 1, 384, 448, 48, False, 64), (1, 4, 4, 300, 300, 96, True, 128),
+    (1, 4, 4, 300, 300, 96, True, 32), (1, 4, 2, 257, 300, 112, False, 64),
+    (1, 4, 2, 300, 200, 136, True, 128), (1, 4, 2, 300, 200, 136, True, 16),
+    (1, 2, 1, 256, 256, 256, True, 64), (1, 48, 4, 256, 256, 128, True, 128),
+    (1, 32, 2, 256, 256, 128, True, 64), (1, 71, 1, 200, 200, 64, True, 128),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FA_GEOMETRY_CASES, ids=lambda c: (
+    f"{c[1]}-{c[2]}x{c[5]}-bq{c[7]}"))
+def test_flash_attention_at_every_geometry_matches_plain(card, case, dtype):
+    from repro_torch.core.families.flash_attention import \
+        FlashAttentionConfig
+    from repro_torch.kernels.flash_attention import KERNEL, mha, mha_ref
+    B, Hq, Hkv, Sq, Skv, D, causal, bq = case
+    g = torch.Generator().manual_seed(Sq + Skv + D)
+    q = torch.randn(B, Hq, Sq, D, generator=g).to(dtype).to(card)
+    k = torch.randn(B, Hkv, Skv, D, generator=g).to(dtype).to(card)
+    v = torch.randn(B, Hkv, Skv, D, generator=g).to(dtype).to(card)
+    before = KERNEL.launches
+    got = mha(q, k, v, cfg=FlashAttentionConfig(block_q=bq), causal=causal)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _flash_check(got, mha_ref(q, k, v, causal=causal))
+
+
+DEC_GEOMETRY_CASES = [
+    # (B, Hq, Hkv, S, D, kv_len, kv_splits): head_dim 8, 48, 96, 112, 136
+    # and 256 across the three widths; groups 12, 16 and 71; kv_len 0
+    (2, 8, 2, 512, 8, 500, 4), (2, 8, 2, 512, 48, 300, 2),
+    (2, 32, 32, 1024, 96, 1000, 8), (2, 8, 4, 512, 112, 77, 4),
+    (2, 8, 2, 512, 136, 511, 4), (2, 16, 16, 512, 256, 257, 8),
+    (2, 48, 4, 1024, 128, 1000, 8), (2, 32, 2, 1024, 128, 999, 4),
+    (2, 71, 1, 1024, 64, 1000, 8), (2, 71, 1, 512, 64, 0, 4),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DEC_GEOMETRY_CASES, ids=lambda c: (
+    f"{c[1]}-{c[2]}x{c[4]}-len{c[5]}"))
+def test_flash_decode_at_every_geometry_matches_plain(card, case, dtype):
+    from repro_torch.core.families.flash_decode import FlashDecodeConfig
+    from repro_torch.kernels.flash_attention import (DECODE_KERNEL,
+                                                     mha_decode, mha_ref)
+    B, Hq, Hkv, S, D, kv_len, ns = case
+    g = torch.Generator().manual_seed(S + kv_len + D)
+    q = torch.randn(B, Hq, 1, D, generator=g).to(dtype).to(card)
+    k = torch.randn(B, Hkv, S, D, generator=g).to(dtype).to(card)
+    v = torch.randn(B, Hkv, S, D, generator=g).to(dtype).to(card)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=card)
+    before = DECODE_KERNEL.launches
+    got = mha_decode(q, k, v, kl, cfg=FlashDecodeConfig(kv_splits=ns))
+    torch.cuda.synchronize()
+    assert DECODE_KERNEL.launches == before + 1
+    want = (torch.zeros_like(q) if kv_len == 0 else
+            mha_ref(q, k, v, causal=False, kv_len=kv_len))
+    _flash_check(got, want)
+
+
 def test_flash_attention_backward_on_the_card(card):
     """The recompute backward on the card gives the CPU's gradients."""
     from repro_torch.kernels.flash_attention import mha
@@ -749,14 +954,15 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(card):
     from repro_torch.kernels.flash_attention import (DECODE_KERNEL, KERNEL,
                                                      mha, mha_decode)
     before = (KERNEL.launches, DECODE_KERNEL.launches)
-    x = torch.zeros(1, 2, 64, 32, device="cuda")
+    # float32 head_dim 30: rows of 120 bytes, off the 16-byte grain
+    x = torch.zeros(1, 2, 64, 30, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         mha(x, x[:, :1].contiguous(), x[:, :1].contiguous())
     h = torch.zeros(1, 2, 64, 64, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError, match="bf16 or f32"):
         mha(h, h, h)
-    q = torch.zeros(1, 2, 1, 32, device="cuda")
-    kv = torch.zeros(1, 1, 64, 32, device="cuda")
+    q = torch.zeros(1, 2, 1, 30, device="cuda")
+    kv = torch.zeros(1, 1, 64, 30, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         mha_decode(q, kv, kv, 64)
     assert (KERNEL.launches, DECODE_KERNEL.launches) == before

@@ -75,6 +75,34 @@ def test_mha_matches_the_jax_kernel(case):
                                atol=TOL[dtype])
 
 
+# (Hq, Hkv, D, dtype): head_dim 96 and 48, groups 16 and 71 — the
+# geometries the kernels take since they read head_dim and the group at
+# run time
+GEOMETRIES = [(4, 2, 96, "bfloat16"), (4, 2, 48, "float32"),
+              (16, 1, 16, "bfloat16"), (71, 1, 16, "float32")]
+
+
+@pytest.mark.parametrize("geom", GEOMETRIES, ids=str)
+def test_mha_and_mha_decode_match_the_jax_kernels_at_every_geometry(geom):
+    from repro.core.families.flash_attention import \
+        FlashAttentionConfig as JCfg
+    Hq, Hkv, D, dtype = geom
+    q, k, v = _inputs(20 + D + Hq, 1, Hq, Hkv, 24, 40, D)
+    tq, tk, tv = (torch.from_numpy(a).to(TDT[dtype]) for a in (q, k, v))
+    jq, jk, jv = (jnp.asarray(a, JDT[dtype]) for a in (q, k, v))
+    got = mha(tq, tk, tv, cfg=FlashAttentionConfig(8, 8), causal=True)
+    want = jax_mha(jq, jk, jv, cfg=JCfg(8, 8), causal=True, interpret=True)
+    assert got.dtype == TDT[dtype] and tuple(got.shape) == (1, Hq, 24, D)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    got = mha_decode(tq[:, :, :1].contiguous(), tk, tv, 33,
+                     cfg=FlashDecodeConfig(4))
+    want = jax_mha_decode(jq[:, :, :1], jk, jv, jnp.int32(33), cfg=None,
+                          interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
 DECODE = [
     # (Hq, Hkv, S, kv_len, kv_splits, dtype): kv_len < S, splits that
     # leave spans fully masked, GQA 1, 2 and 4

@@ -8,19 +8,23 @@ the TPU kernels can.  The emulation follows their rounding points:
 
 * prefill (``flash_attention.cu``): each query row walks the keys in
   the CTA's key tiles (128 keys on the 128- and 64-row bf16 tiles, 64
-  on the 32- and 16-row ones: ``key_tile``), updating its running max
+  at width 256 and on the 32- and 16-row ones: ``key_tile``), updating
+  its running max
   once a tile in log2 units (exp2 with log2(e) folded into the scale),
   p rounded to v's type against that max, l summing the float32 p;
 * decode (``flash_decode.cu``): each span is read in tiles of
-  ``tile_tokens`` positions, each of four warps keeping its own running
+  ``tile_tokens`` positions, each of four warps (two at width 256)
+  keeping its own running
   (m, l, o) over its slice of every tile; the warps merge in float32 at
   the span's end, and the spans' partials merge by ``combine`` (the
   plain version of the combine kernel).
 
 So these cases check the tolerance argument beside ``flash_error`` for
 the kernels' tile sizes: Sq and Skv ragged against 128, Skv < Sq,
-groups 1, 2, 4 and 8, kv_len 0, kv_len not a multiple of the tile, and
-spans shorter than a tile."""
+groups 1, 2, 4, 8, 16 and 71, head_dim 48, 64, 96, 128 and 136 (the
+three tile widths), kv_len 0, kv_len not a multiple of the tile, and
+spans shorter than a tile.  A head_dim below its width only adds zero
+columns, which change no sum: the emulation runs at head_dim itself."""
 import numpy as np
 import pytest
 
@@ -103,7 +107,8 @@ def emulate_decode(q, k, v, kv_len, ns):
     G = Hq // Hkv
     k, v = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
     T = fd.tile_tokens(D, q.element_size())
-    warps = 4 if q.dtype == torch.bfloat16 else 1
+    warps = (1 if q.dtype != torch.bfloat16
+             else 2 if fd.tile_width(D) == 256 else 4)
     slab = T // warps
     span, length = S // ns, max(0, min(kv_len, S))
     o_p, m_p, l_p = [], [], []
@@ -140,6 +145,12 @@ PREFILL = [
     (1, 2, 2, 130, 390, 64, False, 128, torch.bfloat16),
     (1, 4, 1, 200, 300, 128, True, 32, torch.bfloat16),
     (1, 2, 1, 150, 260, 64, True, 128, torch.float32),
+    # head_dim 96 and 48, 136 (width 256: 64-key wgmma tiles), G 16
+    (1, 2, 2, 200, 300, 96, True, 128, torch.bfloat16),
+    (1, 4, 2, 130, 200, 48, False, 16, torch.bfloat16),
+    (1, 2, 1, 200, 300, 136, True, 64, torch.bfloat16),
+    (1, 16, 1, 130, 130, 64, True, 128, torch.bfloat16),
+    (1, 2, 1, 150, 260, 96, True, 32, torch.float32),
 ]
 
 
@@ -149,7 +160,7 @@ def test_prefill_tiles_stay_within_the_tolerance_of_the_tpu_kernel(case):
     B, Hq, Hkv, Sq, Skv, D, causal, bq, dt = case
     q, k, v = _inputs(Sq + Skv, B, Hq, Hkv, Sq, Skv, D, dt)
     tile = fa.key_tile(fa.cta_tile(bq), "bf16" if dt == torch.bfloat16
-                       else "f32")
+                       else "f32", D)
     got = emulate_prefill(q, k, v, causal=causal, key_tile=tile)
     want = _torch(jax_mha(_jax(q), _jax(k), _jax(v),
                           cfg=JaxFACfg(block_q=64, block_kv=64),
@@ -168,6 +179,14 @@ DECODE = [
     (2, 1, 1, 256, 64, 200, 8, torch.bfloat16),
     (1, 4, 1, 1024, 128, 1000, 32, torch.bfloat16),
     (1, 8, 2, 512, 128, 450, 4, torch.float32),
+    # head_dim 96 and 48, 136 (width 256: 32-position tiles, two warps),
+    # G 16 and 71
+    (1, 4, 2, 512, 96, 300, 4, torch.bfloat16),
+    (1, 4, 1, 256, 48, 200, 2, torch.bfloat16),
+    (1, 2, 1, 256, 136, 250, 2, torch.bfloat16),
+    (1, 16, 1, 512, 128, 400, 4, torch.bfloat16),
+    (1, 71, 1, 256, 64, 200, 2, torch.bfloat16),
+    (1, 71, 1, 256, 48, 130, 2, torch.float32),
 ]
 
 

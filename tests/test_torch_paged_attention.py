@@ -78,6 +78,41 @@ def test_plain_version_matches_pallas_kernel_and_oracle(dtype, Hq, HK):
     assert float(got[0].abs().max()) == 0.0     # length 0: exact zeros
 
 
+# (Hq, HK, D, PS, NP, lengths): head_dim 96 and 48, groups 16 and 71,
+# pages of 2, 24 and 512 tokens, each with an empty and a mid-page row
+GEOMETRIES = [
+    (4, 2, 96, 8, 4, [0, 13, 32]),
+    (4, 2, 48, 8, 4, [0, 13, 32]),
+    (16, 1, 16, 8, 4, [0, 9, 32]),
+    (71, 1, 16, 8, 2, [0, 9, 16]),
+    (4, 2, 16, 2, 8, [0, 5, 16]),
+    (4, 2, 16, 24, 3, [0, 30, 72]),
+    (4, 2, 16, 512, 2, [0, 600, 1024]),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geom", GEOMETRIES, ids=lambda g: (
+    f"{g[0]}-{g[1]}x{g[2]}-ps{g[3]}"))
+def test_plain_version_matches_pallas_kernel_at_every_geometry(dtype, geom):
+    """The geometries the kernel takes since it reads head_dim, the group
+    and the page size at run time: the gated entry point (the port's
+    gate admits each) against the JAX kernel in interpret mode."""
+    Hq, HK, D, PS, NP, lengths = geom
+    B = len(lengths)
+    P = B * NP + 1
+    table = np.arange(1, B * NP + 1).reshape(B, NP)
+    case = _case(3, B, Hq, HK, NP, PS, D, P, lengths, table)
+    (jq, jk, jv, jt, jl), (tq, tk, tv, tt, tl) = _both(case, dtype)
+    got = paged_decode(tq, tk, tv, tt, tl)
+    assert got.dtype == TDT[dtype] and got.shape == (B, Hq, 1, D)
+    kern = jax_kernel(jq, jk, jv, jt, jl, cfg=jax_default(NP),
+                      interpret=True)
+    np.testing.assert_allclose(_np(got), _np(kern), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    assert float(got[0].abs().max()) == 0.0
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_null_pages_and_poisoned_pages_never_reach_the_output(dtype):
     """Rows mapping the null page past their length, and every page the

@@ -8,17 +8,24 @@ points:
 
 * each row's pages are cut into spans of ``span_pages`` pages (from the
   shapes alone), a span walks its valid positions in tiles of
-  ``tile_tokens``, and the spans' (m, l, o) partials merge by
-  log-sum-exp, a row of no valid position giving zeros;
-* the bf16 tensor-core instance (head_dim 64, 80, 128 and 256): in each
-  tile four warps (two at D = 256) each take 16 (D = 80, 128, 256) or 32
-  (D = 64) positions with their own
-  running max (exp2 with log2(e) folded in), scores past the length are
-  -1e30, p is float32 and P·V takes p_hi = bf16(p) and p_lo = bf16(p -
-  p_hi), V exact in bf16, summed in float32 (held also against a
-  control that takes p_hi alone); the warps merge at the span's end;
-* the CUDA-core instance (float32, and bf16 at 8, 16 and 32): one running
-  max a tile for each head, p float32 against V cast up.
+  ``tile_tokens`` rows — the whole pages that fit a tile, each in a slot
+  of ``page_slot`` rows (the rest of the tile masked), or tile-sized
+  chunks of a longer page (its last chunk short) — and the spans' (m, l,
+  o) partials merge by log-sum-exp, a row of no valid position giving
+  zeros;
+* the bf16 tensor-core instance (every head_dim, in tiles of 64, 128 or
+  256 columns): in each tile four warps (two at width 256) each take 16
+  (widths 128, 256) or 32 (width 64) rows with their own running max
+  (exp2 with log2(e) folded in), scores of rows without a valid position
+  are -1e30, p is float32 and P·V takes p_hi = bf16(p) and p_lo =
+  bf16(p - p_hi), V exact in bf16, summed in float32 (held also against
+  a control that takes p_hi alone); the warps merge at the span's end;
+* the CUDA-core instance (float32): one running max a tile for each
+  head, p float32 against V cast up.
+
+A group above 8 runs as several CTAs of up to 8 heads each, which read
+the same pages; each head's arithmetic is the same, so the emulation
+walks all heads at once.
 
 Tolerances: bfloat16 outputs within 1e-2 of the TPU kernel's
 (``TOL["bfloat16"]`` in ``chip_smoke.py``, which holds the kernel to its
@@ -39,6 +46,7 @@ from repro.core.families.paged_attention import \
 from repro.kernels.paged_attention.paged_attention import \
     paged_decode as jax_kernel
 from repro_torch.core.families import paged_attention as pa
+from repro_torch.core.kernelspec import tile_width
 from repro_torch.kernels.paged_attention.ref import (P_SPLIT_MISMATCH,
                                                      mismatch_share)
 
@@ -48,9 +56,34 @@ TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
 
 
 def _consumers(D):
-    """Consumer warps of the tensor-core instance (``Tc<D>::kConsumers``):
-    four, two at head_dim 256, whose 16 KB tile is two 16-row slabs."""
-    return 2 if D == 256 else 4
+    """Consumer warps of the tensor-core instance (``Tc<W>::kConsumers``):
+    four, two at width 256, whose 16 KB tile is two 16-row slabs."""
+    return 2 if tile_width(D) == 256 else 4
+
+
+def _tiles(begin, end, PS, T, slot):
+    """``paged_decode.cu``'s ``Walk``: for each tile of the span's walk
+    over positions [begin, end), the position each of its T rows holds
+    (-1 for none)."""
+    out = []
+    if end <= begin:
+        return out
+    if PS <= T:
+        pp = T // slot
+        for t0 in range(begin, end, pp * PS):
+            r = np.arange(T)
+            j, o = r // slot, r % slot
+            pos = t0 + j * PS + o
+            out.append(np.where((o < PS) & (j < pp) & (pos < end), pos, -1))
+        return out
+    for pg0 in range(begin, end, PS):
+        for c0 in range(0, PS, T):
+            if pg0 + c0 >= end:
+                break
+            r = np.arange(T)
+            pos = pg0 + c0 + r
+            out.append(np.where((c0 + r < PS) & (pos < end), pos, -1))
+    return out
 
 
 def _cdiv(a, b):
@@ -87,9 +120,10 @@ def emulate_paged(q, kp, vp, table, lengths, *, p_terms=2, round_out=True,
     sz = q.element_size()
     tc = pa.tensor_cores(D, sz)
     T = pa.tile_tokens(D, sz)
-    sp = sp or pa.span_pages(B, Hkv, NP, PS, D, sz)
+    slot = pa.page_slot(PS, D, sz)
+    sp = sp or pa.span_pages(B, Hkv, NP, PS, D, sz, G)
     ns = _cdiv(NP, sp)
-    assert sp * PS % T == 0
+    assert sp % pa.pages_per_step(PS, D, sz) == 0
     scale = D ** -0.5
     out = torch.zeros(B, Hq, D)
     for b in range(B):
@@ -112,13 +146,12 @@ def emulate_paged(q, kp, vp, table, lengths, *, p_terms=2, round_out=True,
             m = torch.full((slices, Hq, 1), NEG)
             l = torch.zeros(slices, Hq, 1)
             o = torch.zeros(slices, Hq, D)
-            for t0 in range(begin, end, T):
-                nt = min(T, end - t0)
+            for tile in _tiles(begin, end, PS, T, slot):
                 for w in range(slices):
-                    rows = torch.arange(t0 + w * T // slices,
-                                        t0 + (w + 1) * T // slices)
-                    ok = (rows < t0 + nt)[None]
-                    idx = rows.clamp(max=NP * PS - 1)
+                    rows = torch.from_numpy(
+                        tile[w * T // slices:(w + 1) * T // slices])
+                    ok = (rows >= 0)[None]
+                    idx = rows.clamp(min=0)
                     x = (qb[:, None] * k[:, idx]).sum(-1) * scale
                     x = torch.where(ok, x, torch.tensor(NEG))
                     m_new = torch.maximum(m[w], x.amax(-1, keepdim=True))
@@ -189,6 +222,18 @@ CASES = [
     (8, 2, 80, 64, 8, [512, 65, 1], torch.bfloat16, None),
     (4, 4, 256, 8, 16, [128, 0, 1, 77], torch.bfloat16, None),
     (2, 1, 256, 128, 4, [512, 129, 64], torch.bfloat16, None),
+    # every head_dim, group and page: head_dim 96 (128-column tiles) and
+    # 48 (64-column), G 16 and 71 (two and nine head blocks), pages of 2
+    # (8-row slots), 24 (two 24-row slots a 64-row tile) and 512 tokens
+    # (eight 64-row chunks a page), in bf16 and float32
+    (8, 2, 96, 16, 8, [0, 1, 77, 128], torch.bfloat16, None),
+    (4, 2, 48, 24, 6, [144, 25, 0], torch.bfloat16, None),
+    (16, 1, 64, 2, 32, [64, 3, 0], torch.bfloat16, None),
+    (71, 1, 64, 16, 4, [64, 17], torch.bfloat16, None),
+    (4, 2, 128, 512, 2, [1024, 513, 1], torch.bfloat16, None),
+    (4, 2, 96, 24, 6, [144, 49, 0], torch.float32, None),
+    (16, 1, 48, 2, 32, [64, 5], torch.float32, None),
+    (71, 1, 64, 512, 2, [1024, 1], torch.float32, None),
 ]
 
 
@@ -220,7 +265,8 @@ def test_the_split_walk_stays_within_the_tolerance_of_the_tpu_kernel(case):
 # against 21-35% of the bf16 outputs off the TPU kernel's).
 SPLIT_ROW_REL = 2.0 ** -14
 
-TC_CASES = [c for c in CASES if c[6] == torch.bfloat16 and c[2] >= 64]
+TC_CASES = [c for c in CASES if c[6] == torch.bfloat16 and c[2] >= 64
+            and c[0] <= 16]
 
 
 @pytest.mark.parametrize("case", TC_CASES, ids=_id)
@@ -253,18 +299,22 @@ def test_the_number_of_spans_depends_on_the_shapes_alone():
     CTAs without cutting a row finer than one tile a span."""
     params = list(inspect.signature(pa.span_pages).parameters)
     assert params == ["batch", "kv_heads", "pages_per_seq", "page_size",
-                      "head_dim", "itemsize"]
-    for B, Hkv, NP, PS, D, sz in ((8, 8, 128, 16, 128, 2),
-                                  (8, 8, 128, 16, 64, 2),
-                                  (32, 1, 64, 128, 128, 2),
-                                  (8, 8, 125, 16, 128, 2),
-                                  (3, 2, 6, 16, 128, 4)):
+                      "head_dim", "itemsize", "group"]
+    for B, Hkv, NP, PS, D, sz, G in ((8, 8, 128, 16, 128, 2, 2),
+                                     (8, 8, 128, 16, 64, 2, 3),
+                                     (32, 1, 64, 128, 128, 2, 8),
+                                     (8, 8, 125, 16, 128, 2, 2),
+                                     (3, 2, 6, 16, 128, 4, 4),
+                                     (8, 2, 85, 24, 128, 2, 16),
+                                     (4, 1, 16, 512, 64, 2, 71),
+                                     (2, 2, 512, 2, 96, 2, 12)):
         step = pa.pages_per_step(PS, D, sz)
-        sp = pa.span_pages(B, Hkv, NP, PS, D, sz)
-        assert sp % step == 0 and sp * PS % pa.tile_tokens(D, sz) == 0
+        sp = pa.span_pages(B, Hkv, NP, PS, D, sz, G)
+        assert sp % step == 0
         ns = _cdiv(NP, sp)
-        assert B * Hkv * ns < pa.SPAN_TARGET_CTAS + B * Hkv * (sp // step)
-        assert sp == step or B * Hkv * _cdiv(NP, sp - step) \
+        ctas = B * Hkv * pa.head_blocks(G)
+        assert ctas * ns < pa.SPAN_TARGET_CTAS + ctas * (sp // step)
+        assert sp == step or ctas * _cdiv(NP, sp - step) \
             > pa.SPAN_TARGET_CTAS
 
 

@@ -97,6 +97,24 @@ def test_plain_version_matches_pallas_kernel_and_oracle(dtype, Hq, Hkv):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hq,Hkv,D", [(4, 2, 96), (4, 2, 48), (16, 1, 16),
+                                      (71, 1, 16)])
+def test_plain_version_matches_pallas_kernel_at_every_geometry(dtype, Hq,
+                                                               Hkv, D):
+    """Head_dim 96 and 48, groups 16 and 71, which the kernel takes since
+    it reads head_dim at run time (the group was already free): the
+    plain version against the JAX kernel, padding rows zero."""
+    case = _packed(4, chunks=[9, 17, 5], prefixes=[0, 12, 30], Hq=Hq,
+                   Hkv=Hkv, D=D)
+    got, kern, _ = _run_both(case, dtype)
+    tol = TOL[dtype]
+    assert got.dtype == TDT[dtype] and got.shape[-1] == D
+    np.testing.assert_allclose(_np(got), _np(kern), rtol=tol, atol=tol)
+    pad_rows = torch.from_numpy(case[3] < 0)
+    assert float(got[:, pad_rows].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_poisoned_foreign_segment_never_leaks(dtype):
     """Poison segment 1's keys and values (and the padding keys) with
     1e6: segment 0's and segment 2's rows stay bit-identical."""

@@ -7,11 +7,12 @@ the TPU kernels can.  The emulations follow their rounding points:
 
 * ragged prefill's bf16 wgmma instance (``ragged_prefill.cu``,
   ``ragged_wgmma_kernel``): a CTA of 128 packed queries of one head
-  walks only the key tiles (128 keys, 64 at head_dim 256) whose metadata
+  walks only the key tiles (128 keys, 64 at width 256) whose metadata
   summary may admit one of its pairs (the kernel's live list, decided
-  from each tile's segment and position range), in order; at head_dim
-  80 on D = 128's tiles, columns 80..127 zero (TMA's fill) and not
-  stored; S = Q·Kᵀ in float32 from bf16
+  from each tile's segment and position range), in order; head_dim D in
+  the tiles of the least width of 64, 128 and 256 columns at or above
+  it, columns D.. zero (TMA's fill) and not stored; S = Q·Kᵀ in float32
+  from bf16
   products; the mask; the running max once a tile in log2 units; p in
   float32, l summing it; P·V as p_hi·V + p_lo·V with p_hi = bf16(p) and
   p_lo = bf16(p - p_hi), V exact in bf16, summed in float32, held also
@@ -41,6 +42,7 @@ from repro.kernels.ragged_prefill.ragged_prefill import \
 from repro_torch.core.families import gemm as fg
 from repro_torch.core.families import ragged_prefill as fr
 from repro_torch.core.families.gemm import GemmConfig, GemmProblem
+from repro_torch.core.kernelspec import tile_width
 from repro_torch.kernels.ragged_prefill.ref import (P_SPLIT_MISMATCH,
                                                     mismatch_share)
 
@@ -121,10 +123,10 @@ def emulate_ragged_wgmma(q, k, v, seg_q, pos_q, seg_k, pos_k, *,
     G = Hq // Hkv
     _, bk = fr.kernel_blocks(fr.RaggedPrefillProblem(1, TK, Hq, Hkv, D,
                                                      "bf16"))
-    # rows of the kernel's tiles: at head_dim 80 D = 128's, the columns
-    # past 80 TMA's zero fill
+    # rows of the kernel's tiles (64, 128 or 256 columns), the columns
+    # past D TMA's zero fill
     pad = lambda t: torch.nn.functional.pad(t.float(),
-                                            (0, fr.wgmma_width(D) - D))
+                                            (0, tile_width(D) - D))
     kf = pad(k).repeat_interleave(G, 0)
     vf = pad(v).repeat_interleave(G, 0)
     sl2 = D ** -0.5 * LOG2E
@@ -183,6 +185,15 @@ RAGGED = [
     # and gemma-7b's 256 (64-key tiles), G = 1 and 2
     (4, 4, 80, [130, 5, 60], [300, 700, 0], 256),
     (2, 1, 256, [40, 64, 7, 100], [0, 30, 200, 64], 64),
+    # every head_dim and group: 96 (128-column tiles), 48 and 24
+    # (64-column, 24 with a half-zero last k step), 136 (256-column,
+    # 64-key tiles); G 16 and 71
+    (8, 2, 96, [130, 5, 60], [300, 100, 0], 0),
+    (4, 2, 48, [40, 64, 7], [0, 30, 200], 64),
+    (2, 2, 24, [100, 28], [64, 0], 0),
+    (2, 1, 136, [40, 64, 7], [0, 30, 200], 0),
+    (16, 1, 64, [60, 40], [100, 0], 0),
+    (71, 1, 64, [30, 20], [40, 0], 0),
 ]
 
 

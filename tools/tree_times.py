@@ -16,7 +16,9 @@ events with the L2 flushed before each (``chip_smoke.time_ms``):
   by default): ``call_ms``, the whole validated call, host time the card
   waits for included; ``kernel_ms`` and ``combine_ms``, device time per
   call of the split kernel and of the merge of the partials, from
-  ``torch.profiler`` (``chip_smoke.decode_parts_ms``);
+  ``torch.profiler`` with the L2 flushed before each call (each
+  kernel's mean over its launches, ``chip_smoke.decode_parts_ms``, as
+  for every decode split below);
 * ``gemm`` — ``matmul`` at the GEMM family's production problem (8192^3
   bf16) with the agent loop's usual best config,
   ``gemm[512x1024x128]+stagger`` (``gemm_best_ms``), and with the
@@ -67,7 +69,21 @@ events with the L2 flushed before each (``chip_smoke.time_ms``):
   kernel's mean over its launches in 3 calls under ``torch.profiler``)
   and the largest |kernel - plain| at chunk 128 (``ssd_err``), and
   mamba2-780m's layer shape (192 x 2048 x 64 x 128, chunk 256:
-  ``ssd_layer_ms``).
+  ``ssd_layer_ms``);
+* ``widths`` — the instances a kernel compiled for one head_dim runs
+  against those that read head_dim at run time: ``flash_attention`` at
+  the family's 2048-token sweep problem (32 x 8/1 x 2048^2, head_dim
+  128, causal, bf16) with the family example ``fa[8x128]`` (its 16-row
+  ``mma.sync`` tile) and ``fa[128x128]+skip`` (``wgmma``), and in
+  float32 at 1 x 8/2 x 1024^2 with block_q 64 (``fa_{example,best,
+  f32}_ms``); ``mha_decode``'s split kernel and combine on the device at
+  the decode family's production problem, 8 spans
+  (``fd_split_ms``, ``fd_combine_ms``); the float32 CUDA-core
+  instances of both serving kernels at the shapes of ``ragged`` and
+  ``paged``, at qwen3-1.7b's heads (16/8 x 128), stablelm-3b's (32/32 x
+  80) and gemma-7b's (16/16 x 256): ``ragged_f32_{qwen3,stablelm,gemma}
+  _ms`` and the decode split's device time
+  ``paged_f32_{qwen3,stablelm,gemma}_split_ms``.
 
 It prints one JSON line per tree with the card's name and power limit
 as ``nvidia-smi`` reports them.
@@ -293,9 +309,54 @@ def flavours(torch, args) -> dict:
     return out
 
 
+def widths(torch, args) -> dict:
+    from chip_smoke import (FLAVOUR_HEADS, QWEN_HEADS, _decode_case,
+                            _fa_inputs, _prefill_case, decode_parts_ms,
+                            time_ms)
+    from repro_torch.core.families.flash_attention import \
+        FlashAttentionConfig
+    from repro_torch.core.families.flash_decode import FlashDecodeConfig
+    from repro_torch.kernels.flash_attention import mha, mha_decode
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        paged_decode
+    from repro_torch.kernels.ragged_prefill import default_config
+    from repro_torch.kernels.ragged_prefill.ragged_prefill import \
+        ragged_prefill
+    out = {}
+    q, k, v = _fa_inputs(torch, 32, 8, 1, 2048, 2048, 128, "bfloat16", 7)
+    for name, cfg in (("example", FlashAttentionConfig(8, 128)),
+                      ("best", FlashAttentionConfig(128, 128))):
+        out[f"fa_{name}_ms"] = time_ms(
+            torch, lambda: mha(q, k, v, cfg=cfg, causal=True), iters=5,
+            warmup=1)
+    q, k, v = _fa_inputs(torch, 1, 8, 2, 1024, 1024, 128, "float32", 8)
+    out["fa_f32_ms"] = time_ms(torch, lambda: mha(
+        q, k, v, cfg=FlashAttentionConfig(64, 64), causal=True))
+    q, k, v = _fa_inputs(torch, 32, 8, 1, 1, 8192, 128, "bfloat16", 9)
+    kl = torch.tensor(8192, dtype=torch.int32, device="cuda")
+    split, combine = decode_parts_ms(torch, lambda: mha_decode(
+        q, k, v, kl, cfg=FlashDecodeConfig(kv_splits=8)))
+    out["fd_split_ms"], out["fd_combine_ms"] = split, combine
+    del q, k, v
+    for name, heads in (("qwen3", QWEN_HEADS),
+                        ("stablelm", FLAVOUR_HEADS["stablelm-3b"]),
+                        ("gemma", FLAVOUR_HEADS["gemma-7b"])):
+        (q, k, v, sq, pq, sk, pk), _ = _prefill_case(torch, "float32",
+                                                     heads=heads)
+        cfg = default_config(q.shape[1], k.shape[1])
+        out[f"ragged_f32_{name}_ms"] = time_ms(
+            torch, lambda: ragged_prefill(q, k, v, sq, pq, sk, pk, cfg=cfg))
+        del q, k, v
+        (q, kp, vp, table, lens), _, _, _ = _decode_case(
+            torch, "float32", heads=heads)
+        out[f"paged_f32_{name}_split_ms"] = decode_parts_ms(
+            torch, lambda: paged_decode(q, kp, vp, table, lens))[0]
+    return out
+
+
 MEASUREMENTS = {"decode_split": decode_split, "gemm": gemm,
                 "ragged": ragged, "paged": paged, "flavours": flavours,
-                "moe": moe, "quant": quant, "ssd": ssd}
+                "moe": moe, "quant": quant, "ssd": ssd, "widths": widths}
 
 
 def measure(tree: Path, args) -> dict:
