@@ -25,7 +25,9 @@ is missing or any phase fails.  Phases:
    tile width (64, 128, 256 columns: ``kernelspec.TILE_WIDTHS``; a
    head_dim runs in the least width at or above it) showing HGMMA
    (ragged_prefill, flash_attention's 128-row tile) or HMMA
-   (paged_decode, flash_decode) and UTMALDG;
+   (paged_decode, flash_decode) and UTMALDG; the panel route's instances
+   (``kernels/csrc/panel_attention.cuh``: any other head_dim) are built
+   beside them, spill-free like every instance;
 3. kernels against their plain PyTorch versions at the serving path's
    shapes (qwen3-1.7b: 16 query heads, 8 KV heads, head_dim 128, page
    size 16), in bfloat16 and float32 (ragged prefill's bf16 case on its
@@ -54,7 +56,10 @@ is missing or any phase fails.  Phases:
    decoded or prefilled must have gone through the two kernels, whose
    launch counters are zeroed just before this phase and read just
    after; then a profiled prefill tick and six decode ticks show where
-   a tick's time goes;
+   a tick's time goes; then ``SERVE_HEAD_DIMS``: qwen3-1.7b at full width
+   with head_dim 100 and 320 (two layers, 8 requests), every tick on
+   the two kernels' panel route, the counters zeroed before each run and
+   read after it;
 5. the kernel paths against the gather paths, in float32 at depth 2:
    identical tokens;
 6. gemm — the ARGUS gate and agent loop on the GEMM family:
@@ -101,7 +106,10 @@ is missing or any phase fails.  Phases:
    default config and the family example (block_t 8), block_t 16 to 256
    and block_f 8 to 2048, fuse_gate off and gates None, one expert,
    d_model 1536 and 96 and empty capacity rows, the wgmma instance's 64-
-   and 128-row CTAs with gates None and fuse off, and the production
+   and 128-row CTAs with gates None and fuse off, rows off the 16-byte
+   grain (d_model 100, d_ff 60, block_f 20; d_model 50: element copies;
+   also timed at 40 experts x 256 rows beside bound, plain version and
+   the bmm yardstick, ``MOE_OFF_GRAIN``), and the production
    problem (16,384 tokens, top-8 of 32 experts, 7168 x 2048, bf16),
    each case naming its instance (wgmma, mma.sync or fma),
    within the tolerance stated beside ``moe_error``
@@ -147,10 +155,12 @@ is missing or any phase fails.  Phases:
    that does not divide the group must raise before any launch;
 11. ssd — the SSD family and mamba2-780m: (a) the chunk-scan kernel
    against its plain version (``ssd_ref``) in float32 and bfloat16 over
-   chunks 32 to 512 (and 96), P 9 to 128, N 7 to 128, BH 1 and 64,
-   one chunk and many, and the production problem (64 x 8192 x 64 x
-   128) in both types, within the tolerance stated beside ``ssd_error``
-   (``kernels/ssd/ref.py``); (b) the agent loop at the production
+   chunks 32 to 512 (and 96), P 9 to 128, N 7 to 256 (130 and 256 in
+   state panels of 128), BH 1 and 64, one chunk and many, and the
+   production problem (64 x 8192 x 64 x 128) in both types, within the
+   tolerance stated beside ``ssd_error`` (``kernels/ssd/ref.py``), and
+   d_state 130 and 256 timed at mamba2's layer shape (``SSD_PANELS``)
+   beside bound and plain version; (b) the agent loop at the production
    problem, launches counted as in 10b; (c) the example config (chunk
    64) and the best timed at the three sweep problems — the call, the
    device time of each of its three launches and the scratch it
@@ -273,8 +283,14 @@ is missing or any phase fails.  Phases:
    timed (CUDA events, L2 flushed; the decode kernels' split and
    combine on the device) beside the bound of its inputs, the family's
    ``*_sol``, the plain version and a library call where one computes
-   the function, naming the instance that ran; then each wrapper must
-   refuse head_dim 100 and 320 with ValueError and no launch;
+   the function, naming the instance that ran; the four kernels on
+   their panel route at ``PANEL_GEOMETRIES`` (qwen3's 16/8 heads, bf16
+   head_dim 33, 100, 300, 320 and 512, float32 50 and 320), held, timed
+   and named the same way (each must name a "panel" instance); then
+   paged_decode must refuse a 1-token page (as the JAX gate does) with
+   ValueError and no launch; then the example twins
+   (``examples/serve_demo_torch.py``, ``figure1_dsl_torch.py``) on the
+   card;
 18. the kernels line (JSON, all eight kernels; paged_decode's and
    ragged_prefill's entries list phase 13a's instances with their
    launches in phase 13's runs, and the four attention kernels phase
@@ -317,6 +333,13 @@ SERVE = dict(arch="qwen3-1.7b", max_batch=8, max_len=2048, page_size=16,
              max_new=(16, 32), mean_gap=2.0, seed=0, tag="serve")
 # phase 9: the serve phase's trace and engine on granite-moe-3b-a800m
 SERVE_MOE = dict(SERVE, arch="granite-moe-3b-a800m", tag="serve-moe")
+# phase 4 also serves qwen3-1.7b at full width with head_dim 100 (bf16
+# rows off the 16-byte grain) and 320 (above 256), two layers, a short
+# trace: every tick on the two serving kernels' panel route
+SERVE_HEAD_DIMS = [dict(SERVE, head_dim=D, n_layers=2, requests=8,
+                        prompt_lens=(64, 512), max_new=(8, 16),
+                        profile=False, tag=f"serve/head_dim {D}")
+                   for D in (100, 320)]
 
 # Tolerances of a kernel against its plain version on the same inputs:
 # float32 — the two sum the same products in another order (up to 2048
@@ -479,6 +502,17 @@ def phase_build():
         check(sum(i.startswith(f"ssd_chunk_scan {part} ") for i in sass)
               == 2, f"ssd_chunk_scan: no f32 and bf16 {part} kernels in "
               f"its SASS")
+    # the panel route of the four attention kernels: bf16 on mma.sync at
+    # both panel widths, prefill in flash_attention and ragged_prefill,
+    # decode in paged_decode and flash_decode
+    for name, kind in (("flash_attention", "prefill"),
+                       ("ragged_prefill", "prefill"),
+                       ("paged_decode", "decode"), ("flash_decode", "decode")):
+        for pw in (64, 256):
+            c = sass.get(f"{name} panel bf16 {kind} PW={pw}")
+            check(c is not None and c["HMMA"] > 0,
+                  f"{name}: no bf16 panel {kind} at PW={pw} on mma.sync "
+                  f"in its SASS: {c}")
     return dict(seconds=secs, sass=sass)
 
 
@@ -517,6 +551,17 @@ def _instance(ptxas_line):
     kernel's instance compiled for head_dim = W ends in " D=W"."""
     import re
     full = lambda m: " D=W" if m.group(m.lastindex) == "1" else ""
+    # the attention kernels' panel route (panel_attention.cuh), and the
+    # SSD scan over state panels
+    m = re.search(r"(prefill|decode)_(bf16|f32)_panelILi(\d+)E", ptxas_line)
+    if m:
+        return f" panel {m.group(2)} {m.group(1)} PW={m.group(3)}"
+    m = re.search(r"combine_panelsI(t|f)E", ptxas_line)
+    if m:
+        return f" panel combine {'bf16' if m.group(1) == 't' else 'f32'}"
+    m = re.search(r"ssd_scan_panel_kernelI(13__nv_bfloat16|f)E", ptxas_line)
+    if m:
+        return f" panel scan {'bf16' if m.group(1) != 'f' else 'f32'}"
     m = re.search(r"gemm_wgmma_kernelILi(\d+)E", ptxas_line)
     if m:
         return f" bf16 wgmma 128x{m.group(1)}"
@@ -633,8 +678,7 @@ def _decode_case(torch, dtype, seed=0, NP=None,
 
 def phase_decode_kernel(torch, dtype, heads=QWEN_HEADS, PS=16):
     from repro_torch.core.families.paged_attention import (
-        PagedAttentionProblem, instance_name, paged_attention_sol,
-        tensor_cores)
+        PagedAttentionProblem, instance_name, paged_attention_sol)
     from repro_torch.kernels.paged_attention import paged_decode_ref
     from repro_torch.kernels.paged_attention.paged_attention import \
         paged_decode
@@ -642,7 +686,9 @@ def phase_decode_kernel(torch, dtype, heads=QWEN_HEADS, PS=16):
                                                          mismatch_share)
     (q, kp, vp, table, lens), (kp2, vp2), lengths, (Hq, Hkv, D) = \
         _decode_case(torch, dtype, heads=heads, PS=PS)
-    tc = tensor_cores(D, q.element_size())
+    # bf16 splits p (p_hi + p_lo) on the tensor-core instance and on the
+    # panel route alike
+    tc = q.element_size() == 2
     got = paged_decode(q, kp, vp, table, lens)
     torch.cuda.synchronize()
     want = paged_decode_ref(q, kp, vp, table, lens)
@@ -682,7 +728,7 @@ def phase_decode_kernel(torch, dtype, heads=QWEN_HEADS, PS=16):
         f"on its {instance_name(D, elt)} instance: max_abs_err {err:.3g} "
         f"(tol {TOL[dtype]}), outputs "
         f"differing from the plain version {share} (limit "
-        f"{P_SPLIT_MISMATCH} on tensor cores), poisoned run bit-identical; "
+        f"{P_SPLIT_MISMATCH} in bf16), poisoned run bit-identical; "
         f"{ms:.4f} ms a call (device: split {_ms_or(split_ms)}, combine "
         f"{_ms_or(combine_ms)}), plain {plain:.4f} ms, bound {bms:.4f} ms "
         f"({by}; the family's paged_attention_sol over every page of the "
@@ -878,14 +924,15 @@ def phase_prefill_kernel(torch, dtype, heads=QWEN_HEADS):
                                                         admit_mask,
                                                         mismatch_share)
     from repro_torch.core.families.ragged_prefill import (
-        RaggedPrefillProblem, instance_name, is_wgmma, ragged_prefill_sol)
+        RaggedPrefillProblem, instance_name, ragged_prefill_sol)
     (q, k, v, sq, pq, sk, pk), pairs = _prefill_case(torch, dtype,
                                                      heads=heads)
     Hq, TQ, D = q.shape
     Hkv, TK, _ = k.shape
     cfg = default_config(TQ, TK)
     prob = RaggedPrefillProblem(8, TK, Hq, Hkv, D, SHORT[dtype])
-    wg = is_wgmma(prob)
+    # bf16 splits p (p_hi + p_lo) on wgmma and on the panel route alike
+    wg = q.element_size() == 2
     got = ragged_prefill(q, k, v, sq, pq, sk, pk, cfg=cfg)
     torch.cuda.synchronize()
     want = ragged_prefill_ref(q, k, v, sq, pq, sk, pk)
@@ -934,7 +981,7 @@ def phase_prefill_kernel(torch, dtype, heads=QWEN_HEADS):
         f"{instance_name(prob)} instance: TQ {TQ}, TK {TK}, {pairs} "
         f"admitted pairs per head; max_abs_err {err:.3g} (tol "
         f"{TOL[dtype]}), outputs differing from the plain version "
-        f"{share} (limit {P_SPLIT_MISMATCH} on wgmma), poisoned segment "
+        f"{share} (limit {P_SPLIT_MISMATCH} in bf16), poisoned segment "
         f"bit-identical; {ms:.4f} ms "
         f"(back to back {dev:.4f}), plain {plain:.4f} ms, bound {bms:.4f} "
         f"ms ({by}; the family's ragged_prefill_sol {sol:.4f} ms), library "
@@ -1118,6 +1165,8 @@ def phase_serve(torch, s=SERVE):
     cfg = configs.get_config(s["arch"])
     if s.get("n_layers"):
         cfg = dataclasses.replace(cfg, n_layers=s["n_layers"])
+    if s.get("head_dim"):
+        cfg = dataclasses.replace(cfg, head_dim=s["head_dim"])
     model = build(cfg)
     t0 = time.perf_counter()
     params = model.init(s["seed"], device="cuda")
@@ -1952,16 +2001,30 @@ MOE_CASES = [
      dict(block_t=64, block_f=128), False),
     ("wgmma bt=128 bf=256 unfused", 4, 256, 1024, 512,
      dict(block_t=128, block_f=256, fuse_gate=False), True),
+    # rows off the 16-byte grain, staged element by element: d_model 100,
+    # d_ff 60 and block_f 20 (off in bf16; d_model on it in f32), d_model
+    # 50 (off in both)
+    ("off grain dm100 df60 bf20", 4, 64, 100, 60,
+     dict(block_t=16, block_f=20), True),
+    ("off grain dm50", 4, 64, 50, 64, dict(block_t=8, block_f=32), True),
 ]
+# the off-grain rows timed at a granite-sized expert batch (phase 8)
+MOE_OFF_GRAIN = [("bfloat16", 100, 60, dict(block_t=64, block_f=20)),
+                 ("float32", 50, 64, dict(block_t=64, block_f=32))]
 
 
 def moe_instance(cfg, x, wg):
-    """The instance ``grouped_ffn`` runs ``cfg`` on for these tensors."""
+    """The instance ``grouped_ffn`` runs ``cfg`` on for these tensors
+    (rows off the 16-byte grain: its element copies)."""
     from repro_torch.core.families.moe import is_wgmma
     from repro_torch.kernels.moe.moe import instance_problem
     if is_wgmma(cfg, instance_problem(x, wg)):
         return "wgmma"
-    return "mma.sync" if x.element_size() == 2 else "fma"
+    vec = 16 // x.element_size()
+    narrow = (x.shape[-1] % vec or wg.shape[-1] % vec
+              or cfg.block_f % vec)
+    kind = "mma.sync" if x.element_size() == 2 else "fma"
+    return f"{kind} element copies" if narrow else kind
 
 
 def _moe_inputs(torch, E, C, DM, DF, dtype, seed):
@@ -2041,6 +2104,8 @@ def phase_moe_kernels(torch):
     out.append(_moe_production_check(torch))
     check(any(c["instance"] == "wgmma" for c in out),
           "grouped_ffn: no case ran on the wgmma instance")
+    check(sum("element copies" in c["instance"] for c in out) >= 3,
+          "grouped_ffn: the off-grain cases did not take element copies")
     log(f"[moe] grouped_ffn against its plain version: {len(out)} cases "
         f"(bf16 and f32; default, example bt=8, bt 16..256, bf 8..2048, "
         f"fuse_gate off, gates None, E=1, d_model 1536 and 96, empty rows; "
@@ -2048,6 +2113,49 @@ def phase_moe_kernels(torch):
         f"beside moe_error; max abs err " + ", ".join(
             f"{SHORT[c['dtype']]}/{c['label']} ({c['instance']}) "
             f"{c['max_abs_err']:.3g}" for c in out))
+    return out
+
+
+def _moe_off_grain_times(torch):
+    """grouped_ffn at rows off the 16-byte grain (MOE_OFF_GRAIN: bf16
+    d_model 100, d_ff 60, block_f 20; float32 d_model 50) over 40 experts
+    x 256 capacity rows (granite-moe's expert count), each held to its
+    plain version and timed (CUDA events, L2 flushed) beside its bound,
+    the plain version and the three-bmm yardstick; no single PyTorch call
+    computes the function (library none)."""
+    from repro_torch.core.families.moe import MoEConfig
+    from repro_torch.kernels.moe import (KERNEL, grouped_ffn,
+                                         grouped_ffn_ref, moe_error)
+    out = []
+    E, C = 40, 256
+    for dtype, DM, DF, f in MOE_OFF_GRAIN:
+        x, ws, gates = _moe_inputs(torch, E, C, DM, DF, dtype, DM)
+        cfg = MoEConfig(**f)
+        call = lambda: grouped_ffn(x, *ws, gates, cfg=cfg)
+        n0 = KERNEL.launches
+        got = call()
+        torch.cuda.synchronize()
+        check(KERNEL.launches == n0 + 1, f"grouped_ffn off grain {DM}: "
+              "no launch")
+        want = grouped_ffn_ref(x, *ws, gates)
+        err, ok = moe_error(got, want)
+        check(ok, f"grouped_ffn {dtype} off grain d_model {DM}: max |kernel"
+              f" - plain| {err} beyond the tolerance")
+        ms = time_ms(torch, call)
+        plain = time_ms(torch, lambda: grouped_ffn_ref(x, *ws, gates),
+                        iters=5, warmup=1)
+        yard = time_ms(torch, _bmm_yardstick(torch, x, ws, gates))
+        n_bytes, flops = _moe_bound(E, C, DM, DF, x.element_size(), True)
+        bms, by = bound_ms(n_bytes, flops, dtype)
+        r = dict(dtype=dtype, problem=[E, C, DM, DF], cfg=cfg.name(),
+                 instance=moe_instance(cfg, x, ws[0]), max_abs_err=err,
+                 ms=ms, plain_ms=plain, yardstick_ms=yard, bound_ms=bms,
+                 bound_by=by, library_ms=None, launches=1)
+        log(f"[moe] grouped_ffn {dtype} off the grain {E}x{C}x{DM}x{DF} "
+            f"{cfg.name()} on {r['instance']}: err {err:.3g}, {ms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}), plain {plain:.4f} ms, bmm "
+            f"yardstick {yard:.4f} ms, library none")
+        out.append(r)
     return out
 
 
@@ -2189,6 +2297,7 @@ def phase_moe_time(torch, best_cfg):
 
 def phase_moe(torch):
     out = {"kernel": phase_moe_kernels(torch),
+           "off_grain": _moe_off_grain_times(torch),
            "moe_ffn": phase_moe_ffn(torch)}
     out["loop"], best = phase_loop(torch, "moe")
     out["time"] = phase_moe_time(torch, best)
@@ -2466,7 +2575,13 @@ SSD_CASES = [
     ("chunk 96 P24 N12", 3, 480, 24, 12, 96),
     # N·P not a multiple of 4: the state pass one element a thread
     ("chunk 64 P9 N7", 2, 256, 9, 7, 64),
+    # state panels of 128: d_state 130 (136: panels of 128 and 8) and 256
+    ("d_state 130", 4, 1024, 64, 130, 128),
+    ("d_state 256", 4, 1024, 64, 256, 128),
 ]
+# the state panels timed at mamba2's layer shape (48 heads x 2048 tokens,
+# P 64), d_state 130 and 256 (phase 11)
+SSD_PANELS = [(48, 2048, 64, 130, 128), (48, 2048, 64, 256, 128)]
 
 
 def _ssd_inputs(torch, BH, S, P, N, dtype, seed):
@@ -2517,6 +2632,57 @@ def phase_ssd_kernel(torch):
         + "; each case " + ", ".join(
             f"{SHORT[c['dtype']]}/{c['label']} {c['max_abs_err']:.3g}"
             for c in out))
+    return out
+
+
+def _ssd_panel_times(torch):
+    """ssd_chunk_scan at d_state above one panel (SSD_PANELS), float32
+    and bf16: held to its plain version, timed (CUDA events, L2 flushed)
+    beside its bound (the family's sol at the 3xTF32 rate; a bf16
+    operand is exact in TF32, so the bf16 run issues fewer products than
+    that rate counts) and the plain version; no single PyTorch call
+    computes it."""
+    from repro_torch.core.families import get_family
+    from repro_torch.core.families.ssd import (SSDConfig, SSDProblem,
+                                               kernel_flops)
+    from repro_torch.kernels.ssd import KERNEL, ssd, ssd_error, ssd_ref
+    out = []
+    for BH, S, P, N, q in SSD_PANELS:
+        for dtype in ("float32", "bfloat16"):
+            # seeded by S, as phase 11c's timed problems are
+            x, da, B, C = _ssd_inputs(torch, BH, S, P, N, dtype, S)
+            cfg = SSDConfig(q)
+            call = lambda: ssd(x, da, B, C, cfg=cfg)
+            n0 = KERNEL.launches
+            got = call()
+            torch.cuda.synchronize()
+            check(KERNEL.launches == n0 + 1, f"ssd d_state {N}: no launch")
+            want, _ = ssd_ref(x, da, B, C, q)
+            err, row, ok = ssd_error(got, want)
+            check(ok, f"ssd {dtype} d_state {N}: max |kernel - plain| "
+                  f"{err}, worst row {row}: beyond the tolerance")
+            ms = time_ms(torch, call)
+            plain = time_ms(torch, lambda: ssd_ref(x, da, B, C, q),
+                            iters=3, warmup=1)
+            # the family's sol (the operands once; the causal triangle
+            # of each chunk at the chunk that needs the fewest
+            # operations) at the float32-accurate tensor-core rate, as
+            # phase 11c bounds the production problem
+            sol = get_family("ssd").sol_bound(SSDProblem(BH, S, P, N,
+                                                         SHORT[dtype]))
+            bms, by = bound_ms(sol.hbm_bytes, sol.flops, "tf32x3")
+            r = dict(dtype=dtype, problem=[BH, S, P, N], cfg=cfg.name(),
+                     instance="3xTF32 mma.sync, state panels of 128",
+                     max_abs_err=err, row_err=row, ms=ms, plain_ms=plain,
+                     bound_ms=bms, bound_by=by, library_ms=None,
+                     kernel_flops=kernel_flops(cfg, SSDProblem(
+                         BH, S, P, N, SHORT[dtype])), launches=1)
+            log(f"[ssd] d_state {N} {dtype} {BH}x{S}x{P}x{N} chunk {q}: "
+                f"err {err:.3g} (row {row:.3g}), {ms:.4f} ms, bound "
+                f"{bms:.4f} ms ({by}), plain {plain:.4f} ms, library none")
+            out.append(r)
+            del x, da, B, C, got, want
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2725,7 +2891,8 @@ def phase_mamba2(torch):
 
 
 def phase_ssd(torch):
-    out = {"kernel": phase_ssd_kernel(torch)}
+    out = {"kernel": phase_ssd_kernel(torch),
+           "panels": _ssd_panel_times(torch)}
     out["loop"], best = phase_loop(torch, "ssd")
     out["time"] = phase_ssd_time(torch, best)
     out["mamba2"] = phase_mamba2(torch)
@@ -4281,9 +4448,12 @@ PUBLIC_HEADS = {"phi-3-mini": (32, 32, 96), "starcoder2-15b": (48, 4, 128),
 # bf16 at head_dim 8, 16 and 32 (the reduced configurations' widths)
 PAGE_SIZES = (2, 24, 512)
 SMALL_HEAD_DIMS = (8, 16, 32)
-# the head dims every wrapper refuses: rows off the 16-byte grain in bf16,
-# and above 256
-REFUSED_HEAD_DIMS = (100, 320)
+# the panel route, at qwen3's 16 query / 8 KV heads: bf16 head_dim 33
+# (odd: 2-byte copies), 100 and 300 (rows off the 16-byte grain; 300 also
+# above 256), 320 and 512 (above 256), float32 50 (off the grain) and 320
+PANEL_GEOMETRIES = [(33, "bfloat16"), (100, "bfloat16"), (300, "bfloat16"),
+                    (320, "bfloat16"), (512, "bfloat16"), (50, "float32"),
+                    (320, "float32")]
 FA_GEOMETRY = dict(B=1, S=2048)            # causal prefill, Sq = Skv
 FD_GEOMETRY = dict(B=8, S=8192, kv_len=8000, kv_splits=8)
 
@@ -4295,7 +4465,8 @@ def _flash_prefill_geometry(torch, dtype, heads):
     the bound, the family's sol, the plain version and one SDPA call."""
     import torch.nn.functional as F
     from repro_torch.core.families.flash_attention import (
-        FlashAttentionProblem, cta_tile, flash_attention_sol, instance_name)
+        FlashAttentionProblem, flash_attention_sol, instance_name,
+        route_tile)
     from repro_torch.kernels.flash_attention import (KERNEL, default_config,
                                                      flash_error, mha,
                                                      mha_ref)
@@ -4331,7 +4502,8 @@ def _flash_prefill_geometry(torch, dtype, heads):
     flops = 4.0 * B * Hq * _causal_pairs(S, S, True) * D
     bms, by = bound_ms(n_bytes, flops, dtype)
     sol = flash_attention_sol(prob).time_s * 1e3
-    inst = instance_name(cta_tile(min(cfg.block_q, S)), D, SHORT[dtype])
+    inst = instance_name(route_tile(min(cfg.block_q, S), D, SHORT[dtype]),
+                         D, SHORT[dtype])
     return dict(max_abs_err=err, row_err=row, ms=ms, plain_ms=plain,
                 bound_ms=bms, bound_by=by, sol_ms=sol, library_ms=lib,
                 instance_name=inst, cfg=cfg.name(),
@@ -4395,51 +4567,28 @@ def _flash_decode_geometry(torch, dtype, heads):
 
 
 def _refusals(torch):
-    """Each of the four wrappers refuses head_dim 100 and 320 on the card
-    with ValueError, none of their launch counters moving."""
-    from repro_torch.kernels.flash_attention import DECODE_KERNEL
-    from repro_torch.kernels.flash_attention import KERNEL as FA
-    from repro_torch.kernels.flash_attention.decode import flash_decode
-    from repro_torch.kernels.flash_attention.flash_attention import \
-        flash_attention
+    """The one geometry still refused, as the JAX gate refuses it: a
+    page of one token.  paged_decode raises ValueError on the card with
+    no launch."""
     from repro_torch.kernels.paged_attention import KERNEL as PD
     from repro_torch.kernels.paged_attention.paged_attention import \
         paged_decode
-    from repro_torch.kernels.ragged_prefill import KERNEL as RP
-    from repro_torch.kernels.ragged_prefill.ragged_prefill import \
-        ragged_prefill
-    kernels = (PD, RP, FA, DECODE_KERNEL)
-    before = [k.launches for k in kernels]
-    refused = []
-    for D in REFUSED_HEAD_DIMS:
-        z = lambda *shape: torch.zeros(*shape, device="cuda",
-                                       dtype=torch.bfloat16)
-        i32 = lambda *shape: torch.zeros(*shape, device="cuda",
-                                         dtype=torch.int32)
-        calls = {
-            "paged_decode": lambda: paged_decode(
-                z(2, 8, 1, D), z(4, 2, 16, D), z(4, 2, 16, D), i32(2, 2),
-                i32(2)),
-            "ragged_prefill": lambda: ragged_prefill(
-                z(8, 128, D), z(2, 128, D), z(2, 128, D), i32(128),
-                i32(128), i32(128), i32(128)),
-            "flash_attention": lambda: flash_attention(
-                z(1, 8, 64, D), z(1, 2, 64, D), z(1, 2, 64, D)),
-            "flash_decode": lambda: flash_decode(
-                z(1, 8, 1, D), z(1, 2, 64, D), z(1, 2, 64, D), 64)}
-        for name, fn in calls.items():
-            try:
-                fn()
-            except ValueError as e:
-                check("head_dim" in str(e), f"{name} at head_dim {D}: {e}")
-                refused.append((name, D))
-                continue
-            check(False, f"{name} took head_dim {D}")
-    check([k.launches for k in kernels] == before,
-          "a refused head_dim launched a kernel")
-    log(f"[geometries] every wrapper refuses head_dim "
-        f"{', '.join(map(str, REFUSED_HEAD_DIMS))} with no launch")
-    return [f"{n} D={d}" for n, d in refused]
+    z = lambda *shape: torch.zeros(*shape, device="cuda",
+                                   dtype=torch.bfloat16)
+    i32 = lambda *shape: torch.zeros(*shape, device="cuda",
+                                     dtype=torch.int32)
+    n0 = PD.launches
+    try:
+        paged_decode(z(2, 8, 1, 128), z(4, 2, 1, 128), z(4, 2, 1, 128),
+                     i32(2, 2), i32(2))
+    except ValueError as e:
+        check("pages of at least" in str(e), f"paged_decode at PS=1: {e}")
+    else:
+        check(False, "paged_decode took a page of one token")
+    check(PD.launches == n0, "a refused page launched a kernel")
+    log("[geometries] paged_decode refuses a 1-token page with no launch "
+        "(as the JAX gate does); every head_dim runs")
+    return ["paged_decode PS=1"]
 
 
 def phase_geometries(torch):
@@ -4450,8 +4599,9 @@ def phase_geometries(torch):
     beside the bound of this run's inputs, the family's ``*_sol`` and a
     library call where one computes the function, naming the instance
     that ran; paged decode also at 2-, 24- and 512-token pages and in
-    bf16 at head_dim 8, 16 and 32; then each wrapper's refusal of
-    head_dim 100 and 320."""
+    bf16 at head_dim 8, 16 and 32; the four kernels on the panel route
+    at PANEL_GEOMETRIES (qwen3's heads); then the 1-token page's
+    refusal."""
     from repro_torch.kernels.flash_attention import DECODE_KERNEL
     from repro_torch.kernels.flash_attention import KERNEL as FA
     from repro_torch.kernels.paged_attention import KERNEL as PD
@@ -4499,7 +4649,52 @@ def phase_geometries(torch):
         add("paged_decode", PD, "qwen3-1.7b", "bfloat16", heads,
             lambda: phase_decode_kernel(torch, "bfloat16", heads=heads),
             page_size=16)
+    for D, dtype in PANEL_GEOMETRIES:
+        heads = (QWEN_HEADS[0], QWEN_HEADS[1], D)
+        tag = f"qwen3-1.7b heads, head_dim {D}"
+        add("paged_decode", PD, tag, dtype, heads,
+            lambda: phase_decode_kernel(torch, dtype, heads=heads),
+            page_size=16)
+        add("ragged_prefill", RP, tag, dtype, heads,
+            lambda: phase_prefill_kernel(torch, dtype, heads=heads))
+        add("flash_attention", FA, tag, dtype, heads,
+            lambda: _flash_prefill_geometry(torch, dtype, heads))
+        add("flash_decode", DECODE_KERNEL, tag, dtype, heads,
+            lambda: _flash_decode_geometry(torch, dtype, heads))
+        for name in out:
+            check(out[name][-1]["instance_name"].startswith("panel "),
+                  f"{name} at head_dim {D}: ran on "
+                  f"{out[name][-1]['instance_name']}, not the panel route")
+        torch.cuda.empty_cache()
     return dict(cases=out, refused=_refusals(torch))
+
+
+# -- the example twins -------------------------------------------------------
+
+def phase_twins(torch):
+    """``examples/serve_demo_torch.py`` and ``figure1_dsl_torch.py`` on
+    the card, as a user runs them (their default device): 12 requests
+    served with their token budgets, the Figure-1 program valid and its
+    mis-lowering caught."""
+    import importlib.util
+    import io
+    out = {}
+    for name in ("serve_demo_torch", "figure1_dsl_torch"):
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main([])
+        text = buf.getvalue().strip().splitlines()
+        check(text and text[-1].endswith("OK"), f"{name}: {text[-1:]}")
+        out[name] = dict(seconds=time.perf_counter() - t0,
+                         last_line=text[-1], lines=len(text))
+        log(f"[twins] {name} on the card: {len(text)} lines, "
+            f"{text[-1]!r}, {out[name]['seconds']:.1f} s")
+    return out
 
 
 def main():
@@ -4532,6 +4727,8 @@ def main():
         summary["kernels"] = {f"{n}/{d}": v for (n, d), v in kern.items()}
         serve = phase_serve(torch)
         summary["serve"] = serve
+        summary["serve_head_dims"] = hd = [phase_serve(torch, s)
+                                           for s in SERVE_HEAD_DIMS]
         summary["paths"] = phase_paths(torch)
         summary["gemm"] = gemm = phase_gemm(torch)
         summary["flash"] = flash = phase_flash(torch)
@@ -4545,6 +4742,7 @@ def main():
         summary["train"] = phase_train(torch)
         summary["dist"] = phase_dist(torch)
         summary["geometries"] = geo = phase_geometries(torch)
+        summary["twins"] = phase_twins(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4576,6 +4774,11 @@ def main():
             launches=flav["serve"][arch]["launches"][name])
             for key, v in flav["kernels"].items()
             for arch, kname, dtype in [key.split("/")] if kname == name]
+        # phase 4's short runs at head_dim 100 and 320 (the panel route)
+        line[-1]["head_dim_runs"] = [dict(
+            head_dim=s["head_dim"], n_layers=r["n_layers"],
+            launches=r["launches"][name], ticks=r["ticks"])
+            for s, r in zip(SERVE_HEAD_DIMS, hd)]
         if name == "paged_decode":
             prod = k["production"]
             line[-1].update(
@@ -4634,7 +4837,9 @@ def main():
         yardstick_ms=best["yardstick_ms"],
         yardstick="3 torch.bmm (cuBLAS) + elementwise SwiGLU and gate",
         ported=True, dtype="bfloat16", cfg=best["cfg"],
-        instance=best["instance"]))
+        instance=best["instance"],
+        # rows off the 16-byte grain: the element-copy instance (phase 8)
+        off_grain=moe["off_grain"]))
     # quant_gemm: the loop's best config at the production problem; no
     # single PyTorch call computes it (library_ms null); the torch._int_mm
     # yardstick applies no group scale
@@ -4672,6 +4877,8 @@ def main():
         dtype="float32", cfg=best["cfg"],
         instance="3xTF32 mma.sync, chunk-parallel (3 launches)",
         parts_ms=best["parts_ms"], scratch_bytes=best["scratch_bytes"],
+        # d_state above 128: the state panels (phase 11)
+        state_panels=ssd["panels"],
         mamba2_layer=dict(
             launches=ssd["mamba2"]["layer"]["launches"],
             ms=ssd["mamba2"]["layer"]["ms"],

@@ -24,7 +24,13 @@ and 16-row tiles run ``mma.sync`` over 64-key chunks, and f32 runs
 CUDA-core FMAs over 32-key chunks.  So one program step (bh, qi, kv) is
 run by ``cdiv(block_q, tile)`` CTAs, each doing the kv axis itself in
 its own tiles; ``block_kv`` and ``v_transposed_staging`` select nothing
-in the kernel.
+in the kernel.  Those instances take head dims of whole 16-byte rows up
+to 256 (:func:`repro_torch.core.kernelspec.on_grain`); any other runs on
+the panel route (:func:`is_panel`): 64-row CTAs on ``mma.sync`` in bf16,
+32-row CTAs on the CUDA cores in f32 (:func:`route_tile`), rows staged
+by the widest copy they allow, and the output in panels of 64 or 256
+columns, one CTA each recomputing S (the structural model's ``grain``
+and ``cta_split``).
 """
 from __future__ import annotations
 
@@ -34,10 +40,9 @@ from typing import Optional
 from .. import dsl
 from ..costs import (CostEstimate, HBM_BW, L2_BW, MMA_SYNC_DERATE,
                      peak_flops, sol_estimate, wave_eff)
-from ..kernelspec import (DTYPE_BYTES, MAX_HEAD_DIM, StructuralIssue, cdiv,
-                          check_cta_split, check_smem,
-                          check_vector_alignment, ctas_per_sm, head_dim_ok,
-                          tile_width)
+from ..kernelspec import (DTYPE_BYTES, StructuralIssue, cdiv,
+                          check_cta_split, check_smem, ctas_per_sm, n_panels,
+                          on_grain, panel_issues, panel_width, tile_width)
 from ..tags import make_tag
 from .base import (BugSignature, KernelFamily, Skill, generic_skill,
                    reference_setup, register)
@@ -190,6 +195,22 @@ KEY_TILE = 128                 # keys per TMA tile of the wgmma instances
 STAGES = 2                     # K/V ring depth of the wgmma instances
 CHUNK = {"bf16": 64, "f32": 32}  # keys per chunk of the other instances
 CONSUMER_REGS, PRODUCER_REGS = 232, 40   # setmaxnreg, wgmma instances
+PANEL_TILE = {"bf16": 64, "f32": 32}     # query rows of a panel-route CTA
+PANEL_LDC = {"bf16": 72, "f32": 68}      # its staged rows (64 + padding)
+
+
+def is_panel(head_dim: int, dtype: str) -> bool:
+    """Whether ``head_dim`` runs on the panel route: rows off the
+    16-byte grain, or above 256."""
+    return not on_grain(head_dim, DTYPE_BYTES.get(dtype, 2))
+
+
+def route_tile(block_q: int, head_dim: int, dtype: str) -> int:
+    """The CTA tile that runs ``block_q`` at ``head_dim``: the panel
+    route's own (64 rows in bf16, 32 in f32), else :func:`cta_tile`."""
+    if is_panel(head_dim, dtype):
+        return PANEL_TILE.get(dtype, PANEL_TILE["bf16"])
+    return cta_tile(block_q)
 
 
 def cta_tile(block_q: int) -> int:
@@ -199,13 +220,20 @@ def cta_tile(block_q: int) -> int:
     return next((t for t in CTA_TILES if block_q % t == 0), CTA_TILES[-1])
 
 
-def is_wgmma(tile: int, dtype: str) -> bool:
-    return dtype != "f32" and tile in WGMMA_TILES
+def is_wgmma(tile: int, dtype: str, head_dim: int = 128) -> bool:
+    return (dtype != "f32" and tile in WGMMA_TILES
+            and not is_panel(head_dim, dtype))
 
 
 def instance_name(tile: int, head_dim: int, dtype: str) -> str:
     """The instance that runs: its design, CTA rows and width, e.g.
-    "wgmma 128 rows W=128", "mma.sync 16 rows W=64", "fma 64 rows W=256"."""
+    "wgmma 128 rows W=128", "mma.sync 16 rows W=64", "fma 64 rows W=256";
+    on the panel route its panels, "panel mma.sync 64 rows 2x256" (head_dim
+    300 or 512 in bf16)."""
+    if is_panel(head_dim, dtype):
+        kind = "fma" if dtype == "f32" else "mma.sync"
+        return (f"panel {kind} {tile} rows "
+                f"{n_panels(head_dim)}x{panel_width(head_dim)}")
     kind = ("fma" if dtype == "f32" else
             "wgmma" if is_wgmma(tile, dtype) else "mma.sync")
     return f"{kind} {tile} rows W={tile_width(head_dim)}"
@@ -213,8 +241,9 @@ def instance_name(tile: int, head_dim: int, dtype: str) -> str:
 
 def key_tile(tile: int, dtype: str, head_dim: int = 128) -> int:
     """Keys per step of a CTA's walk (its running max's unit): 128 on the
-    wgmma tiles (64 at width 256), else the chunk."""
-    if is_wgmma(tile, dtype):
+    wgmma tiles (64 at width 256), else the chunk (the panel route's
+    too)."""
+    if is_wgmma(tile, dtype, head_dim):
         return KEY_TILE // 2 if tile_width(head_dim) == 256 else KEY_TILE
     return CHUNK.get(dtype, 64)
 
@@ -226,25 +255,33 @@ def smem_bytes(tile: int, head_dim: int, dtype: str) -> int:
     mbarriers; bf16 mma.sync — the Q tile and two buffers each of a
     64-key K and V chunk, rows of the width padded by 16 bytes; f32 — Q,
     one 32-key K and V chunk and the weights, rows of the width padded by
-    one word."""
+    one word.  The panel route: a 64-column chunk of Q and of K and a
+    chunk of V rows at the panel's width (rows padded by 16 bytes), and in
+    f32 the weights."""
+    if is_panel(head_dim, dtype):
+        pw, kc, ld = (panel_width(head_dim), CHUNK.get(dtype, 64),
+                      PANEL_LDC.get(dtype, 72))
+        if dtype == "f32":
+            return ((tile + kc) * ld + kc * (pw + 4) + tile * (kc + 1)) * 4
+        return ((tile + kc) * ld + kc * (pw + 8)) * 2
     w = tile_width(head_dim)
     if dtype == "f32":
         kc = CHUNK["f32"]
         return ((tile + 2 * kc) * (w + 1) + tile * (kc + 1)) * 4
-    if is_wgmma(tile, dtype):
+    if is_wgmma(tile, dtype, head_dim):
         kt = key_tile(tile, dtype, head_dim)
         return (1024 + tile * w * 2 + 2 * STAGES * kt * w * 2
                 + 8 * (1 + 4 * STAGES))
     return (tile + 4 * CHUNK["bf16"]) * (w + 8) * 2
 
 
-def threads(tile: int, dtype: str) -> int:
+def threads(tile: int, dtype: str, head_dim: int = 128) -> int:
     """bf16 wgmma: a consumer warpgroup per 64 rows and one producer
     warpgroup; bf16 mma.sync: one warp per 16 query rows; f32: four
-    threads per row."""
+    threads per row (so 128 on either panel-route CTA)."""
     if dtype == "f32":
         return 4 * tile
-    if is_wgmma(tile, dtype):
+    if is_wgmma(tile, dtype, head_dim):
         return 128 * (tile // 64 + 1)
     return 2 * tile
 
@@ -254,10 +291,11 @@ def _regs(tile: int, head_dim: int, dtype: str) -> int:
     setmaxnreg (consumers 232, the producer warpgroup 40); otherwise the
     accumulator at the width and the score chunk (bf16; Q's fragments
     are read from shared memory at each k-step), plus 40 beside them."""
-    w = tile_width(head_dim)
+    w = (panel_width(head_dim) if is_panel(head_dim, dtype)
+         else tile_width(head_dim))
     if dtype == "f32":
         return 4 * w // 16 + 8 + 40
-    if is_wgmma(tile, dtype):
+    if is_wgmma(tile, dtype, head_dim):
         n_c = tile // 64
         return (n_c * CONSUMER_REGS + PRODUCER_REGS) // (n_c + 1)
     return w // 2 + CHUNK["bf16"] // 2 + 40
@@ -265,27 +303,22 @@ def _regs(tile: int, head_dim: int, dtype: str) -> int:
 
 def structural_flash_attention(cfg: FlashAttentionConfig,
                                prob: FlashAttentionProblem):
-    """Hopper model of ``flash_attention.cu``: a head_dim it does not
-    take, its shared memory per CTA, a block_q off the CTA tile
-    (masked rows) or beyond it (several CTAs), rows that are not 16-byte
-    aligned for the copies, and the two semantic masking checks of the
-    JAX family."""
+    """Hopper model of ``flash_attention.cu``: its shared memory per
+    CTA, a block_q off the CTA tile (masked rows) or beyond it (several
+    CTAs), and the two semantic masking checks of the JAX family; on the
+    panel route (:func:`is_panel`) rows staged by copies narrower than 16
+    bytes (``grain``) and the output panels that each recompute S
+    (``cta_split``)."""
     D = prob.head_dim
-    tile = cta_tile(cfg.block_q)
+    tile = route_tile(cfg.block_q, D, prob.dtype)
     issues = []
-    if not head_dim_ok(D, DTYPE_BYTES.get(prob.dtype, 2)):
-        issues.append(StructuralIssue(
-            "unsupported", f"the kernel takes head_dim up to {MAX_HEAD_DIM} "
-                           f"in rows of whole 16-byte vectors, not {D} in "
-                           f"{prob.dtype}"))
     issues += check_smem("CTA", smem_bytes(tile, D, prob.dtype))
     if cfg.block_q % tile:
         issues.append(StructuralIssue(
             "grain", f"O: block_q {cfg.block_q} is not a multiple of the "
                      f"{tile}-row CTA tile: masked rows in every CTA"))
     issues += check_cta_split("O", (cfg.block_q, D), (tile, D))
-    issues += check_vector_alignment("Q/K/V rows", (("head_dim", D),),
-                                     prob.dtype)
+    issues += panel_issues("Q/K/V", D, prob.dtype)
     if prob.causal and not cfg.applies_mask:
         issues.append(StructuralIssue(
             "masking", "causal problem lowered without an in-kernel mask"))
@@ -308,22 +341,25 @@ def flash_attention_cost(cfg: FlashAttentionConfig,
     B, H, HK = prob.batch, prob.q_heads, prob.kv_heads
     SQ, SKV, D = prob.seq_q, prob.seq_kv, prob.head_dim
     bq = min(cfg.block_q, max(SQ, 8))       # the wrapper's clamp
-    tile = cta_tile(bq)
+    tile = route_tile(bq, D, prob.dtype)
     cps = cdiv(bq, tile)
-    n_ctas = B * H * cdiv(SQ, bq) * cps
+    panels = n_panels(D) if is_panel(D, prob.dtype) else 1
+    n_ctas = B * H * cdiv(SQ, bq) * cps * panels
     causal_frac = 0.5 if (prob.causal and cfg.causal_block_skip) else 1.0
     flops = 4.0 * B * H * SQ * SKV * D * causal_frac
     grain = bq / (cps * tile)
-    per_sm = ctas_per_sm(threads(tile, prob.dtype),
+    per_sm = ctas_per_sm(threads(tile, prob.dtype, D),
                          _regs(tile, D, prob.dtype),
                          smem_bytes(tile, D, prob.dtype))
-    rate = 1.0 if (prob.dtype == "f32" or is_wgmma(tile, prob.dtype)) \
+    rate = 1.0 if (prob.dtype == "f32" or is_wgmma(tile, prob.dtype, D)) \
         else MMA_SYNC_DERATE
+    # the panels each repeat S: its half of the products, once a panel
+    flops_issued = flops * (panels + 1) / 2
     util = grain * wave_eff(n_ctas, per_sm) * rate
     hbm = (2 * B * H * SQ * D + 2 * B * HK * SKV * D) * sz
     l2 = n_ctas * 2 * SKV * D * sz * causal_frac
     return CostEstimate(
-        compute_s=flops / (peak_flops(prob.dtype) * util),
+        compute_s=flops_issued / (peak_flops(prob.dtype) * util),
         memory_s=hbm / HBM_BW + l2 / L2_BW,
         flops=flops, hbm_bytes=hbm)
 

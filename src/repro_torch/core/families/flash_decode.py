@@ -19,7 +19,11 @@ products run on tensor cores with the operands swapped (K · Qᵀ, G heads
 padded to the n = 8 of ``mma.sync``), and a producer warp streams the
 span through a three-stage TMA ring of 16 KB K and V tiles; f32 runs
 CUDA-core FMAs over one 16 KB tile at a time.  A second kernel of the
-same call merges the spans' partials on the card.
+same call merges the spans' partials on the card.  A head_dim off the
+16-byte grain or above 256 runs on the panel route (64-position tiles on
+``mma.sync`` in bf16, 32 on the CUDA cores in f32, one CTA per output
+panel of 64 or 256 columns, :func:`~repro_torch.core.kernelspec.
+panel_issues`).
 """
 from __future__ import annotations
 
@@ -29,9 +33,10 @@ from typing import Optional
 from .. import dsl
 from ..costs import (CostEstimate, HBM_BW, L2_BW, PEAK_FLOPS, sol_estimate,
                      stream_eff, wave_eff)
-from ..kernelspec import (DTYPE_BYTES, GROUP_BLOCK, MAX_HEAD_DIM, N_SMS,
-                          StructuralIssue, cdiv, check_vector_alignment,
-                          ctas_per_sm, head_blocks, head_dim_ok, tile_width)
+from ..kernelspec import (DECODE_PANEL_TOKENS, DTYPE_BYTES, GROUP_BLOCK,
+                          N_SMS, StructuralIssue, cdiv, ctas_per_sm,
+                          decode_panel_smem, head_blocks, n_panels, on_grain,
+                          panel_issues, panel_width, tile_width)
 from ..tags import Expr, make_tag
 from .base import (BugSignature, KernelFamily, generic_skill,
                    reference_setup, register)
@@ -142,10 +147,16 @@ KERNEL_THREADS = {"bf16": 160, "f32": 128}   # bf16: 4 consumer warps (two
 #                                              at width 256) and a producer
 
 
+PANEL_THREADS = 128
+
+
 def instance_name(head_dim: int, itemsize: int) -> str:
     """The instance that runs: "tensor cores W=128" (bf16 at head_dim
-    65..128), "cuda cores W=64" (float32 up to 64)."""
+    65..128), "cuda cores W=64" (float32 up to 64); on the panel route
+    its panels, "panel tensor cores 2x256" (bf16 at 300 or 512)."""
     kind = "tensor cores" if itemsize == 2 else "cuda cores"
+    if not on_grain(head_dim, itemsize):
+        return f"panel {kind} {n_panels(head_dim)}x{panel_width(head_dim)}"
     return f"{kind} W={tile_width(head_dim)}"
 
 
@@ -153,7 +164,10 @@ def tile_tokens(head_dim: int, itemsize: int) -> int:
     """Positions of K (and of V) one step stages: 16 KB of the instance's
     width, at most 64 in f32; in bf16 16 KB exactly (128 positions at
     width 64, 64 at 128, 32 at 256: 32 or 16 for each of the four
-    consumer warps, 16 for each of two at 256)."""
+    consumer warps, 16 for each of two at 256); on the panel route 64 in
+    bf16 (16 a warp), 32 in f32."""
+    if not on_grain(head_dim, itemsize):
+        return DECODE_PANEL_TOKENS.get(itemsize, 64)
     w = tile_width(head_dim)
     if itemsize == 2:
         return TILE_BYTES // (w * 2)
@@ -163,8 +177,13 @@ def tile_tokens(head_dim: int, itemsize: int) -> int:
 def smem_bytes(head_dim: int, dtype: str) -> int:
     """Shared memory of one CTA: bf16 — 1024 bytes of alignment slack,
     the ring of K and V tiles and its mbarriers; f32 — one K and V tile
-    at the width, Q and the weights of a head block in float32."""
+    at the width, Q and the weights of a head block in float32.  The panel
+    route: a 64-column chunk of the block's queries and of K, and the
+    tile's V rows at the panel's width (rows padded by 16 bytes), and in
+    f32 the weights and the running statistics."""
     sz = DTYPE_BYTES.get(dtype, 2)
+    if not on_grain(head_dim, sz):
+        return decode_panel_smem(head_dim, sz)
     tt, w = tile_tokens(head_dim, sz), tile_width(head_dim)
     if dtype == "f32":
         return 2 * tt * w * sz + GROUP_BLOCK * (w + tt + 3) * 4
@@ -174,23 +193,16 @@ def smem_bytes(head_dim: int, dtype: str) -> int:
 def structural_flash_decode(cfg: FlashDecodeConfig,
                             prob: FlashDecodeProblem):
     """Hopper model of ``flash_decode.cu``: splits that do not tile the
-    cache, a head_dim it does not take, rows that are not 16-byte aligned
-    (it copies the cache in 16-byte units)."""
+    cache, rows that are not 16-byte aligned (the on-grain instances copy
+    the cache in 16-byte units), and on the panel route its narrow copies
+    and output panels (:func:`~repro_torch.core.kernelspec.panel_issues`)."""
     span = cdiv(prob.seq_kv, cfg.kv_splits)
     issues = []
     if span * cfg.kv_splits != prob.seq_kv:
         issues.append(StructuralIssue(
             "masking", f"kv_splits {cfg.kv_splits} does not tile the "
                        f"cache ({prob.seq_kv}) — tail span must be masked"))
-    sz = DTYPE_BYTES.get(prob.dtype, 2)
-    if not head_dim_ok(prob.head_dim, sz):
-        issues.append(StructuralIssue(
-            "unsupported", f"the kernel takes head_dim up to {MAX_HEAD_DIM} "
-                           f"in rows of whole 16-byte vectors; got "
-                           f"head_dim {prob.head_dim} in {prob.dtype}"))
-    issues += check_vector_alignment("K/V rows",
-                                     (("head_dim", prob.head_dim),),
-                                     prob.dtype)
+    issues += panel_issues("K/V", prob.head_dim, prob.dtype)
     return issues
 
 
@@ -215,9 +227,13 @@ def flash_decode_cost(cfg: FlashDecodeConfig,
     kv_bytes = 2 * B * HK * S * D * sz
     # partials written and read once, the output written once
     part_bytes = B * H * ns * (D + 2) * 4 * 2 + B * H * D * sz
-    n_ctas = B * HK * nhb * ns
+    # the panel route: one CTA a panel, each re-reading K (from L2)
+    panels = 1 if on_grain(D, sz) else n_panels(D)
+    n_ctas = B * HK * nhb * ns * panels
     dt = "f32" if prob.dtype == "f32" else "bf16"
-    per_sm = ctas_per_sm(KERNEL_THREADS[dt], 64, smem_bytes(D, prob.dtype))
+    threads = KERNEL_THREADS[dt] if panels == 1 and on_grain(D, sz) \
+        else PANEL_THREADS
+    per_sm = ctas_per_sm(threads, 64, smem_bytes(D, prob.dtype))
     in_flight = STAGES[dt] * 2 * TILE_BYTES
     eff = stream_eff(min(n_ctas, N_SMS * per_sm), in_flight) \
         * min(1.0, n_ctas / N_SMS)
@@ -229,7 +245,7 @@ def flash_decode_cost(cfg: FlashDecodeConfig,
     return CostEstimate(
         compute_s=compute_s,
         memory_s=(kv_bytes + part_bytes) / (HBM_BW * eff)
-        + (nhb - 1) * kv_bytes / L2_BW,
+        + (nhb * panels - 1) * kv_bytes / L2_BW,
         flops=flops, hbm_bytes=kv_bytes + part_bytes)
 
 

@@ -258,9 +258,9 @@ def _consumer_regs(tm: int) -> int:
 
 
 def structural_moe(cfg: MoEConfig, prob: MoEProblem):
-    """Hopper model of ``grouped_ffn.cu``: a row width it does not take
-    (rows are copied as 16-byte vectors, so d_model, d_ff and block_f
-    must be multiples of 16 bytes), shared memory and accumulator
+    """Hopper model of ``grouped_ffn.cu``: rows off the 16-byte grain
+    (d_model, d_ff or block_f not a multiple of 16 bytes: copied element
+    by element, ``grain``), shared memory and accumulator
     registers of each launch's CTA (on the wgmma instance, a consumer's
     against the 232 that setmaxnreg gives it), the tensor-core grain of
     the config tile (masked rows and columns, zero-filled depth), a
@@ -274,9 +274,9 @@ def structural_moe(cfg: MoEConfig, prob: MoEProblem):
                                    ("block_f", bf)) if v % q]
     if bad:
         issues.append(StructuralIssue(
-            "unsupported", f"rows of {', '.join(bad)} {prob.dtype} "
-                           f"elements are not a multiple of "
-                           f"{VECTOR_BYTES} bytes: the kernel refuses them"))
+            "grain", f"rows of {', '.join(bad)} {prob.dtype} elements are "
+                     f"not a multiple of {VECTOR_BYTES} bytes: staged "
+                     f"element by element, the tail columns masked"))
     if wg:
         issues += check_smem("CTA", smem_bytes(tm, 0, 0, prob.dtype, True))
         acc = _consumer_regs(tm)

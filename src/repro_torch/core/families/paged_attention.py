@@ -28,9 +28,11 @@ walks 4 + 2 pages, the program 2 + 2 + 2), or a part of one step where a
 page spans several tiles, and every span is a run of whole program
 steps, so the program each span walks is the JAX program over the
 span's pages.  ``block_pages`` stays the precondition it is in the JAX
-family: it must divide the table width.  A geometry the kernel cannot
-run (a head_dim that is not whole 16-byte vectors or is above 256, a
-page of one token) is a build error.  Verdicts, findings and
+family: it must divide the table width.  A head_dim off the 16-byte
+grain or above 256 runs on the panel route (64-position tiles in bf16,
+32 in f32, pages packed without slots, one CTA per output panel); the
+one geometry the kernel cannot run, a page of one token (on which the
+JAX program itself fails), is a build error.  Verdicts, findings and
 counterexamples are the JAX gate's at that step.
 
 The structural and cost hooks are a Hopper model of that kernel
@@ -47,10 +49,10 @@ from typing import Optional
 from .. import dsl
 from ..costs import (CostEstimate, HBM_BW, L2_BW, MMA_SYNC_DERATE,
                      PEAK_FLOPS, sol_estimate, stream_eff, wave_eff)
-from ..kernelspec import (DTYPE_BYTES, GROUP_BLOCK, MAX_HEAD_DIM, N_SMS,
-                          VECTOR_BYTES, StructuralIssue, cdiv,
-                          check_vector_alignment, ctas_per_sm, head_blocks,
-                          head_dim_ok, tile_width)
+from ..kernelspec import (DECODE_PANEL_TOKENS, DTYPE_BYTES, GROUP_BLOCK,
+                          N_SMS, StructuralIssue, cdiv, ctas_per_sm,
+                          decode_panel_smem, head_blocks, n_panels,
+                          on_grain, panel_issues, panel_width, tile_width)
 from ..tags import Expr, app, make_tag
 from .base import (BugSignature, KernelFamily, generic_skill,
                    reference_setup, register)
@@ -97,15 +99,27 @@ SPAN_TARGET_CTAS = 4 * N_SMS
 
 
 def tensor_cores(head_dim: int, itemsize: int) -> bool:
-    """The instance that runs: bf16 on the tensor cores fed by TMA at
-    every head_dim it takes; float32 on CUDA-core FMAs."""
-    return itemsize == 2 and head_dim_ok(head_dim, itemsize)
+    """The on-grain instance that runs: bf16 on the tensor cores fed by
+    TMA at every head_dim of whole 16-byte rows up to 256; float32 on
+    CUDA-core FMAs.  (The panel route's bf16 runs on mma.sync too, fed
+    by plain copies: :func:`is_panel`.)"""
+    return itemsize == 2 and on_grain(head_dim, itemsize)
+
+
+def is_panel(head_dim: int, itemsize: int) -> bool:
+    """Whether ``head_dim`` runs on the panel route (rows off the 16-byte
+    grain, or above 256)."""
+    return not on_grain(head_dim, itemsize)
 
 
 def instance_name(head_dim: int, itemsize: int) -> str:
     """The instance that runs, with its tile width (``tile_width``):
     "tensor cores W=128" (bf16 at head_dim 65..128), "cuda cores W=64"
-    (float32 up to 64)."""
+    (float32 up to 64); on the panel route its output panels, "panel
+    tensor cores 2x256" (bf16 at head_dim 300)."""
+    if is_panel(head_dim, itemsize):
+        kind = "tensor cores" if itemsize == 2 else "cuda cores"
+        return f"panel {kind} {n_panels(head_dim)}x{panel_width(head_dim)}"
     kind = ("tensor cores" if tensor_cores(head_dim, itemsize)
             else "cuda cores")
     return f"{kind} W={tile_width(head_dim)}"
@@ -115,7 +129,10 @@ def tile_tokens(head_dim: int, itemsize: int) -> int:
     """Rows of K (and of V) in one tile of the walk: 16 KB on the tensor
     cores (128 positions at width 64, 64 at 128, 32 at 256); on the
     CUDA-core instance the largest power of two that fits 16 KB at its
-    width, at most 64 (64 at width 64, 32 at 128, 16 at 256)."""
+    width, at most 64 (64 at width 64, 32 at 128, 16 at 256); on the
+    panel route 64 in bf16, 32 in f32."""
+    if is_panel(head_dim, itemsize):
+        return DECODE_PANEL_TOKENS.get(itemsize, 64)
     w = tile_width(head_dim)
     if tensor_cores(head_dim, itemsize):
         return TILE_BYTES // (w * itemsize)
@@ -126,7 +143,8 @@ def tile_tokens(head_dim: int, itemsize: int) -> int:
 def page_slot(page_size: int, head_dim: int, itemsize: int) -> int:
     """Rows a page of at most one tile takes in it: on the tensor cores
     the page size rounded up to 8 (each TMA box starts 1024-byte aligned
-    in the 128-byte-swizzled tile), on the CUDA cores the page size."""
+    in the 128-byte-swizzled tile), on the CUDA cores and the panel
+    route the page size."""
     if tensor_cores(head_dim, itemsize):
         return -(-page_size // 8) * 8
     return page_size
@@ -136,10 +154,9 @@ def pages_per_step(page_size: int, head_dim: int, itemsize: int) -> int:
     """Pages one tile of the walk holds: the whole pages that fit it
     (tile // page slot), or 1 where a page is longer than a tile and is
     walked in tile-sized chunks (its last one short where the tile does
-    not divide it); 0 where the kernel cannot run the geometry: a
-    head_dim that is not whole 16-byte vectors or is above 256, or a page
+    not divide it); 0 where the kernel cannot run the geometry: a page
     of fewer than 2 tokens."""
-    if not head_dim_ok(head_dim, itemsize) or page_size < MIN_PAGE:
+    if page_size < MIN_PAGE:
         return 0
     tile = tile_tokens(head_dim, itemsize)
     if page_size <= tile:
@@ -173,10 +190,8 @@ def n_spans(prob: PagedAttentionProblem) -> int:
 
 
 def _refusal(prob: PagedAttentionProblem) -> str:
-    return (f"the CUDA kernel takes head_dim up to {MAX_HEAD_DIM} in rows "
-            f"of whole {VECTOR_BYTES}-byte vectors and pages of at least "
-            f"{MIN_PAGE} tokens; got head_dim {prob.head_dim} in "
-            f"{prob.dtype}, page_size {prob.page_size}")
+    return (f"the CUDA kernel takes pages of at least {MIN_PAGE} tokens; "
+            f"got page_size {prob.page_size}")
 
 
 def kernel_config(cfg: PagedAttentionConfig,
@@ -383,9 +398,10 @@ def build_paged_attention_program(cfg: PagedAttentionConfig,
 def structural_paged_attention(cfg: PagedAttentionConfig,
                                prob: PagedAttentionProblem):
     """Hopper model of ``paged_decode.cu``: a tail page, a pool too small
-    for the batch, a geometry the kernel does not take, rows that
-    are not 16-byte aligned (the kernel copies rows in 16-byte vectors
-    or TMA boxes)."""
+    for the batch, a page the kernel does not take (one token), rows that
+    are not 16-byte aligned (the on-grain instances copy rows in 16-byte
+    vectors or TMA boxes), and on the panel route its narrow copies and
+    output panels."""
     issues = []
     sz = DTYPE_BYTES.get(prob.dtype, 2)
     if prob.seq_kv % prob.page_size != 0:
@@ -399,9 +415,7 @@ def structural_paged_attention(cfg: PagedAttentionConfig,
                         f"pages"))
     if not pages_per_step(prob.page_size, prob.head_dim, sz):
         issues.append(StructuralIssue("unsupported", _refusal(prob)))
-    issues += check_vector_alignment("KP rows",
-                                     (("head_dim", prob.head_dim),),
-                                     prob.dtype)
+    issues += panel_issues("KP", prob.head_dim, prob.dtype)
     return issues
 
 
@@ -409,7 +423,11 @@ def _smem_bytes(head_dim: int, itemsize: int) -> int:
     """Shared memory of one CTA: on the tensor-core instance 1024 bytes of
     alignment slack, the ring of K and V tiles and two mbarriers a stage;
     on the CUDA-core one a K and a V tile at its width, the block's
-    queries and weights and the tile's page numbers."""
+    queries and weights and the tile's page numbers; on the panel route
+    the decode panel CTA's (:func:`~repro_torch.core.kernelspec.
+    decode_panel_smem`) and its page numbers."""
+    if is_panel(head_dim, itemsize):
+        return decode_panel_smem(head_dim, itemsize) + 64 * 4
     if tensor_cores(head_dim, itemsize):
         return 1024 + STAGES * (2 * TILE_BYTES + 16)
     tt, w = tile_tokens(head_dim, itemsize), tile_width(head_dim)
@@ -440,9 +458,19 @@ def paged_attention_cost(cfg: PagedAttentionConfig,
     # a geometry the kernel refuses is priced as one span a row
     ns = n_spans(prob) if pages_per_step(prob.page_size, D, sz) else 1
     part_bytes = 2 * B * H * ns * (D + 2) * 4 + B * H * D * sz
-    n_ctas = B * HK * nhb * ns
+    panels = n_panels(D) if is_panel(D, sz) else 1
+    n_ctas = B * HK * nhb * ns * panels
     tile = tile_tokens(D, sz) * tile_width(D) * sz
-    if tensor_cores(D, sz):
+    if is_panel(D, sz):
+        # one tile in flight a CTA; S once a panel, P·V over its columns
+        per_sm = ctas_per_sm(KERNEL_THREADS, 64, _smem_bytes(D, sz))
+        in_flight = 2 * tile_tokens(D, sz) * panel_width(D) * sz
+        issued = 4.0 * B * HK * nhb * GROUP_BLOCK * S * (panels + 1) / 2 \
+            * cdiv(D, 16) * 16
+        peak = (PEAK_FLOPS["bf16"] * MMA_SYNC_DERATE if sz == 2
+                else PEAK_FLOPS["f32"])
+        compute_s = issued / (peak * wave_eff(n_ctas, per_sm))
+    elif tensor_cores(D, sz):
         per_sm = ctas_per_sm(TC_THREADS, 64, _smem_bytes(D, sz))
         in_flight = STAGES * 2 * tile
         issued = 1.5 * 4.0 * B * HK * nhb * GROUP_BLOCK * S * cdiv(D, 16) * 16
@@ -456,7 +484,7 @@ def paged_attention_cost(cfg: PagedAttentionConfig,
     hbm = kv_bytes + table_bytes + part_bytes
     return CostEstimate(compute_s=compute_s,
                         memory_s=hbm / (HBM_BW * eff)
-                        + (nhb - 1) * kv_bytes / L2_BW,
+                        + (nhb * panels - 1) * kv_bytes / L2_BW,
                         flops=flops, hbm_bytes=hbm)
 
 

@@ -26,7 +26,10 @@ them that do — the same rows and keys, each read once.  The
 config's blocks stay the precondition they are in the JAX family: they
 must tile the buffer.  Verdicts, findings and counterexamples are the
 JAX gate's at those blocks.  A head_dim whose rows are not whole 16-byte
-vectors, or above 256, the kernel does not run (``unsupported``).
+vectors, or above 256, runs on the panel route (:func:`is_panel`): 64
+packed queries over 64-key chunks on ``mma.sync`` in bf16, 32 x 32 on
+the CUDA cores in float32, one CTA per output panel of 64 or 256
+columns, each recomputing S.
 
 The structural and cost hooks are a Hopper model of that kernel; the
 oracle (``reference_check``) runs the port's ``ragged_prefill_attend``
@@ -38,10 +41,11 @@ from dataclasses import dataclass, replace
 from typing import Optional
 
 from .. import dsl
-from ..costs import (CostEstimate, HBM_BW, L2_BW, PEAK_FLOPS, peak_flops,
-                     sol_estimate, wave_eff)
-from ..kernelspec import (DTYPE_BYTES, MAX_HEAD_DIM, StructuralIssue, cdiv,
-                          check_smem, ctas_per_sm, head_dim_ok, tile_width)
+from ..costs import (CostEstimate, HBM_BW, L2_BW, MMA_SYNC_DERATE,
+                     PEAK_FLOPS, peak_flops, sol_estimate, wave_eff)
+from ..kernelspec import (DTYPE_BYTES, StructuralIssue, cdiv, check_smem,
+                          ctas_per_sm, n_panels, on_grain, panel_issues,
+                          panel_width, tile_width)
 from ..tags import Expr, app, make_tag
 from .base import (BugSignature, KernelFamily, generic_skill,
                    reference_setup, register)
@@ -93,15 +97,30 @@ WGMMA_STATIC_SMEM = 4 * 5 * 4 + 2 * WGMMA_BK * 8 + 4
 KERNEL_STATIC_SMEM = (2 * KERNEL_BQ + 2 * KERNEL_BK + 3) * 4 + KERNEL_THREADS
 
 
+PANEL_BLOCKS = {"bf16": (64, 64), "f32": (32, 32)}
+
+
+def is_panel(prob: RaggedPrefillProblem) -> bool:
+    """The kernel runs ``prob`` on the panel route: a head_dim off the
+    16-byte grain, or above 256."""
+    return not on_grain(prob.head_dim, DTYPE_BYTES.get(prob.dtype, 2))
+
+
 def is_wgmma(prob: RaggedPrefillProblem) -> bool:
     """The kernel runs ``prob`` on its wgmma design: bf16 at every
-    head_dim it takes (float32 stays on the CUDA cores)."""
-    return prob.dtype == "bf16" and head_dim_ok(prob.head_dim, 2)
+    head_dim of whole 16-byte rows up to 256 (float32 stays on the CUDA
+    cores; the panel route on mma.sync)."""
+    return prob.dtype == "bf16" and not is_panel(prob)
 
 
 def instance_name(prob: RaggedPrefillProblem) -> str:
     """The instance that runs ``prob``: "wgmma W=128" (bf16 at head_dim
-    65..128), "cuda cores" (float32)."""
+    65..128), "cuda cores" (float32); on the panel route its panels,
+    "panel mma.sync 2x256" (bf16 at 320)."""
+    if is_panel(prob):
+        kind = "mma.sync" if prob.dtype == "bf16" else "cuda cores"
+        return (f"panel {kind} {n_panels(prob.head_dim)}x"
+                f"{panel_width(prob.head_dim)}")
     if is_wgmma(prob):
         return f"wgmma W={tile_width(prob.head_dim)}"
     return "cuda cores"
@@ -110,7 +129,10 @@ def instance_name(prob: RaggedPrefillProblem) -> str:
 def kernel_blocks(prob: RaggedPrefillProblem):
     """(packed queries per CTA, keys per step) of the design that runs
     ``prob``: 128 x 128 on wgmma (128 x 64 at width 256, where Q and a
-    two-stage ring of 128-key tiles would not fit), else 64 x 32."""
+    two-stage ring of 128-key tiles would not fit), on the panel route 64
+    x 64 in bf16 and 32 x 32 in float32, else 64 x 32."""
+    if is_panel(prob):
+        return PANEL_BLOCKS.get(prob.dtype, PANEL_BLOCKS["bf16"])
     if not is_wgmma(prob):
         return KERNEL_BQ, KERNEL_BK
     wide = tile_width(prob.head_dim) == 256
@@ -346,8 +368,18 @@ def _smem_bytes(prob: RaggedPrefillProblem) -> int:
     of K and V tiles (128-byte swizzle, rows of ``tile_width``), the
     mbarriers, and a flag byte and a 2-byte list entry a key tile;
     otherwise Q, K, V and the weights as float32, rows of the same width
-    padded by one word."""
+    padded by one word.  The panel route: a 64-column chunk of Q and of
+    K, the chunk's V rows at the panel's width (rows padded by 16 bytes;
+    in f32 the weights too) and the seg/pos of its rows and keys."""
     D = prob.head_dim
+    if is_panel(prob):
+        bq, bk = kernel_blocks(prob)
+        pw = panel_width(D)
+        if prob.dtype == "f32":
+            dyn = ((bq + bk) * 68 + bk * (pw + 4) + bq * (bk + 1)) * 4
+        else:
+            dyn = ((bq + bk) * 72 + bk * (pw + 8)) * 2
+        return dyn + (4 * 64 + 4) * 4
     if is_wgmma(prob):
         _, bk = kernel_blocks(prob)
         W = tile_width(D)
@@ -363,8 +395,8 @@ def _smem_bytes(prob: RaggedPrefillProblem) -> int:
 def structural_ragged_prefill(cfg: RaggedPrefillConfig,
                               prob: RaggedPrefillProblem):
     """Hopper model of ``ragged_prefill.cu``: blocks that do not tile the
-    buffer, more segments than tokens, a head_dim the kernel does not
-    take, and its shared memory per CTA."""
+    buffer, more segments than tokens, its shared memory per CTA, and on
+    the panel route its narrow copies and output panels."""
     issues = []
     if prob.total_tokens % cfg.block_q or prob.total_tokens % cfg.block_kv:
         issues.append(StructuralIssue(
@@ -375,12 +407,9 @@ def structural_ragged_prefill(cfg: RaggedPrefillConfig,
         issues.append(StructuralIssue(
             "capacity", f"{prob.n_seqs} segments cannot pack into "
                         f"{prob.total_tokens} tokens"))
-    if not head_dim_ok(prob.head_dim, DTYPE_BYTES.get(prob.dtype, 2)):
-        issues.append(StructuralIssue(
-            "unsupported", f"the kernel takes head_dim up to {MAX_HEAD_DIM} "
-                           f"in rows of whole 16-byte vectors, not "
-                           f"{prob.head_dim} in {prob.dtype}"))
     issues += check_smem("CTA", _smem_bytes(prob))
+    if is_panel(prob):
+        issues += panel_issues("Q/K/V", prob.head_dim, prob.dtype)
     return issues
 
 
@@ -411,7 +440,18 @@ def ragged_prefill_cost(cfg: RaggedPrefillConfig,
     kv_reread = 2 * H * nq * walked * D * sz
     n_ctas = H * nq
     hbm = q_bytes + kv_bytes + meta_bytes
-    if is_wgmma(prob):
+    if is_panel(prob):
+        # one CTA a panel, each repeating S and re-reading Q and K
+        panels = n_panels(D)
+        n_ctas *= panels
+        kv_reread *= panels
+        issued = 2.0 * H * T * walked * (panels * cdiv(D, 16) * 16
+                                         + 2 * cdiv(D, 16) * 16)
+        per_sm = ctas_per_sm(128, 128, _smem_bytes(prob))
+        rate = (peak_flops("bf16") * MMA_SYNC_DERATE
+                if prob.dtype == "bf16" else PEAK_FLOPS["f32"])
+        compute_s = issued / (rate * wave_eff(n_ctas, per_sm))
+    elif is_wgmma(prob):
         # S, then P·V twice
         issued = 2.0 * H * T * walked * (cdiv(D, 16) * 16
                                          + 2 * tile_width(D))

@@ -130,12 +130,19 @@ def build_ssd_program(cfg: SSDConfig, prob: SSDProblem,
 BLOCK_ROWS = 64        # query and key rows per block inside a chunk
 P_TILE = 64            # columns of P per CTA
 N_GRAIN = 8            # the state dim is zero-padded to a multiple of this
-MAX_D_STATE = 128      # the largest d_state the kernel takes
+N_PANEL = 128          # state rows a panel: any d_state is walked in these
 THREADS = 256
 
 
 def padded_state(n: int) -> int:
     return cdiv(n, N_GRAIN) * N_GRAIN
+
+
+def state_panels(n: int):
+    """The padded state dim's panels of at most ``N_PANEL`` rows (130 ->
+    136 -> [128, 8]; 256 -> [128, 128])."""
+    npad = padded_state(n)
+    return [min(N_PANEL, npad - n0) for n0 in range(0, npad, N_PANEL)]
 
 
 def _stride(n: int, mod: int) -> int:
@@ -152,8 +159,9 @@ def smem_bytes(chunk: int, d_state: int) -> int:
     block of C and a key block of B (64 rows of the padded N each; the
     entering state is staged where B goes), a key block of x, the score
     tile, and the chunk's cumulative decays.  Decays padded to whole
-    64-row blocks."""
-    n = padded_state(d_state)
+    64-row blocks.  The state dim staged is one panel's (at most 128
+    rows)."""
+    n = min(padded_state(d_state), N_PANEL)
     rows = cdiv(chunk, BLOCK_ROWS) * BLOCK_ROWS
     state = (BLOCK_ROWS * _stride(n, 8) + BLOCK_ROWS * (P_TILE + 8)
              + 2 * rows)
@@ -174,13 +182,15 @@ def kernel_flops(cfg: SSDConfig, prob: SSDProblem) -> float:
     TF32 products: hi·hi, hi·lo, lo·hi), masked rows and padding
     included: per chunk and P tile, the chunk-state product over every
     64-row block (state rows padded to 16), and per query block C·state
-    and the score and y products of every key block at or below it."""
+    and the score and y products of every key block at or below it (the
+    state rows padded to 16 in each panel of 128)."""
     BH, S = prob.batch_heads, prob.seq
     n = padded_state(prob.d_state)
     nb = cdiv(cfg.chunk, BLOCK_ROWS)
     rows = nb * BLOCK_ROWS
     pairs = nb * (nb + 1) // 2
-    states = 2 * (cdiv(n, 16) * 16) * rows * P_TILE
+    states = 2 * sum(cdiv(w, 16) * 16 for w in state_panels(prob.d_state)) \
+        * rows * P_TILE
     scan = (nb * 2 * BLOCK_ROWS * n * P_TILE
             + pairs * 2 * BLOCK_ROWS * BLOCK_ROWS * (n + P_TILE))
     return float(BH * cdiv(prob.head_dim, P_TILE) * cdiv(S, cfg.chunk)
@@ -188,19 +198,16 @@ def kernel_flops(cfg: SSDConfig, prob: SSDProblem) -> float:
 
 
 def structural_ssd(cfg: SSDConfig, prob: SSDProblem):
-    """Hopper model of ``ssd_chunk_scan.cu``: a d_state it does not take
-    (above 128), shared memory of its CTAs, the grain of its 64-row
-    blocks and 64-column P tile and of the state dim padded to the TF32
-    product's k of 8 (masked rows, columns and padding computed all the
-    same), a P on several CTAs (each recomputing the scores), scratch
+    """Hopper model of ``ssd_chunk_scan.cu``: shared memory of its CTAs,
+    the grain of its 64-row blocks and 64-column P tile and of the state
+    dim padded to the TF32 product's k of 8 (masked rows, columns and
+    padding computed all the same), a P on several CTAs (each recomputing
+    the scores), a d_state above 128 in state panels (the chunk-state
+    launch on a CTA a panel, each reading x again), scratch
     states that outweigh the operands (a chunk too short: each state
     crosses HBM four times), and the JAX family's masking check."""
     q, P, N = cfg.chunk, prob.head_dim, prob.d_state
     issues = []
-    if N > MAX_D_STATE:
-        issues.append(StructuralIssue(
-            "unsupported", f"d_state {N} > {MAX_D_STATE}: the kernel "
-                           f"refuses it"))
     issues += check_smem("CTA", smem_bytes(q, N))
     if q % BLOCK_ROWS:
         issues.append(StructuralIssue(
@@ -217,6 +224,12 @@ def structural_ssd(cfg: SSDConfig, prob: SSDProblem):
         issues.append(StructuralIssue(
             "cta_split", f"head_dim {P} runs on {cdiv(P, P_TILE)} CTAs per "
                          f"(batch, head), each recomputing the scores"))
+    panels = len(state_panels(N))
+    if panels > 1:
+        issues.append(StructuralIssue(
+            "cta_split", f"d_state {N} runs in {panels} state panels of at "
+                         f"most {N_PANEL} rows: the chunk states on "
+                         f"{panels} CTAs a chunk, each reading x again"))
     scratch = scratch_bytes(cfg, prob)
     operands = _io_bytes(prob)
     if scratch > operands:

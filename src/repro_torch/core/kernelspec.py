@@ -52,12 +52,18 @@ DTYPE_BYTES = {"f32": 4, "bf16": 2, "i8": 1, "fp8": 1, "i32": 4}
 
 
 # The attention kernels' geometry (paged_decode, ragged_prefill,
-# flash_attention, flash_decode): a head_dim of whole 16-byte rows up to
-# MAX_HEAD_DIM, read at run time in tiles of the least of TILE_WIDTHS
-# columns at or above it; above GROUP_BLOCK query heads a KV head, one CTA
-# for each block of them (mma.sync's n = 8 in the decode kernels)
+# flash_attention, flash_decode): any head_dim >= 1.  A head_dim of whole
+# 16-byte rows up to MAX_HEAD_DIM runs on the on-grain instances, read at
+# run time in tiles of the least of TILE_WIDTHS columns at or above it;
+# any other (rows off the 16-byte grain, or wider than 256) on the panel
+# route (``kernels/csrc/panel_attention.cuh``): rows staged by the widest
+# copy they allow (``copy_grain``), S over 64-column chunks of head_dim,
+# the output in panels of ``panel_width`` columns, one CTA each.  Above
+# GROUP_BLOCK query heads a KV head, one CTA for each block of them
+# (mma.sync's n = 8 in the decode kernels).
 MAX_HEAD_DIM = 256
 TILE_WIDTHS = (64, 128, 256)
+PANEL_CHUNK = 64
 GROUP_BLOCK = 8
 
 
@@ -65,11 +71,31 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def head_dim_ok(head_dim: int, itemsize: int) -> bool:
-    """A head_dim the attention kernels take: rows of whole 16-byte
-    vectors (a multiple of 8 in bf16, of 4 in float32), at most 256."""
+def on_grain(head_dim: int, itemsize: int) -> bool:
+    """Whether the on-grain instances run ``head_dim``: rows of whole
+    16-byte vectors (a multiple of 8 in bf16, of 4 in float32) up to 256.
+    Any other head_dim runs on the panel route."""
     return (0 < head_dim <= MAX_HEAD_DIM
             and (head_dim * itemsize) % VECTOR_BYTES == 0)
+
+
+def copy_grain(head_dim: int, itemsize: int) -> int:
+    """Bytes of the widest copy a row of ``head_dim`` elements allows on
+    the panel route: 16, 8, 4, or 2 (an odd bf16 head_dim)."""
+    return next(g for g in (16, 8, 4, 2, 1)
+                if g <= max(itemsize, 1) or (head_dim * itemsize) % g == 0)
+
+
+def panel_width(head_dim: int) -> int:
+    """Output columns of one panel on the panel route: 64 up to 64, else
+    256."""
+    return 64 if head_dim <= 64 else 256
+
+
+def n_panels(head_dim: int) -> int:
+    """Output panels (CTAs recomputing S) of a head_dim on the panel
+    route."""
+    return cdiv(head_dim, panel_width(head_dim))
 
 
 def tile_width(head_dim: int) -> int:
@@ -164,6 +190,55 @@ def check_cta_split(name: str, tile: Sequence[int], cta: Sequence[int]
     return [StructuralIssue(
         "cta_split", f"{name}: tile {rows}x{cols} is covered by {n} CTAs of "
                      f"{tm}x{tn}")]
+
+
+# positions a decode tile holds on the panel route, by itemsize (bf16: 16 a
+# warp of four; float32: 32)
+DECODE_PANEL_TOKENS = {2: 64, 4: 32}
+
+
+def decode_panel_smem(head_dim: int, itemsize: int) -> int:
+    """Shared memory of a decode CTA on the panel route (both decode
+    kernels, ``kernels/csrc/panel_attention.cuh``): a 64-column chunk of
+    the head block's queries and of K, the tile's V rows at the panel's
+    width (rows padded by 16 bytes), and in float32 the weights and three
+    running statistics a head."""
+    pw = panel_width(head_dim)
+    tt = DECODE_PANEL_TOKENS.get(itemsize, 64)
+    if itemsize == 2:
+        ld = PANEL_CHUNK + 8
+        return (GROUP_BLOCK * ld + tt * ld + tt * (pw + 8)) * 2
+    ld = PANEL_CHUNK + 4
+    return (GROUP_BLOCK * ld + tt * ld + tt * (pw + 4)
+            + GROUP_BLOCK * (tt + 1) + 3 * GROUP_BLOCK) * 4
+
+
+def panel_issues(name: str, head_dim: int, dtype: str
+                 ) -> List[StructuralIssue]:
+    """An attention kernel's rows at ``head_dim``: on the on-grain
+    instances the 16-byte alignment check (:func:`check_vector_alignment`);
+    on the panel route (not :func:`on_grain`), rows copied by less than 16
+    bytes (``grain``: the :func:`copy_grain` copies, zero-filled to the
+    64-column chunk) and output panels that each recompute S
+    (``cta_split``)."""
+    sz = DTYPE_BYTES.get(dtype, 2)
+    if on_grain(head_dim, sz):
+        return check_vector_alignment(f"{name} rows",
+                                      (("head_dim", head_dim),), dtype)
+    issues = []
+    g = copy_grain(head_dim, sz)
+    if g < VECTOR_BYTES:
+        issues.append(StructuralIssue(
+            "grain", f"{name}: rows of {head_dim} {dtype} elements are "
+                     f"staged by {g}-byte copies, zero-filled to the "
+                     f"{PANEL_CHUNK}-column chunk (the panel route)"))
+    n = n_panels(head_dim)
+    if n > 1:
+        issues.append(StructuralIssue(
+            "cta_split", f"O: head_dim {head_dim} runs in {n} output "
+                         f"panels of {panel_width(head_dim)} columns, "
+                         f"each CTA recomputing S"))
+    return issues
 
 
 def check_masking(name: str, dim_sizes: Sequence[int],

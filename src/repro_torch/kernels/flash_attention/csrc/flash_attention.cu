@@ -72,8 +72,15 @@
 //     a 4 x D/16 tile of the accumulator; Q and each 32-key chunk of K and
 //     V are staged in shared memory as float32.
 //
-// head_dim: every width whose rows are whole 16-byte vectors (a multiple
-// of 8 in bf16, of 4 in f32) up to 256, as the TPU kernel takes.  Each
+// head_dim: any, as the TPU kernel takes.  The three designs above take
+// every width whose rows are whole 16-byte vectors (a multiple of 8 in
+// bf16, of 4 in f32) up to 256; any other head_dim (rows off the 16-byte
+// grain, or above 256) runs on the panel route of panel_attention.cuh:
+// fa_panel_bf16 (mma.sync, 64 query rows a CTA, p rounded to bf16 as
+// here) and fa_panel_f32 (CUDA-core FMAs, 32 rows), Q, K and V staged by
+// the widest copy the rows allow, S over 64-column chunks of D, and a
+// grid axis of output panels of 64 or 256 columns, each recomputing S.
+// Of the on-grain widths, each
 // design is compiled at three widths W = 64, 128 and 256 columns, and D
 // runs in the least W >= D; HBM bytes stay those of D and only columns
 // below D are stored.  The wgmma tiles declare their TMA maps at D
@@ -85,8 +92,7 @@
 // the guards and strides of D fold away; the launch takes the second
 // where D is the width (64, 128, 256).  At W = 256 the wgmma tiles take
 // 64 keys (Q and a two-stage ring of 128-key tiles would not fit), S on
-// m64n64k16 and P·V on m64n256k16.  The wrapper raises ValueError for any
-// other head_dim before a launch.
+// m64n64k16 and P·V on m64n256k16.
 //
 // What bounds it on the H100.  At the family's production problem
 // (16 x 8 query heads over 1 KV head, 8192 x 8192, D = 128, causal, bf16)
@@ -98,6 +104,7 @@
 // between the two warpgroups, both measured slower on an H100 than this
 // plain order (PERF.md).
 #include "hopper.cuh"
+#include "panel_attention.cuh"
 
 namespace {
 
@@ -817,14 +824,94 @@ int launch_w(int tile, int is_bf16, int B, dim3 grid, const Params& p,
                   : launch_tile<W, false>(tile, is_bf16, B, grid, p, s);
 }
 
+// -- the panel route: any other head_dim --------------------------------------
+
+// The CTA's rows and key walk as cta_work's, at the route's own tile.
+template <typename T>
+struct FlashRows {
+  const T *q, *k, *v;
+  T* o;
+  int D, n_keys, grain;
+  float scale;
+  int Hq, Hkv, Sq, bq, cps, causal, skip;
+  size_t q_base, kv_base;
+
+  __device__ __forceinline__ bool begin(int tile, int kc, int& r0, int& rend,
+                                        int& n_chunks) {
+    const int bh = blockIdx.x;
+    const int y = gridDim.y - 1 - blockIdx.y;
+    const int qi = y / cps, sub = y % cps;
+    r0 = qi * bq + sub * tile;
+    rend = min(min(qi * bq + bq, r0 + tile), Sq);
+    if (r0 >= rend) return false;
+    const int b = bh / Hq, h = bh % Hq;
+    q_base = (size_t)bh * Sq;
+    kv_base = ((size_t)b * Hkv + h / (Hq / Hkv)) * n_keys;
+    n_chunks = (n_keys + kc - 1) / kc;
+    if (causal && skip) n_chunks = min(n_chunks, (rend - 1) / kc + 1);
+    return true;
+  }
+  __device__ __forceinline__ bool live(int, int) const { return true; }
+  __device__ __forceinline__ bool admit(int row, int key) const {
+    return !causal || row >= key;
+  }
+  __device__ __forceinline__ long long q_off(int row) const {
+    return (long long)(q_base + row) * D;
+  }
+  __device__ __forceinline__ long long kv_off(int key) const {
+    return (long long)(kv_base + key) * D;
+  }
+};
+
+template <typename T>
+FlashRows<T> flash_rows(const Params& p, int tile, int grain) {
+  FlashRows<T> r;
+  r.q = static_cast<const T*>(p.q);
+  r.k = static_cast<const T*>(p.k);
+  r.v = static_cast<const T*>(p.v);
+  r.o = static_cast<T*>(p.o);
+  r.D = p.D;
+  r.n_keys = p.Skv;
+  r.grain = grain;
+  r.scale = p.scale;
+  r.Hq = p.Hq;
+  r.Hkv = p.Hkv;
+  r.Sq = p.Sq;
+  r.bq = p.bq;
+  r.cps = (p.bq + tile - 1) / tile;
+  r.causal = p.causal;
+  r.skip = p.skip;
+  return r;
+}
+
+template <int PW>
+int launch_panel(int is_bf16, int B, const Params& p, cudaStream_t s) {
+  const void* ptrs[4] = {p.q, p.k, p.v, p.o};
+  const int es = is_bf16 ? 2 : 4;
+  const int grain = panel::copy_grain((long long)p.D * es, ptrs, 4, es);
+  const int tile = is_bf16 ? panel::kPrefillRows : panel::kPrefillRowsF;
+  const long long nq = (p.Sq + p.bq - 1) / p.bq, cps = (p.bq + tile - 1) / tile;
+  if (nq * cps > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(B * p.Hq, (unsigned)(nq * cps), panel::n_panels(p.D));
+  if (is_bf16) {
+    auto kern = panel::prefill_bf16_panel<PW, false, FlashRows<uint16_t>>;
+    return launch_kernel(kern, panel::prefill_smem_bf16<PW>(), 128, grid, s,
+                         flash_rows<uint16_t>(p, tile, grain));
+  }
+  auto kern = panel::prefill_f32_panel<PW, FlashRows<float>>;
+  return launch_kernel(kern, panel::prefill_smem_f32<PW>(), 128, grid, s,
+                       flash_rows<float>(p, tile, grain));
+}
+
 }  // namespace
 
 // q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D), o (B, Hq, Sq, D); contiguous, on
-// one device, 16-byte aligned, all bf16 (is_bf16) or all f32; D up to 256,
-// a multiple of 8 in bf16 and of 4 in f32; tile in {16, 32, 64, 128} query
-// rows per CTA; block_q the config's query block (a multiple of tile, or
-// smaller than it).  Returns the CUDA error code of the launch (0 on
-// success).
+// one device, all bf16 (is_bf16) or all f32; any D >= 1.  Where D is a
+// multiple of 8 in bf16 (of 4 in f32) up to 256 (the on-grain instances):
+// 16-byte aligned, tile in {16, 32, 64, 128} query rows per CTA; any other
+// D runs on the panel route (aligned to the element, its own tile).
+// block_q is the config's query block (a multiple of tile, or smaller than
+// it).  Returns the CUDA error code of the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Hq,
                                       int Hkv, int Sq, int Skv, int D,
@@ -832,8 +919,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int skip, float scale, int is_bf16,
                                       void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0 ||
-      block_q <= 0 || tile <= 0 || D <= 0 || D > 256 ||
-      D % (is_bf16 ? 8 : 4))
+      block_q <= 0 || tile <= 0 || D <= 0)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -850,10 +936,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   p.causal = causal;
   p.skip = skip;
   p.scale = scale;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D > 256 || D % (is_bf16 ? 8 : 4))
+    return D <= 64 ? launch_panel<64>(is_bf16, B, p, s)
+                   : launch_panel<256>(is_bf16, B, p, s);
   const long long nq = (Sq + block_q - 1) / block_q;
   if (nq * p.cps > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid(B * Hq, (unsigned)(nq * p.cps));
-  cudaStream_t s = (cudaStream_t)stream;
   if (D <= 64) return launch_w<64>(tile, is_bf16, B, grid, p, s);
   if (D <= 128) return launch_w<128>(tile, is_bf16, B, grid, p, s);
   return launch_w<256>(tile, is_bf16, B, grid, p, s);

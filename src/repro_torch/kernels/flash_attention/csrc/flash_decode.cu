@@ -16,9 +16,16 @@
 // TPU path's XLA epilogue) and writes o (B, Hq, 1, D) in q's type; a row
 // whose merged l is 0 writes zeros.
 //
-// It takes any head_dim whose rows are whole 16-byte vectors (a multiple
-// of 8 in bf16, of 4 in float32) up to 256 and any group G = Hq / Hkv, as
-// the TPU kernel does.
+// It takes any head_dim and any group G = Hq / Hkv, as the TPU kernel
+// does: the designs below take rows of whole 16-byte vectors (a multiple
+// of 8 in bf16, of 4 in float32) up to 256; any other head_dim (rows off
+// the 16-byte grain, or above 256) runs on the panel route of
+// panel_attention.cuh, one CTA per (span, output panel of 64 or 256
+// columns, KV head, head block, row): bf16 on mma.sync with the operands
+// swapped as below and p rounded to bf16, float32 on the CUDA cores, the
+// span's rows staged by the widest copy they allow (64 positions a tile
+// in bf16, 32 in float32), S over 64-column chunks of D, each panel
+// recomputing S; its combine walks D in a loop.
 //
 // Design (bf16).  One CTA per (span, KV head, head block, batch row)
 // serves up to 8 query heads of that KV head (the head block: heads [8j,
@@ -67,6 +74,7 @@
 // production problem, 0.040 ms at 3.35 TB/s), and does 4·G·D operations
 // per position, far below the card's ~295 operations per byte.
 #include "hopper.cuh"
+#include "panel_attention.cuh"
 
 namespace {
 
@@ -597,12 +605,101 @@ int launch_split(const Args& a, int is_bf16, cudaStream_t st) {
   return launch_split_f32<256>(a, st);
 }
 
+// -- the panel route: any other head_dim --------------------------------------
+
+// The span's valid positions [begin, end) of a dense cache, in tiles.
+template <typename T>
+struct DenseRows {
+  const T *q, *k, *v;
+  float *o_part, *m_part, *l_part;
+  int Hq, Hkv, D, ns, nhb, npanel, grain;
+  float scale;
+  const int* kv_len;
+  int S, p_begin, p_end, pos0;
+  size_t kv_base;
+
+  __device__ __forceinline__ int begin(int b, int s, int hk, int tt) {
+    const int len = max(0, min(*kv_len, S)), span = S / ns;
+    p_begin = s * span;
+    p_end = min(p_begin + span, len);
+    kv_base = ((size_t)b * Hkv + hk) * S;
+    return p_end > p_begin ? (p_end - p_begin + tt - 1) / tt : 0;
+  }
+  __device__ __forceinline__ int tile(int i, int tt) {
+    pos0 = p_begin + i * tt;
+    return min(tt, p_end - pos0);
+  }
+  __device__ __forceinline__ long long row_off(int r) const {
+    return (long long)(kv_base + pos0 + r) * D;
+  }
+};
+
+template <typename T>
+DenseRows<T> dense_rows(const Args& a, int grain) {
+  DenseRows<T> r;
+  r.q = static_cast<const T*>(a.q);
+  r.k = static_cast<const T*>(a.k);
+  r.v = static_cast<const T*>(a.v);
+  r.o_part = static_cast<float*>(a.o);
+  r.m_part = static_cast<float*>(a.m);
+  r.l_part = static_cast<float*>(a.l);
+  r.Hq = a.Hq;
+  r.Hkv = a.Hkv;
+  r.D = a.D;
+  r.ns = a.ns;
+  r.nhb = a.nhb;
+  r.npanel = panel::n_panels(a.D);
+  r.grain = grain;
+  r.scale = a.scale;
+  r.kv_len = static_cast<const int*>(a.kv_len);
+  r.S = a.S;
+  return r;
+}
+
+template <int PW>
+int launch_panel(const Args& a, int is_bf16, void* out, cudaStream_t st) {
+  const void* ptrs[3] = {a.q, a.k, a.v};
+  const int es = is_bf16 ? 2 : 4;
+  const int grain = panel::copy_grain((long long)a.D * es, ptrs, 3, es);
+  const long long gx = (long long)a.ns * panel::n_panels(a.D);
+  if (gx > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)gx, a.Hkv * a.nhb, a.B);
+  int e;
+  if (is_bf16) {
+    auto kern = panel::decode_bf16_panel<PW, false, DenseRows<uint16_t>>;
+    e = panel::set_smem(kern, panel::decode_smem_bf16<PW>());
+    if (e) return e;
+    kern<<<grid, 128, panel::decode_smem_bf16<PW>(), st>>>(
+        dense_rows<uint16_t>(a, grain));
+  } else {
+    auto kern = panel::decode_f32_panel<PW, DenseRows<float>>;
+    e = panel::set_smem(kern, panel::decode_smem_f32<PW>());
+    if (e) return e;
+    kern<<<grid, 128, panel::decode_smem_f32<PW>(), st>>>(
+        dense_rows<float>(a, grain));
+  }
+  e = (int)cudaGetLastError();
+  if (e) return e;
+  const unsigned rows = (unsigned)a.B * (unsigned)a.Hq;
+  const int nt = a.D < 256 ? a.D : 256;
+  if (is_bf16)
+    panel::combine_panels<uint16_t><<<rows, nt, 0, st>>>(
+        (const float*)a.o, (const float*)a.m, (const float*)a.l,
+        (uint16_t*)out, a.ns, a.D);
+  else
+    panel::combine_panels<float><<<rows, nt, 0, st>>>(
+        (const float*)a.o, (const float*)a.m, (const float*)a.l,
+        (float*)out, a.ns, a.D);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q (B, Hq, 1, D), k/v (B, Hkv, S, D), kv_len () int32, out (B, Hq, 1, D),
-// all on one device, contiguous and 16-byte aligned, q/k/v/out all bf16
-// (is_bf16) or all f32; D up to 256, a multiple of 8 in bf16 and of 4 in
-// float32; any Hq / Hkv; kv_splits divides S.  o_part (B·Hq, ns, D),
+// all on one device and contiguous, q/k/v/out all bf16 (is_bf16) or all
+// f32; any D >= 1: a multiple of 8 in bf16 (of 4 in float32) up to 256
+// runs on the designs above (16-byte aligned tensors), any other on the
+// panel route; any Hq / Hkv; kv_splits divides S.  o_part (B·Hq, ns, D),
 // m_part and l_part (B·Hq, ns) are float32 scratch for the spans'
 // partials.  Enqueues the split kernel, then the combine.  Returns the
 // CUDA error code of the launches (0 on success).
@@ -613,8 +710,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
                                    int D, int kv_splits, float scale,
                                    int is_bf16, void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq < Hkv || S <= 0 ||
-      kv_splits <= 0 || S % kv_splits != 0 || B > 65535 || D <= 0 ||
-      D > 256 || D % (is_bf16 ? 8 : 4))
+      kv_splits <= 0 || S % kv_splits != 0 || B > 65535 || D <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   Args a;
@@ -634,6 +730,9 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
   a.nhb = (Hq / Hkv + kGB - 1) / kGB;
   a.scale = scale;
   if ((long long)Hkv * a.nhb > 65535) return (int)cudaErrorInvalidValue;
+  if (D > 256 || D % (is_bf16 ? 8 : 4))
+    return D <= 64 ? launch_panel<64>(a, is_bf16, out, st)
+                   : launch_panel<256>(a, is_bf16, out, st);
   const int e = launch_split(a, is_bf16, st);
   if (e) return e;
   const unsigned rows = (unsigned)B * (unsigned)Hq;

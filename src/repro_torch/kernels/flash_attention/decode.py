@@ -20,7 +20,7 @@ from pathlib import Path
 import torch
 
 from ...core.families.flash_decode import FlashDecodeConfig
-from ...core.kernelspec import MAX_HEAD_DIM, head_blocks, head_dim_ok
+from ...core.kernelspec import head_blocks, on_grain
 from .._build import CudaKernel, ptr, stream_handle
 from .ref import mha_ref
 
@@ -68,17 +68,16 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_decode kernel takes bf16 or f32 q, k, v of "
                         f"one type, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if not head_dim_ok(D, q.element_size()):
-        raise ValueError(f"flash_decode kernel takes head_dim up to "
-                         f"{MAX_HEAD_DIM} in rows of whole 16-byte vectors;"
-                         f" got head_dim {D} in {q.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_decode: q, k, v must be on one device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_decode: q, k, v must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_decode: q, k and v must be 16-byte aligned "
-                         "(the kernel copies them in 16-byte rows)")
+    # the on-grain instances copy 16-byte vectors (TMA); the panel route
+    # any head_dim at the element's alignment
+    align = 16 if on_grain(D, q.element_size()) else q.element_size()
+    if any(t.data_ptr() % align for t in (q, k, v)):
+        raise ValueError(f"flash_decode: q, k and v must be {align}-byte "
+                         f"aligned at head_dim {D} in {q.dtype}")
     if B > 65535 or Hkv * head_blocks(Hq // Hkv) > 65535:
         raise ValueError("flash_decode: batch or KV heads exceed one "
                          "launch's grid")

@@ -18,10 +18,9 @@ from pathlib import Path
 import torch
 
 from ...core.families.flash_attention import (FlashAttentionConfig,
-                                              cta_tile)
-from ...core.kernelspec import MAX_HEAD_DIM, head_dim_ok
-from ...core.kernelspec import cdiv
-from .._build import CudaKernel, ptr, stream_handle
+                                              route_tile)
+from ...core.kernelspec import cdiv, on_grain
+from .._build import CudaKernel, dtype_name, ptr, stream_handle
 from .ref import mha_ref
 
 _P = ctypes.c_void_p
@@ -56,21 +55,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes bf16 or f32 q, k, v "
                         f"of one type, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if not head_dim_ok(D, q.element_size()):
-        raise ValueError(f"flash_attention kernel takes head_dim up to "
-                         f"{MAX_HEAD_DIM} in rows of whole 16-byte vectors, "
-                         f"got {D} in {q.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k, v must be on one device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: q, k, v must be 16-byte aligned "
-                         "(the kernel copies them in 16-byte vectors)")
+    # the on-grain instances copy 16-byte vectors (TMA, cp.async); the
+    # panel route any head_dim at the element's alignment
+    align = 16 if on_grain(D, q.element_size()) else q.element_size()
+    if any(t.data_ptr() % align for t in (q, k, v)):
+        raise ValueError(f"flash_attention: q, k, v must be {align}-byte "
+                         f"aligned at head_dim {D} in {q.dtype}")
     bq = min(cfg.block_q, max(Sq, 8))
     if bq < 1:
         raise ValueError(f"flash_attention: bad config {cfg}")
-    tile = cta_tile(bq)
+    tile = route_tile(bq, D, dtype_name(q.dtype))
     if cdiv(Sq, bq) * cdiv(bq, tile) > 65535:
         raise ValueError(f"flash_attention: {cdiv(Sq, bq)} query blocks of "
                          f"{bq} exceed one launch's grid")

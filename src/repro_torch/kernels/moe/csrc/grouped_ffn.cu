@@ -81,8 +81,12 @@
 //     covered by several CTAs launched one after another, so that they
 //     share the tile's operand panels in L2.  The depth (DM, then DF) is
 //     staged through shared memory in 32-deep chunks, two stages deep, by
-//     16-byte cp.async copies with zero-fill past the edge (the caller
-//     requires DM, DF and block_f to be multiples of 16 bytes).  bf16
+//     16-byte cp.async copies with zero-fill past the edge, where DM, DF,
+//     block_f and every pointer are whole 16-byte vectors; any other
+//     problem (d_model 100 or d_ff 60 in bf16, d_model 50 in float32, as
+//     the TPU kernel takes them) is staged element by element (`narrow`),
+//     each element zero-filled past the edge and the tail columns masked
+//     on store, in the same shared-memory layout.  bf16
 //     products run on the tensor cores with mma.sync.m16n8k16 (f32
 //     accumulator fragments in registers); f32 products run as FMAs on
 //     the CUDA cores, since the tensor cores would take f32 only as TF32
@@ -119,6 +123,7 @@ struct Params {
   int bm, bn;           // the config tile (rows, columns)
   int subm, subn;       // CTAs per config tile along rows and columns
   int mi, nj;           // config tiles per expert along rows and columns
+  int narrow;           // rows off the 16-byte grain: element copies
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -176,13 +181,50 @@ __device__ __forceinline__ float finish(float a0, float a1, const float* G,
 // Stage chunk [k0, k1) of the depth: A rows [row0, row_lim) and the B
 // panels' columns [col0, col_lim), zero past either edge.  Every 16-byte
 // vector lies wholly inside or wholly outside (k, n, the config tile's
-// columns and k0 are multiples of a vector).
+// columns and k0 are multiples of a vector) unless `narrow`, where every
+// element is copied on its own.
 template <typename T, int TM, int TN, int NB>
+__device__ __forceinline__ void load_chunk_narrow(const T* A, const T* B0,
+                                                  const T* B1, int k, int n,
+                                                  T* As, T* Bs, int row0,
+                                                  int row_lim, int col0,
+                                                  int col_lim, int k0,
+                                                  int k1) {
+  constexpr int LDA = KC + Elem<T>::PAD;
+  constexpr int LDB = TN + Elem<T>::PAD;
+  const int tid = threadIdx.x;
+  for (int v = tid; v < TM * KC; v += THREADS) {
+    const int r = v / KC, kk = v % KC;
+    const int gr = row0 + r, gk = k0 + kk;
+    As[r * LDA + kk] = gr < row_lim && gk < k1
+                           ? A[static_cast<size_t>(gr) * k + gk]
+                           : from_float<T>(0.f);
+  }
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    const T* B = b == 0 ? B0 : B1;
+    T* bs = Bs + b * KC * LDB;
+    for (int v = tid; v < KC * TN; v += THREADS) {
+      const int r = v / TN, c = v % TN;
+      const int gk = k0 + r, gc = col0 + c;
+      bs[r * LDB + c] = gk < k1 && gc < col_lim
+                            ? B[static_cast<size_t>(gk) * n + gc]
+                            : from_float<T>(0.f);
+    }
+  }
+}
+
+template <typename T, int TM, int TN, int NB, bool NARROW>
 __device__ __forceinline__ void load_chunk(const T* A, const T* B0,
                                            const T* B1, int k, int n, T* As,
                                            T* Bs, int row0, int row_lim,
                                            int col0, int col_lim, int k0,
                                            int k1) {
+  if constexpr (NARROW) {
+    load_chunk_narrow<T, TM, TN, NB>(A, B0, B1, k, n, As, Bs, row0, row_lim,
+                                     col0, col_lim, k0, k1);
+    return;
+  }
   constexpr int VEC = Elem<T>::VEC;
   constexpr int LDA = KC + Elem<T>::PAD;
   constexpr int LDB = TN + Elem<T>::PAD;
@@ -259,73 +301,83 @@ ffn_kernel(const Params p) {
   const int wm0 = (warp / WARPS_N) * WM, wn0 = (warp % WARPS_N) * WN;
   const int ty = tid / 8, tx = tid % 8;
 
-  const int nchunks = (p.k + KC - 1) / KC;
-  load_chunk<T, TM, TN, NB>(A, B0, B1, p.k, p.n, As, Bs, row0, row_lim, col0,
-                            col_lim, 0, min(KC, p.k));
-  cp_async_commit();
-  int stage = 0;
-  for (int c = 0; c < nchunks; ++c) {
-    if (c + 1 < nchunks) {
-      int k0 = (c + 1) * KC;
-      load_chunk<T, TM, TN, NB>(A, B0, B1, p.k, p.n,
-                                As + (stage ^ 1) * TM * LDA,
-                                Bs + (stage ^ 1) * NB * KC * LDB, row0,
-                                row_lim, col0, col_lim, k0,
-                                min(k0 + KC, p.k));
-    }
+  // the K walk, compiled once for 16-byte vector copies and once for
+  // element copies (rows off the grain), so that neither path carries
+  // the other's registers
+  const auto walk = [&](auto narrow) {
+    constexpr bool NARROW = decltype(narrow)::value;
+    const int nchunks = (p.k + KC - 1) / KC;
+    load_chunk<T, TM, TN, NB, NARROW>(A, B0, B1, p.k, p.n, As, Bs, row0,
+                                      row_lim, col0, col_lim, 0,
+                                      min(KC, p.k));
     cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const T* as = As + stage * TM * LDA;
-    const T* bs = Bs + stage * NB * KC * LDB;
-    if constexpr (TC) {
+    int stage = 0;
+    for (int c = 0; c < nchunks; ++c) {
+      if (c + 1 < nchunks) {
+        int k0 = (c + 1) * KC;
+        load_chunk<T, TM, TN, NB, NARROW>(
+            A, B0, B1, p.k, p.n, As + (stage ^ 1) * TM * LDA,
+            Bs + (stage ^ 1) * NB * KC * LDB, row0, row_lim, col0, col_lim,
+            k0, min(k0 + KC, p.k));
+      }
+      cp_async_commit();
+      cp_async_wait_one();
+      __syncthreads();
+      const T* as = As + stage * TM * LDA;
+      const T* bs = Bs + stage * NB * KC * LDB;
+      if constexpr (TC) {
 #pragma unroll
-      for (int ks = 0; ks < KC; ks += 16) {
-        uint32_t af[MT][4];
+        for (int ks = 0; ks < KC; ks += 16) {
+          uint32_t af[MT][4];
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const T* r0 = as + (wm0 + mt * 16 + g) * LDA + ks + 2 * q;
-          const T* r8 = r0 + 8 * LDA;
-          af[mt][0] = *reinterpret_cast<const uint32_t*>(r0);
-          af[mt][1] = *reinterpret_cast<const uint32_t*>(r8);
-          af[mt][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-          af[mt][3] = *reinterpret_cast<const uint32_t*>(r8 + 8);
-        }
-#pragma unroll
-        for (int b = 0; b < NB; ++b)
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            const T* bc =
-                bs + b * KC * LDB + (ks + 2 * q) * LDB + wn0 + nt * 8 + g;
-            uint32_t b0 = pack_bf16(bc[0], bc[LDB]);
-            uint32_t b1 = pack_bf16(bc[8 * LDB], bc[9 * LDB]);
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
-              mma_bf16(acc[b] + (mt * NT + nt) * 4, af[mt], b0, b1);
+          for (int mt = 0; mt < MT; ++mt) {
+            const T* r0 = as + (wm0 + mt * 16 + g) * LDA + ks + 2 * q;
+            const T* r8 = r0 + 8 * LDA;
+            af[mt][0] = *reinterpret_cast<const uint32_t*>(r0);
+            af[mt][1] = *reinterpret_cast<const uint32_t*>(r8);
+            af[mt][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
+            af[mt][3] = *reinterpret_cast<const uint32_t*>(r8 + 8);
           }
-      }
-    } else {
+#pragma unroll
+          for (int b = 0; b < NB; ++b)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              const T* bc =
+                  bs + b * KC * LDB + (ks + 2 * q) * LDB + wn0 + nt * 8 + g;
+              uint32_t b0 = pack_bf16(bc[0], bc[LDB]);
+              uint32_t b1 = pack_bf16(bc[8 * LDB], bc[9 * LDB]);
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt)
+                mma_bf16(acc[b] + (mt * NT + nt) * 4, af[mt], b0, b1);
+            }
+        }
+      } else {
 #pragma unroll 4
-      for (int kk = 0; kk < KC; ++kk) {
-        float a[RM];
+        for (int kk = 0; kk < KC; ++kk) {
+          float a[RM];
 #pragma unroll
-        for (int r = 0; r < RM; ++r) a[r] = as[(ty + 16 * r) * LDA + kk];
+          for (int r = 0; r < RM; ++r) a[r] = as[(ty + 16 * r) * LDA + kk];
 #pragma unroll
-        for (int b = 0; b < NB; ++b) {
-          float bv[RN];
+          for (int b = 0; b < NB; ++b) {
+            float bv[RN];
 #pragma unroll
-          for (int j = 0; j < RN; ++j)
-            bv[j] = bs[b * KC * LDB + kk * LDB + tx + 8 * j];
+            for (int j = 0; j < RN; ++j)
+              bv[j] = bs[b * KC * LDB + kk * LDB + tx + 8 * j];
 #pragma unroll
-          for (int r = 0; r < RM; ++r)
+            for (int r = 0; r < RM; ++r)
 #pragma unroll
-            for (int j = 0; j < RN; ++j) acc[b][r * RN + j] += a[r] * bv[j];
+              for (int j = 0; j < RN; ++j) acc[b][r * RN + j] += a[r] * bv[j];
+          }
         }
       }
+      __syncthreads();   // the next load overwrites this stage
+      stage ^= 1;
     }
-    __syncthreads();   // the next load overwrites this stage
-    stage ^= 1;
-  }
+  };
+  if (p.narrow)
+    walk(std::true_type{});
+  else
+    walk(std::false_type{});
 
   // epilogue: gate/up — act = round_x(silu(hg) * hu); down — the gate
   T* C = static_cast<T*>(p.c) + static_cast<size_t>(e) * p.m * p.n;
@@ -650,9 +702,10 @@ cudaError_t launch_wgmma_bm(const Params& p, int E, int tm,
 // one type (bf16 when `bf16`, else f32); gates (E, C) float32 or null
 // (then y is not scaled); act (E, C, DF) scratch and y (E, C, DM) of that
 // type.  bt x bf is the config tile (C a multiple of bt, DF of bf), tm the
-// CTA rows, tn_up the gate/up CTA's columns, tn_down the down CTA's.  The
-// caller guarantees that DM, DF and bf are multiples of 16 bytes and that
-// every pointer is 16-byte aligned.  With `wgmma` (bf16 only, bt a
+// CTA rows, tn_up the gate/up CTA's columns, tn_down the down CTA's.
+// Where DM, DF and bf are multiples of 16 bytes and every pointer is
+// 16-byte aligned the rows are copied in 16-byte vectors, else element by
+// element (not on wgmma).  With `wgmma` (bf16 only, bt a
 // multiple of 64 and of tm, tm 64 or 128, bf a multiple of 128, DM of 64)
 // tn_up is 128 and tn_down 256, each launch on a grid of one CTA an SM.
 // Launches gate/up, then down, on `stream`; returns cudaGetLastError()
@@ -672,6 +725,12 @@ extern "C" int grouped_ffn_launch(const void* x, const void* wg,
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long mi = C / bt, subm = (bt + tm - 1) / tm;
+  const int vec = bf16 ? 8 : 4;
+  const void* ptrs[] = {x, wg, wu, wd, act, y};
+  int narrow = DM % vec || DF % vec || bf % vec;
+  for (const void* q : ptrs)
+    narrow |= reinterpret_cast<uintptr_t>(q) % 16 != 0;
+  if (wgmma && narrow) return cudaErrorInvalidValue;
 
   Params up;
   up.a = x;
@@ -688,6 +747,7 @@ extern "C" int grouped_ffn_launch(const void* x, const void* wg,
   up.subn = (bf + tn_up - 1) / tn_up;
   up.mi = static_cast<int>(mi);
   up.nj = DF / bf;
+  up.narrow = narrow;
   const long long ctas_up = E * mi * up.nj * subm * up.subn;
 
   Params down;
@@ -705,6 +765,7 @@ extern "C" int grouped_ffn_launch(const void* x, const void* wg,
   down.subn = 1;
   down.mi = static_cast<int>(mi);
   down.nj = (DM + tn_down - 1) / tn_down;
+  down.narrow = narrow;
   const long long ctas_down = E * mi * down.nj * subm;
   if (ctas_up > 0x7fffffffLL || ctas_down > 0x7fffffffLL)
     return cudaErrorInvalidValue;

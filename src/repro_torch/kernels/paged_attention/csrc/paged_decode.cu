@@ -7,9 +7,8 @@
 // masked by each row's length, with a float32 (m, l, acc) carry; its
 // weights p stay float32 and V is cast up (paged_attention.py:74-76: a
 // p -> bf16 downcast visibly perturbs decode logits).  A row of length 0
-// gives zeros.  Like the TPU kernel it takes any head_dim whose rows are
-// whole 16-byte vectors (a multiple of 8 in bf16, of 4 in float32) up to
-// 256, any group G = Hq / Hkv and any page of 2 tokens or more.
+// gives zeros.  Like the TPU kernel it takes any head_dim, any group G =
+// Hq / Hkv and any page of 2 tokens or more.
 //
 // What bounds it on the H100: memory.  A row reads the K and V of the
 // positions its length covers, sum_b len_b * Hkv * D * 2 * sizeof(T) bytes
@@ -84,7 +83,18 @@
 //     taking whole positions, the softmax one warp per head, P·V with
 //     each thread owning the output columns d ≡ tid (mod 128), p in
 //     float32.
+//   * any other head_dim (rows off the 16-byte grain, which TMA and the
+//     16-byte copies cannot address, or above 256): the panel route of
+//     panel_attention.cuh, the same split walk with one CTA per (span,
+//     output panel of 64 or 256 columns, KV head, head block, row).  Its
+//     tiles are 64 positions in bf16 (mma.sync, p split as above) and 32
+//     in float32 (CUDA cores), pages packed without slots (a page of PS <=
+//     T tokens in PS rows, a longer one in T-row chunks), each row staged
+//     through the table by the widest copy it allows, zero past D and on
+//     rows that hold no valid position; S over 64-column chunks of D,
+//     each panel recomputing S.
 #include "hopper.cuh"
+#include "panel_attention.cuh"
 
 namespace {
 
@@ -137,6 +147,7 @@ struct Walk {
   // (whole pages fill the tile without slot tails, or chunks fill pages)
   bool dense;
 
+  Walk() = default;
   __device__ __forceinline__ Walk(const int* lengths, int b, int s, int PS_,
                                   int NP, int span_pages, int T_,
                                   int slot_) {
@@ -765,12 +776,124 @@ int launch_split(const Args& a, int is_bf16, cudaStream_t st) {
   return launch_f32<256>(a, st);
 }
 
+// -- the panel route: any other head_dim --------------------------------------
+
+// The span's walk through the table (pages packed without slots), each
+// tile's page numbers staged in shared memory.
+template <typename T>
+struct PagedRows {
+  const T *q, *k, *v;
+  float *o_part, *m_part, *l_part;
+  int Hq, Hkv, D, ns, nhb, npanel, grain;
+  float scale;
+  const int *table, *lengths;
+  int PS, NP, span_pages, pos0, fp;
+  const int* trow;
+  size_t head_off;
+  Walk wk;
+
+  __device__ __forceinline__ int* phys() const {
+    __shared__ int ph[64];    // pages a tile: at most T / 2
+    return ph;
+  }
+  __device__ __forceinline__ int begin(int b, int s, int hk, int tt) {
+    if (s * span_pages * PS >= min(lengths[b], NP * PS)) return 0;
+    wk = Walk(lengths, b, s, PS, NP, span_pages, tt, PS);
+    trow = table + (size_t)b * NP;
+    head_off = (size_t)hk * PS * D;
+    return wk.n_tiles();
+  }
+  __device__ __forceinline__ int tile(int i, int tt) {
+    pos0 = wk.start(i);
+    const int nt = min(PS <= tt ? wk.pp * PS : wk.rows(i), wk.end - pos0);
+    fp = pos0 / PS;
+    const int np_t = (pos0 + nt - 1) / PS - fp + 1;
+    __syncthreads();   // the previous tile's rows are staged
+    for (int j = threadIdx.x; j < np_t; j += blockDim.x)
+      phys()[j] = trow[fp + j];
+    __syncthreads();
+    return nt;
+  }
+  __device__ __forceinline__ long long row_off(int r) const {
+    const int pos = pos0 + r;
+    return (long long)phys()[pos / PS - fp] * Hkv * PS * D + head_off +
+           (long long)(pos % PS) * D;
+  }
+};
+
+template <int PW>
+int launch_panel(const Args& a, int is_bf16, void* out, cudaStream_t st) {
+  const int T = is_bf16 ? panel::kDecodeRows : panel::kDecodeRowsF;
+  if (!span_ok(a, T, a.PS)) return (int)cudaErrorInvalidValue;
+  const void* ptrs[3] = {a.q, a.k, a.v};
+  const int es = is_bf16 ? 2 : 4;
+  const int grain = panel::copy_grain((long long)a.D * es, ptrs, 3, es);
+  const long long gx = (long long)a.ns * panel::n_panels(a.D);
+  if (gx > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)gx, a.Hkv * a.nhb, a.B);
+  const auto fill = [&](auto& r) {
+    r.o_part = static_cast<float*>(a.o);
+    r.m_part = static_cast<float*>(a.m);
+    r.l_part = static_cast<float*>(a.l);
+    r.Hq = a.Hq;
+    r.Hkv = a.Hkv;
+    r.D = a.D;
+    r.ns = a.ns;
+    r.nhb = a.nhb;
+    r.npanel = panel::n_panels(a.D);
+    r.grain = grain;
+    r.scale = a.scale;
+    r.table = static_cast<const int*>(a.table);
+    r.lengths = static_cast<const int*>(a.lengths);
+    r.PS = a.PS;
+    r.NP = a.NP;
+    r.span_pages = a.span_pages;
+  };
+  int e;
+  if (is_bf16) {
+    PagedRows<uint16_t> r;
+    fill(r);
+    r.q = static_cast<const uint16_t*>(a.q);
+    r.k = static_cast<const uint16_t*>(a.k);
+    r.v = static_cast<const uint16_t*>(a.v);
+    auto kern = panel::decode_bf16_panel<PW, true, PagedRows<uint16_t>>;
+    e = panel::set_smem(kern, panel::decode_smem_bf16<PW>());
+    if (e) return e;
+    kern<<<grid, 128, panel::decode_smem_bf16<PW>(), st>>>(r);
+  } else {
+    PagedRows<float> r;
+    fill(r);
+    r.q = static_cast<const float*>(a.q);
+    r.k = static_cast<const float*>(a.k);
+    r.v = static_cast<const float*>(a.v);
+    auto kern = panel::decode_f32_panel<PW, PagedRows<float>>;
+    e = panel::set_smem(kern, panel::decode_smem_f32<PW>());
+    if (e) return e;
+    kern<<<grid, 128, panel::decode_smem_f32<PW>(), st>>>(r);
+  }
+  e = (int)cudaGetLastError();
+  if (e) return e;
+  const unsigned rows = (unsigned)a.B * (unsigned)a.Hq;
+  const int nt = a.D < 256 ? a.D : 256;
+  if (is_bf16)
+    panel::combine_panels<uint16_t><<<rows, nt, 0, st>>>(
+        (const float*)a.o, (const float*)a.m, (const float*)a.l,
+        (uint16_t*)out, a.ns, a.D);
+  else
+    panel::combine_panels<float><<<rows, nt, 0, st>>>(
+        (const float*)a.o, (const float*)a.m, (const float*)a.l,
+        (float*)out, a.ns, a.D);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q (B, Hq, 1, D), k/v pools (P, Hkv, PS, D), table (B, NP) int32, lengths
-// (B,) int32, out (B, Hq, 1, D); all contiguous on one device and 16-byte
-// aligned, q, pools and out of one type (is_bf16: bfloat16, else float32);
-// D up to 256, a multiple of 8 in bf16 and of 4 in float32; any Hq / Hkv;
+// (B,) int32, out (B, Hq, 1, D); all contiguous on one device, q, pools
+// and out of one type (is_bf16: bfloat16, else float32); any D >= 1: a
+// multiple of 8 in bf16 (of 4 in float32) up to 256 runs on the designs
+// above (16-byte aligned tensors), any other on the panel route; any Hq /
+// Hkv;
 // PS >= 2; span_pages a whole number of tiles (a multiple of the pages a
 // tile holds where a page fits the tile; core/families/paged_attention.py
 // `pages_per_step`, `span_pages`).  o_part (B·Hq, ns, D), m_part and
@@ -785,7 +908,7 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
                                    int PS, int NP, int span_pages,
                                    float scale, int is_bf16, void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq < Hkv || P <= 0 ||
-      D <= 0 || D > kMaxD || PS < kMinPage || NP <= 0 || span_pages <= 0 ||
+      D <= 0 || PS < kMinPage || NP <= 0 || span_pages <= 0 ||
       B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -810,6 +933,9 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
   a.nhb = (Hq / Hkv + kGB - 1) / kGB;
   a.scale = scale;
   if ((long long)Hkv * a.nhb > 65535) return (int)cudaErrorInvalidValue;
+  if (D > kMaxD || D % (is_bf16 ? 8 : 4))
+    return D <= 64 ? launch_panel<64>(a, is_bf16, out, st)
+                   : launch_panel<256>(a, is_bf16, out, st);
   const int e = launch_split(a, is_bf16, st);
   if (e) return e;
   const unsigned rows = (unsigned)B * (unsigned)Hq;

@@ -25,7 +25,7 @@ from ...core.families.paged_attention import (MIN_PAGE,
                                               PagedAttentionConfig,
                                               pages_per_step, span_pages,
                                               tile_tokens)
-from ...core.kernelspec import MAX_HEAD_DIM
+from ...core.kernelspec import on_grain
 from .._build import CudaKernel, ptr, stream_handle
 from .ref import paged_decode_ref
 
@@ -82,10 +82,8 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
                         f"{v_pages.dtype}")
     sz = q.element_size()
     if not pages_per_step(PS, D, sz):
-        raise ValueError(f"paged_decode kernel takes head_dim up to "
-                         f"{MAX_HEAD_DIM} in rows of whole 16-byte vectors "
-                         f"and pages of at least {MIN_PAGE} tokens; got "
-                         f"D={D} in {q.dtype}, PS={PS}")
+        raise ValueError(f"paged_decode kernel takes pages of at least "
+                         f"{MIN_PAGE} tokens; got PS={PS}")
     if lengths is None:
         lengths = torch.full((B,), NP * PS, dtype=torch.int32,
                              device=q.device)
@@ -96,10 +94,13 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
         raise TypeError("paged_decode: table and lengths must be int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_decode: tensors must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
-        raise ValueError("paged_decode: q and the pools must be 16-byte "
-                         "aligned (the kernel copies 16-byte vectors and "
-                         "TMA boxes)")
+    # the on-grain instances copy 16-byte vectors and TMA boxes; the
+    # panel route any head_dim at the element's alignment
+    align = 16 if on_grain(D, sz) else sz
+    if any(t.data_ptr() % align for t in (q, k_pages, v_pages)):
+        raise ValueError(f"paged_decode: q and the pools must be "
+                         f"{align}-byte aligned at head_dim {D} in "
+                         f"{q.dtype}")
     out = torch.empty_like(q)
     if B == 0:
         return out

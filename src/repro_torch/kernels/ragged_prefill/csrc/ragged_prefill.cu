@@ -71,6 +71,15 @@
 //     min, one block per thread, before any K/V is loaded; products are
 //     float32 FMAs on the CUDA cores (67 TFLOP/s).
 //
+// Any other head_dim (rows off the 16-byte grain, or above 256: the
+// TPU kernel takes any) runs on the panel route of panel_attention.cuh:
+// bf16 on mma.sync with p split as above (64 packed queries, 64-key
+// chunks), float32 on the CUDA cores (32 x 32), rows staged by the widest
+// copy they allow, S over 64-column chunks of D, output panels of 64 or
+// 256 columns on a grid axis, each recomputing S.  A chunk is skipped
+// when no key of it shares a segment with the CTA's queries or comes
+// causally before the last of them, as here.
+//
 // Both designs are compiled twice a width: with D read at run time, and
 // with D = W known at compile time (kFull), where the guards and strides
 // of D fold away; the launch takes the second where D is the width.  The
@@ -79,6 +88,7 @@
 #include <climits>
 
 #include "hopper.cuh"
+#include "panel_attention.cuh"
 
 namespace {
 
@@ -732,13 +742,145 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* sq,
   return (int)cudaGetLastError();
 }
 
+// -- the panel route: any other head_dim --------------------------------------
+
+// The CTA's packed queries (one head, grid y), its chunks' liveness from
+// the segment range and last position of its queries, the mask from the
+// staged seg/pos of its rows and of the current chunk's keys.
+template <typename T>
+struct RaggedRows {
+  const T *q, *k, *v;
+  T* o;
+  int D, n_keys, grain;
+  float scale;
+  int Hq, Hkv, TQ;
+  const int *seg_q, *pos_q, *seg_k, *pos_k;
+  int r0, k0, q_smin, q_smax, q_pmax;
+  size_t q_base, kv_base;
+
+  // seg, pos of the CTA's rows (64 at most), then of a chunk's keys
+  __device__ __forceinline__ int* meta() const {
+    __shared__ int m[4 * 64 + 4];
+    return m;
+  }
+  __device__ __forceinline__ bool begin(int tile, int kc, int& r0_,
+                                        int& rend, int& n_chunks) {
+    const int h = blockIdx.x;
+    r0 = r0_ = blockIdx.y * tile;
+    rend = min(r0 + tile, TQ);
+    q_base = (size_t)h * TQ;
+    kv_base = (size_t)(h / (Hq / Hkv)) * n_keys;
+    n_chunks = (n_keys + kc - 1) / kc;
+    int* m = meta();
+    int smin = INT_MAX, smax = -1, pmax = INT_MIN;
+    for (int r = threadIdx.x; r < tile; r += blockDim.x) {
+      const int row = r0 + r;
+      const int sg = row < TQ ? seg_q[row] : -1;
+      const int ps = row < TQ ? pos_q[row] : 0;
+      m[r] = sg;
+      m[64 + r] = ps;
+    }
+    __syncthreads();
+    for (int r = 0; r < tile; ++r)
+      if (m[r] >= 0) {
+        smin = min(smin, m[r]);
+        smax = max(smax, m[r]);
+        pmax = max(pmax, m[64 + r]);
+      }
+    q_smin = smin;
+    q_smax = smax;
+    q_pmax = pmax;
+    return true;
+  }
+  __device__ __forceinline__ bool live(int ch, int kc) {
+    int* m = meta();
+    k0 = ch * kc;
+    __syncthreads();   // the previous chunk's mask is applied
+    bool act = false;
+    for (int c = threadIdx.x; c < kc; c += blockDim.x) {
+      const int key = k0 + c;
+      const int sg = key < n_keys ? seg_k[key] : -1;
+      const int ps = key < n_keys ? pos_k[key] : 0;
+      m[128 + c] = sg;
+      m[192 + c] = ps;
+      act |= sg >= 0 && sg >= q_smin && sg <= q_smax && ps <= q_pmax;
+    }
+    return __syncthreads_or(act) != 0;
+  }
+  __device__ __forceinline__ bool admit(int row, int key) const {
+    const int* m = meta();
+    const int sq = m[row - r0], sk = m[128 + key - k0];
+    return sq >= 0 && sq == sk && m[192 + key - k0] <= m[64 + row - r0];
+  }
+  __device__ __forceinline__ long long q_off(int row) const {
+    return (long long)(q_base + row) * D;
+  }
+  __device__ __forceinline__ long long kv_off(int key) const {
+    return (long long)(kv_base + key) * D;
+  }
+};
+
+template <typename T>
+RaggedRows<T> ragged_rows(const void* q, const void* k, const void* v,
+                          const void* sq, const void* pq, const void* sk,
+                          const void* pk, void* out, int Hq, int Hkv, int TQ,
+                          int TK, int D, float scale, int grain) {
+  RaggedRows<T> r;
+  r.q = static_cast<const T*>(q);
+  r.k = static_cast<const T*>(k);
+  r.v = static_cast<const T*>(v);
+  r.o = static_cast<T*>(out);
+  r.D = D;
+  r.n_keys = TK;
+  r.grain = grain;
+  r.scale = scale;
+  r.Hq = Hq;
+  r.Hkv = Hkv;
+  r.TQ = TQ;
+  r.seg_q = static_cast<const int*>(sq);
+  r.pos_q = static_cast<const int*>(pq);
+  r.seg_k = static_cast<const int*>(sk);
+  r.pos_k = static_cast<const int*>(pk);
+  return r;
+}
+
+template <int PW>
+int launch_panel(const void* q, const void* k, const void* v, const void* sq,
+                 const void* pq, const void* sk, const void* pk, void* out,
+                 int Hq, int Hkv, int TQ, int TK, int D, float scale,
+                 int is_bf16, cudaStream_t stream) {
+  const void* ptrs[4] = {q, k, v, out};
+  const int es = is_bf16 ? 2 : 4;
+  const int grain = panel::copy_grain((long long)D * es, ptrs, 4, es);
+  const int tile = is_bf16 ? panel::kPrefillRows : panel::kPrefillRowsF;
+  const dim3 grid(Hq, (TQ + tile - 1) / tile, panel::n_panels(D));
+  int e;
+  if (is_bf16) {
+    auto kern = panel::prefill_bf16_panel<PW, true, RaggedRows<uint16_t>>;
+    e = panel::set_smem(kern, panel::prefill_smem_bf16<PW>());
+    if (e) return e;
+    kern<<<grid, 128, panel::prefill_smem_bf16<PW>(), stream>>>(
+        ragged_rows<uint16_t>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK,
+                              D, scale, grain));
+  } else {
+    auto kern = panel::prefill_f32_panel<PW, RaggedRows<float>>;
+    e = panel::set_smem(kern, panel::prefill_smem_f32<PW>());
+    if (e) return e;
+    kern<<<grid, 128, panel::prefill_smem_f32<PW>(), stream>>>(
+        ragged_rows<float>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, D,
+                           scale, grain));
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q (Hq, TQ, D), k/v (Hkv, TK, D), seg_q/pos_q (TQ,) int32, seg_k/pos_k
 // (TK,) int32, out (Hq, TQ, D); all contiguous on one device, q, k, v and
-// out of one type (is_bf16: bfloat16, else float32); D up to 256, a
-// multiple of 8 in bf16 (the wgmma design; q, k, v 16-byte aligned) and of
-// 4 in float32 (the CUDA-core one).  Returns the CUDA error code of the
+// out of one type (is_bf16: bfloat16, else float32); any D >= 1.  A
+// multiple of 8 in bf16 up to 256 runs on the wgmma design (q, k, v
+// 16-byte aligned), a multiple of 4 in float32 up to 256 on the CUDA-core
+// one, any other on the panel route.  Returns the CUDA error code of the
 // launch (0 on success).
 extern "C" int ragged_prefill_launch(const void* q, const void* k,
                                      const void* v, const void* seg_q,
@@ -746,10 +888,19 @@ extern "C" int ragged_prefill_launch(const void* q, const void* k,
                                      const void* pos_k, void* out, int Hq,
                                      int Hkv, int TQ, int TK, int D,
                                      float scale, int is_bf16, void* stream) {
-  if (Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || TQ <= 0 || TK <= 0 || D <= 0 ||
-      D > 256 || D % (is_bf16 ? 8 : 4))
+  if (Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || TQ <= 0 || TK <= 0 || D <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (D > 256 || D % (is_bf16 ? 8 : 4)) {
+    if ((TQ + panel::kPrefillRowsF - 1) / panel::kPrefillRowsF > 65535)
+      return (int)cudaErrorInvalidValue;
+    return D <= 64 ? launch_panel<64>(q, k, v, seg_q, pos_q, seg_k, pos_k,
+                                      out, Hq, Hkv, TQ, TK, D, scale,
+                                      is_bf16, s)
+                   : launch_panel<256>(q, k, v, seg_q, pos_q, seg_k, pos_k,
+                                       out, Hq, Hkv, TQ, TK, D, scale,
+                                       is_bf16, s);
+  }
   if (is_bf16) {
     if (D <= 64)
       return launch_wgmma<64>(q, k, v, seg_q, pos_q, seg_k, pos_k, out, Hq,

@@ -17,7 +17,6 @@ import torch
 
 from ...core.families.ragged_prefill import (RaggedPrefillConfig,
                                              RaggedPrefillProblem, is_wgmma)
-from ...core.kernelspec import MAX_HEAD_DIM, head_dim_ok
 from .._build import CudaKernel, dtype_name, ptr, stream_handle
 from .ref import ragged_prefill_ref
 
@@ -58,10 +57,6 @@ def ragged_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"ragged_prefill kernel takes bf16 or f32 q, k, v "
                         f"of one type, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if not head_dim_ok(D, q.element_size()):
-        raise ValueError(f"ragged_prefill kernel takes head_dim up to "
-                         f"{MAX_HEAD_DIM} in rows of whole 16-byte vectors, "
-                         f"got {D} in {q.dtype}")
     meta = (seg_q, pos_q, seg_k, pos_k)
     if tuple(seg_q.shape) != (TQ,) or tuple(pos_q.shape) != (TQ,) \
             or tuple(seg_k.shape) != (TK,) or tuple(pos_k.shape) != (TK,):
@@ -74,9 +69,11 @@ def ragged_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ragged_prefill: tensors must be contiguous")
     prob = RaggedPrefillProblem(1, TK, Hq, Hkv, D, dtype_name(q.dtype))
-    if is_wgmma(prob) and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("ragged_prefill: the bf16 kernel loads q, k and v "
-                         "by TMA and needs them 16-byte aligned")
+    align = 16 if is_wgmma(prob) else q.element_size()
+    if any(t.data_ptr() % align for t in (q, k, v)):
+        raise ValueError(f"ragged_prefill: q, k and v must be {align}-byte "
+                         f"aligned (the bf16 on-grain kernel loads them by "
+                         f"TMA)")
     out = torch.empty_like(q)
     if TQ == 0 or TK == 0:
         return out.zero_()

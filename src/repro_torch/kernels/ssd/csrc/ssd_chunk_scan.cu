@@ -53,6 +53,14 @@
 // conflicts; the state dim is zero-padded to a multiple of 8 (the k of
 // the TF32 product), P to the 64-column tile and the chunk to whole
 // 64-row blocks: the padding is zero and adds nothing.
+//
+// Any d_state: the state dim is walked in panels of 128 (NPANEL).  The
+// chunk-state launch takes one panel a CTA (a grid axis: each reads the
+// chunk's x again), so its accumulator and its staged B stay at 128 rows;
+// where N is more than one panel the scan runs on ssd_scan_panel_kernel,
+// which sums C·state and C·Bᵀ across the panels, staging the panel's C,
+// state rows and B in turn (ssd_scan_kernel, unchanged, takes N up to
+// 128).  The scratch keeps one (N, P) state a (bh, chunk).
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -64,7 +72,7 @@ constexpr int BR = 64;        // rows of a query or key block
 constexpr int PT = 64;        // columns of P a CTA
 constexpr int LDX = PT + 8;   // x / state tile stride: 8 (mod 32) words
 constexpr int LDS = BR + 4;   // score tile stride: 4 (mod 32) words
-constexpr int MAX_N = 128;
+constexpr int NPANEL = 128;   // state rows a panel
 
 struct Params {
   const void* x;
@@ -76,6 +84,8 @@ struct Params {
   float* cs_end;   // (bh, nc)
   int bh_count, S, P, N, q, nc;
   int np;   // N padded to a multiple of 8
+  int npp;  // rows of the widest panel: min(np, NPANEL)
+  int npn;  // panels
   int qr;   // q padded to whole 64-row blocks
   int pt;   // 64-column tiles of P
 };
@@ -167,6 +177,27 @@ __device__ __forceinline__ void put(const TileRegs<CK>& t, float* dst,
   }
 }
 
+// Rows [r0, r0 + 64), columns [c0, c0 + cols) of a chunk's operand into
+// dst (row stride ld) in 64-column passes: half the registers of a
+// 128-column TileRegs in flight, for the state panels' staging.
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, int ld, const T* src,
+                                      size_t row0, int width, int q, int r0,
+                                      int c0, int cols) {
+  for (int h = 0; h < cols; h += 64) {
+    TileRegs<2> t;
+    fetch(t, src, row0, width, q, r0, c0 + h, min(64, cols - h));
+    put(t, dst + h, ld, min(64, cols - h), nullptr);
+  }
+}
+
+__device__ __forceinline__ void zero(float (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[i][e] = 0.f;
+}
+
 // d += a·b in 3xTF32 for fragments held as float32: lo·hi and hi·lo
 // first, then hi·hi; an operand exact in TF32 (bfloat16 data) skips the
 // product of its lo.
@@ -223,15 +254,16 @@ __device__ __forceinline__ void frag_b_t(const float* t, int ld, int k0,
 
 // -- (1) chunk states --------------------------------------------------------
 
-// bx_c (np x 64 columns of P) = Bᵀ (np x q) · (dte ⊙ x) (q x 64): warp w
-// owns state rows [16w, 16w + 16), all 64 columns; the chunk goes by in
-// 64-row blocks.
+// bx_c (state rows of panel blockIdx.z x 64 columns of P) = Bᵀ · (dte ⊙
+// x) (q x 64): warp w owns the panel's state rows [16w, 16w + 16), all 64
+// columns; the chunk goes by in 64-row blocks.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 ssd_state_kernel(const Params p) {
   constexpr bool EXACT = !std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
-  const int ldb = stride(p.np, 8);
+  const int ldb = stride(p.npp, 8);
+  const int n0 = blockIdx.z * NPANEL, pnp = min(p.np - n0, NPANEL);
   float* Bs = smem;                // 64 x ldb: a block of B, (pos, n)
   float* Xs = Bs + BR * ldb;       // 64 x LDX: dte ⊙ x
   float* cs = Xs + BR * LDX;       // qr
@@ -247,12 +279,12 @@ ssd_state_kernel(const Params p) {
   const float cs_end = cs[p.q - 1];
   for (int i = threadIdx.x; i < p.qr; i += THREADS)
     dte[i] = i < p.q ? expf(cs_end - cs[i]) : 0.f;
-  if (threadIdx.x == 0 && blockIdx.y == 0)
+  if (threadIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0)
     p.cs_end[static_cast<size_t>(bh) * p.nc + ch] = cs_end;
   __syncthreads();
 
   const int m0 = 16 * warp;
-  const bool live = m0 < p.np;
+  const bool live = m0 < pnp;
   float acc[8][4];
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt)
@@ -260,10 +292,10 @@ ssd_state_kernel(const Params p) {
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
   for (int j0 = 0; j0 < p.qr; j0 += BR) {
     // the last live warp's rows run to a multiple of 16: zero past np
-    const int bcols = (p.np + 15) / 16 * 16;
-    TileRegs<MAX_N / 32> tb;
+    const int bcols = (pnp + 15) / 16 * 16;
+    TileRegs<NPANEL / 32> tb;
     TileRegs<PT / 32> tx;
-    fetch(tb, static_cast<const T*>(p.b), row0, p.N, p.q, j0, 0, bcols);
+    fetch(tb, static_cast<const T*>(p.b), row0, p.N, p.q, j0, n0, bcols);
     fetch(tx, static_cast<const T*>(p.x), row0, p.P, p.q, j0, p0, PT);
     put(tb, Bs, ldb, bcols, nullptr);
     put(tx, Xs, LDX, PT, dte + j0);
@@ -288,7 +320,7 @@ ssd_state_kernel(const Params p) {
   for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int n = m0 + g + (e >= 2 ? 8 : 0);
+      const int n = n0 + m0 + g + (e >= 2 ? 8 : 0);
       const int c = p0 + nt * 8 + 2 * t4 + (e & 1);
       if (n < p.N && c < p.P) out[static_cast<size_t>(n) * p.P + c] =
           acc[nt][e];
@@ -383,7 +415,7 @@ ssd_scan_kernel(const Params p) {
   const float* sg = p.states + (static_cast<size_t>(bh) * p.nc + ch) *
                                    static_cast<size_t>(p.N) * p.P;
   {
-    TileRegs<MAX_N / 32> tc;
+    TileRegs<NPANEL / 32> tc;
     TileRegs<PT / 32> ts0, ts1;
     fetch(tc, static_cast<const T*>(p.c), row0, p.N, p.q, i0, 0, p.np);
     fetch(ts0, sg, 0, p.P, p.N, 0, p0, PT);
@@ -426,7 +458,7 @@ ssd_scan_kernel(const Params p) {
   for (int kb = 0; kb <= qb; ++kb) {
     const int j0 = kb * BR;
     {
-      TileRegs<MAX_N / 32> tb;
+      TileRegs<NPANEL / 32> tb;
       TileRegs<PT / 32> tx;
       fetch(tb, static_cast<const T*>(p.b), row0, p.N, p.q, j0, 0, p.np);
       fetch(tx, static_cast<const T*>(p.x), row0, p.P, p.q, j0, p0, PT);
@@ -489,13 +521,142 @@ ssd_scan_kernel(const Params p) {
     }
 }
 
+// -- (3') the chunk scan at a d_state above one panel -------------------------
+
+// ssd_scan_kernel's work where the state dim is more than one panel: C·S
+// and C·Bᵀ summed over the state panels, each panel's C, state rows and B
+// staged in turn (64 columns at a time, so that its registers stay those
+// of one 64-column tile), C staged again for every key block.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+ssd_scan_panel_kernel(const Params p) {
+  constexpr bool EXACT = !std::is_same<T, float>::value;
+  extern __shared__ __align__(16) float smem[];
+  const int ldc = stride(p.npp, 4);
+  float* Cs = smem;                // 64 x ldc: a panel of the query block's C
+  float* Bs = Cs + BR * ldc;       // 64 x ldc: a panel of a key block's B
+  float* Xs = Bs + BR * ldc;       // 64 x LDX: a key block of x
+  float* Ss = Xs + BR * LDX;       // 64 x LDS: a score tile
+  float* cs = Ss + BR * LDS;       // qr
+  float* St = Bs;                  // npp x LDX: a panel of the state, first
+  const int bh = blockIdx.x / p.nc, ch = blockIdx.x % p.nc;
+  const int qb = blockIdx.y, p0 = blockIdx.z * PT, i0 = qb * BR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wr = 16 * (warp & 3), wc = 32 * (warp >> 2);
+  const size_t row0 = static_cast<size_t>(bh) * p.S +
+                      static_cast<size_t>(ch) * p.q;
+  if (warp == 0) chunk_cumsum(p, row0, cs);
+  const float* sg = p.states + (static_cast<size_t>(bh) * p.nc + ch) *
+                                   static_cast<size_t>(p.N) * p.P;
+
+  // inter-chunk term: exp(cs_i) * (C_i · S)
+  float acc[4][4];
+  zero(acc);
+  for (int pn = 0; pn < p.npn; ++pn) {
+    const int n0 = pn * NPANEL, pnp = min(p.np - n0, NPANEL);
+    if (pn > 0) __syncthreads();   // the previous panel has been read
+    stage(Cs, ldc, static_cast<const T*>(p.c), row0, p.N, p.q, i0, n0, pnp);
+    stage(St, LDX, sg, 0, p.P, p.N, n0, p0, PT);
+    if (pnp > BR) stage(St + BR * LDX, LDX, sg, 0, p.P, p.N, n0 + BR, p0, PT);
+    __syncthreads();
+    for (int k0 = 0; k0 < pnp; k0 += 8) {
+      float a[4];
+      frag_a(Cs, ldc, wr, k0, a);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        float b[2];
+        frag_b(St, LDX, k0, wc + nt * 8, b);
+        mma3<EXACT, false>(acc[nt], a, b);
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = i0 + wr + g + 8 * h;
+    const float d = i < p.q ? expf(cs[i]) : 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      acc[nt][2 * h] *= d;
+      acc[nt][2 * h + 1] *= d;
+    }
+  }
+  __syncthreads();   // the key blocks overwrite the state tile
+
+  // intra-chunk term over the key blocks at or below this one
+  for (int kb = 0; kb <= qb; ++kb) {
+    const int j0 = kb * BR;
+    float s[4][4];
+    zero(s);
+    for (int pn = 0; pn < p.npn; ++pn) {
+      const int n0 = pn * NPANEL, pnp = min(p.np - n0, NPANEL);
+      if (pn > 0) __syncthreads();   // the previous panel has been read
+      stage(Cs, ldc, static_cast<const T*>(p.c), row0, p.N, p.q, i0, n0,
+            pnp);
+      stage(Bs, ldc, static_cast<const T*>(p.b), row0, p.N, p.q, j0, n0,
+            pnp);
+      if (pn == 0)
+        stage(Xs, LDX, static_cast<const T*>(p.x), row0, p.P, p.q, j0, p0,
+              PT);
+      __syncthreads();
+      for (int k0 = 0; k0 < pnp; k0 += 8) {
+        float a[4];
+        frag_a(Cs, ldc, wr, k0, a);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          float b[2];
+          frag_b_t(Bs, ldc, k0, wc + nt * 8, b);
+          mma3<EXACT, EXACT>(s[nt], a, b);
+        }
+      }
+    }
+    // s ⊙ L into the score tile
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wr + g + 8 * h, i = i0 + r;
+        const int c = wc + nt * 8 + 2 * t4, j = j0 + c;
+        float2 v;
+        v.x = j <= i && i < p.q ? s[nt][2 * h] * expf(cs[i] - cs[j]) : 0.f;
+        v.y = j + 1 <= i && i < p.q
+                  ? s[nt][2 * h + 1] * expf(cs[i] - cs[j + 1])
+                  : 0.f;
+        *reinterpret_cast<float2*>(Ss + r * LDS + c) = v;
+      }
+    __syncthreads();
+    for (int k0 = 0; k0 < BR; k0 += 8) {
+      float a[4];
+      frag_a(Ss, LDS, wr, k0, a);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        float b[2];
+        frag_b(Xs, LDX, k0, wc + nt * 8, b);
+        mma3<false, EXACT>(acc[nt], a, b);
+      }
+    }
+    __syncthreads();   // the next key block overwrites Bs, Xs, Ss
+  }
+
+  T* yg = static_cast<T*>(p.y);
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + wr + g + (e >= 2 ? 8 : 0);
+      const int c = p0 + wc + nt * 8 + 2 * t4 + (e & 1);
+      if (i < p.q && c < p.P)
+        yg[(row0 + i) * static_cast<size_t>(p.P) + c] = from_f<T>(acc[nt][e]);
+    }
+}
+
 size_t state_smem(const Params& p) {
-  return sizeof(float) * (static_cast<size_t>(BR) * stride(p.np, 8) +
+  return sizeof(float) * (static_cast<size_t>(BR) * stride(p.npp, 8) +
                           BR * LDX + 2 * static_cast<size_t>(p.qr));
 }
 
 size_t scan_smem(const Params& p) {
-  return sizeof(float) * (2 * static_cast<size_t>(BR) * stride(p.np, 4) +
+  return sizeof(float) * (2 * static_cast<size_t>(BR) * stride(p.npp, 4) +
                           BR * LDX + BR * LDS + static_cast<size_t>(p.qr));
 }
 
@@ -512,9 +673,11 @@ cudaError_t launch(const Params& p, cudaStream_t st) {
   const unsigned chunks = static_cast<unsigned>(p.bh_count) * p.nc;
   const size_t s1 = state_smem(p), s3 = scan_smem(p);
   cudaError_t e = allow_smem(ssd_state_kernel<T>, s1);
-  if (e == cudaSuccess) e = allow_smem(ssd_scan_kernel<T>, s3);
+  const auto scan =
+      p.npn == 1 ? ssd_scan_kernel<T> : ssd_scan_panel_kernel<T>;
+  if (e == cudaSuccess) e = allow_smem(scan, s3);
   if (e != cudaSuccess) return e;
-  ssd_state_kernel<T><<<dim3(chunks, p.pt), THREADS, s1, st>>>(p);
+  ssd_state_kernel<T><<<dim3(chunks, p.pt, p.npn), THREADS, s1, st>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const size_t np = static_cast<size_t>(p.N) * p.P;
@@ -532,7 +695,7 @@ cudaError_t launch(const Params& p, cudaStream_t st) {
   }
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  ssd_scan_kernel<T><<<dim3(chunks, p.qr / BR, p.pt), THREADS, s3, st>>>(p);
+  scan<<<dim3(chunks, p.qr / BR, p.pt), THREADS, s3, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -540,7 +703,7 @@ cudaError_t launch(const Params& p, cudaStream_t st) {
 
 // C entry point.  x (bh, S, P), b and c (bh, S, N), contiguous, in
 // bfloat16 when `bf16`, else float32; da (bh, S) float32; y (bh, S, P) in
-// x's type.  q is the chunk (S a multiple of it), N at most 128.
+// x's type.  q is the chunk (S a multiple of it), any N >= 1.
 // `states` is scratch of bh·(S/q)·N·P float32 and `cs_end` of bh·(S/q).
 // Launches the three kernels on `stream`; returns cudaGetLastError()
 // after each launch (a chunk whose cumulative decays do not fit shared
@@ -551,7 +714,7 @@ extern "C" int ssd_chunk_scan_launch(const void* x, const void* da,
                                      int bh_count, int S, int P, int N,
                                      int q, int bf16, void* stream) {
   if (bh_count <= 0 || bh_count > 65535 || S <= 0 || P <= 0 || N <= 0 ||
-      N > MAX_N || q <= 0 || S % q)
+      q <= 0 || S % q)
     return cudaErrorInvalidValue;
   Params p;
   p.x = x;
@@ -568,10 +731,12 @@ extern "C" int ssd_chunk_scan_launch(const void* x, const void* da,
   p.q = q;
   p.nc = S / q;
   p.np = (N + 7) / 8 * 8;
+  p.npp = p.np < NPANEL ? p.np : NPANEL;
+  p.npn = (p.np + NPANEL - 1) / NPANEL;
   p.qr = (q + BR - 1) / BR * BR;
   p.pt = (P + PT - 1) / PT;
   if (static_cast<long long>(bh_count) * p.nc > 0x7fffffffLL ||
-      p.qr / BR > 65535 || p.pt > 65535)
+      p.qr / BR > 65535 || p.pt > 65535 || p.npn > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = bf16 ? launch<__nv_bfloat16>(p, st) : launch<float>(p, st);

@@ -22,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-from ...core.families.ssd import MAX_D_STATE, SSDConfig
+from ...core.families.ssd import SSDConfig
 from .._build import CudaKernel, ptr, stream_handle
 from .ref import ssd_ref
 
@@ -62,9 +62,6 @@ def ssd_chunk_scan(x: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
         raise TypeError(f"ssd kernel takes float32 or bfloat16 x, B and C "
                         f"of one type, got {x.dtype}, {Bm.dtype}, "
                         f"{Cm.dtype}")
-    if N > MAX_D_STATE:
-        raise ValueError(f"ssd kernel takes d_state up to {MAX_D_STATE}, "
-                         f"got {N}")
     ts = (x, da, Bm, Cm)
     if any(t.device != x.device for t in ts):
         raise ValueError("ssd: x, da, B and C must be on one device")

@@ -518,13 +518,11 @@ def test_paged_decode_wrapper_refuses_what_the_kernel_does_not_take(card):
     from repro_torch.kernels.paged_attention.paged_attention import \
         paged_decode
     before = KERNEL.launches
-    # head_dim off the 16-byte grain and above 256, a 1-token page
-    for Hq, Hkv, D, PS in ((8, 2, 100, 16), (8, 2, 320, 16),
-                           (8, 2, 128, 1)):
-        q, kp, vp, table, lens = [t.to(card) for t in _decode_inputs(
-            2, Hq, Hkv, D, PS, 2, 8, [PS, 1], torch.bfloat16)]
-        with pytest.raises(ValueError, match="paged_decode kernel takes"):
-            paged_decode(q, kp, vp, table, lens)
+    # a 1-token page (every head_dim runs: the panel route)
+    q, kp, vp, table, lens = [t.to(card) for t in _decode_inputs(
+        2, 8, 2, 128, 1, 2, 8, [1, 1], torch.bfloat16)]
+    with pytest.raises(ValueError, match="paged_decode kernel takes"):
+        paged_decode(q, kp, vp, table, lens)
     q, kp, vp, table, lens = [t.to(card) for t in _decode_inputs(
         2, 8, 2, 128, 16, 2, 8, [16, 1], torch.bfloat16)]
     with pytest.raises(TypeError, match="int32"):
@@ -734,42 +732,106 @@ def test_ragged_prefill_at_the_other_head_dims_matches_plain(card, heads,
                        ragged_prefill(q, k2, v2, sq, pq, sk, pk)[:, keep])
 
 
-def test_serving_wrappers_raise_at_a_head_dim_no_instance_has(card):
-    """head_dim 100 (bf16 rows of 200 bytes, off the 16-byte grain) and
-    320 (above 256): no instance of the four attention kernels takes
-    them; each wrapper raises on the card (never the plain version in
-    its place), no launch."""
-    from repro_torch.kernels.flash_attention import DECODE_KERNEL
-    from repro_torch.kernels.flash_attention import KERNEL as FA
-    from repro_torch.kernels.flash_attention.decode import flash_decode
-    from repro_torch.kernels.flash_attention.flash_attention import \
-        flash_attention
+# the head dims the on-grain instances do not take: rows off the 16-byte
+# grain (33, 100 and 300 in bf16, 50 in float32) and wider than 256 (300,
+# 320, 512): the panel route, held at qwen3's 16 query / 8 KV heads
+PANEL_GEOMETRIES = [(33, torch.bfloat16), (100, torch.bfloat16),
+                    (300, torch.bfloat16), (320, torch.bfloat16),
+                    (512, torch.bfloat16), (50, torch.float32),
+                    (320, torch.float32)]
+
+
+@pytest.mark.parametrize("D,dtype", PANEL_GEOMETRIES, ids=str)
+def test_the_serving_kernels_hold_at_the_panel_head_dims(card, D, dtype):
+    """paged_decode and ragged_prefill on the panel route: within TOL of
+    their plain versions, a zero-length row gives zeros, a poisoned page
+    past a row's length and a poisoned foreign segment change nothing,
+    one launch each."""
     from repro_torch.kernels.paged_attention import KERNEL as PD
+    from repro_torch.kernels.paged_attention import paged_decode_ref
     from repro_torch.kernels.paged_attention.paged_attention import \
         paged_decode
     from repro_torch.kernels.ragged_prefill import KERNEL as RP
-    from repro_torch.kernels.ragged_prefill import default_config
+    from repro_torch.kernels.ragged_prefill import (default_config,
+                                                    ragged_prefill_ref)
     from repro_torch.kernels.ragged_prefill.ragged_prefill import \
         ragged_prefill
-    kernels = (PD, RP, FA, DECODE_KERNEL)
-    before = [k.launches for k in kernels]
-    for D in (100, 320):
-        q, kp, vp, table, lens = [t.to(card) for t in _decode_inputs(
-            2, 8, 2, D, 16, 2, 8, [16, 1], torch.bfloat16)]
-        with pytest.raises(ValueError, match="paged_decode kernel takes"):
-            paged_decode(q, kp, vp, table, lens)
-        case = [t.to(card) for t in _packed_case(8, 2, D, [40, 7],
-                                                 [0, 30], torch.bfloat16, 4)]
-        cfg = default_config(case[0].shape[1], case[1].shape[1])
-        with pytest.raises(ValueError, match="ragged_prefill kernel takes"):
-            ragged_prefill(*case, cfg=cfg)
-        x = torch.zeros(1, 8, 64, D, device=card, dtype=torch.bfloat16)
-        kv = torch.zeros(1, 2, 64, D, device=card, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="flash_attention kernel takes"):
-            flash_attention(x, kv, kv)
-        with pytest.raises(ValueError, match="flash_decode kernel takes"):
-            flash_decode(x[:, :, :1].contiguous(), kv, kv, 64)
-    assert [k.launches for k in kernels] == before
+    lengths = [0, 1, 16, 17, 75, 128]
+    q, kp, vp, table, lens = [t.to(card) for t in _decode_inputs(
+        len(lengths), 16, 8, D, 16, 8, 64, lengths, dtype)]
+    before = PD.launches
+    got = paged_decode(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    assert PD.launches == before + 1
+    want = paged_decode_ref(q, kp, vp, table, lens)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= TOL[dtype], err
+    assert not got[0].any()
+    # the pages past each row's length (the last rows' tails) poisoned
+    kp2, vp2 = kp.clone(), vp.clone()
+    kp2[60:], vp2[60:] = 1e4, 1e4
+    table2 = table.clone()
+    table2[:, 6:][table2[:, 6:] == 0] = 60
+    assert torch.equal(got, paged_decode(q, kp2, vp2, table2, lens))
+    case = [t.to(card) for t in _packed_case(16, 8, D, [40, 64, 7, 100],
+                                             [0, 30, 200, 64], dtype, 4)]
+    qr, kr, vr, sq, pq, sk, pk = case
+    cfg = default_config(qr.shape[1], kr.shape[1])
+    before = RP.launches
+    got = ragged_prefill(*case, cfg=cfg)
+    torch.cuda.synchronize()
+    assert RP.launches == before + 1
+    want = ragged_prefill_ref(*case)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= TOL[dtype], err
+    assert not got[:, sq < 0].any()
+    k2, v2 = kr.clone(), vr.clone()
+    foreign = (sk == 2) | (sk < 0)
+    k2[:, foreign], v2[:, foreign] = 1e6, 1e6
+    keep = sq != 2
+    assert torch.equal(got[:, keep],
+                       ragged_prefill(qr, k2, v2, sq, pq, sk, pk,
+                                      cfg=cfg)[:, keep])
+
+
+@pytest.mark.parametrize("D,dtype", PANEL_GEOMETRIES, ids=str)
+def test_the_flash_kernels_hold_at_the_panel_head_dims(card, D, dtype):
+    """flash_attention (causal and not, block_q 128 over the route's own
+    tile, a key edge inside a chunk) and flash_decode (kv_len inside a
+    span, and 0: zeros) on the panel route, within ``flash_error`` of
+    the plain version, one launch a call."""
+    from repro_torch.core.families.flash_decode import FlashDecodeConfig
+    from repro_torch.kernels.flash_attention import (DECODE_KERNEL, KERNEL,
+                                                     flash_error, mha_ref)
+    from repro_torch.kernels.flash_attention.decode import flash_decode
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    g = torch.Generator().manual_seed(D)
+    q = torch.randn(1, 16, 200, D, generator=g).to(card, dtype)
+    k = torch.randn(1, 8, 150, D, generator=g).to(card, dtype)
+    v = torch.randn(1, 8, 150, D, generator=g).to(card, dtype)
+    for causal in (True, False):
+        before = KERNEL.launches
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert KERNEL.launches == before + 1
+        err, row, ok = flash_error(got, mha_ref(q, k, v, causal=causal))
+        assert ok, (causal, err, row)
+    qd = q[:, :, :1].contiguous()
+    kc = torch.randn(2, 8, 512, D, generator=g).to(card, dtype)
+    vc = torch.randn(2, 8, 512, D, generator=g).to(card, dtype)
+    qd = torch.cat([qd, qd], 0)
+    for kv_len in (300, 0):
+        before = DECODE_KERNEL.launches
+        got = flash_decode(qd, kc, vc, kv_len, cfg=FlashDecodeConfig(4))
+        torch.cuda.synchronize()
+        assert DECODE_KERNEL.launches == before + 1
+        if kv_len == 0:
+            assert not got.any()
+            continue
+        err, row, ok = flash_error(got, mha_ref(qd, kc, vc, causal=False,
+                                                kv_len=kv_len))
+        assert ok, (err, row)
 
 
 # -- flash attention -----------------------------------------------------------
@@ -954,17 +1016,20 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(card):
     from repro_torch.kernels.flash_attention import (DECODE_KERNEL, KERNEL,
                                                      mha, mha_decode)
     before = (KERNEL.launches, DECODE_KERNEL.launches)
-    # float32 head_dim 30: rows of 120 bytes, off the 16-byte grain
-    x = torch.zeros(1, 2, 64, 30, device="cuda")
-    with pytest.raises(ValueError, match="head_dim"):
-        mha(x, x[:, :1].contiguous(), x[:, :1].contiguous())
+    # (every head_dim runs: float32 head_dim 30, rows of 120 bytes, on
+    # the panel route) a type the kernels do not take, and an on-grain
+    # head_dim's rows off 16-byte alignment (TMA)
     h = torch.zeros(1, 2, 64, 64, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError, match="bf16 or f32"):
         mha(h, h, h)
-    q = torch.zeros(1, 2, 1, 30, device="cuda")
-    kv = torch.zeros(1, 1, 64, 30, device="cuda")
-    with pytest.raises(ValueError, match="head_dim"):
+    q = torch.zeros(1, 2, 1, 64, device="cuda", dtype=torch.float16)
+    kv = torch.zeros(1, 1, 64, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError, match="bf16 or f32"):
         mha_decode(q, kv, kv, 64)
+    raw = torch.zeros(64 * 64 + 1, device="cuda", dtype=torch.bfloat16)
+    x = raw[1:].view(1, 1, 64, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        mha(x, x, x)
     assert (KERNEL.launches, DECODE_KERNEL.launches) == before
 
 
@@ -1097,23 +1162,28 @@ def test_validator_runs_the_moe_kernel_on_the_card(card):
     assert KERNEL.launches - before == v.reference_runs == 3
 
 
-def test_grouped_ffn_wrapper_refuses_what_the_kernel_does_not_take(card):
+@pytest.mark.parametrize("dtype,DM,DF,bt,bf", [
+    (torch.bfloat16, 100, 60, 8, 20), (torch.bfloat16, 64, 60, 16, 20),
+    (torch.float32, 50, 64, 8, 32), (torch.float32, 50, 60, 32, 20)])
+def test_grouped_ffn_holds_rows_off_the_grain(card, dtype, DM, DF, bt, bf):
+    """d_model, d_ff or block_f off the 16-byte grain: the rows are
+    staged element by element on the mma.sync / FMA tiles (never the
+    wgmma instance), within ``moe_error`` of the plain version, empty rows
+    zero, one launch; the wrapper still refuses other types."""
     from repro_torch.core.families.moe import MoEConfig
-    from repro_torch.kernels.moe import KERNEL, grouped_ffn
+    from repro_torch.kernels.moe import (KERNEL, grouped_ffn,
+                                         grouped_ffn_ref, moe_error)
+    (x, wg, wu, wd), gates = _moe_inputs(3, 32, DM, DF, dtype, DM + DF)
     before = KERNEL.launches
-    (x, wg, wu, wd), _ = _moe_inputs(2, 16, 100, 64, torch.bfloat16, 0)
-    with pytest.raises(ValueError, match="16-byte vectors"):
-        grouped_ffn(x, wg, wu, wd, cfg=MoEConfig(8, 32))
-    (x, wg, wu, wd), _ = _moe_inputs(2, 16, 64, 64, torch.float32, 0)
-    with pytest.raises(TypeError, match="bf16 or f32"):
-        grouped_ffn(x.half(), wg.half(), wu.half(), wd.half(),
-                    cfg=MoEConfig(8, 32))
+    got = grouped_ffn(x, wg, wu, wd, gates, cfg=MoEConfig(bt, bf, True))
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    err, ok = moe_error(got, grouped_ffn_ref(x, wg, wu, wd, gates))
+    assert ok, err
+    assert not got[:, 1].any() and not got[:, -1].any()
     with pytest.raises(TypeError, match="one type"):
-        grouped_ffn(x, wg.bfloat16(), wu, wd, cfg=MoEConfig(8, 32))
-    with pytest.raises(ValueError, match="contiguous"):
-        grouped_ffn(x.transpose(1, 2).contiguous().transpose(1, 2), wg, wu,
-                    wd, cfg=MoEConfig(8, 32))
-    assert KERNEL.launches == before
+        grouped_ffn(x, wg.half(), wu, wd, cfg=MoEConfig(bt, bf))
+    assert KERNEL.launches == before + 1
 
 
 # -- quant_gemm and ssd (the tolerances beside quant_error and ssd_error) -----
@@ -1313,19 +1383,26 @@ def test_ssd_via_kernel_on_the_card_matches_ssd_chunked(card):
     assert ok, (err, row)
 
 
-def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(card):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [130, 256])
+def test_ssd_kernel_holds_at_d_state_above_a_panel(card, N, dtype):
+    """d_state 130 (padded to 136: panels of 128 and 8) and 256 (two
+    panels of 128), at two query blocks a chunk and a ragged P: within
+    ``ssd_error`` of the plain version, one launch; the wrapper still
+    refuses a chunk that does not divide S."""
     from repro_torch.core.families.ssd import SSDConfig
-    from repro_torch.kernels.ssd import KERNEL, ssd_chunk_scan
+    from repro_torch.kernels.ssd import KERNEL, ssd, ssd_error, ssd_ref
+    x, da, B, C = _ssd_inputs(3, 512, 80, N, dtype, N)
     before = KERNEL.launches
-    x, da, B, C = _ssd_inputs(1, 128, 16, 256, torch.float32, 0)
-    with pytest.raises(ValueError, match="d_state up to 128"):
-        ssd_chunk_scan(x, da, B, C, cfg=SSDConfig(64))
-    x, da, B, C = _ssd_inputs(1, 128, 16, 16, torch.float32, 0)
-    with pytest.raises(TypeError, match="one type"):
-        ssd_chunk_scan(x, da, B.bfloat16(), C, cfg=SSDConfig(64))
+    got = ssd(x, da, B, C, cfg=SSDConfig(chunk=128))
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    want, _ = ssd_ref(x, da, B, C, 128)
+    err, row, ok = ssd_error(got, want)
+    assert ok, (err, row)
     with pytest.raises(ValueError, match="must divide chunk"):
-        ssd_chunk_scan(x, da, B, C, cfg=SSDConfig(96))
-    assert KERNEL.launches == before
+        ssd(x, da, B, C, cfg=SSDConfig(96))
+    assert KERNEL.launches == before + 1
 
 
 def test_validator_runs_the_ssd_kernel_on_the_card(card):

@@ -17,7 +17,14 @@ the TPU kernels can.  The emulation follows their rounding points:
   keeping its own running
   (m, l, o) over its slice of every tile; the warps merge in float32 at
   the span's end, and the spans' partials merge by ``combine`` (the
-  plain version of the combine kernel).
+  plain version of the combine kernel);
+* the panel route of both (a head_dim off the 16-byte grain or above
+  256, ``panel_attention.cuh``): the prefill over 64-key chunks in bf16
+  and 32 in f32 (``key_tile`` of ``route_tile``), the decode over
+  64-position tiles in four 16-row warp slices (bf16) or 32-position
+  tiles (f32); S over 64-column chunks of D (the same sums), each output
+  panel recomputing the same S, so each panel's columns are the
+  emulation's.
 
 So these cases check the tolerance argument beside ``flash_error`` for
 the kernels' tile sizes: Sq and Skv ragged against 128, Skv < Sq,
@@ -38,6 +45,7 @@ from repro.core.families.flash_attention import \
 from repro.core.families.flash_decode import FlashDecodeConfig as JaxFDCfg
 from repro_torch.core.families import flash_attention as fa
 from repro_torch.core.families import flash_decode as fd
+from repro_torch.core.kernelspec import on_grain
 from repro_torch.kernels.flash_attention import flash_error, mha_decode
 from repro_torch.kernels.flash_attention.decode import combine
 
@@ -108,6 +116,7 @@ def emulate_decode(q, k, v, kv_len, ns):
     k, v = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
     T = fd.tile_tokens(D, q.element_size())
     warps = (1 if q.dtype != torch.bfloat16
+             else 4 if not on_grain(D, 2)
              else 2 if fd.tile_width(D) == 256 else 4)
     slab = T // warps
     span, length = S // ns, max(0, min(kv_len, S))
@@ -151,6 +160,13 @@ PREFILL = [
     (1, 2, 1, 200, 300, 136, True, 64, torch.bfloat16),
     (1, 16, 1, 130, 130, 64, True, 128, torch.bfloat16),
     (1, 2, 1, 150, 260, 96, True, 32, torch.float32),
+    # the panel route: bf16 head_dim 100, 33 (odd) and 320 (two panels),
+    # float32 50 and 320
+    (1, 4, 2, 200, 150, 100, True, 128, torch.bfloat16),
+    (1, 2, 1, 130, 200, 33, False, 64, torch.bfloat16),
+    (1, 2, 1, 150, 130, 320, True, 128, torch.bfloat16),
+    (1, 2, 1, 150, 130, 50, True, 64, torch.float32),
+    (1, 2, 1, 100, 130, 320, False, 32, torch.float32),
 ]
 
 
@@ -159,8 +175,8 @@ PREFILL = [
 def test_prefill_tiles_stay_within_the_tolerance_of_the_tpu_kernel(case):
     B, Hq, Hkv, Sq, Skv, D, causal, bq, dt = case
     q, k, v = _inputs(Sq + Skv, B, Hq, Hkv, Sq, Skv, D, dt)
-    tile = fa.key_tile(fa.cta_tile(bq), "bf16" if dt == torch.bfloat16
-                       else "f32", D)
+    dn = "bf16" if dt == torch.bfloat16 else "f32"
+    tile = fa.key_tile(fa.route_tile(bq, D, dn), dn, D)
     got = emulate_prefill(q, k, v, causal=causal, key_tile=tile)
     want = _torch(jax_mha(_jax(q), _jax(k), _jax(v),
                           cfg=JaxFACfg(block_q=64, block_kv=64),
@@ -187,6 +203,12 @@ DECODE = [
     (1, 16, 1, 512, 128, 400, 4, torch.bfloat16),
     (1, 71, 1, 256, 64, 200, 2, torch.bfloat16),
     (1, 71, 1, 256, 48, 130, 2, torch.float32),
+    # the panel route: bf16 head_dim 100, 33 and 320, float32 50 and 320
+    (1, 8, 2, 512, 100, 300, 4, torch.bfloat16),
+    (1, 4, 1, 256, 33, 200, 2, torch.bfloat16),
+    (1, 4, 2, 256, 320, 250, 2, torch.bfloat16),
+    (1, 4, 2, 256, 50, 130, 2, torch.float32),
+    (1, 2, 1, 256, 320, 100, 2, torch.float32),
 ]
 
 

@@ -86,9 +86,9 @@ N_PAIRS = {"flash_attention": 24, "flash_decode": 40,
 # head_dim, the group and the page size at run time: head_dim 48, 96 and
 # 112; groups 12 (starcoder2-15b), 16 (glm-4-9b) and 71 (falcon-7b's MQA);
 # pages of 2, 24 (neither dividing the 64-row tile nor divided by it) and
-# 512 tokens; then the geometries still refused: head_dim 100 (rows off
-# the 16-byte grain in bf16) and 320 (above 256), and 1-token pages, on
-# which the JAX gate itself fails
+# 512 tokens; the head dims of the panel route: 100 (rows off the 16-byte
+# grain in bf16) and 320 (above 256); and 1-token pages, on which the JAX
+# gate itself fails
 EXTRA_PAIRS = {
     "paged_attention": [
         ((2,), (4, 8, 2, 96, 16, 40, 96, "bf16")),
@@ -139,8 +139,8 @@ EXTRA_PAIRS = {
         ((4,), (8, 71, 1, 2048, 64, "f32")),
         ((4,), (8, 8, 1, 2048, 100, "bf16")),
         ((4,), (8, 8, 1, 2048, 320, "bf16"))]}
-# the head dims still refused in each family's structural model
-REFUSED_HEAD_DIMS = (100, 320)
+# the head dims of the panel route among the pairs
+PANEL_HEAD_DIMS = (100, 320)
 
 
 def _findings(res):
@@ -228,9 +228,9 @@ def test_a_geometry_the_kernel_cannot_run_is_a_build_error(run):
     for cfg, prob, res in unsupported:
         assert not res.hard_ok and "CUDA kernel" in res.build_error
     if family == "paged_attention":
-        # exactly the head dims off the grain and the 1-token page
+        # exactly the 1-token page: every head_dim runs
         assert sorted((p.head_dim, p.page_size) for _, p, _ in unsupported) \
-            == [(100, 16), (128, 1), (320, 16)]
+            == [(128, 1)]
 
 
 def test_the_new_geometries_are_held_to_the_jax_gate(run):
@@ -250,24 +250,26 @@ def test_the_new_geometries_are_held_to_the_jax_gate(run):
 
 
 def test_a_head_dim_off_the_grain_is_unsupported(run):
-    """Head_dim 100 (bf16 rows of 200 bytes) and 320 (above 256): the
-    paged family refuses them as a build error; the others keep the JAX
-    gate's verdict and flag them ``unsupported``, as the wrapper raises
-    on them."""
+    """Head_dim 100 (bf16 rows of 200 bytes, off the 16-byte grain) and
+    320 (above 256) run on the panel route: every family, the paged one
+    at the kernel's step, is held to the JAX gate there (same verdict and
+    build error), and no structural model says ``unsupported`` of them or
+    of any other pair; the panel route's narrow copies (``grain``, at
+    100) and its output panels (``cta_split``, at 320) are flagged."""
     family, _, results, unsupported = run
-    refused = [(c, p, q) for c, p, _, q in results
-               if p.head_dim in REFUSED_HEAD_DIMS] + \
-        [(c, p, q) for c, p, q in unsupported
-         if p.head_dim in REFUSED_HEAD_DIMS]
-    assert len(refused) == 2, family
+    panel = [(c, p, j, q) for c, p, j, q in results
+             if p.head_dim in PANEL_HEAD_DIMS]
+    assert len(panel) == 2, family
+    assert not [p for _, p, _ in unsupported
+                if p.head_dim in PANEL_HEAD_DIMS], family
     fam = get_family(family)
-    for cfg, prob, res in refused:
+    for cfg, prob, j, p in panel:
+        assert (j.hard_ok, j.build_error) == (p.hard_ok, p.build_error)
         kinds = [i.kind for i in fam.structural(cfg, prob)]
-        assert "unsupported" in kinds, (family, prob)
+        assert ("grain" if prob.head_dim == 100 else "cta_split") in kinds
     for cfg, prob, *_ in results:
-        if prob.head_dim not in REFUSED_HEAD_DIMS:
-            kinds = [i.kind for i in fam.structural(cfg, prob)]
-            assert "unsupported" not in kinds, (family, prob)
+        kinds = [i.kind for i in fam.structural(cfg, prob)]
+        assert "unsupported" not in kinds, (family, prob)
 
 
 def test_a_one_token_page_fails_in_both_gates():
@@ -315,12 +317,14 @@ PA_STEPS = [
     # head (nine head blocks) walk the same pages
     (pa.PagedAttentionProblem(4, 8, 2, 96, 16, 40, 96, "bf16"), 2, 2),
     (pa.PagedAttentionProblem(2, 71, 1, 128, 16, 20, 64, "bf16"), 1, 8),
-    # still refused: head_dim off the 16-byte grain, or above 256; a
-    # 1-token page
-    (pa.PagedAttentionProblem(4, 8, 2, 96, 16, 40, 100, "bf16"), 2,
-     "CUDA kernel"),
-    (pa.PagedAttentionProblem(4, 8, 2, 96, 16, 40, 320, "bf16"), 2,
-     "CUDA kernel"),
+    # the panel route: head_dim off the 16-byte grain (100) or above 256
+    # (320) on 64-position tiles of packed pages, four 16-token pages a
+    # tile; in f32 32-position tiles, two pages
+    (pa.PagedAttentionProblem(4, 8, 2, 96, 16, 40, 100, "bf16"), 2, 2),
+    (pa.PagedAttentionProblem(4, 8, 2, 96, 16, 40, 320, "bf16"), 2, 2),
+    (pa.PagedAttentionProblem(4, 8, 2, 128, 16, 40, 100, "bf16"), 1, 4),
+    (pa.PagedAttentionProblem(4, 8, 2, 96, 16, 40, 50, "f32"), 1, 2),
+    # still refused: a 1-token page
     (pa.PagedAttentionProblem(2, 8, 2, 32, 1, 80, 128, "bf16"), 2,
      "CUDA kernel"),
 ]
@@ -337,9 +341,9 @@ def test_paged_program_is_built_at_the_kernels_step(prob, bp, want):
     the kernel walks 31 x 4 + 1, the program single pages; 128 pages:
     both step four.  128- and 512-token pages: the program steps one
     page.  24- and 2-token pages: as many whole pages as the tile's page
-    slots hold.  A head_dim off the 16-byte grain or above 256, and a
-    1-token page, the kernel cannot walk; block_pages stays a
-    precondition."""
+    slots hold.  A head_dim off the 16-byte grain or above 256 walks
+    the panel route's packed 64-position tiles (32 in f32); a 1-token
+    page the kernel cannot walk; block_pages stays a precondition."""
     assert pa.pages_per_step(16, 128, 2) == 4
     assert pa.pages_per_step(16, 128, 4) == 2
     assert pa.pages_per_step(128, 128, 2) == 1
@@ -579,8 +583,8 @@ def test_flash_cta_tiles_and_structural_warnings():
     [i] = fa.structural_flash_attention(big, prob)
     assert i.kind == "cta_split" and "2 CTAs of 128x128" in i.message
     odd = dataclasses.replace(prob, head_dim=100)
-    assert "unsupported" in [i.kind for i in
-                             fa.structural_flash_attention(big, odd)]
+    kinds = [i.kind for i in fa.structural_flash_attention(big, odd)]
+    assert "grain" in kinds and "unsupported" not in kinds
     for d in FLASH_HEAD_DIMS:
         ok = dataclasses.replace(prob, head_dim=d)
         assert "unsupported" not in [i.kind for i in

@@ -303,8 +303,17 @@ def test_ssd_structural_model():
     # cumulative decays of a 32768-long chunk do not
     assert "smem" in _kinds(fs.structural_ssd(
         fs.SSDConfig(32768), fs.SSDProblem(1, 32768, 64, 128)))
-    assert "unsupported" in _kinds(fs.structural_ssd(
-        cfg, dataclasses.replace(prob, d_state=256)))
+    # d_state above 128: state panels of 128 (the chunk states on a CTA a
+    # panel), never unsupported; 130 pads to 136 (panels of 128 and 8)
+    wide = _kinds(fs.structural_ssd(cfg, dataclasses.replace(
+        prob, d_state=256)))
+    assert "cta_split" in wide and "unsupported" not in wide
+    odd = _kinds(fs.structural_ssd(cfg, dataclasses.replace(
+        prob, d_state=130)))
+    assert "grain" in odd and "cta_split" in odd
+    assert fs.state_panels(130) == [128, 8]
+    assert fs.state_panels(256) == [128, 128]
+    assert fs.smem_bytes(512, 256) == fs.smem_bytes(512, 128)
     kinds = _kinds(fs.structural_ssd(fs.SSDConfig(100),
                                      fs.SSDProblem(3, 100, 24, 12)))
     assert kinds.count("grain") == 3

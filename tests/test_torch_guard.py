@@ -56,7 +56,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.parallel.api, repro_torch.parallel.sharding, "
             "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
             "repro_torch.launch.trace_analysis, "
-            "repro_torch.configs.shapes\n"
+            "repro_torch.configs.shapes, "
+            "repro_torch.kernels.paged_attention, "
+            "repro_torch.kernels.ragged_prefill, repro_torch.kernels.moe, "
+            "repro_torch.core.families.flash_decode\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -68,8 +71,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
 
 
 def test_source_scan_finds_no_jax_or_repro_import():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "examples").glob("*_torch.py")))
     assert len(files) > 20
+    assert {"serve_demo_torch.py", "figure1_dsl_torch.py",
+            "quickstart_torch.py"} <= {f.name for f in files}
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(REPO)} imports {hits}"
@@ -88,7 +94,8 @@ TPU_CONSTANTS = re.compile(r"197e12|819e9|v5e|VMEM_BYTES|16 MiB")
 
 
 def test_source_scan_finds_no_tpu_constant():
-    files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
+    files = (sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
+             + sorted(PORT.rglob("*.cuh")))
     assert any(f.name == "costs.py" for f in files)
     for f in files:
         hits = TPU_CONSTANTS.findall(f.read_text())
@@ -269,18 +276,22 @@ def test_a_failed_launch_raises_and_is_not_counted():
 def test_an_edited_header_rebuilds_the_kernels_that_include_it(
         tmp_path, monkeypatch):
     """The library's name hashes the repository headers a source
-    includes (``kernels/csrc/hopper.cuh``), so editing one rebuilds; the
-    compiler is given their directory.  Edits a copy of a kernel and of
-    its header in tmp_path, never the repository's."""
+    includes (``kernels/csrc/hopper.cuh``, and ``panel_attention.cuh``,
+    which includes it in turn), so editing one rebuilds; the compiler is
+    given their directory.  Edits a copy of a kernel and of its header in
+    tmp_path, never the repository's."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import DECODE_KERNEL
     src = tmp_path / "flash_decode.cu"
     hdr = tmp_path / "hopper.cuh"
     shutil.copy(DECODE_KERNEL.source, src)
     shutil.copy(_build.INCLUDE_DIR / "hopper.cuh", hdr)
-    assert _build.included_headers(src) == [hdr.resolve()]
-    assert _build.included_headers(DECODE_KERNEL.source) == \
-        [(_build.INCLUDE_DIR / "hopper.cuh").resolve()]
+    shipped = [(_build.INCLUDE_DIR / n).resolve()
+               for n in ("hopper.cuh", "panel_attention.cuh")]
+    # the copy's own hopper.cuh beside it, the panel header (and the
+    # hopper.cuh beside that) from the include directory
+    assert _build.included_headers(src) == sorted([hdr.resolve()] + shipped)
+    assert _build.included_headers(DECODE_KERNEL.source) == sorted(shipped)
     k = _build.CudaKernel("copy", src, "flash_decode_launch", [])
     before = k._lib_path()
     assert k._lib_path() == before                # deterministic

@@ -21,7 +21,13 @@ points:
   bf16(p - p_hi), V exact in bf16, summed in float32 (held also against
   a control that takes p_hi alone); the warps merge at the span's end;
 * the CUDA-core instance (float32): one running max a tile for each
-  head, p float32 against V cast up.
+  head, p float32 against V cast up;
+* the panel route (a head_dim off the 16-byte grain or above 256): pages
+  packed without slots in tiles of 64 positions (bf16: four warps of 16
+  rows on mma.sync, exp2, p split as on the tensor cores) or 32 (float32:
+  one running max a tile), S summed over 64-column chunks of D, zero
+  columns past D, and the output in panels of 64 or 256 columns, each
+  recomputing the same S: each panel's columns are the emulation's.
 
 A group above 8 runs as several CTAs of up to 8 heads each, which read
 the same pages; each head's arithmetic is the same, so the emulation
@@ -55,9 +61,12 @@ LOG2E = 1.4426950408889634
 TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
 
 
-def _consumers(D):
+def _consumers(D, sz=2):
     """Consumer warps of the tensor-core instance (``Tc<W>::kConsumers``):
-    four, two at width 256, whose 16 KB tile is two 16-row slabs."""
+    four, two at width 256, whose 16 KB tile is two 16-row slabs; four
+    on the panel route's 64-position tile."""
+    if pa.is_panel(D, sz):
+        return 4
     return 2 if tile_width(D) == 256 else 4
 
 
@@ -118,7 +127,9 @@ def emulate_paged(q, kp, vp, table, lengths, *, p_terms=2, round_out=True,
     NP = table.shape[1]
     G = Hq // Hkv
     sz = q.element_size()
-    tc = pa.tensor_cores(D, sz)
+    # the tensor-core arithmetic: the TMA instance, and the panel route's
+    # bf16 mma.sync
+    tc = sz == 2 and (pa.tensor_cores(D, sz) or pa.is_panel(D, sz))
     T = pa.tile_tokens(D, sz)
     slot = pa.page_slot(PS, D, sz)
     sp = sp or pa.span_pages(B, Hkv, NP, PS, D, sz, G)
@@ -142,7 +153,7 @@ def emulate_paged(q, kp, vp, table, lengths, *, p_terms=2, round_out=True,
         parts = []
         for s in range(ns):
             begin, end = s * sp * PS, min((s + 1) * sp * PS, L)
-            slices = _consumers(D) if tc else 1
+            slices = _consumers(D, sz) if tc else 1
             m = torch.full((slices, Hq, 1), NEG)
             l = torch.zeros(slices, Hq, 1)
             o = torch.zeros(slices, Hq, D)
@@ -234,6 +245,15 @@ CASES = [
     (4, 2, 96, 24, 6, [144, 49, 0], torch.float32, None),
     (16, 1, 48, 2, 32, [64, 5], torch.float32, None),
     (71, 1, 64, 512, 2, [1024, 1], torch.float32, None),
+    # the panel route: bf16 head_dim 100 (rows of 200 bytes, 8-byte
+    # copies), 33 (odd: 2-byte copies) and 320 (two 256-column panels),
+    # float32 50 (8-byte copies) and 320 with 128-token pages (four
+    # 32-row chunks a page)
+    (16, 8, 100, 16, 8, [0, 1, 77, 128], torch.bfloat16, None),
+    (8, 4, 33, 8, 8, [64, 9, 0], torch.bfloat16, None),
+    (4, 2, 320, 16, 6, [96, 17, 0], torch.bfloat16, None),
+    (4, 2, 50, 16, 6, [96, 33, 0], torch.float32, None),
+    (4, 2, 320, 128, 2, [256, 129], torch.float32, None),
 ]
 
 

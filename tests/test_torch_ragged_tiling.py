@@ -21,6 +21,15 @@ the TPU kernels can.  The emulations follow their rounding points:
   in ``chip_smoke.py``, which holds the kernel to its plain version on
   the card): each side rounds its float32 result to bfloat16 once, and
   one bfloat16 step at |x| < 2 is 2^-7.
+* ragged prefill's panel route (``panel_attention.cuh``, a head_dim off
+  the 16-byte grain or above 256): CTAs of 64 packed queries over
+  64-key chunks (bf16) or 32 x 32 (float32), a chunk skipped where no key
+  of it can pair with the CTA's rows, S summed over 64-column chunks of
+  D, the running max once a chunk in natural-log units, p split as above
+  in bf16 and float32 as it is in float32; the output panels recompute
+  the same S, so each panel's columns are the emulation's.  Tolerance:
+  bfloat16 as above, float32 2e-5 (the same products summed in another
+  order).
 * the GEMM's wgmma instances (``gemm.cu``, ``gemm_wgmma_kernel``): each
   128 x TN CTA tile walks its config tile's K blocks in the config's
   order (``stagger_k``) or its split's range (``split_k``, float32
@@ -160,6 +169,64 @@ def emulate_ragged_wgmma(q, k, v, seg_q, pos_q, seg_k, pos_k, *,
     return out.bfloat16() if round_out else out
 
 
+def emulate_ragged_panel(q, k, v, seg_q, pos_q, seg_k, pos_k, *,
+                         p_terms=2, round_out=True):
+    """The panel route's rounding points (``prefill_bf16_panel`` /
+    ``prefill_f32_panel`` with ``RaggedRows``), CTA by CTA; ``p_terms``
+    and ``round_out`` as for :func:`emulate_ragged_wgmma` (float32 takes
+    p as it is)."""
+    Hq, TQ, D = q.shape
+    Hkv, TK, _ = k.shape
+    G = Hq // Hkv
+    dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    prob = fr.RaggedPrefillProblem(1, TK, Hq, Hkv, D, dt)
+    assert fr.is_panel(prob)
+    bq, bk = fr.kernel_blocks(prob)
+    kf = k.float().repeat_interleave(G, 0)
+    vf = v.float().repeat_interleave(G, 0)
+    scale = D ** -0.5
+    sq, pq = torch.from_numpy(seg_q), torch.from_numpy(pos_q)
+    sk, pk = torch.from_numpy(seg_k), torch.from_numpy(pos_k)
+    out = torch.zeros(Hq, TQ, D)
+    for q0 in range(0, TQ, bq):
+        rows = slice(q0, min(q0 + bq, TQ))
+        real = sq[rows] >= 0
+        qq = q[:, rows].float()
+        m = torch.full(qq.shape[:-1] + (1,), NEG)
+        l = torch.zeros_like(m)
+        o = torch.zeros(qq.shape)
+        for k0 in range(0, TK, bk):
+            keys = slice(k0, min(k0 + bk, TK))
+            if real.any():
+                lo, hi = int(sq[rows][real].min()), int(sq[rows][real].max())
+                pmax = int(pq[rows][real].max())
+                live = ((sk[keys] >= lo) & (sk[keys] <= hi)
+                        & (pk[keys] <= pmax)).any()
+            else:
+                live = False
+            if not live:
+                continue
+            ok = ((sq[rows, None] == sk[None, keys]) & (sq[rows, None] >= 0)
+                  & (pk[None, keys] <= pq[rows, None]))
+            x = torch.where(ok, (qq @ kf[:, keys].transpose(-1, -2))
+                            * scale, torch.tensor(NEG))
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(ok, torch.exp(x - m_new), torch.tensor(0.0))
+            l = l * alpha + p.sum(-1, keepdim=True)
+            if dt == "bf16":
+                p_hi = p.bfloat16().float()
+                pv = p_hi @ vf[:, keys]
+                if p_terms == 2:
+                    pv = pv + (p - p_hi).bfloat16().float() @ vf[:, keys]
+            else:
+                pv = p @ vf[:, keys]
+            o = o * alpha + pv
+            m = m_new
+        out[:, rows] = o / torch.where(l == 0, torch.ones_like(l), l)
+    return out.to(q.dtype) if round_out else out
+
+
 def _jax_ragged(q, k, v, seg_q, pos_q, seg_k, pos_k, dtype=jnp.bfloat16):
     """The TPU kernel in interpret mode; with ``dtype=jnp.float32`` on
     float32 copies of the bf16 inputs, its float32 output before any
@@ -211,6 +278,46 @@ def test_ragged_wgmma_tiles_stay_within_the_tolerance_of_the_tpu_kernel(
     err = float((got.float() - want).abs().max())
     assert err <= TOL_BF16, err
     assert not got[:, torch.from_numpy(sq) < 0].any()
+
+
+RAGGED_PANEL = [
+    # (Hq, Hkv, D, chunks, prefixes, tail, dtype): the panel route at
+    # qwen3's 16/8 heads: bf16 head_dim 100 (8-byte copies), 33 (2-byte)
+    # and 320 (two 256-column panels); float32 50 and 320
+    (16, 8, 100, [40, 64, 7, 100], [0, 30, 200, 64], 64, torch.bfloat16),
+    (4, 2, 33, [130, 5, 60], [300, 100, 0], 0, torch.bfloat16),
+    (4, 2, 320, [40, 64, 7], [0, 30, 200], 0, torch.bfloat16),
+    (4, 2, 50, [40, 64, 7], [0, 30, 200], 64, torch.float32),
+    (2, 1, 320, [60, 40], [100, 0], 0, torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", RAGGED_PANEL, ids=lambda c: (
+    f"{c[0]}-{c[1]}x{c[2]}-{str(c[6])[6:]}"))
+def test_the_panel_route_stays_within_the_tolerance_of_the_tpu_kernel(
+        case):
+    """The panel route against the TPU kernel in interpret mode (bf16
+    within ``TOL_BF16``, float32 within 2e-5), padding queries zero; in
+    bf16 the split P·V keeps the float32 accuracy its control (p_hi
+    alone) does not, by each row's relative error."""
+    Hq, Hkv, D, chunks, prefixes, tail, dtype = case
+    q, k, v, sq, pq, sk, pk = _packed(sum(chunks) + D, chunks, prefixes, Hq,
+                                      Hkv, D, tail)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    got = emulate_ragged_panel(q, k, v, sq, pq, sk, pk)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = _jax_ragged(q, k, v, sq, pq, sk, pk, dtype=jdt)
+    err = float((got.float() - want).abs().max())
+    assert err <= (TOL_BF16 if dtype == torch.bfloat16 else 2e-5), err
+    assert not got[:, torch.from_numpy(sq) < 0].any()
+    if dtype == torch.bfloat16:
+        want = _jax_ragged(q, k, v, sq, pq, sk, pk, dtype=jnp.float32)
+        rows = torch.from_numpy(sq) >= 0
+        rel = {n: float(((emulate_ragged_panel(
+            q, k, v, sq, pq, sk, pk, p_terms=n, round_out=False) - want)
+            [:, rows].norm(dim=-1) / want[:, rows].norm(dim=-1)).max())
+            for n in (2, 1)}
+        assert rel[2] <= SPLIT_ROW_REL < rel[1], rel
 
 
 # The emulated float32 output's largest row error, relative to the row's

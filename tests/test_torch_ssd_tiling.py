@@ -21,7 +21,12 @@ three launches and rounding points:
   and lo = a − hi, of which the tensor core reads the top 19 bits (the
   13 low bits dropped): lo·hi and hi·lo, then hi·hi, each step's sum
   rounded to float32 (the products of two TF32 values are exact in
-  float32).
+  float32);
+* a d_state above 128 in state panels of 128 rows (``NPANEL``): the
+  chunk states a panel's rows at a time (rows independent of each
+  other), C·S and C·Bᵀ summed panel after panel, each panel's 8-deep
+  steps in order, which is the same walk, step for step, as one over the
+  whole padded state dim; so the emulation runs it as one.
 
 A control runs the same walk with one TF32 product (hi·hi alone): it
 misses ``ssd_error``'s float32 limits where 3xTF32 meets them, which is
@@ -202,6 +207,9 @@ CASES = [
     (1, 512, 16, 32, 256, 0.1),
     (2, 480, 24, 12, 96, 0.1),
     (1, 512, 64, 128, 256, 0.7),
+    # state panels: d_state 256 (two of 128) and 130 (136: 128 and 8)
+    (1, 256, 16, 256, 128, 0.1),
+    (1, 256, 24, 130, 64, 0.1),
 ]
 
 
