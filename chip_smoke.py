@@ -158,7 +158,8 @@ is missing or any phase fails.  Phases:
    chunks 32 to 512 (and 96), P 9 to 128, N 7 to 256 (130 and 256 in
    state panels of 128), BH 1 and 64, one chunk and many, and the
    production problem (64 x 8192 x 64 x 128) in both types, within the
-   tolerance stated beside ``ssd_error`` (``kernels/ssd/ref.py``), and
+   tolerance stated beside ``ssd_error`` (``kernels/ssd/ref.py``) of the
+   plain version summed in float64 (as in 11c), and
    d_state 130 and 256 timed at mamba2's layer shape (``SSD_PANELS``)
    beside bound and plain version; (b) the agent loop at the production
    problem, launches counted as in 10b; (c) the example config (chunk
@@ -1876,57 +1877,109 @@ FLUSH_KERNEL = "FillFunctor<unsigned char>"
 SPLIT_NOISE = 0.1
 
 
+# each window device_parts_ms took: each kernel's launches recorded, the
+# profiler's time a call over the same calls' time between CUDA events
+# (``clock``, flushed windows), and whether it was kept (the summary's
+# ``profiler_windows``)
+PROFILER_WINDOWS = []
+# the bounds on ``clock`` a flushed window is read within: the CUDA
+# events also hold a few microseconds of launch gaps a call; a window
+# misread like the one in the docstring below comes to 0.6 or less
+CLOCK_BOUNDS = (0.75, 1.15)
+# cycles of ``torch.cuda._sleep`` (about 20 ms on an H100) that hold
+# the stream while the host enqueues the calls timed behind it
+SPIN_CYCLES = 40_000_000
+
+
+def device_events(prof):
+    """(name, start, end) in microseconds of each device event in a
+    ``torch.profiler`` window."""
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()
+            if "cuda" in str(getattr(e, "device_type", "")).lower()]
+
+
 def device_parts_ms(torch, call, part_of, n=20, per_launch=False,
                     flush=False):
     """Device time per call of ``call``, from ``torch.profiler`` over
     ``n`` calls, summed by ``part_of(kernel name)`` (a part's name, or
     None to leave the kernel out).  With ``per_launch`` (each kernel
     launched once a call) a part's time is the sum over its kernels of
-    each one's mean over the launches the profiler recorded: in a process
-    that has profiled many windows the profiler can drop events, which
-    would shrink a sum over ``n``.  With ``flush`` the L2 is flushed
-    before each call, as ``time_ms`` does (the flush's kernel left out);
-    else nothing is flushed between the calls."""
+    each one's median launch among the last n recorded, else their total
+    over the calls.  With ``flush`` the L2 is flushed before each call,
+    as ``time_ms`` does (the flush's kernel left out); else nothing is
+    flushed between the calls.
+
+    The window runs n + 1 calls: the profiler drops device events, the
+    first call's first kernels in most windows and, late in a long
+    process, most of a window's (PERF.md §6), so a median is read
+    over the launches it kept.  A window where a kernel launched once a
+    call has more launches than calls is taken again (at most three
+    windows).  A flushed window (the decode splits) is also held to the
+    card's own clock: the same n calls, queued behind a spin kernel so
+    no host time falls between them, are timed between CUDA events, and
+    the profiler's flush and parts a call must come to within
+    ``CLOCK_BOUNDS`` of that (an H100 run read a decode split at 0.0269
+    ms in a window of whole counts, faster than HBM allows)."""
     from torch.profiler import ProfilerActivity, profile
     buf = (torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
            if flush else None)
     call()
     torch.cuda.synchronize()
-    # a profiled window now and then comes back without device events;
-    # it is taken again, at most three times
+    ref = None
+    if flush:
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        t0.record()
+        for _ in range(n):
+            buf.zero_()
+            call()
+        t1.record()
+        torch.cuda.synchronize()
+        ref = t0.elapsed_time(t1) / n
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
+            for _ in range(n + 1):
                 if flush:
                     buf.zero_()
                 call()
             torch.cuda.synchronize()
-        parts, flushes = {}, 0
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0)
-            if not us or "cuda" not in str(
-                    getattr(e, "device_type", "")).lower():
+        by_name = {}
+        for name, s0, s1 in sorted(device_events(prof),
+                                   key=lambda e: e[1]):
+            by_name.setdefault(name, []).append(s1 - s0)
+        parts, counts, flushes = {}, {}, []
+        for name, durs in by_name.items():
+            if flush and FLUSH_KERNEL in name:
+                flushes = durs[-n:]
+                counts["flush"] = len(durs)
                 continue
-            if flush and FLUSH_KERNEL in e.key:
-                flushes += e.count
-                continue
-            part = part_of(e.key)
+            part = part_of(name)
             if part is None:
                 continue
-            parts[part] = parts.get(part, 0.0) + us / 1e3 / (
-                e.count if per_launch else n)
-        if parts:
-            check(not flush or flushes, "the profiler saw no L2 flush "
-                  f"kernel ({FLUSH_KERNEL}) in a flushed window")
+            counts[name[:60]] = len(durs)
+            parts[part] = parts.get(part, 0.0) + (
+                statistics.median(durs[-n:]) if per_launch
+                else sum(durs) / (n + 1)) / 1e3
+        over = per_launch and any(c > n + 1 for c in counts.values())
+        clock = None
+        if flush and flushes and parts:
+            clock = (statistics.median(flushes) / 1e3
+                     + sum(parts.values())) / ref
+        kept = (bool(parts) and not over and (
+            not flush or CLOCK_BOUNDS[0] <= (clock or 0) <= CLOCK_BOUNDS[1]))
+        PROFILER_WINDOWS.append(dict(n=n, counts=counts, clock=clock,
+                                     kept=kept))
+        if kept:
             return parts
-    # the profiler can stop recording device events for the rest of a
-    # long process: the call's time (CUDA events) stands, its breakdown
-    # is not measured
-    log("[profiler] three windows without device events: the breakdown "
-        "by kernel is not measured")
+        log(f"[profiler] a window taken again: {n + 1} calls, kernels "
+            f"recorded {counts}, parts {parts} ms"
+            + (f", {clock:.3f} of the {ref:.4f} ms a call between CUDA "
+               f"events" if clock else ""))
+    log("[profiler] three windows failed their checks: the breakdown by "
+        "kernel is not measured")
     return {}
 
 
@@ -1936,7 +1989,8 @@ def decode_parts_ms(torch, call, n=20, kv_bytes=None):
     split kernel (the kernel whose name holds ``decode_``) and the merge
     of the spans' partials (every other kernel: the combine kernel, or
     the tensor ops that an older wrapper ran after its kernel), each
-    kernel's mean over its launches (each launches once a call).  With
+    kernel's median launch (each launches once a call; the window's
+    checks are ``device_parts_ms``'s).  With
     ``kv_bytes`` (the K and V bytes the split must read) a split faster
     than HBM's peak allows for them, beyond ``SPLIT_NOISE``, fails the
     run.  (None, None) where the profiler recorded no device event."""
@@ -2609,7 +2663,8 @@ def phase_ssd_kernel(torch):
             got = ssd(x, da, B, C, cfg=cfg)
             torch.cuda.synchronize()
             check(KERNEL.launches == n0 + 1, f"ssd {label}: no launch")
-            want, _ = ssd_ref(x, da, B, C, q or min(128, S))
+            want, _ = ssd_ref(x, da, B, C, q or min(128, S),
+                              acc=torch.float64)
             err, row, ok = ssd_error(got, want)
             check(ok, f"ssd {dtype} {label}: max |kernel - plain| {err}, "
                       f"worst row {row}: beyond the tolerance")
@@ -2649,18 +2704,21 @@ def _ssd_panel_times(torch):
     out = []
     for BH, S, P, N, q in SSD_PANELS:
         for dtype in ("float32", "bfloat16"):
-            # seeded by S, as phase 11c's timed problems are
-            x, da, B, C = _ssd_inputs(torch, BH, S, P, N, dtype, S)
+            x, da, B, C = _ssd_inputs(torch, BH, S, P, N, dtype, N)
             cfg = SSDConfig(q)
             call = lambda: ssd(x, da, B, C, cfg=cfg)
             n0 = KERNEL.launches
             got = call()
             torch.cuda.synchronize()
             check(KERNEL.launches == n0 + 1, f"ssd d_state {N}: no launch")
-            want, _ = ssd_ref(x, da, B, C, q)
+            # held to the plain version summed in float64 (ssd_error's
+            # note on rows whose terms cancel); the float32 plain
+            # version's own distance from it is reported beside
+            want, _ = ssd_ref(x, da, B, C, q, acc=torch.float64)
             err, row, ok = ssd_error(got, want)
             check(ok, f"ssd {dtype} d_state {N}: max |kernel - plain| "
                   f"{err}, worst row {row}: beyond the tolerance")
+            err32, row32, _ = ssd_error(ssd_ref(x, da, B, C, q)[0], want)
             ms = time_ms(torch, call)
             plain = time_ms(torch, lambda: ssd_ref(x, da, B, C, q),
                             iters=3, warmup=1)
@@ -2673,12 +2731,15 @@ def _ssd_panel_times(torch):
             bms, by = bound_ms(sol.hbm_bytes, sol.flops, "tf32x3")
             r = dict(dtype=dtype, problem=[BH, S, P, N], cfg=cfg.name(),
                      instance="3xTF32 mma.sync, state panels of 128",
-                     max_abs_err=err, row_err=row, ms=ms, plain_ms=plain,
+                     max_abs_err=err, row_err=row,
+                     plain_f32_err=err32, plain_f32_row_err=row32,
+                     ms=ms, plain_ms=plain,
                      bound_ms=bms, bound_by=by, library_ms=None,
                      kernel_flops=kernel_flops(cfg, SSDProblem(
                          BH, S, P, N, SHORT[dtype])), launches=1)
             log(f"[ssd] d_state {N} {dtype} {BH}x{S}x{P}x{N} chunk {q}: "
-                f"err {err:.3g} (row {row:.3g}), {ms:.4f} ms, bound "
+                f"err {err:.3g} (row {row:.3g}; the float32 plain version "
+                f"{err32:.3g}, row {row32:.3g}), {ms:.4f} ms, bound "
                 f"{bms:.4f} ms ({by}), plain {plain:.4f} ms, library none")
             out.append(r)
             del x, da, B, C, got, want
@@ -2717,7 +2778,7 @@ def phase_ssd_time(torch, best_cfg):
                                  config=which, cfg=cfg.name(),
                                  rejected=True))
                 continue
-            want, _ = ssd_ref(x, da, B, C, cfg.chunk)
+            want, _ = ssd_ref(x, da, B, C, cfg.chunk, acc=torch.float64)
             err, row, ok = ssd_error(ssd(x, da, B, C, cfg=cfg), want)
             check(ok, f"ssd {dataclasses.astuple(prob)[:4]} {cfg.name()}: "
                       f"max |kernel - plain| {err}, worst row {row}")
@@ -4900,6 +4961,18 @@ def main():
             entry["refused"] = [r for r in geo["refused"]
                                 if r.startswith(entry["name"] + " ")]
     summary["kernels_line"] = line
+    clocks = [w["clock"] for w in PROFILER_WINDOWS if w["kept"]
+              and w["clock"]]
+    summary["profiler_windows"] = dict(
+        taken=len(PROFILER_WINDOWS),
+        short=sum(any(c < w["n"] for c in w["counts"].values())
+                  for w in PROFILER_WINDOWS),
+        clock_kept=[min(clocks), max(clocks)] if clocks else None,
+        failed=[w for w in PROFILER_WINDOWS if not w["kept"]])
+    pw = summary["profiler_windows"]
+    log(f"[profiler] windows taken {pw['taken']}, with launches lost "
+        f"{pw['short']}, failed {len(pw['failed'])}; kept flushed "
+        f"windows' clock {pw['clock_kept']}")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(

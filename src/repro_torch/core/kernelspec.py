@@ -74,7 +74,9 @@ def cdiv(a: int, b: int) -> int:
 def on_grain(head_dim: int, itemsize: int) -> bool:
     """Whether the on-grain instances run ``head_dim``: rows of whole
     16-byte vectors (a multiple of 8 in bf16, of 4 in float32) up to 256.
-    Any other head_dim runs on the panel route."""
+    Any other head_dim runs on the panel route (the kernels' C entries
+    route by ``panel::off_grain``, its negation, in
+    ``kernels/csrc/panel_attention.cuh``)."""
     return (0 < head_dim <= MAX_HEAD_DIM
             and (head_dim * itemsize) % VECTOR_BYTES == 0)
 

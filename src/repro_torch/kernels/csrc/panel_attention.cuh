@@ -29,6 +29,9 @@
 // one.  The route is right first; its times stand in PERF.md.
 #pragma once
 
+#include <type_traits>
+#include <utility>
+
 #include "hopper.cuh"
 
 namespace panel {
@@ -788,14 +791,64 @@ __global__ void combine_panels(const float* __restrict__ o_part,
   }
 }
 
+// Whether head_dim D runs on the panel route (kernelspec.on_grain): rows
+// that are not whole 16-byte vectors, or more than 256 columns.
+inline bool off_grain(int D, int is_bf16) {
+  return D > 256 || D % (is_bf16 ? 8 : 4) != 0;
+}
+
 // the panel width a head_dim runs at (64, or 256), and its panels
 inline int panel_width(int D) { return D <= 64 ? 64 : 256; }
 inline int n_panels(int D) { return (D + panel_width(D) - 1) / panel_width(D); }
 
-template <typename K>
-inline int set_smem(K kern, int smem) {
-  return (int)cudaFuncSetAttribute(
+// the element type of a row policy (its q pointer's)
+template <class Pol>
+using elem_t = typename std::remove_cv<typename std::remove_pointer<
+    decltype(std::declval<Pol>().q)>::type>::type;
+
+template <typename K, class Pol>
+inline int launch(K kern, int smem, dim3 grid, cudaStream_t st,
+                  const Pol& pol) {
+  const int e = (int)cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e) return e;
+  kern<<<grid, 128, smem, st>>>(pol);
+  return (int)cudaGetLastError();
+}
+
+// The prefill kernels' panel route: a CTA per entry of `grid`, on the
+// bf16 or float32 kernel by the policy's element type; SPLIT keeps p as
+// p_hi + p_lo (the serving kernel) instead of rounding it to bf16.
+template <int PW, bool SPLIT, class Pol>
+int launch_prefill(const Pol& pol, dim3 grid, cudaStream_t st) {
+  if constexpr (std::is_same<elem_t<Pol>, uint16_t>::value)
+    return launch(prefill_bf16_panel<PW, SPLIT, Pol>, prefill_smem_bf16<PW>(),
+                  grid, st, pol);
+  else
+    return launch(prefill_f32_panel<PW, Pol>, prefill_smem_f32<PW>(), grid,
+                  st, pol);
+}
+
+// The decode kernels' panel route: the span walk on `grid` (spans x
+// panels, KV heads x head blocks, batch rows) into the policy's o/m/l
+// partials, then combine_panels over its ns spans into `out` for the
+// `rows` = B·Hq query rows.
+template <int PW, bool SPLIT, class Pol>
+int launch_decode(const Pol& pol, dim3 grid, unsigned rows, void* out,
+                  cudaStream_t st) {
+  using T = elem_t<Pol>;
+  int e;
+  if constexpr (std::is_same<T, uint16_t>::value)
+    e = launch(decode_bf16_panel<PW, SPLIT, Pol>, decode_smem_bf16<PW>(),
+               grid, st, pol);
+  else
+    e = launch(decode_f32_panel<PW, Pol>, decode_smem_f32<PW>(), grid, st,
+               pol);
+  if (e) return e;
+  combine_panels<T><<<rows, pol.D < 256 ? pol.D : 256, 0, st>>>(
+      pol.o_part, pol.m_part, pol.l_part, static_cast<T*>(out), pol.ns,
+      pol.D);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace panel

@@ -893,14 +893,10 @@ int launch_panel(int is_bf16, int B, const Params& p, cudaStream_t s) {
   const long long nq = (p.Sq + p.bq - 1) / p.bq, cps = (p.bq + tile - 1) / tile;
   if (nq * cps > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid(B * p.Hq, (unsigned)(nq * cps), panel::n_panels(p.D));
-  if (is_bf16) {
-    auto kern = panel::prefill_bf16_panel<PW, false, FlashRows<uint16_t>>;
-    return launch_kernel(kern, panel::prefill_smem_bf16<PW>(), 128, grid, s,
-                         flash_rows<uint16_t>(p, tile, grain));
-  }
-  auto kern = panel::prefill_f32_panel<PW, FlashRows<float>>;
-  return launch_kernel(kern, panel::prefill_smem_f32<PW>(), 128, grid, s,
-                       flash_rows<float>(p, tile, grain));
+  return is_bf16 ? panel::launch_prefill<PW, false>(
+                       flash_rows<uint16_t>(p, tile, grain), grid, s)
+                 : panel::launch_prefill<PW, false>(
+                       flash_rows<float>(p, tile, grain), grid, s);
 }
 
 }  // namespace
@@ -937,7 +933,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   p.skip = skip;
   p.scale = scale;
   cudaStream_t s = (cudaStream_t)stream;
-  if (D > 256 || D % (is_bf16 ? 8 : 4))
+  if (panel::off_grain(D, is_bf16))
     return D <= 64 ? launch_panel<64>(is_bf16, B, p, s)
                    : launch_panel<256>(is_bf16, B, p, s);
   const long long nq = (Sq + block_q - 1) / block_q;

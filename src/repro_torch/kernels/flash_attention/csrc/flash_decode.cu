@@ -664,33 +664,11 @@ int launch_panel(const Args& a, int is_bf16, void* out, cudaStream_t st) {
   const long long gx = (long long)a.ns * panel::n_panels(a.D);
   if (gx > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)gx, a.Hkv * a.nhb, a.B);
-  int e;
-  if (is_bf16) {
-    auto kern = panel::decode_bf16_panel<PW, false, DenseRows<uint16_t>>;
-    e = panel::set_smem(kern, panel::decode_smem_bf16<PW>());
-    if (e) return e;
-    kern<<<grid, 128, panel::decode_smem_bf16<PW>(), st>>>(
-        dense_rows<uint16_t>(a, grain));
-  } else {
-    auto kern = panel::decode_f32_panel<PW, DenseRows<float>>;
-    e = panel::set_smem(kern, panel::decode_smem_f32<PW>());
-    if (e) return e;
-    kern<<<grid, 128, panel::decode_smem_f32<PW>(), st>>>(
-        dense_rows<float>(a, grain));
-  }
-  e = (int)cudaGetLastError();
-  if (e) return e;
   const unsigned rows = (unsigned)a.B * (unsigned)a.Hq;
-  const int nt = a.D < 256 ? a.D : 256;
-  if (is_bf16)
-    panel::combine_panels<uint16_t><<<rows, nt, 0, st>>>(
-        (const float*)a.o, (const float*)a.m, (const float*)a.l,
-        (uint16_t*)out, a.ns, a.D);
-  else
-    panel::combine_panels<float><<<rows, nt, 0, st>>>(
-        (const float*)a.o, (const float*)a.m, (const float*)a.l,
-        (float*)out, a.ns, a.D);
-  return (int)cudaGetLastError();
+  return is_bf16 ? panel::launch_decode<PW, false>(
+                       dense_rows<uint16_t>(a, grain), grid, rows, out, st)
+                 : panel::launch_decode<PW, false>(
+                       dense_rows<float>(a, grain), grid, rows, out, st);
 }
 
 }  // namespace
@@ -730,7 +708,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
   a.nhb = (Hq / Hkv + kGB - 1) / kGB;
   a.scale = scale;
   if ((long long)Hkv * a.nhb > 65535) return (int)cudaErrorInvalidValue;
-  if (D > 256 || D % (is_bf16 ? 8 : 4))
+  if (panel::off_grain(D, is_bf16))
     return D <= 64 ? launch_panel<64>(a, is_bf16, out, st)
                    : launch_panel<256>(a, is_bf16, out, st);
   const int e = launch_split(a, is_bf16, st);

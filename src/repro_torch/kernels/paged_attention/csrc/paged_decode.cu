@@ -106,7 +106,6 @@ constexpr int kMaxStep = 64;       // positions a tile, CUDA-core kernel
 constexpr int kThreads = 128;      // CUDA-core kernel
 constexpr int kWarps = kThreads / 32;
 constexpr int kMinPage = 2;
-constexpr int kMaxD = 256;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -849,41 +848,21 @@ int launch_panel(const Args& a, int is_bf16, void* out, cudaStream_t st) {
     r.NP = a.NP;
     r.span_pages = a.span_pages;
   };
-  int e;
+  const unsigned rows = (unsigned)a.B * (unsigned)a.Hq;
   if (is_bf16) {
     PagedRows<uint16_t> r;
     fill(r);
     r.q = static_cast<const uint16_t*>(a.q);
     r.k = static_cast<const uint16_t*>(a.k);
     r.v = static_cast<const uint16_t*>(a.v);
-    auto kern = panel::decode_bf16_panel<PW, true, PagedRows<uint16_t>>;
-    e = panel::set_smem(kern, panel::decode_smem_bf16<PW>());
-    if (e) return e;
-    kern<<<grid, 128, panel::decode_smem_bf16<PW>(), st>>>(r);
-  } else {
-    PagedRows<float> r;
-    fill(r);
-    r.q = static_cast<const float*>(a.q);
-    r.k = static_cast<const float*>(a.k);
-    r.v = static_cast<const float*>(a.v);
-    auto kern = panel::decode_f32_panel<PW, PagedRows<float>>;
-    e = panel::set_smem(kern, panel::decode_smem_f32<PW>());
-    if (e) return e;
-    kern<<<grid, 128, panel::decode_smem_f32<PW>(), st>>>(r);
+    return panel::launch_decode<PW, true>(r, grid, rows, out, st);
   }
-  e = (int)cudaGetLastError();
-  if (e) return e;
-  const unsigned rows = (unsigned)a.B * (unsigned)a.Hq;
-  const int nt = a.D < 256 ? a.D : 256;
-  if (is_bf16)
-    panel::combine_panels<uint16_t><<<rows, nt, 0, st>>>(
-        (const float*)a.o, (const float*)a.m, (const float*)a.l,
-        (uint16_t*)out, a.ns, a.D);
-  else
-    panel::combine_panels<float><<<rows, nt, 0, st>>>(
-        (const float*)a.o, (const float*)a.m, (const float*)a.l,
-        (float*)out, a.ns, a.D);
-  return (int)cudaGetLastError();
+  PagedRows<float> r;
+  fill(r);
+  r.q = static_cast<const float*>(a.q);
+  r.k = static_cast<const float*>(a.k);
+  r.v = static_cast<const float*>(a.v);
+  return panel::launch_decode<PW, true>(r, grid, rows, out, st);
 }
 
 }  // namespace
@@ -933,7 +912,7 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
   a.nhb = (Hq / Hkv + kGB - 1) / kGB;
   a.scale = scale;
   if ((long long)Hkv * a.nhb > 65535) return (int)cudaErrorInvalidValue;
-  if (D > kMaxD || D % (is_bf16 ? 8 : 4))
+  if (panel::off_grain(D, is_bf16))
     return D <= 64 ? launch_panel<64>(a, is_bf16, out, st)
                    : launch_panel<256>(a, is_bf16, out, st);
   const int e = launch_split(a, is_bf16, st);

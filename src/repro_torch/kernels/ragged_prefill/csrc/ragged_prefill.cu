@@ -854,23 +854,14 @@ int launch_panel(const void* q, const void* k, const void* v, const void* sq,
   const int grain = panel::copy_grain((long long)D * es, ptrs, 4, es);
   const int tile = is_bf16 ? panel::kPrefillRows : panel::kPrefillRowsF;
   const dim3 grid(Hq, (TQ + tile - 1) / tile, panel::n_panels(D));
-  int e;
-  if (is_bf16) {
-    auto kern = panel::prefill_bf16_panel<PW, true, RaggedRows<uint16_t>>;
-    e = panel::set_smem(kern, panel::prefill_smem_bf16<PW>());
-    if (e) return e;
-    kern<<<grid, 128, panel::prefill_smem_bf16<PW>(), stream>>>(
-        ragged_rows<uint16_t>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK,
-                              D, scale, grain));
-  } else {
-    auto kern = panel::prefill_f32_panel<PW, RaggedRows<float>>;
-    e = panel::set_smem(kern, panel::prefill_smem_f32<PW>());
-    if (e) return e;
-    kern<<<grid, 128, panel::prefill_smem_f32<PW>(), stream>>>(
-        ragged_rows<float>(q, k, v, sq, pq, sk, pk, out, Hq, Hkv, TQ, TK, D,
-                           scale, grain));
-  }
-  return (int)cudaGetLastError();
+  return is_bf16 ? panel::launch_prefill<PW, true>(
+                       ragged_rows<uint16_t>(q, k, v, sq, pq, sk, pk, out, Hq,
+                                             Hkv, TQ, TK, D, scale, grain),
+                       grid, stream)
+                 : panel::launch_prefill<PW, true>(
+                       ragged_rows<float>(q, k, v, sq, pq, sk, pk, out, Hq,
+                                          Hkv, TQ, TK, D, scale, grain),
+                       grid, stream);
 }
 
 }  // namespace
@@ -891,7 +882,7 @@ extern "C" int ragged_prefill_launch(const void* q, const void* k,
   if (Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || TQ <= 0 || TK <= 0 || D <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (D > 256 || D % (is_bf16 ? 8 : 4)) {
+  if (panel::off_grain(D, is_bf16)) {
     if ((TQ + panel::kPrefillRowsF - 1) / panel::kPrefillRowsF > 65535)
       return (int)cudaErrorInvalidValue;
     return D <= 64 ? launch_panel<64>(q, k, v, seg_q, pos_q, seg_k, pos_k,

@@ -15,25 +15,29 @@ def _segsum(da: torch.Tensor) -> torch.Tensor:
     cs = torch.cumsum(da, dim=-1)
     diff = cs[..., :, None] - cs[..., None, :]
     mask = torch.tril(torch.ones(q, q, dtype=torch.bool, device=da.device))
-    return torch.where(mask, diff, torch.tensor(float("-inf"), dtype=F32,
+    return torch.where(mask, diff, torch.tensor(float("-inf"),
+                                                dtype=da.dtype,
                                                 device=da.device))
 
 
 def ssd_ref(x: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
-            Cm: torch.Tensor, chunk: int):
+            Cm: torch.Tensor, chunk: int, acc: torch.dtype = F32):
     """Chunked SSD scan, sequential-over-chunks oracle.
 
     x: (BH, S, P); da: (BH, S) log-decays (<= 0); Bm, Cm: (BH, S, N).
-    Returns y: (BH, S, P) in x's dtype, final_state: (BH, N, P) float32.
+    Returns y: (BH, S, P) in x's dtype, final_state: (BH, N, P) in
+    ``acc``, the type every sum is taken in (float32, as the JAX
+    reference; float64 where a check needs the reference's own rounding
+    out of the way, see ``ssd_error``).
     """
     BH, S, P = x.shape
     N = Bm.shape[-1]
     nc = S // chunk
     q = chunk
-    xc = x.reshape(BH, nc, q, P).to(F32)
-    dac = da.reshape(BH, nc, q).to(F32)
-    Bc = Bm.reshape(BH, nc, q, N).to(F32)
-    Cc = Cm.reshape(BH, nc, q, N).to(F32)
+    xc = x.reshape(BH, nc, q, P).to(acc)
+    dac = da.reshape(BH, nc, q).to(acc)
+    Bc = Bm.reshape(BH, nc, q, N).to(acc)
+    Cc = Cm.reshape(BH, nc, q, N).to(acc)
 
     L = torch.exp(_segsum(dac))                            # (BH,nc,q,q)
     scores = torch.einsum("bcqn,bckn->bcqk", Cc, Bc) * L
@@ -45,7 +49,7 @@ def ssd_ref(x: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
     chunk_decay = torch.exp(dacs[..., -1])                 # (BH,nc)
 
     ys = []
-    state = torch.zeros(BH, N, P, dtype=F32, device=x.device)
+    state = torch.zeros(BH, N, P, dtype=acc, device=x.device)
     for c in range(nc):
         y_inter = torch.einsum("bqn,bq,bnp->bqp", Cc[:, c],
                                torch.exp(dacs[:, c]), state)
@@ -80,6 +84,15 @@ def ssd_ref(x: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
 # bfloat16 once and may land on the neighbouring value.  A kernel that
 # drops the carried state, reads B or x from the wrong chunk, or shifts
 # the causal mask moves whole rows by a tenth of their norm or more.
+# The row rule reads a row's error against its own norm, so on a row
+# whose terms nearly cancel it holds the reference to the same digits as
+# the kernel: a chunk's first row is (C_0·B_0) x_0, and where the N
+# products of C_0·B_0 sum to far less than their sizes do, the float32
+# plain version's own rounding can exceed ROW_RTOL (chip_smoke.py's
+# d_state 130 cases report both sides' row errors against float64).  The
+# card's checks of the kernel therefore hold it to ``ssd_ref(...,
+# acc=torch.float64)``: the same tolerances, against a reference whose
+# own rounding is far below them.
 RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 MTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -8}
 ROW_RTOL = {torch.float32: 2e-4, torch.bfloat16: 2.0 ** -7}

@@ -1186,6 +1186,25 @@ def test_grouped_ffn_holds_rows_off_the_grain(card, dtype, DM, DF, bt, bf):
     assert KERNEL.launches == before + 1
 
 
+def test_grouped_ffn_wrapper_refuses_what_the_kernel_does_not_take(card):
+    """Every row width runs (above), but a type the kernel does not take,
+    weights of another type than x and a non-contiguous x still raise on
+    the card, with no launch."""
+    from repro_torch.core.families.moe import MoEConfig
+    from repro_torch.kernels.moe import KERNEL, grouped_ffn
+    before = KERNEL.launches
+    (x, wg, wu, wd), _ = _moe_inputs(2, 16, 64, 64, torch.float32, 0)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        grouped_ffn(x.half(), wg.half(), wu.half(), wd.half(),
+                    cfg=MoEConfig(8, 32))
+    with pytest.raises(TypeError, match="one type"):
+        grouped_ffn(x, wg.bfloat16(), wu, wd, cfg=MoEConfig(8, 32))
+    with pytest.raises(ValueError, match="contiguous"):
+        grouped_ffn(x.transpose(1, 2).contiguous().transpose(1, 2), wg, wu,
+                    wd, cfg=MoEConfig(8, 32))
+    assert KERNEL.launches == before
+
+
 # -- quant_gemm and ssd (the tolerances beside quant_error and ssd_error) -----
 
 QUANT_CASES = [
@@ -1346,7 +1365,7 @@ def test_ssd_kernel_matches_plain(card, case, dtype):
     got = ssd(x, da, B, C, cfg=SSDConfig(chunk=q))
     torch.cuda.synchronize()
     assert KERNEL.launches == before + 1
-    want, _ = ssd_ref(x, da, B, C, q)
+    want, _ = ssd_ref(x, da, B, C, q, acc=torch.float64)
     err, row, ok = ssd_error(got, want)
     assert ok, (err, row)
 
@@ -1397,12 +1416,27 @@ def test_ssd_kernel_holds_at_d_state_above_a_panel(card, N, dtype):
     got = ssd(x, da, B, C, cfg=SSDConfig(chunk=128))
     torch.cuda.synchronize()
     assert KERNEL.launches == before + 1
-    want, _ = ssd_ref(x, da, B, C, 128)
+    want, _ = ssd_ref(x, da, B, C, 128, acc=torch.float64)
     err, row, ok = ssd_error(got, want)
     assert ok, (err, row)
     with pytest.raises(ValueError, match="must divide chunk"):
         ssd(x, da, B, C, cfg=SSDConfig(96))
     assert KERNEL.launches == before + 1
+
+
+def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(card):
+    """Every d_state runs (above), but B of another type than x and a
+    chunk that does not divide S still raise on the card, with no
+    launch."""
+    from repro_torch.core.families.ssd import SSDConfig
+    from repro_torch.kernels.ssd import KERNEL, ssd_chunk_scan
+    before = KERNEL.launches
+    x, da, B, C = _ssd_inputs(1, 128, 16, 16, torch.float32, 0)
+    with pytest.raises(TypeError, match="one type"):
+        ssd_chunk_scan(x, da, B.bfloat16(), C, cfg=SSDConfig(64))
+    with pytest.raises(ValueError, match="must divide chunk"):
+        ssd_chunk_scan(x, da, B, C, cfg=SSDConfig(96))
+    assert KERNEL.launches == before
 
 
 def test_validator_runs_the_ssd_kernel_on_the_card(card):

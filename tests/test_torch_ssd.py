@@ -138,3 +138,29 @@ def test_the_stated_tolerance_catches_a_lost_state_or_a_wrong_chunk():
     assert ssd_error(ssd_ref(x, da, B, C, 32)[0], want)[2]
     shifted = want.roll(1, dims=1)
     assert not ssd_error(shifted, want)[2]
+
+
+def test_the_float64_reference_stands_where_a_row_cancels():
+    """``ssd_ref(..., acc=torch.float64)`` is the same function (within
+    ``ssd_error`` of the float32 reference and of the JAX one on seeded
+    inputs); on a row whose terms cancel (the first row, (C_0·B_0) x_0
+    with no state carried in, C_0·B_0 a millionth of the sum of its 130 products' sizes) the float32
+    reference's own rounding breaks the row rule, which is why the card's
+    checks of the kernel read the float64 one."""
+    arrs = _inputs(2, 128, 16, 130, 5)
+    x, da, B, C = (torch.from_numpy(a) for a in arrs)
+    r32 = ssd_ref(x, da, B, C, 64)[0]
+    r64, st64 = ssd_ref(x, da, B, C, 64, acc=torch.float64)
+    assert r64.dtype == torch.float32 and st64.dtype == torch.float64
+    assert ssd_error(r32, r64)[2]
+    jax_ref = torch.from_numpy(np.array(jssd.ssd_ref(
+        *map(jnp.asarray, arrs), 64)[0]))
+    assert ssd_error(r64, jax_ref)[2]
+    b, c = B[0, 0].double(), C[0, 0].double()
+    i = int(c.abs().argmax())
+    rest = (b * c).sum() - b[i] * c[i]
+    b[i] = (1e-6 * (b * c).abs().sum() - rest) / c[i]
+    B[0, 0] = b.float()
+    r64 = ssd_ref(x, da, B, C, 64, acc=torch.float64)[0]
+    err, row, ok = ssd_error(ssd_ref(x, da, B, C, 64)[0], r64)
+    assert not ok and row > 2e-4, (err, row)

@@ -17,7 +17,7 @@ events with the L2 flushed before each (``chip_smoke.time_ms``):
   waits for included; ``kernel_ms`` and ``combine_ms``, device time per
   call of the split kernel and of the merge of the partials, from
   ``torch.profiler`` with the L2 flushed before each call (each
-  kernel's mean over its launches, ``chip_smoke.decode_parts_ms``, as
+  kernel's median launch, ``chip_smoke.decode_parts_ms``, as
   for every decode split below);
 * ``gemm`` — ``matmul`` at the GEMM family's production problem (8192^3
   bf16) with the agent loop's usual best config,
@@ -52,12 +52,19 @@ events with the L2 flushed before each (``chip_smoke.time_ms``):
   beside each one's largest |kernel - plain| over two experts and the
   device time of its gate/up and down launches (``_up_ms``,
   ``_down_ms``, ``torch.profiler`` over 3 calls);
+* ``moe_tiles`` — ``grouped_ffn`` on its ``mma.sync`` and FMA tiles
+  (the instances that take what the wgmma instance does not), at
+  granite-moe-3b-a800m's expert shape (40 experts x 256 capacity rows,
+  1536 x 512): bf16 ``moe[32x128]`` and ``moe[128x64]`` on ``mma.sync``,
+  float32 ``moe[64x64]`` on FMA (``moe_tiles_{bf16_32x128,bf16_128x64,
+  f32_64x64}_ms``, 10 calls each), beside each one's largest |kernel -
+  plain| over two experts (``_err``);
 * ``quant`` — ``quant_matmul`` at the quantized GEMM family's production
   problem (8192^3 int8, group 128, inputs of
   ``chip_smoke._quant_inputs``) with ``qgemm[128x128x128]`` and
   ``qgemm[128x128x32]`` (``quant_{128,32}_ms``), beside the device time
   of the call's transpose of B and of its GEMM kernel
-  (``_transpose_ms``, ``_gemm_ms``: each kernel's mean over its launches
+  (``_transpose_ms``, ``_gemm_ms``: each kernel's median launch
   in 5 calls under ``torch.profiler``; a tree without the transpose has
   none), the largest |kernel - plain| (``quant_err``), and the 2048 x
   8192 x 8192 sweep problem (``quant_2048_ms``);
@@ -66,7 +73,7 @@ events with the L2 flushed before each (``chip_smoke.time_ms``):
   chunks 64, 128 and 256 (``ssd_q{64,128,256}_ms``, 5 calls each),
   beside each one's device time by launch (``_state_ms``, ``_pass_ms``,
   ``_scan_ms``, or ``_kernel_ms`` for a tree with one kernel; each
-  kernel's mean over its launches in 3 calls under ``torch.profiler``)
+  kernel's median launch in 3 calls under ``torch.profiler``)
   and the largest |kernel - plain| at chunk 128 (``ssd_err``), and
   mamba2-780m's layer shape (192 x 2048 x 64 x 128, chunk 256:
   ``ssd_layer_ms``);
@@ -215,6 +222,27 @@ def moe(torch, args) -> dict:
     return out
 
 
+def moe_tiles(torch, args) -> dict:
+    from chip_smoke import _moe_inputs, time_ms
+    from repro_torch.core.families.moe import MoEConfig
+    from repro_torch.kernels.moe import (grouped_ffn, grouped_ffn_ref,
+                                         moe_error)
+    E, C, DM, DF = 40, 256, 1536, 512
+    out = {}
+    for dtype, bt, bf in (("bfloat16", 32, 128), ("bfloat16", 128, 64),
+                          ("float32", 64, 64)):
+        x, ws, gates = _moe_inputs(torch, E, C, DM, DF, dtype, 41)
+        cfg = MoEConfig(bt, bf, True)
+        call = lambda: grouped_ffn(x, *ws, gates, cfg=cfg)
+        short = "bf16" if dtype == "bfloat16" else "f32"
+        key = f"moe_tiles_{short}_{bt}x{bf}"
+        out[f"{key}_err"] = moe_error(call()[:2], grouped_ffn_ref(
+            x[:2], *(w[:2] for w in ws), gates[:2]))[0]
+        out[f"{key}_ms"] = time_ms(torch, call, iters=10, warmup=2)
+        del x, ws, gates
+    return out
+
+
 def quant(torch, args) -> dict:
     from chip_smoke import _quant_inputs, quant_parts_ms, time_ms
     from repro_torch.core.families.quant_gemm import QuantGemmConfig
@@ -356,7 +384,7 @@ def widths(torch, args) -> dict:
 
 MEASUREMENTS = {"decode_split": decode_split, "gemm": gemm,
                 "ragged": ragged, "paged": paged, "flavours": flavours,
-                "moe": moe, "quant": quant, "ssd": ssd, "widths": widths}
+                "moe": moe, "moe_tiles": moe_tiles, "quant": quant, "ssd": ssd, "widths": widths}
 
 
 def measure(tree: Path, args) -> dict:
