@@ -46,7 +46,10 @@ wrote (the two share the format).
 Observability: ``--metrics-port N`` serves the live metrics snapshot in
 Prometheus text format at ``http://127.0.0.1:N/metrics`` (port 0 picks a
 free one); ``--trace-out FILE`` enables span tracing and dumps the
-Perfetto-loadable Chrome trace on shutdown.
+Perfetto-loadable Chrome trace on shutdown; while it is on, a
+``torch.profiler`` that records also gets the program's spans (the
+engine's ``serve.*``, the model's ``model.*``) as ranges on its
+timeline, so they label the device trace.
 """
 from __future__ import annotations
 
@@ -181,7 +184,7 @@ def main(argv=None):
           f"{new_tokens} tokens in {dt:.2f}s "
           f"({new_tokens / dt:.1f} tok/s on {where})")
     q = eng.metrics.latency_quantiles()
-    print("latency (ticks; step_time µs): " + ", ".join(
+    print("latency (ticks; step_time and *_us µs): " + ", ".join(
         f"{k} p50={v['p50']} p95={v['p95']} p99={v['p99']}"
         for k, v in q.items()))
     print("metrics:", json.dumps(eng.metrics.snapshot(), sort_keys=True))

@@ -23,14 +23,23 @@ the reserved null page 0 stays all-zero.  An MLA cache holds the latent
 the paged kernel paths (``decode_step_paged``, ``prefill_chunk_packed``)
 take GQA caches only and raise for MLA, whose ticks stay on the gather
 paths, as in the JAX package.
+
+The two paged serving calls are traced (:mod:`repro_torch.obs`):
+``model.decode`` / ``model.prefill`` over ``model.embed``, each layer's
+``model.attn`` (norm, QKV, rotary, KV write, the kernel and the
+O-projection) and ``model.ffn`` or ``model.moe``, and ``model.head``
+(the final norm and the unembed); with the obs switch on, a layer's
+spans carry its index.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs as _obs
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.parallel.api import constrain_activations, shard_state
 
@@ -285,17 +294,35 @@ class TransformerLM:
 
     def _blocks(self, params: Dict, x: torch.Tensor, fn,
                 state: Optional[Dict] = None) -> torch.Tensor:
-        """Run ``fn(layer params, x, moe_layer, layer state)`` over the
-        layers; ``state`` is a cache or pool tree (None: no state)."""
+        """Run ``fn(layer index, layer params, x, moe_layer, layer
+        state)`` over the layers; ``state`` is a cache or pool tree
+        (None: no state)."""
         layers = self._layers(state) if state is not None else None
-        for p, moe_layer in self._layers(params):
-            x = fn(p, x, moe_layer,
+        for i, (p, moe_layer) in enumerate(self._layers(params)):
+            x = fn(i, p, x, moe_layer,
                    next(layers)[0] if layers is not None else None)
         return x
 
     def _head(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
-        x = apply_norm(params["ln_f"], x, self.cfg)
-        return unembed(params["embed"], x, self.cfg)
+        with _obs.span("model.head"):
+            x = apply_norm(params["ln_f"], x, self.cfg)
+            return unembed(params["embed"], x, self.cfg)
+
+    def _served_block(self, attend, i: int, p: Dict, x: torch.Tensor,
+                      moe_layer: bool, leaf: Dict) -> torch.Tensor:
+        """Layer ``i`` of a paged serving call (a :meth:`_blocks` step):
+        ``x + attend(attention params, norm(x), pool leaf)`` as the span
+        ``model.attn``, then the FFN residual as ``model.ffn`` /
+        ``model.moe``."""
+        with _obs.span("model.attn") as sp:
+            if _obs.enabled():
+                sp.set(layer=i)
+            x = x + attend(p["attn"], apply_norm(p["ln_attn"], x, self.cfg),
+                           leaf)
+        with _obs.span("model.moe" if moe_layer else "model.ffn") as sp:
+            if _obs.enabled():
+                sp.set(layer=i)
+            return _ffn_residual(p, x, self.cfg, moe_layer)[0]
 
     # -- forward -------------------------------------------------------------
     def apply(self, params: Dict, tokens: Optional[torch.Tensor] = None, *,
@@ -375,7 +402,7 @@ class TransformerLM:
         positions = (pos_t[:, None] + offs if pos_t.ndim == 1
                      else (pos_t + offs).expand(B, S))
         # the write offset as given: an int stays one (cache_update)
-        x = self._blocks(params, x, lambda p, x, moe_layer, c: apply_block(
+        x = self._blocks(params, x, lambda _, p, x, moe_layer, c: apply_block(
             p, x, positions, cfg, moe_layer=moe_layer, cache=c,
             pos0=pos)[0], cache)
         return self._head(params, x), cache
@@ -395,32 +422,31 @@ class TransformerLM:
         cfg = self.cfg
         if cfg.attn_type == "mla":
             raise ValueError("paged kernel decode requires a GQA cache")
-        x = embed(params["embed"], tokens, cfg)
-        PS = self._page_size(pool)
-        pos = pos.to(torch.int64)
-        positions = pos[:, None]
-        # writes of active rows only: the JAX package redirects inactive
-        # rows past the pool and lets mode="drop" discard them
-        rows = torch.nonzero(lengths > 0).squeeze(1)
-        phys = tables[rows, pos[rows] // PS].long()
-        writes = (rows, phys, pos[rows] % PS)
-        x = self._blocks(params, x, lambda p, x, moe_layer, leaf:
-                         self._paged_block(p, x, positions, leaf, tables,
-                                           lengths, writes, kernel_cfg,
-                                           moe_layer), pool)
-        return self._head(params, x), pool
+        with _obs.span("model.decode"):
+            with _obs.span("model.embed"):
+                x = embed(params["embed"], tokens, cfg)
+            PS = self._page_size(pool)
+            pos = pos.to(torch.int64)
+            positions = pos[:, None]
+            # writes of active rows only: the JAX package redirects
+            # inactive rows past the pool and lets mode="drop" discard
+            # them
+            rows = torch.nonzero(lengths > 0).squeeze(1)
+            phys = tables[rows, pos[rows] // PS].long()
+            writes = (rows, phys, pos[rows] % PS)
+
+            def attend(p, h, leaf):
+                return _paged_self_attention(p, h, positions, cfg, leaf,
+                                             tables, lengths, writes,
+                                             kernel_cfg=kernel_cfg)
+            x = self._blocks(params, x, partial(self._served_block, attend),
+                             pool)
+            logits = self._head(params, x)
+        return logits, pool
 
     def _page_size(self, pool: Dict) -> int:
         leaf = next(self._layers(pool))[0]["k"]    # (P, Hkv, PS, hd)
         return leaf.shape[2]
-
-    def _paged_block(self, p, x, positions, leaf, tables, lengths, writes,
-                     kernel_cfg, moe_layer):
-        h = apply_norm(p["ln_attn"], x, self.cfg)
-        x = x + _paged_self_attention(p["attn"], h, positions, self.cfg,
-                                      leaf, tables, lengths, writes,
-                                      kernel_cfg=kernel_cfg)
-        return _ffn_residual(p, x, self.cfg, moe_layer)[0]
 
     def prefill_chunk_packed(self, params: Dict, pool: Dict,
                              tokens: torch.Tensor, seg_q: torch.Tensor,
@@ -448,28 +474,26 @@ class TransformerLM:
         cfg = self.cfg
         if cfg.attn_type == "mla":
             raise ValueError("packed kernel prefill requires a GQA cache")
-        x = embed(params["embed"], tokens, cfg)
-        positions = torch.clamp(pos_q, min=0)[None, :]
-        P, _, PS, _ = next(self._layers(pool))[0]["k"].shape
-        keep = ((write_phys >= 0) & (write_phys < P)
-                & (write_offs >= 0) & (write_offs < PS))
-        idx = torch.nonzero(keep).squeeze(1)
-        writes = (idx, write_phys[idx].long(), write_offs[idx].long())
-        meta = (seg_q, pos_q, seg_k, pos_k, gather_phys.long(),
-                gather_offs.long())
-        x = self._blocks(params, x, lambda p, x, moe_layer, leaf:
-                         self._packed_block(p, x, positions, leaf, meta,
-                                            writes, kernel_cfg, moe_layer),
-                         pool)
-        return self._head(params, x), pool
+        with _obs.span("model.prefill"):
+            with _obs.span("model.embed"):
+                x = embed(params["embed"], tokens, cfg)
+            positions = torch.clamp(pos_q, min=0)[None, :]
+            P, _, PS, _ = next(self._layers(pool))[0]["k"].shape
+            keep = ((write_phys >= 0) & (write_phys < P)
+                    & (write_offs >= 0) & (write_offs < PS))
+            idx = torch.nonzero(keep).squeeze(1)
+            writes = (idx, write_phys[idx].long(), write_offs[idx].long())
+            meta = (seg_q, pos_q, seg_k, pos_k, gather_phys.long(),
+                    gather_offs.long())
 
-    def _packed_block(self, p, x, positions, leaf, meta, writes,
-                      kernel_cfg, moe_layer):
-        h = apply_norm(p["ln_attn"], x, self.cfg)
-        x = x + _packed_prefill_attention(p["attn"], h, positions, self.cfg,
-                                          leaf, meta, writes,
-                                          kernel_cfg=kernel_cfg)
-        return _ffn_residual(p, x, self.cfg, moe_layer)[0]
+            def attend(p, h, leaf):
+                return _packed_prefill_attention(p, h, positions, cfg, leaf,
+                                                 meta, writes,
+                                                 kernel_cfg=kernel_cfg)
+            x = self._blocks(params, x, partial(self._served_block, attend),
+                             pool)
+            logits = self._head(params, x)
+        return logits, pool
 
     def prefill(self, params: Dict, tokens: torch.Tensor, max_len: int
                 ) -> Tuple[torch.Tensor, Dict]:
@@ -481,7 +505,7 @@ class TransformerLM:
                                 like=tokens)
         x = embed(params["embed"], tokens, cfg)
         positions = torch.arange(S, device=x.device)
-        x = self._blocks(params, x, lambda p, x, moe_layer, c: apply_block(
+        x = self._blocks(params, x, lambda _, p, x, moe_layer, c: apply_block(
             p, x, positions, cfg, moe_layer=moe_layer, cache=c,
             pos0=0)[0], cache)
         # last-position logits only: full-sequence logits are (B, S, V)

@@ -1,8 +1,9 @@
 """Observability: spans, mergeable histograms, Prometheus/Perfetto
 export — stdlib-only copies of the JAX package's ``repro.obs``.
 
-A global tracer whose ``span()`` is a true no-op when disabled
-(:mod:`.tracer`), fixed-bucket log2 histograms whose merge is
+A global tracer whose ``span()`` is a true no-op when disabled and,
+while enabled, also a ``torch.profiler`` range under a recording
+profiler (:mod:`.tracer`), fixed-bucket log2 histograms whose merge is
 element-wise add (:mod:`.hist`), and text/HTTP exposition
 (:mod:`.export`).  Consumed by the serving engines and the launcher.
 """

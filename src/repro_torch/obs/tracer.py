@@ -1,25 +1,35 @@
 """Spans: a zero-cost-when-off tracer with Chrome trace-event export.
 
-A copy of the JAX package's ``obs/tracer.py``.
+A copy of the JAX package's ``obs/tracer.py``, whose spans also land on
+the device trace's clock.
 
 The tracer is a process-global switch plus a bounded in-memory ring.
-``span(name)`` is the only hot-path entry point and is engineered to be
-a true no-op while tracing is disabled: the module-level ``ENABLED``
-flag is a plain global read, the returned ``_NullSpan`` is a shared
-singleton (no allocation, no closure), and attrs default to ``None``
-instead of ``**kwargs`` so no dict is materialized per call.
+``span(name)`` is the only hot-path entry point.  While the switch is on
+(:func:`enable`) a span records ``(name, ts, dur, pid, tid, args)`` into
+a ``deque(maxlen=capacity)`` ring that exports as Chrome trace-event
+JSON (complete ``"ph": "X"`` events, microsecond timestamps) loadable
+in Perfetto / ``chrome://tracing``; one event is shown by
+``TRACE_EVENT_EXAMPLE`` below.  If a torch profiler records as well,
+the span is also a ``torch.profiler.record_function`` range of the
+same name, so its host interval sits on the profiler's timeline and
+every device operation launched inside it descends from it.  A profile
+taken with the switch off holds no range of the program's: the ranges
+slow a host-bound tick (a few to tens of microseconds each), so a
+caller opts in by turning the switch on for the stretch it profiles.
 
-When enabled, each span records ``(name, ts, dur, pid, tid, args)``
-into a ``deque(maxlen=capacity)`` ring and exports as Chrome
-trace-event JSON (complete ``"ph": "X"`` events, microsecond
-timestamps) loadable in Perfetto / ``chrome://tracing``; one event is
-shown by ``TRACE_EVENT_EXAMPLE`` below.
+While the switch is off, ``span`` is a true no-op: the module-level
+``ENABLED`` flag is a plain global read, the returned ``_NullSpan`` is
+a shared singleton (no allocation, no closure), and attrs default to
+``None`` instead of ``**kwargs`` so no dict is materialized per call.
+The module never imports torch: it looks the profiler up in
+``sys.modules`` once torch is loaded.
 
-The clock is injectable (seconds, monotonic); benchmarks pass a
+The ring's clock is injectable (seconds, monotonic); benchmarks pass a
 :class:`TickClock` so two runs emit byte-identical trace files.
 """
 import json
 import os
+import sys
 import threading
 from collections import deque
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
@@ -39,6 +49,21 @@ TRACE_EVENT_EXAMPLE = {
 ENABLED = False
 
 _DEFAULT_CAPACITY = 65536
+
+#: ``torch.autograd.profiler`` once torch is loaded (found lazily: the
+#: module never imports torch); its ``_is_profiler_enabled`` is true
+#: while a torch profiler records.
+_PROFILER = None
+
+
+def _profiling() -> bool:
+    """Whether a torch profiler records now."""
+    global _PROFILER
+    if _PROFILER is None:
+        _PROFILER = sys.modules.get("torch.autograd.profiler")
+        if _PROFILER is None:
+            return False
+    return _PROFILER._is_profiler_enabled
 
 
 class _NullSpan:
@@ -60,15 +85,18 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    """Live span: stamps start on entry, appends one event on exit."""
+    """Live span: stamps start on entry, appends one event on exit (and
+    opens / closes its profiler range while a profiler records)."""
 
-    __slots__ = ("_tracer", "name", "tid", "attrs", "_t0")
+    __slots__ = ("_tracer", "name", "tid", "attrs", "_t0", "_range")
 
     def __init__(self, tracer, name, tid, attrs):
         self._tracer = tracer
         self.name = name
         self.tid = tid
         self.attrs = attrs
+        self._range = (_PROFILER.record_function(name) if _profiling()
+                       else None)
 
     def set(self, **attrs):
         """Attach late attrs (merged over the ones passed at open)."""
@@ -79,6 +107,8 @@ class _Span:
         return self
 
     def __enter__(self):
+        if self._range is not None:
+            self._range.__enter__()
         self._t0 = self._tracer._now_us()
         return self
 
@@ -86,6 +116,8 @@ class _Span:
         tr = self._tracer
         tr._events.append((self.name, self._t0,
                            tr._now_us() - self._t0, self.tid, self.attrs))
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
         return False
 
 

@@ -55,12 +55,27 @@ any.
 Both engines decode greedily and take ``device=`` (default ``"cuda"``;
 see :func:`repro_torch.device.resolve_device`); the model's parameters
 must already live there.
+
+Tracing (:mod:`repro_torch.obs`): the paged engine's tick is the span
+``serve.tick`` over ``serve.admit``, ``serve.prefill_chunk`` and
+``serve.decode_tick``; inside them ``serve.gate`` (a gate run on a memo
+miss), ``serve.pack`` (a tick's kernel inputs built on the host and
+copied) and ``serve.tokens`` (the device-to-host read of the tick's
+tokens, the host's one wait for the device); the model's own spans
+nest under those.  Each span is live only while the obs switch is on
+(and a ``torch.profiler`` range too while a profiler records).  The
+gate runs and the host time of the gate, the packing, the model's two
+kernel-path calls (their launches and any wait for the device inside
+them) and the token reads are counted always, in the metrics' v5
+counters (:data:`repro_torch.serve.metrics.HOST_COUNTERS`),
+from ``time.perf_counter`` (never the injectable clock, so the v4
+fields stay a function of the call sequence under a ``TickClock``).
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,7 +85,7 @@ from repro_torch.core.tuning import dispatch as _dispatch
 from repro_torch.device import DeviceLike, device_of, resolve_device
 from repro_torch.models.params import leaf_paths
 
-from .metrics import ServingMetrics
+from .metrics import HOST_COUNTERS, ServingMetrics
 from .pool import KVPool, PageAllocator, PoolExhausted, pages_needed
 
 
@@ -121,6 +136,63 @@ def _argmax_rows(logits: torch.Tensor) -> List[int]:
     return torch.argmax(logits, dim=-1).tolist()
 
 
+def _us_since(t0: float, now: Optional[float] = None) -> int:
+    """Host microseconds from ``t0`` to ``now`` (``time.perf_counter``
+    readings; ``now`` defaults to the present)."""
+    return round(((time.perf_counter() if now is None else now) - t0) * 1e6)
+
+
+def _stamps(tick: int) -> Dict[str, float]:
+    """A request's latency stamps at submission: the tick, and the host
+    second for the microsecond histograms."""
+    now = time.perf_counter()
+    return {"submit": tick, "queued": tick, "submit_s": now,
+            "queued_s": now}
+
+
+def _record_tpots(metrics: ServingMetrics, lats: List[Dict[str, float]],
+                  tick: int, now: float) -> None:
+    """A generated token at ``tick`` (host second ``now``) for each
+    request of ``lats``: its gap to the request's previous token, in
+    ticks and in microseconds.  Rows whose previous token came on one
+    tick share a gap, which is recorded once for all of them."""
+    gaps: Dict[Tuple[float, float], int] = {}
+    for lat in lats:
+        key = (lat.get("last", tick), lat.get("last_s", now))
+        gaps[key] = gaps.get(key, 0) + 1
+        lat["last"], lat["last_s"] = tick, now
+    for (last, last_s), n in gaps.items():
+        metrics.record_latency("tpot", tick - last, n)
+        metrics.record_latency("tpot_us", _us_since(last_s, now), n)
+
+
+class _Timed:
+    """``with _Timed(host, key, name):`` runs the block as the span
+    ``name`` and adds its host microseconds to ``host[key]``."""
+
+    __slots__ = ("_host", "_key", "_span", "_t0")
+
+    def __init__(self, host: Dict[str, int], key: str, name: str):
+        self._host, self._key = host, key
+        self._span = _obs.span(name)
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self._span.__enter__()
+
+    def __exit__(self, exc_type, exc, tb):
+        self._span.__exit__(exc_type, exc, tb)
+        self._host[self._key] += _us_since(self._t0)
+        return False
+
+
+def _read_tokens(host: Dict[str, int], logits: torch.Tensor) -> List[int]:
+    """:func:`_argmax_rows` as the ``serve.tokens`` span, counted in
+    ``token_wait_us``."""
+    with _Timed(host, "token_wait_us", "serve.tokens"):
+        return _argmax_rows(logits)
+
+
 class ServingEngine:
     """Dense-slab slot engine (the paged engine's token oracle)."""
 
@@ -143,7 +215,10 @@ class ServingEngine:
         # step-time clock (seconds): injectable so benchmarks can pass a
         # virtual TickClock and keep reports byte-identical
         self._clock = clock or time.perf_counter
-        self._lat: Dict[int, Dict[str, int]] = {}   # rid -> tick stamps
+        # rid -> tick stamps, and host-second stamps ("*_s") for the
+        # microsecond latencies
+        self._lat: Dict[int, Dict[str, float]] = {}
+        self._host = dict.fromkeys(HOST_COUNTERS, 0)   # this tick's
         self.cache = model.init_cache(n_slots, max_len, device=self.device)
         self.slots = [_Slot() for _ in range(n_slots)]
         self.queue: List[Request] = []
@@ -155,8 +230,7 @@ class ServingEngine:
 
     # -- API ---------------------------------------------------------------
     def submit(self, req: Request) -> None:
-        tick = self.metrics.counters["ticks"]
-        self._lat[req.rid] = {"submit": tick, "queued": tick}
+        self._lat[req.rid] = _stamps(self.metrics.counters["ticks"])
         self.queue.append(req)
 
     def _insert_cache(self, slot: int, src_cache: Dict) -> None:
@@ -176,22 +250,26 @@ class ServingEngine:
             if s.req is not None or not self.queue:
                 continue
             req = self.queue.pop(0)
+            lat = self._lat.setdefault(req.rid, _stamps(tick))
+            self.metrics.record_latency("queue_wait", tick - lat["queued"])
+            self.metrics.record_latency(
+                "queue_wait_us", _us_since(lat["queued_s"]))
             toks = self._t(np.asarray([req.prompt], np.int32))
             logits, cache1 = self.model.prefill(self.params, toks,
                                                 self.max_len)
             self._insert_cache(i, cache1)
-            nxt = _argmax_rows(logits[:, -1])[0]
+            nxt = _read_tokens(self._host, logits[:, -1])[0]
             req.output.append(nxt)
             s.req, s.pos = req, len(req.prompt)
             admitted += 1
             prefill_tokens += len(req.prompt)
             # one-shot prefill emits the first token at admission: both
             # queue-wait and TTFT resolve on this tick
-            lat = self._lat.setdefault(req.rid, {"submit": tick,
-                                                 "queued": tick})
-            self.metrics.record_latency("queue_wait", tick - lat["queued"])
             self.metrics.record_latency("ttft", tick - lat["submit"])
-            lat["last"] = tick
+            now = time.perf_counter()
+            self.metrics.record_latency(
+                "ttft_us", _us_since(lat["submit_s"], now))
+            lat["last"], lat["last_s"] = tick, now
         return {"admitted": admitted, "prefill_tokens": prefill_tokens}
 
     def step(self) -> int:
@@ -209,7 +287,9 @@ class ServingEngine:
                 pos_vec[i] = self.slots[i].pos
             logits, self.cache = self.model.decode_step(
                 self.params, self.cache, self._t(tokens), self._t(pos_vec))
-            nxt_all = _argmax_rows(logits[:, -1])
+            nxt_all = _read_tokens(self._host, logits[:, -1])
+            now = time.perf_counter()
+            lats = []
             for i in active:
                 s = self.slots[i]
                 nxt = nxt_all[i]
@@ -217,9 +297,7 @@ class ServingEngine:
                 s.pos += 1
                 lat = self._lat.get(s.req.rid)
                 if lat is not None:
-                    self.metrics.record_latency(
-                        "tpot", tick - lat.get("last", tick))
-                    lat["last"] = tick
+                    lats.append(lat)
                 # retire once the final writable position (max_len-1) has
                 # been used: s.pos is the *next* write offset
                 exhausted = (len(s.req.output) >= s.req.max_new_tokens
@@ -231,11 +309,14 @@ class ServingEngine:
                     self._lat.pop(s.req.rid, None)
                     s.req = None
                     finished += 1
+            _record_tpots(self.metrics, lats, tick, now)
         occ = sum(1 for s in self.slots if s.req is not None)
         self.metrics.record_tick(
             queue_depth=len(self.queue), active=occ, occupancy=occ,
             decode_tokens=len(active), finished=finished,
-            step_time_us=int((self._clock() - t0) * 1e6), **adm)
+            step_time_us=int((self._clock() - t0) * 1e6), **adm,
+            **self._host)
+        self._host = dict.fromkeys(HOST_COUNTERS, 0)
         return len(active)
 
     def run(self, max_ticks: int = 10_000) -> List[Request]:
@@ -311,7 +392,10 @@ class PagedServingEngine:
                                       kind="paged")
         self._chunk = getattr(model, "decode_chunk", None)
         self._clock = clock or time.perf_counter
-        self._lat: Dict[int, Dict[str, int]] = {}   # rid -> tick stamps
+        # rid -> tick stamps, and host-second stamps ("*_s") for the
+        # microsecond latencies
+        self._lat: Dict[int, Dict[str, float]] = {}
+        self._host = dict.fromkeys(HOST_COUNTERS, 0)   # this tick's
         self._admission_stamp = 0
         # kernel decode path: config resolved per batch geometry; dense-
         # view bytes for the gather-path traffic accounting
@@ -340,8 +424,7 @@ class PagedServingEngine:
 
     # -- API ---------------------------------------------------------------
     def submit(self, req: Request) -> None:
-        tick = self.metrics.counters["ticks"]
-        self._lat[req.rid] = {"submit": tick, "queued": tick}
+        self._lat[req.rid] = _stamps(self.metrics.counters["ticks"])
         self.queue.append(req)
 
     @property
@@ -380,10 +463,11 @@ class PagedServingEngine:
             self.alloc.ensure(self._seq_id(seq), len(ctx) + 1)
             self.rows[row] = seq
             admitted += 1
-            lat = self._lat.setdefault(req.rid, {"submit": tick,
-                                                 "queued": tick})
+            lat = self._lat.setdefault(req.rid, _stamps(tick))
             wait = tick - lat.get("queued", tick)
             self.metrics.record_latency("queue_wait", wait)
+            self.metrics.record_latency("queue_wait_us",
+                                        _us_since(lat["queued_s"]))
             if _obs.enabled():
                 with _obs.span("serve.admit_request") as sp:
                     sp.set(trace_id=req.trace_name, wait_ticks=wait,
@@ -427,6 +511,7 @@ class PagedServingEngine:
         lat = self._lat.get(victim.req.rid)
         if lat is not None:
             lat["queued"] = self.metrics.counters["ticks"]
+            lat["queued_s"] = time.perf_counter()
 
     # -- gather through the validated block tables ---------------------------
     def _tables(self) -> np.ndarray:
@@ -437,8 +522,19 @@ class PagedServingEngine:
                                             self.pages_per_seq)
         return t
 
+    def _gate(self, path: str, geometry, verify, *args, **kwargs):
+        """``verify(*args, **kwargs)``: a run of the ARGUS gate on a memo
+        miss of the ``path`` geometry, as the span ``serve.gate``,
+        counted in ``gate_verifications`` and ``gate_us``."""
+        self._host["gate_verifications"] += 1
+        with _Timed(self._host, "gate_us", "serve.gate") as sp:
+            if _obs.enabled():
+                sp.set(path=path, geometry=geometry)
+            return verify(*args, **kwargs)
+
     def _gather(self) -> Dict:
-        tables = self._tables()
+        with _Timed(self._host, "pack_us", "serve.pack"):
+            tables = self._tables()
         sig = (tables.shape, self.alloc.n_pages)
         if sig != self._table_sig:
             # ARGUS gate: verify the paged_attention family's indirection
@@ -446,15 +542,17 @@ class PagedServingEngine:
             # installed dispatch table) before the gather consumes it
             from repro_torch.kernels.paged_attention.ops import \
                 validate_block_tables
-            validate_block_tables(
-                tables, model=self.model, page_size=self.page_size,
-                pool_pages=self.alloc.n_pages, dtype=self._pool_dtype)
+            self._gate("gather", sig, validate_block_tables,
+                       tables, model=self.model, page_size=self.page_size,
+                       pool_pages=self.alloc.n_pages, dtype=self._pool_dtype)
             self._table_sig = sig
         elif tables.min() < 0 or tables.max() >= self.alloc.n_pages:
             # geometry already verified: still range-check the concrete
             # mapping (the runtime mirror of assert_in_range)
             raise ValueError("block table maps outside the pool")
-        return self.kv.gather(self._t(tables))
+        with _Timed(self._host, "pack_us", "serve.pack"):
+            tables = self._t(tables)
+        return self.kv.gather(tables)
 
     # -- prefill -------------------------------------------------------------
     def _prefill_tick(self) -> Dict[str, int]:
@@ -499,8 +597,9 @@ class PagedServingEngine:
             self._scatter(view, {i: (s.pos, lens[i]) for i, s in pend})
             row_logits = {i: logits[i, lens[i] - 1] for i, s in pend}
             gather_bytes = self._view_bytes
-        nxt_all = dict(zip(row_logits, _argmax_rows(
-            torch.stack(list(row_logits.values())))))
+        nxt_all = dict(zip(row_logits, _read_tokens(
+            self._host, torch.stack(list(row_logits.values())))))
+        now = time.perf_counter()
         total = 0
         finished = 0
         tick = self.metrics.counters["ticks"]
@@ -519,11 +618,12 @@ class PagedServingEngine:
                         # first token ever for this request: TTFT
                         self.metrics.record_latency(
                             "ttft", tick - lat.get("submit", tick))
+                        self.metrics.record_latency(
+                            "ttft_us", _us_since(lat["submit_s"], now))
+                        lat["last"], lat["last_s"] = tick, now
                     else:
                         # resumed prefill replays a decode tick: TPOT
-                        self.metrics.record_latency(
-                            "tpot", tick - lat["last"])
-                    lat["last"] = tick
+                        _record_tpots(self.metrics, [lat], tick, now)
                 # a *resumed* prefill replays a decode tick, so its token
                 # gets the decode-tick exhaustion check
                 if s.resumed and (
@@ -555,7 +655,6 @@ class PagedServingEngine:
                 or getattr(model.cfg, "attn_type", None) == "mla":
             return None
         from repro_torch.kernels.ragged_prefill.ops import verified_config
-        PS = self.page_size
         spans = [(i, s, s.pos, lens[i]) for i, s in pend]
         # pad both packed extents to 64-token granularity, as the JAX
         # engine does (64 is itself a valid block size, so every padded
@@ -568,7 +667,8 @@ class PagedServingEngine:
         if key not in self._prefill_cfgs:
             # ARGUS gate: verify the leakage invariants once per packed
             # geometry, config resolved from the dispatch table
-            self._prefill_cfgs[key] = verified_config(
+            self._prefill_cfgs[key] = self._gate(
+                "prefill", key, verified_config,
                 TQp, TKp, len(spans), q_heads=mcfg.n_heads,
                 kv_heads=mcfg.n_kv_heads,
                 head_dim=mcfg.resolved_head_dim,
@@ -576,6 +676,18 @@ class PagedServingEngine:
         kcfg = self._prefill_cfgs[key]
         if kcfg is None:
             return None
+        with _Timed(self._host, "pack_us", "serve.pack"):
+            inputs, q_last = self._pack_prefill(spans, TQp, TKp)
+        t0 = time.perf_counter()
+        logits, self.kv.storage = model.prefill_chunk_packed(
+            self.params, self.kv.storage, *inputs, kernel_cfg=kcfg)
+        self._host["prefill_model_us"] += _us_since(t0)
+        return {i: logits[0, t] for i, t in q_last.items()}, TKp
+
+    def _pack_prefill(self, spans, TQp: int, TKp: int):
+        """The packed prefill call's nine inputs on the device, and
+        ``{row: its last query's packed index}``."""
+        PS = self.page_size
         tokens = np.zeros((1, TQp), np.int32)
         seg_q = np.full((TQp,), -1, np.int32)
         pos_q = np.zeros((TQp,), np.int32)
@@ -606,11 +718,8 @@ class PagedServingEngine:
             q_last[i] = qt + n - 1
             qt += n
             kt += p + n
-        logits, self.kv.storage = model.prefill_chunk_packed(
-            self.params, self.kv.storage, *(self._t(a) for a in (
-                tokens, seg_q, pos_q, seg_k, pos_k, wphys, woffs, gphys,
-                goffs)), kernel_cfg=kcfg)
-        return {i: logits[0, t] for i, t in q_last.items()}, TKp
+        return [self._t(a) for a in (tokens, seg_q, pos_q, seg_k, pos_k,
+                                     wphys, woffs, gphys, goffs)], q_last
 
     # -- decode --------------------------------------------------------------
     def _kernel_config(self, tables: np.ndarray):
@@ -628,7 +737,8 @@ class PagedServingEngine:
                 self._kernel_cfg = None
                 return None
             try:
-                self._kernel_cfg = validate_block_tables(
+                self._kernel_cfg = self._gate(
+                    "decode", sig, validate_block_tables,
                     tables, model=self.model, page_size=self.page_size,
                     pool_pages=self.alloc.n_pages, dtype=self._pool_dtype)
             except InvariantViolation:
@@ -640,28 +750,33 @@ class PagedServingEngine:
         K/V write happens inside ``decode_step_paged``; inactive rows
         carry null tables and length 0.  Returns logits, or None when no
         config exists for this geometry (gather fallback)."""
-        tables = self._tables()
+        with _Timed(self._host, "pack_us", "serve.pack"):
+            tables = self._tables()
         cfg = self._kernel_config(tables)
         if cfg is None:
             return None
-        # kernel tables: only decoding rows expose their pages — a row
-        # mid-prefill holds pages for tokens not yet written, which the
-        # mapped-length consistency check (rightly) rejects
-        kt = np.zeros_like(tables)
-        lengths = np.zeros((self.max_batch,), np.int32)
-        for i, s in rows:
-            kt[i] = tables[i]
-            lengths[i] = s.pos + 1     # the token being written included
-        # hot-path concrete gate: range + mapped-length consistency (each
-        # row maps exactly ceil(length/page_size) pages, no null holes)
         from repro_torch.kernels.paged_attention.ops import \
             validate_block_tables
-        validate_block_tables(kt, page_size=self.page_size,
-                              pool_pages=self.alloc.n_pages,
-                              lengths=lengths)
+        with _Timed(self._host, "pack_us", "serve.pack"):
+            # kernel tables: only decoding rows expose their pages — a
+            # row mid-prefill holds pages for tokens not yet written,
+            # which the mapped-length consistency check (rightly) rejects
+            kt = np.zeros_like(tables)
+            lengths = np.zeros((self.max_batch,), np.int32)
+            for i, s in rows:
+                kt[i] = tables[i]
+                lengths[i] = s.pos + 1   # the token being written included
+            # hot-path concrete gate: range + mapped-length consistency
+            # (each row maps exactly ceil(length/page_size) pages, no
+            # null holes)
+            validate_block_tables(kt, page_size=self.page_size,
+                                  pool_pages=self.alloc.n_pages,
+                                  lengths=lengths)
+            inputs = [self._t(a) for a in (kt, tokens, pos_vec, lengths)]
+        t0 = time.perf_counter()
         logits, self.kv.storage = self.model.decode_step_paged(
-            self.params, self.kv.storage, self._t(kt), self._t(tokens),
-            self._t(pos_vec), self._t(lengths), kernel_cfg=cfg)
+            self.params, self.kv.storage, *inputs, kernel_cfg=cfg)
+        self._host["decode_model_us"] += _us_since(t0)
         return logits
 
     def _decode_tick(self) -> Dict[str, int]:
@@ -678,11 +793,12 @@ class PagedServingEngine:
         if not rows:
             return {"decode_tokens": 0, "finished": 0,
                     "preempted": preempted}
-        tokens = np.zeros((self.max_batch, 1), np.int32)
-        pos_vec = np.zeros((self.max_batch,), np.int32)
-        for i, s in rows:
-            tokens[i, 0] = s.req.output[-1]
-            pos_vec[i] = s.pos
+        with _Timed(self._host, "pack_us", "serve.pack"):
+            tokens = np.zeros((self.max_batch, 1), np.int32)
+            pos_vec = np.zeros((self.max_batch,), np.int32)
+            for i, s in rows:
+                tokens[i, 0] = s.req.output[-1]
+                pos_vec[i] = s.pos
         gather_bytes = kernel_ticks = 0
         logits = (self._decode_kernel(rows, tokens, pos_vec)
                   if self.decode_path == "kernel" else None)
@@ -694,9 +810,11 @@ class PagedServingEngine:
             gather_bytes = self._view_bytes
         else:
             kernel_ticks = 1
-        nxt_all = _argmax_rows(logits[:, -1])
+        nxt_all = _read_tokens(self._host, logits[:, -1])
+        now = time.perf_counter()
         finished = 0
         tick = self.metrics.counters["ticks"]
+        lats = []
         for i, s in rows:
             nxt = nxt_all[i]
             s.req.output.append(nxt)
@@ -704,9 +822,7 @@ class PagedServingEngine:
             s.ctx.append(int(tokens[i, 0]))
             lat = self._lat.get(s.req.rid)
             if lat is not None:
-                self.metrics.record_latency(
-                    "tpot", tick - lat.get("last", tick))
-                lat["last"] = tick
+                lats.append(lat)
             exhausted = (len(s.req.output) >= s.req.max_new_tokens
                          or nxt == self.eos_id
                          or s.pos >= self.max_len)
@@ -717,6 +833,7 @@ class PagedServingEngine:
                 self.alloc.free_seq(self._seq_id(s))
                 self.rows[i] = None
                 finished += 1
+        _record_tpots(self.metrics, lats, tick, now)
         return {"decode_tokens": len(rows), "finished": finished,
                 "preempted": preempted, "gather_bytes": gather_bytes,
                 "kernel_decode_ticks": kernel_ticks}
@@ -775,7 +892,8 @@ class PagedServingEngine:
                 kernel_decode_ticks=dec.get("kernel_decode_ticks", 0),
                 kernel_prefill_ticks=pre.get("kernel_prefill_ticks", 0),
                 prefill_gather_bytes=pre.get("prefill_gather_bytes", 0),
-                step_time_us=int((self._clock() - t0) * 1e6))
+                step_time_us=int((self._clock() - t0) * 1e6), **self._host)
+            self._host = dict.fromkeys(HOST_COUNTERS, 0)
         return n_active
 
     def run(self, max_ticks: int = 10_000) -> List[Request]:

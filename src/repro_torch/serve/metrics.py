@@ -1,7 +1,9 @@
 """Serving metrics: the per-tick health surface of both engines.
 
-A copy of the JAX package's ``serve/metrics.py``: the snapshot schema v4
-below is byte-identical to it, so a scraper reads either engine.
+The JAX package's ``serve/metrics.py`` (schema v4) plus the port's v5
+fields: every v4 field is computed as there, so under a virtual
+:class:`~repro_torch.obs.TickClock` the v4 part of a snapshot is
+byte-identical to the JAX engine's, and a scraper reads either engine.
 
 One :class:`ServingMetrics` per engine.  ``record_tick`` is called by
 ``step()`` exactly once per tick — idle ticks included, so a replayed
@@ -25,8 +27,19 @@ injectable wall clock.  Schema v4 adds the prefill-path counters:
 kernel, no dense view) and ``prefill_gather_bytes`` (bytes the prefill
 path read from the pool — full dense views on the gather/fallback
 path, token-granular packed-KV reads on the kernel path).
-``from_snapshot`` still loads v2 and v3 snapshots (missing counters
-default to 0, latency defaults to empty on v2) and rejects unknown
+Schema v5 (the port's) adds the engine's host-time counters, read from
+``time.perf_counter`` and never from the injectable clock:
+``gate_verifications`` (memo misses that ran the ARGUS gate on the
+serving path) and ``gate_us`` (their host microseconds), ``pack_us``
+(building and copying a tick's kernel inputs), ``prefill_model_us`` and
+``decode_model_us`` (host time inside the model's kernel-path calls,
+``prefill_chunk_packed`` and ``decode_step_paged``: the eager enqueue,
+and any wait for the device inside them) and ``token_wait_us`` (the
+device-to-host read of the tick's tokens); and three
+latency histograms in microseconds beside the tick-unit ones:
+``queue_wait_us``, ``ttft_us`` and ``tpot_us``.  ``from_snapshot``
+still loads v2 to v4 snapshots (the JAX engine's v4 included: missing
+counters and histograms default to 0 and empty) and rejects unknown
 versions with a ``ValueError`` naming the version.
 """
 from __future__ import annotations
@@ -35,12 +48,12 @@ from typing import Dict
 
 from repro_torch.obs.hist import LogHistogram
 
-SCHEMA_VERSION = 4
+SCHEMA_VERSION = 5
 
-# The snapshot schema, by example — identical to the JAX package's
-# (tests/test_torch_serving.py compares the two).
+# The snapshot schema, by example: the JAX package's v4 example plus the
+# v5 fields (tests/test_torch_serving.py compares the v4 part).
 SCHEMA_EXAMPLE = {
-    "schema": 4,
+    "schema": 5,
     "kind": "paged",            # "dense" | "paged"
     "capacity": 24,             # slots (dense) | usable pages (paged)
     "counters": {               # monotonic, cumulative
@@ -59,6 +72,13 @@ SCHEMA_EXAMPLE = {
         "prefill_gather_bytes": 2048,  # prefill-path pool reads: dense
                                        # views (gather/fallback) or
                                        # packed-KV tokens (kernel)
+        # v5: host microseconds (time.perf_counter), and gate runs
+        "gate_verifications": 4,   # serving-path gate runs (memo misses)
+        "gate_us": 21000,          # host us in those gate runs
+        "pack_us": 900,            # building + copying kernel inputs
+        "prefill_model_us": 5200,  # inside the model's prefill calls
+        "decode_model_us": 7400,   # inside the model's decode calls
+        "token_wait_us": 3100,     # device-to-host reads of tokens
     },
     "gauges": {                 # last recorded tick
         "queue_depth": 2,
@@ -80,17 +100,28 @@ SCHEMA_EXAMPLE = {
             "scheme": "log2", "counts": {"1": 118}, "sum": 118},
         "step_time": {          # step() wall time, microseconds
             "scheme": "log2", "counts": {"7": 37}, "sum": 3700},
+        # v5: the first three in microseconds (time.perf_counter)
+        "queue_wait_us": {
+            "scheme": "log2", "counts": {"0": 4, "12": 2}, "sum": 5000},
+        "ttft_us": {
+            "scheme": "log2", "counts": {"12": 4, "13": 2}, "sum": 28000},
+        "tpot_us": {
+            "scheme": "log2", "counts": {"8": 118}, "sum": 21000},
     },
 }
 
+#: counters new in schema v5: the engine's gate runs and host time
+HOST_COUNTERS = ("gate_verifications", "gate_us", "pack_us",
+                 "prefill_model_us", "decode_model_us", "token_wait_us")
 _COUNTERS = ("ticks", "admitted", "finished", "preempted",
              "prefill_tokens", "decode_tokens", "gather_bytes",
              "kernel_decode_ticks", "kernel_prefill_ticks",
-             "prefill_gather_bytes")
+             "prefill_gather_bytes") + HOST_COUNTERS
 # counters new in schema v4: optional (default 0) when loading v2/v3
 _V4_COUNTERS = ("kernel_prefill_ticks", "prefill_gather_bytes")
 _GAUGES = ("queue_depth", "active", "occupancy")
-_LATENCY = ("queue_wait", "ttft", "tpot", "step_time")
+_V4_LATENCY = ("queue_wait", "ttft", "tpot", "step_time")
+_LATENCY = _V4_LATENCY + ("queue_wait_us", "ttft_us", "tpot_us")
 
 
 class ServingMetrics:
@@ -112,7 +143,10 @@ class ServingMetrics:
                     kernel_decode_ticks: int = 0,
                     kernel_prefill_ticks: int = 0,
                     prefill_gather_bytes: int = 0,
-                    step_time_us: int = 0) -> None:
+                    step_time_us: int = 0, gate_verifications: int = 0,
+                    gate_us: int = 0, pack_us: int = 0,
+                    prefill_model_us: int = 0, decode_model_us: int = 0,
+                    token_wait_us: int = 0) -> None:
         c = self.counters
         c["ticks"] += 1
         c["admitted"] += admitted
@@ -124,6 +158,12 @@ class ServingMetrics:
         c["kernel_decode_ticks"] += kernel_decode_ticks
         c["kernel_prefill_ticks"] += kernel_prefill_ticks
         c["prefill_gather_bytes"] += prefill_gather_bytes
+        c["gate_verifications"] += gate_verifications
+        c["gate_us"] += gate_us
+        c["pack_us"] += pack_us
+        c["prefill_model_us"] += prefill_model_us
+        c["decode_model_us"] += decode_model_us
+        c["token_wait_us"] += token_wait_us
         self.latency["step_time"].record(step_time_us)
         g = {"queue_depth": int(queue_depth), "active": int(active),
              "occupancy": int(occupancy)}
@@ -131,8 +171,9 @@ class ServingMetrics:
         for k, v in g.items():
             self.peaks[k] = max(self.peaks[k], v)
 
-    def record_latency(self, kind: str, value: int) -> None:
-        self.latency[kind].record(value)
+    def record_latency(self, kind: str, value: int, n: int = 1) -> None:
+        """``n`` readings of ``value`` in the ``kind`` histogram."""
+        self.latency[kind].record(value, n)
 
     # -- derived ------------------------------------------------------------
     def utilization(self) -> float:
@@ -166,7 +207,7 @@ class ServingMetrics:
     @classmethod
     def from_snapshot(cls, snap: Dict) -> "ServingMetrics":
         version = snap.get("schema")
-        if version not in (2, 3, SCHEMA_VERSION):
+        if version not in (2, 3, 4, SCHEMA_VERSION):
             raise ValueError(
                 f"unsupported metrics schema {version!r} "
                 f"(this build reads v2..v{SCHEMA_VERSION})")
@@ -174,9 +215,12 @@ class ServingMetrics:
         for group, keys in (("counters", _COUNTERS), ("gauges", _GAUGES),
                             ("peaks", _GAUGES)):
             src = snap[group]
-            # counters introduced by v4 are optional on older snapshots
-            # (default 0); nothing outside the schema is ever accepted
+            # counters introduced by v4 and v5 are optional on older
+            # snapshots (default 0); nothing outside the schema is ever
+            # accepted
             required = set(keys)
+            if group == "counters" and version < 5:
+                required -= set(HOST_COUNTERS)
             if group == "counters" and version < 4:
                 required -= set(_V4_COUNTERS)
             if not (required <= set(src) <= set(keys)):
@@ -185,9 +229,12 @@ class ServingMetrics:
             getattr(m, group).update({k: int(src.get(k, 0)) for k in keys})
         if version >= 3:
             src = snap["latency"]
-            if set(src) != set(_LATENCY):
+            want = _LATENCY if version >= 5 else _V4_LATENCY
+            if set(src) != set(want):
                 raise ValueError(f"snapshot latency keys {sorted(src)} != "
-                                 f"schema keys {sorted(_LATENCY)}")
-            m.latency = {k: LogHistogram.from_dict(src[k]) for k in _LATENCY}
-        # v2: latency stays at the empty-histogram default.
+                                 f"schema keys {sorted(want)}")
+            m.latency.update({k: LogHistogram.from_dict(src[k])
+                              for k in want})
+        # v2: latency stays at the empty-histogram default; before v5
+        # the microsecond histograms do.
         return m

@@ -2,9 +2,10 @@
 fig_serving Poisson and bursty traces (benchmarks/fig_serving.py's trace
 parameters and engine geometry), at the float32 variant of the reduced
 qwen3-1.7b config, with the JAX init's weights carried across.  Tokens
-must be identical, and so must the whole metrics snapshot (schema v4):
-both engines run on a virtual TickClock, so even the step-time
-histograms are a function of the call sequence alone.  Also: a
+must be identical, and so must every v4 field of the metrics snapshot
+(the port's v5 adds host-time fields, ``snapshot_cases.py``): both
+engines run on a virtual TickClock, so even the step-time histograms
+are a function of the call sequence alone.  Also: a
 preemption case, the PageAllocator under a seeded fuzz, the pool's
 gather/scatter, and the copied metrics schema."""
 import dataclasses
@@ -34,6 +35,8 @@ from repro_torch.serve import (KVPool, PagedServingEngine, PageAllocator,
                                PoolExhausted, Request, ServingEngine)
 from repro_torch.serve import metrics as torch_metrics
 from repro_torch.serve.trace import bursty_trace, poisson_trace, replay
+from snapshot_cases import (V5_FIELDS, assert_v4_fields_match,
+                            assert_v4_group_matches)
 
 ARCH = "qwen3-1.7b"
 GEOM = dict(page_size=8, max_batch=4, max_len=64, prefill_chunk=8)
@@ -102,7 +105,7 @@ def test_engine_matches_jax_on_fig_serving_trace(models, trace, engine):
     assert got["outputs"] == want["outputs"]
     assert got["latency"] == want["latency"]
     assert got["ticks"] == want["ticks"]
-    assert got["metrics"] == want["metrics"]       # whole snapshot, v4
+    assert_v4_fields_match(got["metrics"], want["metrics"])
     c = got["metrics"]["counters"]
     if engine == "paged_kernel":
         # every tick with work went through the kernel paths
@@ -225,12 +228,20 @@ def test_pool_gather_scatter_round_trip(models):
 
 
 def test_metrics_schema_is_the_jax_schema():
-    assert torch_metrics.SCHEMA_VERSION == jax_metrics.SCHEMA_VERSION == 4
-    assert torch_metrics.SCHEMA_EXAMPLE == jax_metrics.SCHEMA_EXAMPLE
+    """The port's v5 is the JAX package's v4 plus its own fields, and a
+    JAX v4 snapshot loads with those at zero."""
+    assert (torch_metrics.SCHEMA_VERSION, jax_metrics.SCHEMA_VERSION) == \
+        (5, 4)
+    assert_v4_fields_match(torch_metrics.SCHEMA_EXAMPLE,
+                           jax_metrics.SCHEMA_EXAMPLE)
     snap = jax_metrics.ServingMetrics.from_snapshot(
         jax_metrics.SCHEMA_EXAMPLE).snapshot()
-    assert torch_metrics.ServingMetrics.from_snapshot(snap).snapshot() \
-        == snap
+    got = torch_metrics.ServingMetrics.from_snapshot(snap).snapshot()
+    assert_v4_fields_match(got, snap)
+    assert all(got["counters"][k] == 0 for k in V5_FIELDS["counters"])
+    assert all(got["latency"][k] == {"scheme": "log2", "counts": {},
+                                     "sum": 0}
+               for k in V5_FIELDS["latency"])
 
 
 def test_engine_argument_errors_match(models):
@@ -350,7 +361,7 @@ def test_a_rejected_prefill_geometry_falls_back_as_in_jax(models,
     c, jc = teng.metrics.counters, jeng.metrics.counters
     assert c["kernel_prefill_ticks"] == jc["kernel_prefill_ticks"] == 0
     assert c["kernel_decode_ticks"] == jc["kernel_decode_ticks"] > 0
-    assert dict(c) == dict(jc)
+    assert_v4_group_matches("counters", dict(c), dict(jc))
 
 
 def test_a_rejected_decode_geometry_falls_back_as_in_jax(models,

@@ -4,8 +4,8 @@ bytes, off the 16-byte grain) and 320 (above 256), one layer, in
 float32, the JAX init's weights carried across.  ``PagedServingEngine``
 on its kernel paths (``decode_path="kernel"``, ``prefill_path="kernel"``)
 against the JAX engine on fig_serving's Poisson trace (12 requests), both
-on a virtual TickClock: tokens, per-request latencies and the whole
-metrics snapshot identical, every prefill and decode tick on the kernels
+on a virtual TickClock: tokens, per-request latencies and every v4 field
+of the metrics snapshot identical, every prefill and decode tick on the kernels
 in both (each gate admits every geometry the trace makes; the port's
 paged gate no longer turns these head dims into a build error), and the
 gate's verdict on the serving geometries equal to the JAX gate's in bf16
@@ -36,6 +36,7 @@ from repro_torch.models import build as torch_build, from_jax_numpy
 from repro_torch.obs import TickClock
 from repro_torch.serve import PagedServingEngine
 from repro_torch.serve.trace import poisson_trace, replay
+from snapshot_cases import assert_v4_fields_match
 
 KERNEL_ENGINE = dict(pool_pages=25, eos_id=-1, decode_path="kernel",
                      prefill_path="kernel", page_size=8, max_batch=4,
@@ -69,7 +70,7 @@ def test_kernel_engine_matches_jax_at_the_panel_head_dims(models):
     assert got["outputs"] == want["outputs"]
     assert got["latency"] == want["latency"]
     assert got["ticks"] == want["ticks"]
-    assert got["metrics"] == want["metrics"]
+    assert_v4_fields_match(got["metrics"], want["metrics"])
     c = got["metrics"]["counters"]
     assert c["gather_bytes"] == 0
     assert c["kernel_decode_ticks"] > 0 and c["kernel_prefill_ticks"] > 0

@@ -6,8 +6,8 @@ fig_serving's Poisson trace (``benchmarks/fig_serving.py``'s trace
 parameters, 12 requests), all on a virtual TickClock.  An MLA cache has
 no heads axis, so the paged engine keeps every tick on the gather paths
 on both sides, even when asked for the kernels (the JAX engine's rule):
-tokens, latencies and the whole metrics snapshot identical, no kernel
-tick.  The reduced config's capacity factor (8) drops no pair, so the
+tokens, latencies and every v4 field of the metrics snapshot identical,
+no kernel tick.  The reduced config's capacity factor (8) drops no pair, so the
 dense and paged engines give the same tokens too.  Then
 ``launch.serve --arch deepseek-v2-lite-16b --reduced --device cpu`` on
 both engines."""
@@ -30,6 +30,7 @@ from repro_torch.models import build as torch_build, from_jax_numpy
 from repro_torch.obs import TickClock
 from repro_torch.serve import PagedServingEngine, ServingEngine
 from repro_torch.serve.trace import poisson_trace, replay
+from snapshot_cases import assert_v4_fields_match
 
 ARCH = "deepseek-v2-lite-16b"
 GEOM = dict(page_size=8, max_batch=4, max_len=64, prefill_chunk=8)
@@ -73,7 +74,7 @@ def test_engine_matches_jax_on_fig_serving_trace(runs, engine):
     assert got["outputs"] == want["outputs"]
     assert got["latency"] == want["latency"]
     assert got["ticks"] == want["ticks"]
-    assert got["metrics"] == want["metrics"]
+    assert_v4_fields_match(got["metrics"], want["metrics"])
     c = got["metrics"]["counters"]
     if engine != "dense":
         assert c["kernel_decode_ticks"] == c["kernel_prefill_ticks"] == 0

@@ -47,6 +47,7 @@ from repro_torch.models import build as torch_build, from_jax_numpy
 from repro_torch.obs import TickClock
 from repro_torch.serve import PagedServingEngine
 from repro_torch.serve.trace import poisson_trace, replay
+from snapshot_cases import assert_v4_fields_match
 
 REPO = Path(__file__).resolve().parent.parent
 FAST = dict(base_budget=2, max_budget=4)
@@ -317,8 +318,8 @@ def _serving_table(dtype):
 def test_paged_engine_with_a_table_matches_jax(models, no_table):
     """The reduced qwen3 paged kernel engine with the same table in both
     packages: the table's non-default configs are the ones that ran, at
-    every geometry, and tokens and the whole metrics snapshot are the
-    JAX engine's — and the port's without a table."""
+    every geometry, and tokens and every v4 field of the metrics
+    snapshot are the JAX engine's — and the port's without a table."""
     jm, jp, tm, tp = models
     table = _serving_table("f32")
     kw = dict(pool_pages=POOL, eos_id=-1, decode_path="kernel",
@@ -336,7 +337,7 @@ def test_paged_engine_with_a_table_matches_jax(models, no_table):
                     dispatch_table=copy.deepcopy(table), **kw)
     want = jax_replay(jeng, trace)
     assert got["outputs"] == want["outputs"] == plain["outputs"]
-    assert got["metrics"] == want["metrics"]
+    assert_v4_fields_match(got["metrics"], want["metrics"])
     c = got["metrics"]["counters"]
     assert c["kernel_decode_ticks"] > 0 and c["kernel_prefill_ticks"] > 0
     assert c["gather_bytes"] == 0
