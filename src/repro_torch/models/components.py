@@ -35,6 +35,13 @@ def dtype_of(name: str) -> torch.dtype:
             "int32": torch.int32}[name]
 
 
+def rounded(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype`` first, as a Python float: a scalar
+    operand with the value of ``torch.tensor(v, dtype=dtype)`` that
+    copies nothing to the device, so a CUDA graph can capture the op."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
 # -- norms -------------------------------------------------------------------
 
 def norm_specs(cfg: ModelConfig, with_bias: Optional[bool] = None) -> Dict:
@@ -114,8 +121,7 @@ def embed(p: Dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.scale_embed:
         # sqrt(d_model) rounded to x's type first, as the JAX package
         # multiplies by jnp.asarray(sqrt(d_model), x.dtype)
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                             device=x.device)
+        x = x * rounded(math.sqrt(cfg.d_model), x.dtype)
     return x
 
 
@@ -124,10 +130,8 @@ def unembed(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     w = p["tok"].T if cfg.tie_embeddings else p["unembed"]
     logits = torch.matmul(x.to(F32), w)
     if cfg.padded_vocab != cfg.vocab:   # mask pad columns out of softmax
-        valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab
-        logits = torch.where(valid, logits,
-                             torch.tensor(NEG_INF, dtype=F32,
-                                          device=x.device))
+        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
+        logits = logits.masked_fill(pad, NEG_INF)
     return logits
 
 
@@ -150,7 +154,7 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     gives JAX's values bit for bit; ``F.gelu`` computes in float32 and
     rounds once, which puts many bfloat16 outputs on the other
     neighbour."""
-    c = lambda v: torch.tensor(v, dtype=x.dtype, device=x.device)
+    c = lambda v: rounded(v, x.dtype)
     inner = c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * (x * x * x))
     return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
 

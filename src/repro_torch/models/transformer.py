@@ -17,8 +17,11 @@ arrays; the port writes into the tensors it was given and returns
 them), so a serving engine holds one pool for its whole life.  Writes
 that the JAX package drops (``.at[...].set(mode="drop")`` with an
 out-of-range page index, for inactive decode rows and padding prefill
-queries) are masked out explicitly here and never touch the pool, so
-the reserved null page 0 stays all-zero.  An MLA cache holds the latent
+queries) leave the pool as they find it: padding prefill queries are
+masked out, and inactive decode rows write zeros into offset 0 of the
+reserved null page 0, so that page stays all-zero and the decode call
+holds no host sync (:meth:`TransformerLM.decode_step_paged` replays as
+a CUDA graph).  An MLA cache holds the latent
 ``c_kv`` and the roped key ``k_rope`` a position, with no heads axis:
 the paged kernel paths (``decode_step_paged``, ``prefill_chunk_packed``)
 take GQA caches only and raise for MLA, whose ticks stay on the gather
@@ -209,14 +212,16 @@ def _paged_self_attention(p: Dict, x: torch.Tensor, positions, cfg,
     """Single-token decode attention straight off one layer's page-pool
     leaf: write the fresh K/V into their (physical page, offset) homes,
     then run the length-masked paged-attention kernel over the pool.  No
-    dense gather ever materializes.  ``writes`` = (rows, phys, offs) of
-    the active rows only: inactive rows write nothing."""
+    dense gather ever materializes.  ``writes`` = (live, phys, offs) of
+    every row: an inactive row (``live`` false) writes zeros into offset
+    0 of the null page, which so stays zero."""
     from repro_torch.kernels.paged_attention.paged_attention import \
         paged_decode
     q, k, v = qkv_project(p, x, cfg, positions)        # k/v: (B, HK, 1, hd)
-    rows, phys, off = writes
-    leaf["k"][phys, :, off] = k[rows, :, 0, :].to(leaf["k"].dtype)
-    leaf["v"][phys, :, off] = v[rows, :, 0, :].to(leaf["v"].dtype)
+    live, phys, off = writes
+    for name, new in (("k", k), ("v", v)):
+        leaf[name][phys, :, off] = new[:, :, 0, :].masked_fill(
+            ~live, 0).to(leaf[name].dtype)
     # kernel_cfg was verified by the engine once for this batch geometry
     # (serve/engine.py); no per-layer gate call
     o = paged_decode(q, leaf["k"], leaf["v"], tables, lengths,
@@ -410,39 +415,62 @@ class TransformerLM:
     def decode_step_paged(self, params: Dict, pool: Dict,
                           tables: torch.Tensor, tokens: torch.Tensor,
                           pos: torch.Tensor, lengths: torch.Tensor, *,
-                          kernel_cfg=None) -> Tuple[torch.Tensor, Dict]:
+                          kernel_cfg=None, graph=None
+                          ) -> Tuple[torch.Tensor, Dict]:
         """Single-token decode straight off the page pool: no dense
         gather.  ``pool`` is the :class:`repro_torch.serve.pool.KVPool`
         storage tree, ``tables`` the (B, NP) int32 block tables, ``pos``
         the (B,) write positions and ``lengths`` the (B,) int32 logical
         lengths *including* the token being written (0 for inactive
-        rows — they write nothing and read nothing).  Returns (logits
-        (B, 1, V), pool updated in place).  GQA caches only: an MLA
-        cache has no heads axis and stays on the gather path."""
-        cfg = self.cfg
-        if cfg.attn_type == "mla":
-            raise ValueError("paged kernel decode requires a GQA cache")
-        with _obs.span("model.decode"):
-            with _obs.span("model.embed"):
-                x = embed(params["embed"], tokens, cfg)
-            PS = self._page_size(pool)
-            pos = pos.to(torch.int64)
-            positions = pos[:, None]
-            # writes of active rows only: the JAX package redirects
-            # inactive rows past the pool and lets mode="drop" discard
-            # them
-            rows = torch.nonzero(lengths > 0).squeeze(1)
-            phys = tables[rows, pos[rows] // PS].long()
-            writes = (rows, phys, pos[rows] % PS)
+        rows — they read nothing, and write zeros into the null page
+        only).  Returns (logits (B, 1, V), pool updated in place).  GQA
+        caches only: an MLA cache has no heads axis and stays on the
+        gather path.
 
-            def attend(p, h, leaf):
-                return _paged_self_attention(p, h, positions, cfg, leaf,
-                                             tables, lengths, writes,
-                                             kernel_cfg=kernel_cfg)
-            x = self._blocks(params, x, partial(self._served_block, attend),
-                             pool)
-            logits = self._head(params, x)
+        ``graph``, a :class:`~repro_torch.models.decode_graph.DecodeGraph`,
+        replays the call as one CUDA graph on CUDA tensors (captured on
+        its first call and again whenever the geometry, the pool, the
+        parameters or ``kernel_cfg`` change); None, or CPU tensors, run
+        it eagerly.  Both run the same body, with no host sync inside."""
+        if self.cfg.attn_type == "mla":
+            raise ValueError("paged kernel decode requires a GQA cache")
+        with _obs.span("model.decode") as sp:
+            inputs = (tables, tokens, pos, lengths)
+            if graph is None or not tables.is_cuda:
+                mode = "eager"
+                logits = self._decode_paged(params, pool, *inputs,
+                                            kernel_cfg=kernel_cfg)
+            else:
+                logits, mode = graph(self._decode_paged, params, pool,
+                                     inputs, kernel_cfg)
+            if _obs.enabled():
+                sp.set(graph=mode)
         return logits, pool
+
+    def _decode_paged(self, params: Dict, pool: Dict, tables, tokens, pos,
+                      lengths, *, kernel_cfg) -> torch.Tensor:
+        """The body of :meth:`decode_step_paged`: its logits."""
+        cfg = self.cfg
+        with _obs.span("model.embed"):
+            x = embed(params["embed"], tokens, cfg)
+        PS = self._page_size(pool)
+        # every row writes, at a place its own tensors give: an inactive
+        # row at offset 0 of the null page (the JAX package redirects it
+        # past the pool and lets mode="drop" discard it)
+        positions = pos.to(torch.int64)[:, None]
+        live = lengths > 0
+        at = positions[:, 0] * live
+        rows = torch.arange(tables.shape[0], device=tables.device)
+        phys = tables[rows, at // PS].long() * live
+        writes = (live[:, None, None], phys, at % PS)
+
+        def attend(p, h, leaf):
+            return _paged_self_attention(p, h, positions, cfg, leaf,
+                                         tables, lengths, writes,
+                                         kernel_cfg=kernel_cfg)
+        x = self._blocks(params, x, partial(self._served_block, attend),
+                         pool)
+        return self._head(params, x)
 
     def _page_size(self, pool: Dict) -> int:
         leaf = next(self._layers(pool))[0]["k"]    # (P, Hkv, PS, hd)

@@ -24,8 +24,11 @@ continuation identical).
 paged-attention kernel straight over the pool
 (:meth:`~repro_torch.models.transformer.TransformerLM.decode_step_paged`)
 — zero dense-view bytes (the ``gather_bytes`` counter stays at 0 on
-decode ticks).  Per-sequence ``lengths`` are re-validated against each
-row's mapped page count every kernel tick.  ``prefill_path="kernel"``
+decode ticks); on a CUDA device that call is captured once per batch
+geometry as a CUDA graph and replayed on every tick
+(:class:`~repro_torch.models.decode_graph.DecodeGraph`).  Per-sequence
+``lengths`` are re-validated against each row's mapped page count every
+kernel tick.  ``prefill_path="kernel"``
 packs the tick's prompt chunks ragged and attends them through the
 CUDA ragged-prefill kernel straight off the pool
 (:meth:`~repro_torch.models.transformer.TransformerLM
@@ -69,7 +72,8 @@ kernel-path calls (their launches and any wait for the device inside
 them) and the token reads are counted always, in the metrics' v5
 counters (:data:`repro_torch.serve.metrics.HOST_COUNTERS`),
 from ``time.perf_counter`` (never the injectable clock, so the v4
-fields stay a function of the call sequence under a ``TickClock``).
+fields stay a function of the call sequence under a ``TickClock``),
+beside v6's replays and captures of the decode call's CUDA graph.
 """
 from __future__ import annotations
 
@@ -83,6 +87,7 @@ import torch
 from repro_torch import obs as _obs
 from repro_torch.core.tuning import dispatch as _dispatch
 from repro_torch.device import DeviceLike, device_of, resolve_device
+from repro_torch.models.decode_graph import DecodeGraph
 from repro_torch.models.params import leaf_paths
 
 from .metrics import HOST_COUNTERS, ServingMetrics
@@ -402,6 +407,8 @@ class PagedServingEngine:
         self.decode_path = decode_path
         self._kernel_sig = None
         self._kernel_cfg = None
+        # the kernel decode call's CUDA graph, one per batch geometry
+        self._decode_graph: Optional[DecodeGraph] = None
         # the gather path's gate: verified once per batch geometry
         self._table_sig = None
         # the pool's type: the paged kernel's step (what the gate
@@ -733,6 +740,8 @@ class PagedServingEngine:
             from repro_torch.kernels.paged_attention.ops import (
                 InvariantViolation, validate_block_tables)
             self._kernel_sig = sig
+            self._decode_graph = (DecodeGraph() if self.device.type == "cuda"
+                                  else None)
             if not hasattr(self.model, "decode_step_paged"):
                 self._kernel_cfg = None
                 return None
@@ -748,8 +757,11 @@ class PagedServingEngine:
     def _decode_kernel(self, rows, tokens, pos_vec):
         """Kernel-path decode tick: no gather, no dense view.  The fresh
         K/V write happens inside ``decode_step_paged``; inactive rows
-        carry null tables and length 0.  Returns logits, or None when no
-        config exists for this geometry (gather fallback)."""
+        carry null tables and length 0.  On a CUDA device the call
+        replays the engine's :class:`DecodeGraph`, made anew for each
+        batch geometry; its replays and captures are counted.  Returns
+        logits, or None when no config exists for this geometry (gather
+        fallback)."""
         with _Timed(self._host, "pack_us", "serve.pack"):
             tables = self._tables()
         cfg = self._kernel_config(tables)
@@ -773,10 +785,17 @@ class PagedServingEngine:
                                   pool_pages=self.alloc.n_pages,
                                   lengths=lengths)
             inputs = [self._t(a) for a in (kt, tokens, pos_vec, lengths)]
+        graph = self._decode_graph
+        counts = ((graph.replays, graph.captures) if graph is not None
+                  else (0, 0))
         t0 = time.perf_counter()
         logits, self.kv.storage = self.model.decode_step_paged(
-            self.params, self.kv.storage, *inputs, kernel_cfg=cfg)
+            self.params, self.kv.storage, *inputs, kernel_cfg=cfg,
+            graph=graph)
         self._host["decode_model_us"] += _us_since(t0)
+        if graph is not None:
+            self._host["decode_graph_replays"] += graph.replays - counts[0]
+            self._host["decode_graph_captures"] += graph.captures - counts[1]
         return logits
 
     def _decode_tick(self) -> Dict[str, int]:

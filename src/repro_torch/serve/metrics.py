@@ -37,10 +37,14 @@ serving path) and ``gate_us`` (their host microseconds), ``pack_us``
 and any wait for the device inside them) and ``token_wait_us`` (the
 device-to-host read of the tick's tokens); and three
 latency histograms in microseconds beside the tick-unit ones:
-``queue_wait_us``, ``ttft_us`` and ``tpot_us``.  ``from_snapshot``
-still loads v2 to v4 snapshots (the JAX engine's v4 included: missing
-counters and histograms default to 0 and empty) and rejects unknown
-versions with a ``ValueError`` naming the version.
+``queue_wait_us``, ``ttft_us`` and ``tpot_us``.  Schema v6 adds two
+counters of the paged engine's kernel decode call on a CUDA device:
+``decode_graph_replays`` (calls replayed as the engine's CUDA graph)
+and ``decode_graph_captures`` (captures of that graph: one per batch
+geometry).  ``from_snapshot`` still loads v2 to v5 snapshots (the JAX
+engine's v4 included: missing counters and histograms default to 0 and
+empty) and rejects unknown versions with a ``ValueError`` naming the
+version.
 """
 from __future__ import annotations
 
@@ -48,12 +52,12 @@ from typing import Dict
 
 from repro_torch.obs.hist import LogHistogram
 
-SCHEMA_VERSION = 5
+SCHEMA_VERSION = 6
 
 # The snapshot schema, by example: the JAX package's v4 example plus the
-# v5 fields (tests/test_torch_serving.py compares the v4 part).
+# v5 and v6 fields (tests/test_torch_serving.py compares the v4 part).
 SCHEMA_EXAMPLE = {
-    "schema": 5,
+    "schema": 6,
     "kind": "paged",            # "dense" | "paged"
     "capacity": 24,             # slots (dense) | usable pages (paged)
     "counters": {               # monotonic, cumulative
@@ -79,6 +83,9 @@ SCHEMA_EXAMPLE = {
         "prefill_model_us": 5200,  # inside the model's prefill calls
         "decode_model_us": 7400,   # inside the model's decode calls
         "token_wait_us": 3100,     # device-to-host reads of tokens
+        # v6: the kernel decode call's CUDA graph (paged, on a card)
+        "decode_graph_replays": 9,   # decode calls replayed as the graph
+        "decode_graph_captures": 1,  # its captures, one a batch geometry
     },
     "gauges": {                 # last recorded tick
         "queue_depth": 2,
@@ -110,9 +117,13 @@ SCHEMA_EXAMPLE = {
     },
 }
 
-#: counters new in schema v5: the engine's gate runs and host time
+#: counters new in schema v6: the kernel decode call's CUDA graph
+GRAPH_COUNTERS = ("decode_graph_replays", "decode_graph_captures")
+#: counters the engine adds up over a tick and hands to ``record_tick``:
+#: v5's gate runs and host time, then v6's
 HOST_COUNTERS = ("gate_verifications", "gate_us", "pack_us",
-                 "prefill_model_us", "decode_model_us", "token_wait_us")
+                 "prefill_model_us", "decode_model_us",
+                 "token_wait_us") + GRAPH_COUNTERS
 _COUNTERS = ("ticks", "admitted", "finished", "preempted",
              "prefill_tokens", "decode_tokens", "gather_bytes",
              "kernel_decode_ticks", "kernel_prefill_ticks",
@@ -146,7 +157,8 @@ class ServingMetrics:
                     step_time_us: int = 0, gate_verifications: int = 0,
                     gate_us: int = 0, pack_us: int = 0,
                     prefill_model_us: int = 0, decode_model_us: int = 0,
-                    token_wait_us: int = 0) -> None:
+                    token_wait_us: int = 0, decode_graph_replays: int = 0,
+                    decode_graph_captures: int = 0) -> None:
         c = self.counters
         c["ticks"] += 1
         c["admitted"] += admitted
@@ -164,6 +176,8 @@ class ServingMetrics:
         c["prefill_model_us"] += prefill_model_us
         c["decode_model_us"] += decode_model_us
         c["token_wait_us"] += token_wait_us
+        c["decode_graph_replays"] += decode_graph_replays
+        c["decode_graph_captures"] += decode_graph_captures
         self.latency["step_time"].record(step_time_us)
         g = {"queue_depth": int(queue_depth), "active": int(active),
              "occupancy": int(occupancy)}
@@ -207,7 +221,7 @@ class ServingMetrics:
     @classmethod
     def from_snapshot(cls, snap: Dict) -> "ServingMetrics":
         version = snap.get("schema")
-        if version not in (2, 3, 4, SCHEMA_VERSION):
+        if version not in (2, 3, 4, 5, SCHEMA_VERSION):
             raise ValueError(
                 f"unsupported metrics schema {version!r} "
                 f"(this build reads v2..v{SCHEMA_VERSION})")
@@ -215,10 +229,12 @@ class ServingMetrics:
         for group, keys in (("counters", _COUNTERS), ("gauges", _GAUGES),
                             ("peaks", _GAUGES)):
             src = snap[group]
-            # counters introduced by v4 and v5 are optional on older
-            # snapshots (default 0); nothing outside the schema is ever
-            # accepted
+            # counters introduced by v4, v5 and v6 are optional on
+            # older snapshots (default 0); nothing outside the schema is
+            # ever accepted
             required = set(keys)
+            if group == "counters" and version < 6:
+                required -= set(GRAPH_COUNTERS)
             if group == "counters" and version < 5:
                 required -= set(HOST_COUNTERS)
             if group == "counters" and version < 4:

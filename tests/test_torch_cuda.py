@@ -1474,3 +1474,193 @@ def test_fleet_runs_its_unit_tests_on_the_card(card, tmp_path):
               max_budget=4, device="cpu")
     assert (tmp_path / "card" / "dispatch_table.json").read_bytes() == \
         (tmp_path / "model" / "dispatch_table.json").read_bytes()
+
+
+# -- the paged decode call as one CUDA graph ---------------------------------
+
+def _graph_model(card, arch, dtype):
+    from repro_torch import configs
+    from repro_torch.models import build
+    model = build(dataclasses.replace(configs.get_reduced(arch),
+                                      dtype=dtype))
+    return model, model.init(0, device=card)
+
+
+def _graph_engine(model, params, pool_pages=40):
+    from repro_torch.serve import PagedServingEngine
+    return PagedServingEngine(model, params, pool_pages=pool_pages,
+                              page_size=8, max_batch=4, max_len=64,
+                              prefill_chunk=8, eos_id=-1,
+                              decode_path="kernel", prefill_path="kernel",
+                              device="cuda")
+
+
+def _graph_trace(vocab, n=10):
+    from repro_torch.serve.trace import poisson_trace
+    return poisson_trace(seed=2, n_requests=n, mean_gap=2.0,
+                         prompt_lens=(4, 30), max_new=(6, 20), vocab=vocab)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-3b-a800m"])
+def test_the_decode_graph_replays_the_eager_call_bit_for_bit(card, arch,
+                                                             dtype):
+    """One engine replays its decode graph, the other calls the same
+    body eagerly (the graph argument dropped), over the same trace with
+    admissions and finishes: every decode call's logits, the tokens and
+    the pool agree in every bit."""
+    from repro_torch.serve.trace import replay
+    model, params = _graph_model(card, arch, dtype)
+    real = model.decode_step_paged
+    runs = {}
+    for mode in ("replay", "eager"):
+        logits = []
+
+        def call(*args, graph=None, **kw):
+            out = real(*args, graph=graph if mode == "replay" else None,
+                       **kw)
+            logits.append(out[0].clone())
+            return out
+        model.decode_step_paged = call
+        try:
+            eng = _graph_engine(model, params)
+            res = replay(eng, _graph_trace(model.cfg.vocab))
+        finally:
+            del model.decode_step_paged
+        runs[mode] = (res, logits, eng)
+    (got, got_logits, geng), (want, want_logits, weng) = \
+        runs["replay"], runs["eager"]
+    c = got["metrics"]["counters"]
+    assert len(got_logits) == c["kernel_decode_ticks"] >= 20
+    assert c["decode_graph_replays"] == c["kernel_decode_ticks"]
+    assert c["decode_graph_captures"] == 1
+    assert want["metrics"]["counters"]["decode_graph_replays"] == 0
+    assert got["outputs"] == want["outputs"]
+    assert len(want_logits) == len(got_logits)
+    assert all(torch.equal(_bits(a), _bits(b))
+               for a, b in zip(got_logits, want_logits))
+    for name, leaf in geng.kv.storage["blocks"].items():
+        want_leaf = weng.kv.storage["blocks"][name]
+        assert torch.equal(_bits(leaf), _bits(want_leaf))
+        assert not _bits(leaf[:, 0]).any(), "the null page was written"
+
+
+def test_the_decode_graph_is_captured_again_for_a_new_key(card):
+    """A new ``_kernel_sig`` gives the engine a new holder, which
+    captures; a holder called with another pool captures again, and a
+    replay after it still writes that pool."""
+    from repro_torch.models.decode_graph import DecodeGraph
+    from repro_torch.serve import Request
+    model, params = _graph_model(card, "qwen3-1.7b", "bfloat16")
+    eng = _graph_engine(model, params)
+    for a in _graph_trace(model.cfg.vocab, n=4):
+        eng.submit(Request(a.rid, a.prompt, max_new_tokens=30))
+    for _ in range(8):
+        eng.step()
+    first = eng._decode_graph
+    c = eng.metrics.counters
+    assert isinstance(first, DecodeGraph) and first.captures == 1
+    assert c["decode_graph_captures"] == 1
+    eng._kernel_sig = None           # a geometry the engine has not seen
+    for _ in range(3):
+        eng.step()
+    assert eng._decode_graph is not first
+    assert eng._decode_graph.captures == 1
+    assert c["decode_graph_captures"] == 2
+    assert c["decode_graph_replays"] == c["kernel_decode_ticks"]
+    # the same call on a copy of the pool: a new key
+    holder = eng._decode_graph
+    tables = torch.zeros(4, 8, dtype=torch.int32, device=card)
+    tables[0, 0] = 1
+    args = (tables, torch.full((4, 1), 5, dtype=torch.int32, device=card),
+            torch.zeros(4, dtype=torch.int32, device=card),
+            torch.tensor([1, 0, 0, 0], dtype=torch.int32, device=card))
+    pool = {"blocks": {k: v.clone() for k, v in
+                       eng.kv.storage["blocks"].items()}}
+    cfg = eng._kernel_cfg
+    want, _ = model.decode_step_paged(params, {"blocks": {
+        k: v.clone() for k, v in pool["blocks"].items()}}, *args,
+        kernel_cfg=cfg)
+    got, _ = model.decode_step_paged(params, pool, *args, kernel_cfg=cfg,
+                                     graph=holder)
+    assert holder.captures == 2
+    assert torch.equal(_bits(got), _bits(want))
+    pool["blocks"]["k"][:, 1, :, 0] = 0
+    model.decode_step_paged(params, pool, *args, kernel_cfg=cfg,
+                            graph=holder)
+    torch.cuda.synchronize()
+    assert holder.captures == 2
+    assert pool["blocks"]["k"][:, 1, :, 0].abs().max() > 0
+
+
+def test_paged_decode_launches_count_replays_not_the_capture(card):
+    """``KERNEL.launches`` counts kernels that ran: the capturing tick
+    counts its eager warm-up and its replay (2 x layers), every later
+    decode tick its replay (layers), and the capture itself nothing.
+    With the obs switch on, a replayed call's span says so and holds no
+    per-layer span: the Python that opens them does not run."""
+    import collections
+    from repro_torch import obs
+    from repro_torch.kernels import paged_attention
+    from repro_torch.serve import Request
+    model, params = _graph_model(card, "qwen3-1.7b", "bfloat16")
+    L = model.cfg.n_layers
+    eng = _graph_engine(model, params)
+    for a in _graph_trace(model.cfg.vocab, n=6):
+        eng.submit(Request(a.rid, a.prompt, max_new_tokens=a.max_new_tokens))
+    seen = []
+    obs.enable(clock=obs.TickClock())
+    try:
+        while eng.queue or eng.active:
+            n0 = paged_attention.KERNEL.launches
+            before = dict(eng.metrics.counters)
+            eng.step()
+            c = eng.metrics.counters
+            seen.append((paged_attention.KERNEL.launches - n0, *(
+                c[k] - before[k] for k in ("decode_graph_replays",
+                                           "decode_graph_captures"))))
+        events = obs.tracer().events()
+    finally:
+        obs.disable()
+    assert sum(cap for *_, cap in seen) == 1
+    assert all(n == L * (rep + cap) for n, rep, cap in seen)
+    replays = sum(rep for _, rep, _ in seen)
+    assert replays >= 20
+    modes = collections.Counter(e["args"]["graph"] for e in events
+                                if e["name"] == "model.decode")
+    assert modes == {"capture": 1, "replay": replays - 1}
+    n = collections.Counter(e["name"] for e in events)
+    # the prefill calls, and the capturing call's warm-up and capture
+    assert n["model.attn"] == L * (n["model.prefill"] + 2)
+
+
+def test_dropping_the_engine_frees_its_pool_and_graph(card):
+    """The holder keeps no reference to the pool or the parameters:
+    once the engine goes, the allocated memory is back where it was
+    before the engine, within a sixteenth of its 1 GiB pool (what may
+    stay is the process's: the cuBLAS workspace of the stream the graph
+    was captured on, 32 MiB on Hopper, where that stream had none)."""
+    import gc
+    from repro_torch.serve import Request
+    model, params = _graph_model(card, "qwen3-1.7b", "bfloat16")
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(card)
+    eng = _graph_engine(model, params, pool_pages=1 << 19)
+    pool_bytes = eng.kv.nbytes
+    assert pool_bytes >= 1 << 30
+    for a in _graph_trace(model.cfg.vocab, n=4):
+        eng.submit(Request(a.rid, a.prompt, max_new_tokens=a.max_new_tokens))
+    for _ in range(10):
+        eng.step()
+    assert eng.metrics.counters["decode_graph_replays"] > 0
+    torch.cuda.synchronize()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated(card) - base < pool_bytes // 16

@@ -38,6 +38,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.core.tuning, repro_torch.core.tuning.pool, "
             "repro_torch.core.tuning.lessons, repro_torch.launch.tune, "
             "repro_torch.models.attention, "
+            "repro_torch.models.decode_graph, "
             "repro_torch.configs.codeqwen1_5_7b, "
             "repro_torch.configs.stablelm_3b, repro_torch.configs.gemma_7b, "
             "repro_torch.configs.chameleon_34b, "

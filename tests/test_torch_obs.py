@@ -1,10 +1,11 @@
-"""The port's tracer and the serving engine's v5 counters: a span is a
-shared no-op that allocates nothing and opens no profiler range while
-the obs switch is off, under a running profiler too; while it is on, a
-ring event and, under ``torch.profiler``, a ``record_function`` range
-(the ops launched inside it nested under it); the model's paged serving calls give well-nested
-spans, one ``model.attn`` a layer; the engine counts each gate run and
-its host time; a v5 snapshot round-trips and renders."""
+"""The port's tracer and the serving engine's v5 and v6 counters: a span
+is a shared no-op that allocates nothing and opens no profiler range
+while the obs switch is off, under a running profiler too; while it is
+on, a ring event and, under ``torch.profiler``, a ``record_function``
+range (the ops launched inside it nested under it); the model's paged
+serving calls give well-nested spans, one ``model.attn`` a layer; the
+engine counts each gate run and its host time; a v6 snapshot
+round-trips and renders, and a v5 one loads with v6's counters at 0."""
 import collections
 import gc
 import json
@@ -20,7 +21,8 @@ from repro_torch import configs, obs
 from repro_torch.models import build
 from repro_torch.obs.export import prometheus_text
 from repro_torch.serve import PagedServingEngine, ServingEngine
-from repro_torch.serve.metrics import HOST_COUNTERS, ServingMetrics
+from repro_torch.serve.metrics import (GRAPH_COUNTERS, HOST_COUNTERS,
+                                       ServingMetrics)
 from repro_torch.serve.trace import poisson_trace, replay
 
 REPO = Path(__file__).resolve().parent.parent
@@ -171,6 +173,9 @@ def test_the_paged_serving_calls_give_a_span_per_layer(models, arch, ffn):
     assert n["model.decode"] > 0 and n["model.prefill"] > 0
     assert n["model.attn"] == n[ffn] == L * calls
     assert n["model.head"] == n["model.embed"] == calls
+    # on the CPU the decode call runs eagerly: no CUDA graph
+    assert {e["args"]["graph"] for e in events
+            if e["name"] == "model.decode"} == {"eager"}
     for call in ("model.decode", "model.prefill"):
         for kind in ("model.attn", ffn):
             for inside in _nested_counts(events, call, kind):
@@ -295,12 +300,12 @@ def test_tracing_on_leaves_the_v4_fields_alone(models):
     assert _v4_part(on["metrics"]) == _v4_part(off["metrics"])
 
 
-# -- the v5 snapshot ----------------------------------------------------------
+# -- the v5 and v6 snapshots --------------------------------------------------
 
 def test_a_v5_snapshot_round_trips_and_renders(models):
     model, params = models["qwen3-1.7b"]
     snap = replay(_paged(model, params), _trace(model.cfg.vocab))["metrics"]
-    assert snap["schema"] == 5
+    assert snap["schema"] == 6
     assert ServingMetrics.from_snapshot(snap).snapshot() == snap
     text = prometheus_text(snap)
     for k in HOST_COUNTERS:
@@ -314,10 +319,33 @@ def test_a_v5_snapshot_round_trips_and_renders(models):
 
 def test_a_v5_snapshot_must_hold_every_v5_field():
     snap = ServingMetrics(4, "paged").snapshot()
-    for group, key in (("counters", "pack_us"), ("latency", "tpot_us")):
+    for group, key in (("counters", "pack_us"), ("latency", "tpot_us"),
+                       ("counters", "decode_graph_replays")):
         bad = json.loads(json.dumps(snap))
         del bad[group][key]
         with pytest.raises(ValueError, match=group):
             ServingMetrics.from_snapshot(bad)
-    with pytest.raises(ValueError, match="v2..v5"):
-        ServingMetrics.from_snapshot(dict(snap, schema=6))
+    with pytest.raises(ValueError, match="v2..v6"):
+        ServingMetrics.from_snapshot(dict(snap, schema=7))
+
+
+def test_the_graph_counters_round_trip_and_a_v5_snapshot_loads_them_as_0():
+    m = ServingMetrics(4, "paged")
+    m.record_tick(queue_depth=0, active=1, occupancy=2, pack_us=5,
+                  decode_graph_replays=3, decode_graph_captures=1)
+    m.record_tick(queue_depth=0, active=1, occupancy=2,
+                  decode_graph_replays=1)
+    snap = m.snapshot()
+    assert [snap["counters"][k] for k in GRAPH_COUNTERS] == [4, 1]
+    assert ServingMetrics.from_snapshot(snap).snapshot() == snap
+    text = prometheus_text(snap)
+    assert 'argus_decode_graph_replays_total{engine="paged"} 4' in text
+    v5 = json.loads(json.dumps(snap))
+    v5["schema"] = 5
+    for k in GRAPH_COUNTERS:
+        del v5["counters"][k]
+    got = ServingMetrics.from_snapshot(v5).snapshot()
+    assert got["counters"] == dict(snap["counters"], decode_graph_replays=0,
+                                   decode_graph_captures=0)
+    assert {k: got[k] for k in ("gauges", "peaks", "latency")} == \
+        {k: snap[k] for k in ("gauges", "peaks", "latency")}

@@ -35,7 +35,7 @@ from repro_torch.serve import (KVPool, PagedServingEngine, PageAllocator,
                                PoolExhausted, Request, ServingEngine)
 from repro_torch.serve import metrics as torch_metrics
 from repro_torch.serve.trace import bursty_trace, poisson_trace, replay
-from snapshot_cases import (V5_FIELDS, assert_v4_fields_match,
+from snapshot_cases import (PORT_FIELDS, assert_v4_fields_match,
                             assert_v4_group_matches)
 
 ARCH = "qwen3-1.7b"
@@ -228,20 +228,20 @@ def test_pool_gather_scatter_round_trip(models):
 
 
 def test_metrics_schema_is_the_jax_schema():
-    """The port's v5 is the JAX package's v4 plus its own fields, and a
+    """The port's v6 is the JAX package's v4 plus its own fields, and a
     JAX v4 snapshot loads with those at zero."""
     assert (torch_metrics.SCHEMA_VERSION, jax_metrics.SCHEMA_VERSION) == \
-        (5, 4)
+        (6, 4)
     assert_v4_fields_match(torch_metrics.SCHEMA_EXAMPLE,
                            jax_metrics.SCHEMA_EXAMPLE)
     snap = jax_metrics.ServingMetrics.from_snapshot(
         jax_metrics.SCHEMA_EXAMPLE).snapshot()
     got = torch_metrics.ServingMetrics.from_snapshot(snap).snapshot()
     assert_v4_fields_match(got, snap)
-    assert all(got["counters"][k] == 0 for k in V5_FIELDS["counters"])
+    assert all(got["counters"][k] == 0 for k in PORT_FIELDS["counters"])
     assert all(got["latency"][k] == {"scheme": "log2", "counts": {},
                                      "sum": 0}
-               for k in V5_FIELDS["latency"])
+               for k in PORT_FIELDS["latency"])
 
 
 def test_engine_argument_errors_match(models):
