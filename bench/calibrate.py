@@ -50,7 +50,7 @@ def main(argv=None) -> int:
                 ["value"], "requests": len(out["sample"])}
         if seed in args.control_seeds:
             stats = check.control_stats(
-                cell.config["model"], out["params"], out["sample"],
+                cell, out["params"], out["sample"],
                 int(cell.config["check"]["tokens_per_request"]))
             line["control"] = stats
             line["control_correct"] = check.verdict(

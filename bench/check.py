@@ -1,22 +1,24 @@
 """Whether what the timed path served is right.
 
 A sample, drawn from the seed, of the requests the window finished is
-run through the plain reference (:mod:`bench.reference.model`): each
-prompt with its served tokens, once.  The engine's rows are split into
-``requests`` equal groups, and each group gives one request that last
-decoded in one of its rows (the one with the longest sequence always
-among them, in its own group), so a fault in any part of the batch
-reaches the sample; of each, its last ``tokens_per_request`` served
-tokens are compared, so that no one request outweighs the others.  At
-each compared position the gap by which the served token's logit lies
-below the reference's best is read: 0 where the reference ranks it
-first.  Rounding in the served precision flips only near-ties; a wrong
-prefill, decode, expert or pool read serves tokens the reference ranks
-anywhere.  The configuration file's ``check`` block gives the sample's
-size and names the numbers compared and their limits:
-``widest_logit_gap`` (the largest gap), ``mean_logit_gap`` (their
-mean), ``flipped_share`` (the share of positions not ranked first).
-PERF.md gives the readings each limit was set from.
+run through the plain reference of the configuration's family (its
+module's ``Reference``, on the weights as its ``published`` gives them;
+:mod:`bench.families.decoder`): each prompt with its served tokens,
+once.  The engine's rows are split into ``requests`` equal groups, and
+each group gives one request that last decoded in one of its rows (the
+one with the longest sequence always among them, in its own group), so a
+fault in any part of the batch reaches the sample; of each, its last
+``tokens_per_request`` served tokens are compared, so that no one
+request outweighs the others.  At each compared position the gap by which
+the served token's logit lies below the reference's best is read: 0
+where the reference ranks it first.  Rounding in the served precision
+flips only near-ties; a wrong prefill, decode, expert or pool read
+serves tokens the reference ranks anywhere.  The configuration file's
+``check`` block gives the sample's size and names the numbers compared
+and their limits: ``widest_logit_gap`` (the largest gap),
+``mean_logit_gap`` (their mean), ``flipped_share`` (the share of
+positions not ranked first).  PERF.md gives the readings each limit was
+set from.
 
 :func:`control_stats` reads the control: the reference itself in
 float8 in the program's place; at each of the same positions the token
@@ -30,9 +32,6 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
-
-from bench import weights
-from bench.reference.model import Reference, served_gaps
 
 
 def sample(finished: Sequence, rows: Dict[int, int], max_batch: int,
@@ -74,6 +73,15 @@ def _inputs(reqs, device, last: int):
     return seqs, pos, served
 
 
+def served_gaps(ref_logits: torch.Tensor, tokens: torch.Tensor
+                ) -> torch.Tensor:
+    """How far each served token's logit lies below the reference's best
+    at its position (0 where the reference ranks it first)."""
+    best = ref_logits.max(dim=-1).values
+    got = ref_logits.gather(1, tokens.long()[:, None])[:, 0]
+    return best - got
+
+
 STATS = ("widest_logit_gap", "mean_logit_gap", "flipped_share")
 
 
@@ -86,29 +94,29 @@ def gap_stats(gaps: Sequence[torch.Tensor]) -> Dict[str, float]:
             "flipped_share": float((g > 0).float().mean())}
 
 
-def _reference(model: Dict, params: Dict, precision: str = "f32"):
-    return Reference(model, weights.published(params, model), precision)
+def _reference(cell, params: Dict, precision: str = "f32"):
+    family, model = cell.family, cell.config["model"]
+    return family.Reference(model, family.published(params, model),
+                            precision)
 
 
-def served_stats(model: Dict, params: Dict, reqs, last: int
-                 ) -> Dict[str, float]:
+def served_stats(cell, params: Dict, reqs, last: int) -> Dict[str, float]:
     """The numbers of the program's served tokens; ``params`` are the
     weights the program was handed."""
     device = params["embed"]["tok"].device
     seqs, pos, served = _inputs(reqs, device, last)
     with torch.no_grad():
-        logits = _reference(model, params).logits(seqs, pos)
+        logits = _reference(cell, params).logits(seqs, pos)
     return gap_stats([served_gaps(l, t) for l, t in zip(logits, served)])
 
 
-def control_stats(model: Dict, params: Dict, reqs, last: int
-                  ) -> Dict[str, float]:
+def control_stats(cell, params: Dict, reqs, last: int) -> Dict[str, float]:
     """The control's numbers on the same prompts and served tokens."""
     device = params["embed"]["tok"].device
     seqs, pos, _ = _inputs(reqs, device, last)
     with torch.no_grad():
-        ref = _reference(model, params).logits(seqs, pos)
-        low = _reference(model, params, "fp8").logits(seqs, pos)
+        ref = _reference(cell, params).logits(seqs, pos)
+        low = _reference(cell, params, "fp8").logits(seqs, pos)
     return gap_stats([served_gaps(r, l.argmax(dim=-1))
                       for r, l in zip(ref, low)])
 
@@ -141,7 +149,7 @@ def judge(cell, *, params: Dict, finished: Sequence, rows: Dict[int, int],
     want = cell.config["check"]
     reqs = sample(finished, rows, int(cell.traffic["engine"]["max_batch"]),
                   int(want["requests"]), seed)
-    stats = (served_stats(cell.config["model"], params, reqs,
+    stats = (served_stats(cell, params, reqs,
                           int(want["tokens_per_request"]))
              if reqs else dict.fromkeys(STATS, math.nan))
     out = verdict(cell, stats, reqs, off_kernel_ticks)

@@ -2,10 +2,10 @@
 
 The entry that the window drives is the port's
 ``PagedServingEngine.step()`` on both kernel paths.  Set-up builds the
-two serving kernels, draws the weights, fills the batch from the
-cell's traffic and runs it until every row has prefilled; then the
-window runs ``engine.step()`` for ``seconds``, the queue kept topped
-up from the traffic so that it never empties.
+kernels that the configuration's family names, draws the weights,
+fills the batch from the cell's traffic and runs it until every row has
+prefilled; then the window runs ``engine.step()`` for ``seconds``, the
+queue kept topped up from the traffic so that it never empties.
 
 With ``trace`` the run also records, from the benchmark's own wrappers
 around the model's two calls and the gate's ``verify``, each tick's
@@ -17,11 +17,12 @@ ends in a device-to-host read of its tokens).
 
 Once the window has closed and the peak memory is read, the engine's
 pool is freed and a sample of the requests finished in the window is
-held to the plain reference (:mod:`bench.check`).
+held to the family's plain reference (:mod:`bench.check`).
 """
 from __future__ import annotations
 
 import gc
+import importlib
 import time
 from typing import Dict, List, Optional
 
@@ -43,7 +44,7 @@ class Run:
 
     def __init__(self, cell: spec.Cell, shape, trace: bool):
         self.cell = cell
-        self.shape = shape            # bench.roofline.Shape
+        self.shape = shape            # the family's shape(model)
         self.trace = trace
         self.setup_s = 0.0
         self.build_s = 0.0
@@ -289,15 +290,14 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     t_start = time.perf_counter() if t_process is None else t_process
     dev = torch.device(device)
     on_card = dev.type == "cuda"
-    from repro_torch.kernels import build_all, paged_attention, \
-        ragged_prefill
+    from repro_torch.kernels import build_all
     from repro_torch.models import build
-    from bench.roofline import Shape
-    cfg = spec.port_config(cell.config)
-    run = Run(cell, Shape.of(cell.config["model"]), trace)
+    cfg = spec.port_config(cell.config, cell.root)
+    run = Run(cell, cell.family.shape(cell.config["model"]), trace)
     if on_card:
         t0 = time.perf_counter()
-        build_all([paged_attention.KERNEL, ragged_prefill.KERNEL])
+        build_all([importlib.import_module(k).KERNEL
+                   for k in cell.family.KERNELS])
         run.build_s = time.perf_counter() - t0
         torch.cuda.init()
         torch.cuda.reset_peak_memory_stats(dev)

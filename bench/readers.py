@@ -80,13 +80,13 @@ def model_enqueue_ms(run, kind: str) -> Optional[float]:
 
 def mfu(run) -> Optional[float]:
     """The step's share of the chip's peak: the least time the ticks'
-    needed work could take (:func:`bench.roofline.tick_work`) over the
+    needed work could take (the family's ``shape.tick_work``) over the
     ticks' wall time, in %."""
     ticks = [t for t in _ticks(run) if t["model"]]
     if not ticks:
         return None
-    need = sum(roofline.bound_s(*roofline.tick_work(
-        run.shape, decode_lengths=t["decode_lengths"],
+    need = sum(roofline.bound_s(*run.shape.tick_work(
+        decode_lengths=t["decode_lengths"],
         prefill_spans=t["prefill_spans"],
         logits_rows=len(t["decode_lengths"]) + len(t["prefill_spans"])),
         run.shape.dtype) for t in ticks)
@@ -104,8 +104,8 @@ RAGGED_PREFILL = ("ragged_", "prefill_bf16_panel", "prefill_f32_panel")
 def kernel_roofline(run, names, work_of) -> Optional[float]:
     """Σ over the profiled stretch's calls of a kernel of the least time
     their work needs, over the kernel's device time there, in %.
-    ``work_of(tick)``: the (FLOPs, bytes) of one call in that tick, or
-    None where the tick made no call."""
+    ``work_of(tick)``: the (FLOPs, bytes) of all the kernel's calls in
+    that tick, or None where the tick made none."""
     p = run.profile
     if p is None or not p["kept"]:
         return None
@@ -115,20 +115,20 @@ def kernel_roofline(run, names, work_of) -> Optional[float]:
     for t in run.ticks:
         w = work_of(t) if t["profiled"] else None
         if w is not None:
-            need += run.shape.layers * roofline.bound_s(*w, run.shape.dtype)
+            need += roofline.bound_s(*w, run.shape.dtype)
     return 100.0 * need / dev_s if dev_s > 0 and need > 0 else None
 
 
 def paged_decode_roofline(run) -> Optional[float]:
     return kernel_roofline(
-        run, PAGED_DECODE, lambda t: roofline.paged_decode_work(
-            run.shape, t["decode_lengths"]) if t["decode_lengths"] else None)
+        run, PAGED_DECODE,
+        lambda t: run.shape.kernel_work("paged_decode", t))
 
 
 def ragged_prefill_roofline(run) -> Optional[float]:
     return kernel_roofline(
-        run, RAGGED_PREFILL, lambda t: roofline.ragged_prefill_work(
-            run.shape, t["prefill_spans"]) if t["prefill_spans"] else None)
+        run, RAGGED_PREFILL,
+        lambda t: run.shape.kernel_work("ragged_prefill", t))
 
 
 def busy_s(profile) -> float:

@@ -1,12 +1,16 @@
 """Find a cell's pieces by name, from ``BENCHMARK.json`` and data files.
 
-Nothing here knows a cell, a configuration, a mix or a metric by name:
+Nothing here knows a cell, a configuration, a mix, a metric or an
+architecture by name:
 
 * a cell (an entry of ``workloads``) names its configuration and mix;
 * a configuration is the file its ``configs`` entry names: the port's
   architecture and the fields it overrides (``port``), the model as it
-  runs under Hugging Face's keys (``model``, which the reference reads),
-  and what was cut or assumed;
+  runs under Hugging Face's keys (``model``), what was cut or assumed,
+  and its family module (``family``, a path under the checkout, such as
+  ``bench/families/decoder.py``), the one piece that reads ``model``:
+  the port fields it fixes, the weights as published, the reference and
+  the work counts (see :mod:`bench.families.decoder`);
 * a mix is ``bench/traffic/<mix>.json`` (see :mod:`bench.traffic`);
 * a metric, end-to-end or per layer, is read by ``read(run)`` in
   ``bench/metrics/<metric>.py``.
@@ -20,8 +24,10 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import sys
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -37,6 +43,7 @@ class Cell:
     end_to_end: List[Dict]
     per_layer: List[Dict]
     root: Path
+    family: ModuleType    # the configuration's family module
 
 
 def _applies(metric: Dict, cell: str) -> bool:
@@ -61,27 +68,51 @@ def load_cell(workload: str, root: Path = ROOT) -> Cell:
                  if workload in m.get("workloads", ())
                  or ("workloads" not in m and m["moves"] in names)]
     return Cell(workload, int(w["chips"]), config, traffic, e2e, per_layer,
-                root)
+                root, family(config, root))
+
+
+def _load(path: Path, name: str) -> ModuleType:
+    """The module of the file ``path``, loaded by its path as ``name``
+    (registered, as a dataclass in it needs)."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def reader(root: Path, metric: str) -> Callable:
     """``read`` of ``bench/metrics/<metric>.py`` (a metric's name may
     hold dots, so the file is loaded by its path)."""
     path = Path(root) / BENCH_DIR / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"bench_metric_{metric.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(path, f"bench_metric_{metric.replace('.', '_')}").read
+
+
+def family(config: Dict, root: Path = ROOT) -> ModuleType:
+    """The family module a configuration names under ``family``: a path
+    under ``root``, loaded by its path.  It exports ``port_fields``,
+    ``published``, ``Reference``, ``shape`` and ``KERNELS`` (see
+    :mod:`bench.families.decoder`)."""
+    if "family" not in config:
+        raise ValueError(
+            f"configuration {config.get('name')!r} names no family module: "
+            "give its path under the key 'family', such as "
+            "\"bench/families/decoder.py\"")
+    root = Path(root).resolve()
+    path = (root / config["family"]).resolve()
+    if root not in path.parents or not path.is_file():
+        raise ValueError(f"configuration {config.get('name')!r}: family "
+                         f"{config['family']!r} is no file under {root}")
+    return _load(path, f"bench_family_{path.stem}")
 
 
 # -- the port's configuration -------------------------------------------------
 
-def port_config(config: Dict):
+def port_config(config: Dict, root: Path = ROOT):
     """The port's ModelConfig of a configuration file: its architecture
     with the fields of ``port.overrides`` replaced (a nested spec, such
-    as ``moe``, by a dict of its own fields); checked against the
-    ``model`` block that the reference runs."""
+    as ``moe``, by a dict of its own fields); checked against the fields
+    that the configuration's family reads off the ``model`` block."""
     from repro_torch.configs import get_config
     port = config["port"]
     cfg = get_config(port["arch"])
@@ -91,45 +122,28 @@ def port_config(config: Dict):
         changes[k] = (dataclasses.replace(sub, **v)
                       if dataclasses.is_dataclass(sub) else v)
     cfg = dataclasses.replace(cfg, **changes)
-    check_port_matches(config["model"], cfg)
+    check_port_matches(family(config, root).port_fields(config["model"]),
+                       cfg)
     return cfg
 
 
-def check_port_matches(m: Dict, cfg) -> None:
+def _pairs(want: Dict, have, prefix: str = ""):
+    """(field, port's value, wanted value) of each field of ``want``; a
+    dict is a nested spec, named ``<spec>.<field>``, whose fields read
+    None where the port has no such spec."""
+    for k, w in want.items():
+        h = None if have is None else getattr(have, k)
+        if isinstance(w, dict):
+            yield from _pairs(w, h, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", h, w
+
+
+def check_port_matches(fields: Dict, cfg) -> None:
     """Raise where the port's config would compute another model than
-    the ``model`` block describes.  The port has no multipliers: the
-    weights carry them (:func:`bench.weights.published`)."""
-    moe = cfg.moe
-    layernorm = "layer_norm_eps" in m
-    want = {
-        "n_layers": m["num_hidden_layers"], "d_model": m["hidden_size"],
-        "n_heads": m["num_attention_heads"],
-        "n_kv_heads": m["num_key_value_heads"],
-        "resolved_head_dim": m.get("head_dim") or (
-            m["hidden_size"] // m["num_attention_heads"]),
-        "vocab": m["vocab_size"],
-        "norm_type": "layernorm" if layernorm else "rmsnorm",
-        "norm_eps": m["layer_norm_eps" if layernorm else "rms_norm_eps"],
-        "rope_frac": m.get("partial_rotary_factor", 1.0),
-        "rope_theta": m.get("rope_theta", 10000.0),
-        "tie_embeddings": m.get("tie_word_embeddings", False),
-        "qkv_bias": m.get("attention_bias", m.get("use_qkv_bias", False)),
-        "ffn_type": "swiglu" if m.get("hidden_act") == "silu" else None,
-        "dtype": m.get("torch_dtype", "bfloat16"),
-        "scale_embed": False, "qk_norm": False, "attn_type": "gqa",
-    }
-    have = {k: getattr(cfg, k) for k in want}
-    if moe is None:
-        want["d_ff"], have["d_ff"] = m["intermediate_size"], cfg.d_ff
-    else:
-        want.update(n_experts=m["num_local_experts"],
-                    top_k=m["num_experts_per_tok"],
-                    d_ff_expert=m["intermediate_size"], n_shared=0,
-                    first_dense_layers=0)
-        have.update(n_experts=moe.n_experts, top_k=moe.top_k,
-                    d_ff_expert=moe.d_ff_expert, n_shared=moe.n_shared,
-                    first_dense_layers=moe.first_dense_layers)
-    bad = {k: (have[k], want[k]) for k in want if have[k] != want[k]}
+    the ``model`` block describes: ``fields`` (a family's
+    ``port_fields``) against ``cfg``."""
+    bad = {k: (h, w) for k, h, w in _pairs(fields, cfg) if h != w}
     if bad:
         raise ValueError("the port's config does not compute the model "
                          f"block's model: {bad} (port, model block)")

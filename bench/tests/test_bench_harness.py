@@ -1,6 +1,6 @@
 """The harness drives the port's engine on the CPU at tiny sizes and
-holds what it served to bench/reference; the control, and each fault
-planted under the timed path, come out as not correct."""
+holds what it served to its family's reference; the control, and each
+fault planted under the timed path, come out as not correct."""
 import dataclasses
 
 import pytest
@@ -8,7 +8,7 @@ import torch
 
 import tiny
 from bench import check, harness, spec, weights
-from bench.reference.model import Reference
+from bench.families.decoder import Reference, published
 from repro_torch.models import build
 
 
@@ -30,7 +30,7 @@ def test_reference_is_the_ports_forward_in_float32(config):
                            generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         want, _ = model.apply(params, tokens, remat=False)
-        got = Reference(config["model"], weights.published(
+        got = Reference(config["model"], published(
             params, config["model"])).logits([tokens[0]],
                                              [torch.arange(40)])[0]
     torch.testing.assert_close(got, want[0, :, :cfg.vocab], rtol=1e-4,
@@ -63,7 +63,7 @@ def test_the_control_is_not_correct(root, kind, seed):
     assert out["correct"], out["checks"]
     last = c.config["check"]["tokens_per_request"]
     control = check.verdict(c, check.control_stats(
-        c.config["model"], out["params"], out["sample"], last),
+        c, out["params"], out["sample"], last),
         out["sample"], 0)
     assert not control["correct"]
     assert control["checks"][number]["value"] > \

@@ -44,13 +44,65 @@ def test_a_config_that_the_port_does_not_compute_is_refused():
         spec.port_config(c)
 
 
-def test_new_config_mix_and_metric_are_taken_up_as_files(tmp_path):
-    """A configuration, a traffic mix and a per-layer metric added as
-    files (and entries of BENCHMARK.json) run without an edit to any
-    file of the harness."""
+def test_a_config_without_a_family_is_refused(tmp_path):
     root = tiny.make_tree(tmp_path)
-    extra = dict(tiny.DENSE, name="tiny-extra")
-    extra["model"] = dict(tiny.DENSE["model"], rope_theta=500.0)
+    path = root / "bench/configs/tiny-dense.json"
+    c = json.loads(path.read_text())
+    del c["family"]
+    path.write_text(json.dumps(c))
+    with pytest.raises(ValueError, match="'family'"):
+        spec.load_cell("tiny-dense.mix", root)
+    c["family"] = "../decoder.py"
+    path.write_text(json.dumps(c))
+    with pytest.raises(ValueError, match="no file under"):
+        spec.load_cell("tiny-dense.mix", root)
+
+
+# A family of the test's own: the decoder family, with the rotary base
+# read from a key of another name, so that neither the decoder's
+# port_fields nor its reference would take this configuration as run.
+FAMILY = '''
+from bench.families import decoder
+from bench.families.decoder import KERNELS  # noqa: F401
+
+RAN = []
+
+
+def _as_decoder(model):
+    m = dict(model)
+    m["rope_theta"] = m.pop("rotary_base")
+    return m
+
+
+def port_fields(model):
+    return decoder.port_fields(_as_decoder(model))
+
+
+def published(params, model):
+    return decoder.published(params, _as_decoder(model))
+
+
+def shape(model):
+    return decoder.shape(_as_decoder(model))
+
+
+class Reference(decoder.Reference):
+    def __init__(self, model, params, precision="f32"):
+        RAN.append(precision)
+        super().__init__(_as_decoder(model), params, precision)
+'''
+
+
+def test_new_config_mix_and_metric_are_taken_up_as_files(tmp_path):
+    """A configuration, its family module, a traffic mix and a per-layer
+    metric added as files (and entries of BENCHMARK.json) run without an
+    edit to any file of the harness."""
+    root = tiny.make_tree(tmp_path)
+    (root / "bench/families/rotary_base.py").write_text(FAMILY)
+    extra = dict(tiny.DENSE, name="tiny-extra",
+                 family="bench/families/rotary_base.py")
+    extra["model"] = dict(tiny.DENSE["model"], rotary_base=500.0)
+    del extra["model"]["rope_theta"]
     extra["port"] = json.loads(json.dumps(tiny.DENSE["port"]))
     extra["port"]["overrides"]["rope_theta"] = 500.0
     (root / "bench/configs/tiny-extra.json").write_text(json.dumps(extra))
@@ -76,10 +128,17 @@ def test_new_config_mix_and_metric_are_taken_up_as_files(tmp_path):
     assert cell.config["port"]["overrides"]["rope_theta"] == 500.0
     assert cell.traffic["output_tokens"]["max"] == 3
     assert "ticks_per_s" in [m["name"] for m in cell.per_layer]
+    # the decoder family reads the model block as rotary base 10000
+    with pytest.raises(ValueError, match="rope_theta"):
+        spec.check_port_matches(
+            spec.family(tiny.DENSE, root).port_fields(
+                dict(extra["model"])), spec.port_config(cell.config, root))
     out = harness.run_cell(cell, 11, 1.0, True, "cpu")
     line = report.line(cell, out, True, torch.device("cpu"))
     assert line["correct"], line["checks"]
     assert line["metrics"]["ticks_per_s"]["value"] > 0
+    # the check ran the new family's reference, once, in float32
+    assert cell.family.RAN == ["f32"]
     # a metric another cell lists is not this cell's
     other = spec.load_cell("tiny-dense.mix", root)
     assert "ticks_per_s" not in [m["name"] for m in other.per_layer]

@@ -2,7 +2,8 @@
 copied beside a ``BENCHMARK.json`` of two tiny cells (an MoE and a
 dense LayerNorm decoder with partial rotary), each with a
 configuration and a traffic mix of its own.  The MoE has granite's muP
-multipliers, which its weights carry (``bench.weights.published``), and
+multipliers, which its weights carry (the decoder family's
+``published``), and
 is judged by its mean gap, as granite is; it runs in float32: at these
 widths one expert of two is half a token's FFN, so a routing decision
 that bfloat16 rounding flips moves a logit by tenths (a reading of 0.21
@@ -18,6 +19,7 @@ ROOT = Path(__file__).resolve().parents[2]
 
 MOE = {
     "name": "tiny-moe", "source": "test",
+    "family": "bench/families/decoder.py",
     "port": {"arch": "granite-moe-3b-a800m", "overrides": {
         "n_layers": 2, "d_model": 64, "n_heads": 4, "n_kv_heads": 2,
         "head_dim": 16, "d_ff": 32, "vocab": 256,
@@ -38,6 +40,7 @@ MOE = {
 }
 DENSE = {
     "name": "tiny-dense", "source": "test",
+    "family": "bench/families/decoder.py",
     "port": {"arch": "stablelm-3b", "overrides": {
         "n_layers": 2, "d_model": 64, "n_heads": 4, "n_kv_heads": 4,
         "d_ff": 128, "vocab": 256, "norm_eps": 1e-05}},

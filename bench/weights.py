@@ -12,14 +12,9 @@ not listed below); the token table ~ N(0, 1); norm scales
 scale or bias read from the wrong place shows.  A configuration file
 may set a leaf's standard deviation by name (``init_std``).
 
-The port has no muP multipliers (granite's ``embedding_multiplier``,
-``attention_multiplier``, ``residual_multiplier``, ``logits_scaling``):
-it scales attention by 1/sqrt(head_dim) and nothing else.  Each
-multiplier is linear in one weight, so the weights drawn here are the
-port's, with the multipliers folded in, and :func:`published` divides
-them back out, in float32, for the reference, which applies the
-multipliers as the published model does.  Both then compute one
-function.
+The configuration's family turns these, the port's weights, into the
+ones its reference reads (``published``: for granite, the muP
+multipliers divided back out; :mod:`bench.families.decoder`).
 """
 from __future__ import annotations
 
@@ -81,32 +76,3 @@ def make(specs, seed: int, device, init_std: Dict = None) -> Dict:
         del x
     return out
 
-
-def _scaled(t: torch.Tensor, c: float) -> torch.Tensor:
-    return t if c == 1.0 else t.to(torch.float32) * c
-
-
-def published(params: Dict, model: Dict) -> Dict:
-    """``params`` (the weights the port serves) as the published model,
-    whose sizes and multipliers are ``model`` (Hugging Face's keys),
-    reads them: each weight that a multiplier scales divided by it."""
-    hd = int(model.get("head_dim")
-             or model["hidden_size"] // model["num_attention_heads"])
-    emb = float(model.get("embedding_multiplier", 1.0))
-    attn = float(model.get("attention_multiplier", hd ** -0.5))
-    res = float(model.get("residual_multiplier", 1.0))
-    logit = float(model.get("logits_scaling", 1.0))
-    # logits = norm(x) @ head / logits_scaling, and a tied head is the
-    # token table, which embedding_multiplier's fold divided
-    head = logit * (emb if model.get("tie_word_embeddings") else 1.0)
-    blocks = dict(params["blocks"])
-    blocks["attn"] = dict(blocks["attn"],
-                          wq=_scaled(blocks["attn"]["wq"], hd ** -0.5 / attn),
-                          wo=_scaled(blocks["attn"]["wo"], 1.0 / res))
-    ffn = "moe" if "moe" in blocks else "ffn"
-    blocks[ffn] = dict(blocks[ffn], wd=_scaled(blocks[ffn]["wd"], 1.0 / res))
-    return dict(params,
-                embed=dict(params["embed"],
-                           tok=_scaled(params["embed"]["tok"], 1.0 / emb)),
-                blocks=blocks,
-                ln_f={k: _scaled(v, head) for k, v in params["ln_f"].items()})
